@@ -1,0 +1,20 @@
+"""PyTorch + CUDA port of ``lnasr_tpu`` for NVIDIA Hopper (H100).
+
+Slice 1 holds the serving step: MFCC features (fused mel frontend kernel)
+-> diagonal-GMM emissions -> batched Viterbi (small-N kernel). The CUDA
+kernels live in ``csrc/`` and are compiled with ``nvcc`` at first use
+(:mod:`lnasr_tpu_torch._build`); nothing is compiled on import. The port
+imports neither JAX nor the JAX package.
+
+TF32 is off for the whole port. The reference pins its DFT, mel, DCT and
+emission GEMMs to full fp32 (``Precision.HIGHEST``): reduced-precision
+passes made the features wrong (p999 relative error 3.0 against a float64
+oracle, instead of 1.2e-3; ``docs/performance.md``, "Matmul precision"),
+and the emission GEMM's quadratic terms cancel against each other. TF32
+keeps about three decimal digits, so both switches are set to fp32 here.
+"""
+
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,85 @@
+"""Typed configuration dataclasses of the PyTorch port.
+
+Same fields, defaults and derived properties as the JAX package's
+``MFCCConfig`` and ``GMMHMMConfig``; this package keeps its own copy so it
+never imports the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class MFCCConfig:
+    """MFCC frontend geometry: 16 kHz, 25 ms frames, 10 ms stride, 512-pt
+    FFT, 40 mel filters, 12 cepstra + log-energy + deltas -> 39 dims.
+
+    ``spectrum_method`` selects the STFT of the plain pipeline:
+      - ``"matmul"``: windowed DFT as two fp32 GEMMs;
+      - ``"fft"``: ``torch.fft.rfft``.
+
+    ``frontend`` selects the serving-path implementation used by
+    :meth:`lnasr_tpu_torch.models.mfcc.MFCC.features_fast`:
+      - ``"auto"``: the hand-written CUDA mel frontend for CUDA tensors,
+        the plain torch pipeline for CPU tensors;
+      - ``"fused"``: always the CUDA kernel (raises on the CPU);
+      - ``"xla"``: always the plain torch pipeline (the name is kept
+        from the JAX package, where that pipeline is XLA's).
+    ``fused_passes`` is kept for API parity; the CUDA kernel computes in
+    fp32 for both accepted values (3 and 6).
+    """
+
+    sample_rate: int = 16000
+    frame_t: float = 25e-3
+    frame_stride: float = 10e-3
+    preemph: float = 0.97
+    fft_n: int = 512
+    n_mels: int = 40
+    n_ceps: int = 12
+    spectrum_method: str = "matmul"
+    frontend: str = "auto"
+    fused_passes: int = 6
+    # "compat" seeds the first delta row with the *second* feature row,
+    # as the original toolkit does; "standard" uses features[1]-features[0].
+    delta_mode: str = "compat"
+    # Floor for the per-frame total power before the log-energy feature;
+    # 0.0 gives log(0) = -inf on digital silence.
+    energy_floor: float = 0.0
+    # Per-utterance cepstral mean subtraction.
+    mean_norm: bool = True
+
+    @property
+    def frame_len(self) -> int:
+        return int(self.sample_rate * self.frame_t)
+
+    @property
+    def frame_step(self) -> int:
+        return int(self.sample_rate * self.frame_stride)
+
+    @property
+    def fft_size(self) -> int:
+        return self.fft_n // 2 + 1
+
+    @property
+    def feature_dim(self) -> int:
+        return (self.n_ceps + 1) * 3  # cepstra + log-energy, with Δ and ΔΔ
+
+
+@dataclasses.dataclass(frozen=True)
+class GMMHMMConfig:
+    """Continuous GMM-HMM topology.
+
+    ``cov_type`` is ``"diag"`` (the serving path) or ``"full"``.
+    ``var_floor`` is the absolute diagonal-variance floor (a scalar or a
+    per-dimension tuple); ``var_floor_scale`` > 0 resolves it at
+    data-driven init to ``max(var_floor, scale * per-dim data variance)``.
+    """
+
+    n_states: int = 5
+    n_mix: int = 8
+    dim: int = 39
+    cov_type: str = "diag"
+    min_std: float = 0.01
+    var_floor: object = 1e-3
+    var_floor_scale: float = 0.05
