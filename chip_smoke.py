@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
-``nvcc`` per source, all at once), holds each kernel against its plain
-PyTorch version at the serving shapes, runs the flagship serving step
-(B=64 utterances of 10 s -> MFCC -> GMM emissions -> Viterbi) through the
-port's entry point with the kernels' launch counters reset just before,
-checks its output against the plain CPU path, and times each kernel, its
-plain version and the whole step with CUDA events (medians after warm-up).
+``nvcc`` per source, all at once) and holds each kernel against its plain
+PyTorch version at the serving shapes (the Viterbi kernels bitwise). Then
+it drives the port's main paths through their entry points, each with the
+kernels' launch counters reset just before and read just after:
+
+- the flagship serving step (B=64 utterances of 10 s -> MFCC -> GMM
+  emissions -> small-N Viterbi), ``entry.flagship``;
+- the recognizer's bucketed 1-best segment decode at V = 1000 (factored
+  word graph with a dense hop: mel frontend, forward and backtrace
+  kernels) and V = 22 (179-state dense graph: mel frontend and dense-graph
+  Viterbi kernels), ``entry.recognizer_serving(...).decode_segment``;
+
+checks each against the plain CPU path on the same weights and input, and
+times each kernel, its plain version and the paths with CUDA events
+(medians after warm-up), with torch.profiler breakdowns.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line. Any failed check
@@ -24,6 +33,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 
@@ -86,12 +96,36 @@ def device_breakdown(torch, fn, step_ms, card, steps=5):
           f"of {step_ms:.4f} ms per step ({100 * busy / step_ms:.1f}%), {len(rows)} kernel kinds")
     for ms, count, name in rows[:10]:
         print(f"  {ms:.4f} ms  x{count}  {name[:90]}")
+    host = sorted(((e.self_cpu_time_total / 1e3 / steps, e.count // steps, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU), reverse=True)
+    print(f"  host side: {sum(r[0] for r in host):.4f} ms of profiled op self time per step "
+          f"(profiler overhead included), {sum(r[1] for r in host)} ops; the largest:")
+    for ms, count, name in host[:6]:
+        print(f"  {ms:.4f} ms  x{count}  {name[:90]}")
 
 
 def bound(n_bytes, n_ops):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / FP32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts(*wrappers):
+    for w in wrappers:
+        w.launches = 0
+
+
+def host_ms(fn, reps, warmup=2):
+    """Median wall milliseconds of ``fn()``, which ends in a device->host copy."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def make_signals(torch, device):
@@ -104,6 +138,143 @@ def make_signals(torch, device):
     return torch.as_tensor(x.astype(np.float32), device=device)
 
 
+def model(rng, n, kind):
+    """A Viterbi check graph ``(log_pi, log_a)``: random, all-tied, or
+    left-to-right with -inf off the band."""
+    if kind == "ties":
+        return np.zeros(n, np.float32), np.zeros((n, n), np.float32)
+    if kind == "left_to_right":
+        with np.errstate(divide="ignore"):
+            a = np.log(np.eye(n) * 0.6 + np.eye(n, k=1) * 0.4)
+        a[-1, -1] = 0.0
+        pi = np.full(n, -np.inf)
+        pi[0] = 0.0
+        return pi.astype(np.float32), a.astype(np.float32)
+    return (np.log(rng.dirichlet(np.ones(n))).astype(np.float32),
+            np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32))
+
+
+def dense_cases(rng, n, t_len):
+    """Kernel C's check inputs: ``(name, log_pi, log_a, log_b, mask,
+    log_final)`` NumPy arrays."""
+    bucket = np.arange(t_len) < t_len - 37
+    bucket[100] = False
+    out = []
+    for kind, masked in (("random", False), ("random", True), ("ties", True),
+                         ("left_to_right", True)):
+        log_pi, log_a = model(rng, n, kind)
+        lb = rng.normal(scale=3.0, size=(t_len, n)).astype(np.float32)
+        if kind == "ties":
+            lb = np.round(lb)
+        fin = None
+        if masked:
+            fin = rng.normal(size=n).astype(np.float32)
+            if kind == "left_to_right":
+                fin[:-1] = -np.inf
+        out.append((f"{kind}{', masked, log_final' if masked else ''}", log_pi, log_a, lb,
+                    bucket if masked else None, fin))
+    return out
+
+
+def check_dense_viterbi(torch, vd, dev, rng, n, t_len):
+    """Kernel C against its plain scan, bitwise, on the card and on the CPU."""
+    for name, *arrays in dense_cases(rng, n, t_len):
+        args = [None if x is None else torch.as_tensor(x, device=dev) for x in arrays]
+        path_k, score_k = vd.viterbi_dense(*args)
+        path_p, score_p = vd.viterbi_dense_plain(*args)
+        path_c, score_c = vd.viterbi_dense_plain(*[None if x is None else x.cpu() for x in args])
+        torch.cuda.synchronize()
+        require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+                f"kernel C differs from the plain scan on the card ({name}, N={n}): "
+                f"{int((path_k != path_p).sum())} path entries, scores {float(score_k)} "
+                f"vs {float(score_p)}")
+        require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
+                f"kernel C differs from the plain scan on the CPU ({name}, N={n})")
+        print(f"kernel C vs plain ({name}, T={t_len}, N={n}): paths and scores bitwise equal "
+              f"(score {float(score_k)})")
+
+
+def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask, what):
+    """Kernels D and E against their plain versions and the scan decoder:
+    grids bitwise at feasible states, paths and scores bitwise, on the card
+    and on the CPU. Returns the largest grid difference at feasible states."""
+    hop = graph._kernel_hop
+    hop_t = graph.hop_t
+    grids_k = F.factored_forward(pi_grid, graph.inner_a, graph.exit_idx, hop, log_b, mask,
+                                 hop_t=hop_t)
+    path_k, score_k = F.factored_backtrace(grids_k, graph.inner_a, graph.exit_idx, hop,
+                                           final_grid, mask, hop_t=hop_t)
+    grids_p = F.factored_forward_plain(pi_grid, graph.inner_a, graph.exit_idx, hop, log_b, mask)
+    path_p, score_p = F.factored_backtrace_plain(grids_p, graph.inner_a, graph.exit_idx, hop,
+                                                 final_grid, mask)
+    path_s, score_s = tdec.factored_trellis_scan(log_b, graph.inner_a, graph.hop, pi_grid,
+                                                 final_grid, graph.exit_idx, mask)
+    cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+    cpu_hop = (None if hop is None else hop.cpu() if torch.is_tensor(hop)
+               else type(hop)(*(cpu(x) if torch.is_tensor(x) else x for x in hop)))
+    grids_c = F.factored_forward_plain(cpu(pi_grid), cpu(graph.inner_a), cpu(graph.exit_idx),
+                                       cpu_hop, cpu(log_b), cpu(mask))
+    path_c, score_c = F.factored_backtrace_plain(grids_c, cpu(graph.inner_a),
+                                                 cpu(graph.exit_idx), cpu_hop, cpu(final_grid),
+                                                 cpu(mask))
+    torch.cuda.synchronize()
+    feasible = torch.isfinite(grids_p)
+    err = float((grids_k - grids_p)[feasible].abs().max()) if bool(feasible.any()) else 0.0
+    require(bool(feasible.any()), f"kernel D check ({what}): no feasible state")
+    require(torch.equal(grids_k[feasible], grids_p[feasible]),
+            f"kernel D grids differ from the plain forward at feasible states ({what}): "
+            f"max err {err}")
+    same_inf = torch.equal(torch.isfinite(grids_k), feasible)
+    require(torch.equal(grids_k.cpu()[feasible.cpu()], grids_c[feasible.cpu()]),
+            f"kernel D grids differ from the plain forward on the CPU ({what})")
+    for ref_path, ref_score, ref in ((path_p, score_p, "plain backtrace"),
+                                     (path_s, score_s, "scan decoder")):
+        require(torch.equal(path_k, ref_path) and torch.equal(score_k, ref_score),
+                f"kernel E differs from the {ref} on the card ({what}): "
+                f"{int((path_k != ref_path).sum())} path entries, scores {float(score_k)} vs "
+                f"{float(ref_score)}")
+    require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
+            f"kernels D+E differ from the plain versions on the CPU ({what})")
+    s_max = graph.grid_shape[1]
+    hops = int(((path_k[1:] // s_max) != (path_k[:-1] // s_max)).sum())
+    print(f"kernels D+E vs plain ({what}, T={log_b.shape[0]}, V={log_b.shape[1]}, "
+          f"S={log_b.shape[2]}): grids bitwise at feasible states (infeasible states "
+          f"{'also' if same_inf else 'NOT'} -inf in both), paths and scores bitwise equal to "
+          f"the plain replay and the scan (score {float(score_k)}, {hops} word changes)")
+    return err
+
+
+def near_limit_graph(torch, F, dev, rng, n_sm, s_max, hop):
+    """A random factored graph (as :func:`check_factored` reads one) whose
+    forward blocks are as large as the capacity rule admits: ``wpb * S``
+    threads with ``wpb = MAX_THREADS // S`` words per block."""
+    wpb = F.MAX_THREADS // s_max
+    v = wpb * (n_sm - 1) + 1  # ceil(v / n_sm) == wpb
+    f32 = lambda *shape, scale=1.0: torch.as_tensor(  # noqa: E731
+        rng.normal(scale=scale, size=shape).astype(np.float32), device=dev)
+    if hop == "rank1":
+        hop = F.Rank1Hop(f32(v), f32(v), f32(v), 0)
+    g = types.SimpleNamespace(
+        inner_a=f32(v, s_max, s_max, scale=2.0), hop=hop, _kernel_hop=hop, hop_t=None,
+        exit_idx=torch.as_tensor(rng.integers(0, s_max, size=v).astype(np.int32), device=dev),
+        grid_shape=(v, s_max))
+    return g, wpb
+
+
+def planted_features(torch, graph, rng, words):
+    """Frames drawn near the model's own means along ``words``: a decode
+    that must come back with those words."""
+    mu = graph.mu[:, 0].cpu().numpy()
+    if hasattr(graph, "state_map"):
+        sm, pm = graph.state_map.cpu().numpy(), graph.pad_mask.cpu().numpy()
+        rows = [sm[graph.words.index(w)][pm[graph.words.index(w)]] for w in words]
+    else:
+        rows = [np.flatnonzero(graph.state_word == graph.words.index(w)) for w in words]
+    frames = [mu[r] + rng.normal(scale=0.5, size=mu.shape[1]) for rr in rows for r in rr
+              for _ in range(3)]
+    return np.asarray(frames, np.float32)
+
+
 def main():
     import torch
 
@@ -113,9 +284,13 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from lnasr_tpu_torch import _build, entry
+    from lnasr_tpu_torch.models import decoder as tdec
+    from lnasr_tpu_torch.models.lexicon import Lexicon
     from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
+    from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
     from lnasr_tpu_torch.ops import viterbi as vt
+    from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.ops.framing import num_frames
     from lnasr_tpu_torch.ops.spectral import mel_filterbank
 
@@ -184,19 +359,6 @@ def main():
               f"n_mels {other.n_mels}): within the mel bar")
 
     # -- 3. kernel B vs its plain version (bitwise) --------------------------
-    def model(rng, n, kind):
-        if kind == "ties":
-            return np.zeros(n, np.float32), np.zeros((n, n), np.float32)
-        if kind == "left_to_right":
-            with np.errstate(divide="ignore"):
-                a = np.log(np.eye(n) * 0.6 + np.eye(n, k=1) * 0.4)
-            a[-1, -1] = 0.0
-            pi = np.full(n, -np.inf)
-            pi[0] = 0.0
-            return pi.astype(np.float32), a.astype(np.float32)
-        return (np.log(rng.dirichlet(np.ones(n))).astype(np.float32),
-                np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32))
-
     rng = np.random.default_rng(2)
     for n, b, kind in ((5, B, "random"), (32, 16, "random"), (5, B, "ties"), (5, B, "left_to_right")):
         log_pi, log_a = model(rng, n, kind)
@@ -214,27 +376,147 @@ def main():
         require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
                 f"kernel B differs from the plain scan on the CPU ({kind}, N={n})")
         print(f"kernel B vs plain ({kind}, B={b}, T={t_frames}, N={n}): paths and scores bitwise equal")
-    try:
-        big = torch.zeros((1, 4, 33), device=dev)
-        vt.viterbi_batched(torch.zeros(33, device=dev), torch.zeros((33, 33), device=dev), big)
-        raised = False
-    except NotImplementedError:
-        raised = True
-    require(raised, "viterbi_batched took N=33 on CUDA without the dense-graph kernel")
-    print("viterbi_batched N=33 on CUDA: NotImplementedError (dense kernel not ported yet)")
+    # viterbi_batched above 32 states takes kernel C
+    log_pi, log_a = model(rng, 33, "random")
+    lb = torch.as_tensor(rng.normal(scale=3.0, size=(16, t_frames, 33)).astype(np.float32),
+                         device=dev)
+    args = [torch.as_tensor(v, device=dev) for v in (log_pi, log_a)] + [lb]
+    before = vd.viterbi_dense.launches
+    path_k, score_k = vt.viterbi_batched(*args)
+    path_p, score_p = vt.viterbi_plain(*args)
+    torch.cuda.synchronize()
+    require(vd.viterbi_dense.launches == before + 1,
+            "viterbi_batched N=33 on CUDA did not launch the dense-graph kernel")
+    require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+            "viterbi_batched N=33 on CUDA differs from the plain scan")
+    print(f"viterbi_batched (B=16, T={t_frames}, N=33) on CUDA: kernel C, bitwise equal to the "
+          "plain scan")
 
-    # -- 4. the main path ---------------------------------------------------
+    # -- 4. the recognizers of the slice, on the card and on the CPU ----------
+    recs = {v: entry.recognizer_serving(v, device=dev) for v in (1000, 22)}
+    recs_cpu = {v: entry.recognizer_serving(v, device="cpu")[0] for v in (1000, 22)}
+    seg = recs[22][1]
+    seg_s = len(seg) / entry.SERVING_MFCC_CONFIG.sample_rate
+
+    def segment_inputs(rec):
+        """The bucketed segment's features and frame mask on the card, as
+        ``Recognizer.decode_segment`` computes them."""
+        padded, n, _ = rec._pad_to_bucket(seg)
+        return rec.am.mfcc.features_fast(torch.from_numpy(padded).to(dev),
+                                         lengths=torch.tensor([n], device=dev))
+
+    g1000, g22 = recs[1000][0].graph, recs[22][0].graph
+    require(isinstance(g1000, tdec.FactoredDecodingGraph) and g1000.hop_t is not None,
+            "V=1000 did not compose the factored graph with a dense hop")
+    require(isinstance(g22, tdec.DecodingGraph) and g22.n_states == 179,
+            "V=22 did not compose the 179-state dense graph")
+    feats22, mask22 = segment_inputs(recs[22][0])
+    feats1000, mask1000 = segment_inputs(recs[1000][0])
+    seg_frames = feats22.shape[0]
+    print(f"slice geometry: segment {len(seg)} samples ({seg_s} s) -> T={seg_frames} frames, "
+          f"{int(mask22.sum())} valid; V=1000: factored grid {g1000.grid_shape} with a dense "
+          f"hop; V=22: dense graph of {g22.n_states} states")
+
+    # -- 5. kernel C vs its plain version (bitwise) ---------------------------
+    log_b22 = tdec._emissions(feats22, g22.log_w, g22.mu, g22.cov, g22.cov_type)
+    c_args = (g22.log_pi, g22.log_a, log_b22, mask22, g22.log_final)
+    path_k, score_k = vd.viterbi_dense(*c_args)
+    path_p, score_p = vd.viterbi_dense_plain(*c_args)
+    torch.cuda.synchronize()
+    require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+            "kernel C differs from the plain scan on the V=22 segment's inputs")
+    c_err = float((score_k - score_p).abs())
+    print(f"kernel C vs plain (the V=22 segment: T={seg_frames}, N={g22.n_states}, bucket mask, "
+          "log_final): bitwise equal")
+    check_dense_viterbi(torch, vd, dev, np.random.default_rng(3), 179, seg_frames)
+    check_dense_viterbi(torch, vd, dev, np.random.default_rng(4), 256, seg_frames)
+
+    # -- 6. kernels D and E vs their plain versions (bitwise) -----------------
+    log_b1000, pi1000, final1000 = g1000._grid_inputs(feats1000)
+    d_err = check_factored(torch, F, tdec, dev, g1000, log_b1000, pi1000, final1000, mask1000,
+                           "the V=1000 segment, dense hop")
+    rng = np.random.default_rng(5)
+    rec1000 = recs[1000][0]
+    lm = rec1000.lm.ngram
+    bucket = torch.arange(seg_frames, device=dev) < seg_frames - 41
+    t_grid = (seg_frames,) + g1000.grid_shape
+    rand_b = torch.as_tensor(rng.normal(scale=6.0, size=t_grid).astype(np.float32), device=dev)
+    rand_b = torch.where(g1000.pad_mask, rand_b, torch.tensor(-np.inf, device=dev))
+    for hop_mode, loop in (("dense", True), ("rank1", True), ("dense", False)):
+        g = tdec.FactoredDecodingGraph.build(
+            rec1000.lexicon, rec1000.am.units, lm,
+            tdec.DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0, loop=loop),
+            silence_model=rec1000.am.units[tdec.SILENCE], hop_mode=hop_mode, device=dev)
+        kind = F.hop_kind(g._kernel_hop)
+        require(g._kernel_ok(seg_frames), f"the {kind} hop graph is not kernel-eligible")
+        _, pi_g, fin_g = g._grid_inputs(feats1000[:1])
+        for lb, what in ((rand_b, "random emissions"), (torch.round(rand_b), "integer ties")):
+            d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, bucket,
+                                              f"{kind} hop, {what}, bucket mask"))
+    # the largest forward blocks the capacity rule admits (edge-free hops,
+    # whose rows leave shared memory room for 1024-thread blocks)
+    n_sm = F.sm_count(dev)
+    for s_max, hop in ((24, "rank1"), (24, None), (8, "rank1")):
+        g, wpb = near_limit_graph(torch, F, dev, rng, n_sm, s_max, hop)
+        vw = g.grid_shape[0]
+        require(F.factored_kernel_ok(64, vw, s_max, g._kernel_hop, n_sm),
+                f"the near-limit graph V={vw}, S={s_max} is not kernel-eligible")
+        lb = torch.as_tensor(rng.normal(scale=6.0, size=(64, vw, s_max)).astype(np.float32),
+                             device=dev)
+        pi_g = torch.as_tensor(rng.normal(size=(vw, s_max)).astype(np.float32), device=dev)
+        fin_g = torch.as_tensor(rng.normal(size=(vw, s_max)).astype(np.float32), device=dev)
+        d_err = max(d_err, check_factored(
+            torch, F, tdec, dev, g, lb, pi_g, fin_g, torch.arange(64, device=dev) < 57,
+            f"{F.hop_kind(g._kernel_hop)} hop, {wpb * s_max} threads per forward block"))
+    # mixed word lengths at a small V
+    mixed_units = {}
+    for i in range(40):
+        n = 2 + i % 5
+        with np.errstate(divide="ignore"):
+            l2r = np.log(np.where(np.eye(n) + np.eye(n, k=1) > 0, 0.5, 0.0))
+        mixed_units[f"m{i:02d}"] = entry._serving_unit(
+            n, 1, l2r, rng.normal(scale=8.0, size=(n, 1, 39)), 4.0, dev, torch.float32)
+    for hop_mode, loop in (("dense", True), ("rank1", True), ("dense", False)):
+        g = tdec.FactoredDecodingGraph.build(
+            Lexicon.whole_word(sorted(mixed_units)), mixed_units, None,
+            tdec.DecoderConfig(loop=loop), hop_mode=hop_mode, device=dev)
+        obs = torch.as_tensor(rng.normal(scale=8.0, size=(200, 39)).astype(np.float32),
+                              device=dev)
+        lb, pi_g, fin_g = g._grid_inputs(obs)
+        mask = torch.arange(200, device=dev) < 170
+        d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, mask,
+                                          f"mixed word lengths 2-6, {F.hop_kind(g._kernel_hop)}"
+                                          " hop, bucket mask"))
+    # decode_batch: one forward and one backtrace launch per utterance
+    masks = torch.stack([mask, torch.arange(200, device=dev) < 140])
+    before = F.factored_forward.launches, F.factored_backtrace.launches
+    batch = g.decode_batch(torch.stack([obs, obs]), masks)
+    require((F.factored_forward.launches - before[0], F.factored_backtrace.launches - before[1])
+            == (2, 2), "decode_batch of 2 utterances did not launch D and E twice each")
+    lb2, pi_g, fin_g = g._grid_inputs(torch.stack([obs, obs]))
+    for b, (_, path_b, score_b) in enumerate(batch):
+        path_p, score_p = F.factored_backtrace_plain(
+            F.factored_forward_plain(pi_g, g.inner_a, g.exit_idx, g._kernel_hop, lb2[b], masks[b]),
+            g.inner_a, g.exit_idx, g._kernel_hop, fin_g, masks[b])
+        require(np.array_equal(path_b, path_p.cpu().numpy()) and score_b == float(score_p),
+                f"decode_batch utterance {b} differs from the plain forward and replay")
+    print("decode_batch (B=2, mixed word lengths, loop-free, masks of 170 and 140 frames): D and "
+          "E twice each, paths and scores bitwise those of the plain versions")
+
+    # -- 7. the main paths ---------------------------------------------------
     flag_model = entry.flagship_model(device=dev)
     step = entry.flagship(device=dev, params=flag_model.params)
     torch.cuda.synchronize()
-    mf.mel_frontend.launches = 0
-    vt.viterbi_small.launches = 0
+    wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
+                F.factored_backtrace)
+    reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
-    launches = {"mel_frontend": mf.mel_frontend.launches, "viterbi": vt.viterbi_small.launches}
+    launches = {"flagship": {w.__name__: w.launches for w in wrappers}}
     print(f"main path: flagship step on B={B} x {SECONDS} s -> paths {tuple(paths.shape)} "
-          f"{paths.dtype}, scores {tuple(scores.shape)}; launches {launches}")
-    require(all(v > 0 for v in launches.values()), f"a kernel of the main path never ran: {launches}")
+          f"{paths.dtype}, scores {tuple(scores.shape)}; launches {launches['flagship']}")
+    require(launches["flagship"]["mel_frontend"] > 0 and launches["flagship"]["viterbi_small"] > 0,
+            f"a kernel of the main path never ran: {launches['flagship']}")
     require(paths.shape == (B, t_frames) and paths.dtype == torch.int32, "bad path shape/dtype")
     require(scores.shape == (B,) and bool(torch.isfinite(scores).all()), "scores not finite")
     require(int(paths.min()) >= 0 and int(paths.max()) < 5, "path states out of range")
@@ -249,7 +531,45 @@ def main():
     require(agree >= 0.999, f"GPU and CPU paths agree on only {agree} of frames")
     require(rel < 1e-4, f"GPU and CPU scores differ by {rel} relative")
 
-    # -- 5. timing ----------------------------------------------------------
+    # the recognizer's bucketed segment decode, V = 1000 then V = 22
+    path_kernels = {1000: (mf.mel_frontend, F.factored_forward, F.factored_backtrace),
+                    22: (mf.mel_frontend, vd.viterbi_dense)}
+    for v, on_path in path_kernels.items():
+        rec = recs[v][0]
+        names = [w.__name__ for w in on_path]
+        torch.cuda.synchronize()
+        reset_counts(*wrappers)
+        words, score = rec.decode_segment(seg)
+        counts = {w.__name__: w.launches for w in wrappers}
+        launches[f"V={v}"] = counts
+        print(f"main path: Recognizer.decode_segment at V={v} ({type(rec.graph).__name__}) on "
+              f"{seg_s} s -> {len(words)} words {words[:8]}, score {score}; launches {counts}")
+        require(all(counts[n] > 0 for n in names),
+                f"a kernel of the V={v} segment decode never ran: {counts}")
+        require(all(counts[n] == 0 for n in counts if n not in names),
+                f"the V={v} segment decode launched a kernel off its path: {counts}")
+        require(np.isfinite(score), f"V={v} segment score is not finite")
+        words_c, score_c = recs_cpu[v].decode_segment(seg)
+        rel = abs(score - score_c) / abs(score_c)
+        print(f"main path V={v} vs the port's CPU recognizer on the same weights and audio: words "
+              f"{'equal' if words == words_c else 'DIFFER'}, score rel err {rel:.3g}")
+        require(words == words_c, f"V={v}: GPU words {words} != CPU words {words_c}")
+        require(rel < 1e-4, f"V={v}: GPU and CPU scores differ by {rel} relative")
+        # a planted word sequence: the graph decode must recover it, as on the CPU
+        g = rec.graph
+        in_lm = set(rec.lm.ngram.vocabulary())  # words the LM never saw are unreachable
+        planted = [w for w in g.words if w in in_lm][3:9]
+        obs = planted_features(torch, g, np.random.default_rng(v), planted)
+        got, path_g, score_g = g.decode(obs)
+        got_c, path_gc, score_gc = recs_cpu[v].graph.decode(obs)
+        print(f"V={v} graph decode of {len(obs)} frames planted along {planted}: {got}; CPU "
+              f"{got_c}, paths {'equal' if np.array_equal(path_g, path_gc) else 'DIFFER'}")
+        require(got == planted and got_c == planted,
+                f"V={v}: planted words {planted} decoded as {got} (GPU) / {got_c} (CPU)")
+        require(abs(score_g - score_gc) <= 1e-4 * abs(score_gc),
+                f"V={v}: planted decode scores {score_g} vs {score_gc}")
+
+    # -- 8. timing ----------------------------------------------------------
     y = mf.preemphasize(x, cfg)
     a_ms = cuda_ms(lambda: mf._launch(y, cfg), reps=50)
     a_wrap_ms = cuda_ms(lambda: mf.mel_frontend(x, cfg), reps=50)
@@ -278,15 +598,83 @@ def main():
           f"{B * SECONDS / (step_ms / 1e3):.1f} audio-s/s at B={B} x {SECONDS} s")
     device_breakdown(torch, lambda: step(x), step_ms, card)
 
+    # kernels C, D, E at the segment decodes' own inputs; the work counted
+    # is what these inputs need (valid frames only)
+    steps = int(mask22[1:].sum())
+    nc = g22.n_states
+    c_ms = cuda_ms(lambda: vd.viterbi_dense(*c_args), reps=50)
+    c_plain_ms = cuda_ms(lambda: vd.viterbi_dense_plain(*c_args), reps=5, warmup=1)
+    c_bytes = 4 * (3 * nc + nc * nc + seg_frames * nc + seg_frames + 1) + seg_frames
+    c_bound, c_by = bound(c_bytes, steps * (2 * nc * nc + nc))
+
+    hop, hop_t = g1000._kernel_hop, g1000.hop_t
+    ia, ei = g1000.inner_a, g1000.exit_idx
+    vw, sw = g1000.grid_shape
+    d_args = (pi1000, ia, ei, hop, log_b1000, mask1000)
+    grids = F.factored_forward(*d_args, hop_t=hop_t)
+    e_args = (grids, ia, ei, hop, final1000, mask1000)
+    d_ms = cuda_ms(lambda: F.factored_forward(*d_args, hop_t=hop_t), reps=30)
+    d_plain_ms = cuda_ms(lambda: F.factored_forward_plain(*d_args), reps=3, warmup=1)
+    e_ms = cuda_ms(lambda: F.factored_backtrace(*e_args, hop_t=hop_t), reps=30)
+    e_plain_ms = cuda_ms(lambda: F.factored_backtrace_plain(*e_args), reps=3, warmup=1)
+    steps = int(mask1000[1:].sum())
+    graph_bytes = 4 * (vw * sw + vw * sw * sw + vw + vw * vw)
+    grid_bytes = 4 * seg_frames * vw * sw
+    d_bound, d_by = bound(graph_bytes + 2 * grid_bytes + seg_frames,
+                          steps * (2 * vw * vw + 2 * vw * sw * sw + 2 * vw + vw * sw))
+    path_e, _ = F.factored_backtrace(*e_args, hop_t=hop_t)
+    entries = int(((path_e[1:] % sw == 0) & mask1000[1:]).sum())
+    # E touches grid[T-1] and final once, one S-row of grid[t-1] and one
+    # inner_a column per valid step, and V exit scores and V hop entries
+    # only where the path sits at a word's first state
+    e_bound, e_by = bound(4 * (2 * vw * sw + 2 * sw * steps + 2 * vw * entries + vw)
+                          + 5 * seg_frames + 4,
+                          2 * vw * sw + steps * 2 * sw + entries * 2 * vw)
+
+    seg_ms = {v: host_ms(lambda v=v: recs[v][0].decode_segment(seg), reps=10) for v in recs}
+    print(f"timing on {card}: kernel C {c_ms:.4f} ms (plain {c_plain_ms:.4f} ms, bound "
+          f"{c_bound:.5f} ms by {c_by}) at T={seg_frames}, N={nc}; kernel D {d_ms:.4f} ms (plain "
+          f"{d_plain_ms:.4f} ms, bound {d_bound:.5f} ms by {d_by}) and kernel E {e_ms:.4f} ms "
+          f"(plain {e_plain_ms:.4f} ms, bound {e_bound:.5f} ms by {e_by}) at T={seg_frames}, "
+          f"V={vw}, S={sw}")
+    for v, ms in seg_ms.items():
+        print(f"timing on {card}: segment decode V={v}: {ms:.4f} ms per {seg_s} s segment = "
+              f"{seg_s / (ms / 1e3):.1f} audio-s/s (host clock, one device->host copy)")
+    for v in (1000, 22):
+        device_breakdown(torch, lambda v=v: recs[v][0].decode_segment(seg), seg_ms[v],
+                         f"{card}, segment decode V={v}")
+
+    no_library = None  # no single PyTorch call computes a Viterbi trellis or its replay
+
+    def launch_keys(name, own_path):
+        """``launches`` on the kernel's own slice's main path, and its count
+        on every main path run here."""
+        return {"launches": launches[own_path][name],
+                "launches_by_path": {p: c[name] for p, c in launches.items()}}
+
     kernels = [
         {"name": "mel_frontend", "route": "cuda", "source": "lnasr_tpu_torch/csrc/mel_frontend.cu",
-         "replaces": "lnasr_tpu/ops/mfcc_pallas.py:429", "launches": launches["mel_frontend"],
+         "replaces": "lnasr_tpu/ops/mfcc_pallas.py:429", **launch_keys("mel_frontend", "flagship"),
          "max_abs_err": mel_err, "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
          "bound_by": a_by, "library_ms": None},
         {"name": "viterbi", "route": "cuda", "source": "lnasr_tpu_torch/csrc/viterbi.cu",
-         "replaces": "lnasr_tpu/ops/trellis_pallas.py:129", "launches": launches["viterbi"],
+         "replaces": "lnasr_tpu/ops/trellis_pallas.py:129", **launch_keys("viterbi_small", "flagship"),
          "max_abs_err": 0.0, "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
          "bound_by": b_by, "library_ms": None},
+        {"name": "viterbi_dense", "route": "cuda", "source": "lnasr_tpu_torch/csrc/viterbi_dense.cu",
+         "replaces": "lnasr_tpu/ops/trellis_pallas.py:299", **launch_keys("viterbi_dense", "V=22"),
+         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound,
+         "bound_by": c_by, "library_ms": no_library},
+        {"name": "factored_forward", "route": "cuda",
+         "source": "lnasr_tpu_torch/csrc/factored_forward.cu",
+         "replaces": "lnasr_tpu/ops/factored_pallas.py:240",
+         **launch_keys("factored_forward", "V=1000"), "max_abs_err": d_err, "ms": d_ms,
+         "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by, "library_ms": no_library},
+        {"name": "factored_backtrace", "route": "cuda",
+         "source": "lnasr_tpu_torch/csrc/factored_backtrace.cu",
+         "replaces": "lnasr_tpu/ops/factored_pallas.py:399",
+         **launch_keys("factored_backtrace", "V=1000"), "max_abs_err": 0.0, "ms": e_ms,
+         "plain_ms": e_plain_ms, "bound_ms": e_bound, "bound_by": e_by, "library_ms": no_library},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,7 +1,11 @@
 """PyTorch + CUDA port of ``lnasr_tpu`` for NVIDIA Hopper (H100).
 
 Slice 1 holds the serving step: MFCC features (fused mel frontend kernel)
--> diagonal-GMM emissions -> batched Viterbi (small-N kernel). The CUDA
+-> diagonal-GMM emissions -> batched Viterbi (small-N kernel). Slice 2
+adds the recognizer's 1-best decode over composed word graphs: the dense
+graph (dense-graph Viterbi kernel) and the factored graph (forward and
+replay-backtrace kernels), with the lexicon and n-gram LM that compose
+them (``models/``, entry point ``entry.recognizer_serving``). The CUDA
 kernels live in ``csrc/`` and are compiled with ``nvcc`` at first use
 (:mod:`lnasr_tpu_torch._build`); nothing is compiled on import. The port
 imports neither JAX nor the JAX package.

@@ -1,8 +1,8 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 Same fields, defaults and derived properties as the JAX package's
-``MFCCConfig`` and ``GMMHMMConfig``; this package keeps its own copy so it
-never imports the JAX package.
+``MFCCConfig``, ``GMMHMMConfig`` and ``NGramConfig``; this package keeps
+its own copy so it never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -83,3 +83,25 @@ class GMMHMMConfig:
     min_std: float = 0.01
     var_floor: object = 1e-3
     var_floor_scale: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class NGramConfig:
+    """Katz-backoff n-gram LM (``lnasr/ngram.py:114-254``).
+
+    ``smoothing`` selects the discounting scheme:
+      - ``"fixed"``: the reference's constant discount;
+      - ``"good-turing"``: count-dependent Katz/Good-Turing discounts for
+        counts ``r <= gt_max_count`` (``d_r = (r*/r - A) / (1 - A)``);
+        orders whose count-of-counts are too sparse fall back to the
+        fixed discount.
+    ``open_vocab`` gives the unigram level's freed discount mass to an
+    ``<unk>`` class, so out-of-vocabulary words have a probability.
+    """
+
+    order: int = 3
+    discount: float = 0.7
+    add_sentence_bounds: bool = True
+    smoothing: str = "fixed"
+    gt_max_count: int = 5
+    open_vocab: bool = False

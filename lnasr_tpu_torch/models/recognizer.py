@@ -1,0 +1,285 @@
+"""The recognizer: VAD -> MFCC -> composed lexicon+LM Viterbi -> text.
+
+The port of the JAX package's ``models/recognizer.py`` (1-best decoding).
+Per segment: MFCC features (the fused mel frontend kernel on CUDA), GMM
+emissions, and one Viterbi over the composed word graph
+(:mod:`lnasr_tpu_torch.models.decoder`: the dense-graph kernel or the
+factored forward and backtrace kernels on CUDA). With ``bucket_frames``
+a segment is padded onto a bucket grid and decoded with a frame mask: one
+host->device copy of the samples in, one device->host copy of
+``(path, score)`` out. Not ported yet: N-best and lattice decoding,
+``StreamingRecognizer`` and ``train_unit_models``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lnasr_tpu_torch._device import resolve_device
+from lnasr_tpu_torch.config import GMMHMMConfig, MFCCConfig
+from lnasr_tpu_torch.models.decoder import (
+    SILENCE,
+    DecoderConfig,
+    DecodingGraph,
+    FactoredDecodingGraph,
+    to_host,
+)
+from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+from lnasr_tpu_torch.models.lexicon import Lexicon
+from lnasr_tpu_torch.models.mfcc import MFCC
+from lnasr_tpu_torch.models.ngram import NGramModel, NGramModelARPA
+from lnasr_tpu_torch.ops.framing import num_frames
+
+
+class AcousticModel:
+    """MFCC frontend + per-unit GMM-HMMs on one device (CUDA by default).
+    ``load``/``save`` use one HDF5 file per unit in a directory, in the
+    format of both packages' ``GMMHMM.save``."""
+
+    def __init__(self, unit_models: Optional[Mapping] = None,
+                 mfcc_config: MFCCConfig = MFCCConfig(), dtype=torch.float32, device="cuda"):
+        self.device = resolve_device(device)
+        self.mfcc = MFCC(mfcc_config, dtype=dtype, device=self.device)
+        self.units: Dict[str, object] = dict(unit_models or {})
+        self.dtype = dtype
+
+    @classmethod
+    def load(cls, directory: str, config: GMMHMMConfig, mfcc_config: MFCCConfig = MFCCConfig(),
+             dtype=torch.float32, device="cuda") -> "AcousticModel":
+        units = {}
+        for name in sorted(os.listdir(directory)):
+            if name.endswith(".hdf5"):
+                units[name[: -len(".hdf5")]] = GMMHMM(config, dtype=dtype, device=device).load(
+                    os.path.join(directory, name))
+        return cls(units, mfcc_config, dtype, device)
+
+    def save(self, directory: str) -> None:
+        os.makedirs(directory, exist_ok=True)
+        for unit, model in self.units.items():
+            model.save(os.path.join(directory, f"{unit}.hdf5"))
+
+    def features(self, audio) -> torch.Tensor:
+        """Serving-path features ``(T, D)`` of one utterance, on the device
+        (the fused mel frontend kernel on CUDA, the plain pipeline on the
+        CPU)."""
+        feats, _ = self.mfcc.features_fast(np.asarray(audio))
+        return feats
+
+    def features_batch(self, signals, lengths=None):
+        """Batched serving-path features: ``(B, S)`` -> ``((B, T, D), mask)``."""
+        return self.mfcc.features_fast(signals, lengths)
+
+
+class LanguageModel:
+    """n-gram LM wrapper, built from an :class:`NGramModel` or an ARPA file."""
+
+    def __init__(self, source):
+        if isinstance(source, NGramModel):
+            self.ngram = source
+        else:
+            self.ngram = NGramModel(NGramModelARPA().load(source))
+
+
+def segment_speech(flags: np.ndarray, frame_len: int, min_gap_frames: int = 10,
+                   min_len_frames: int = 5, pad_frames: int = 2) -> List[Tuple[int, int]]:
+    """Per-frame VAD flags -> sample-range speech segments: close gaps
+    shorter than ``min_gap_frames``, drop bursts shorter than
+    ``min_len_frames``, pad the edges."""
+    speech = np.asarray(flags) > 0
+    if not speech.any():
+        return []
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], speech.astype(int), [0]])))
+    runs = list(zip(edges[::2], edges[1::2]))
+    merged: List[List[int]] = []
+    for a, b in runs:
+        if merged and a - merged[-1][1] < min_gap_frames:
+            merged[-1][1] = b
+        else:
+            merged.append([a, b])
+    out = []
+    n = len(speech)
+    for a, b in merged:
+        if b - a < min_len_frames:
+            continue
+        a = max(0, a - pad_frames)
+        b = min(n, b + pad_frames)
+        out.append((a * frame_len, b * frame_len))
+    return out
+
+
+@dataclasses.dataclass
+class SegmentResult:
+    start_s: float
+    end_s: float
+    words: List[str]
+    score: float
+    # optional word-level alignment: (word, start_s, end_s) in ABSOLUTE
+    # stream seconds (see Recognizer.recognize_segments)
+    word_times: Optional[List[Tuple[str, float, float]]] = None
+
+
+class Recognizer:
+    """Composable recognizer: acoustic model, lexicon, optional LM and VAD.
+    Runs on the acoustic model's device."""
+
+    # above this many composed states the dense (n_states)^2 matrix loses
+    # to the factored (V, S) grid in both memory and per-frame work
+    DENSE_STATE_LIMIT = 256
+
+    def __init__(self, am: AcousticModel, lexicon: Lexicon, lm: Optional[LanguageModel] = None,
+                 vad=None, decoder_config: DecoderConfig = DecoderConfig(), graph: str = "auto",
+                 bucket_frames: int = 0, hop_mode: str = "auto"):
+        """``bucket_frames`` > 0 pads each segment so its feature count lands
+        on a multiple of the bucket and decodes with a frame mask (requires
+        ``mean_norm=False`` MFCC; results equal the unbucketed decode).
+        ``graph``: ``"dense"``, ``"factored"``, or ``"auto"`` (factored once
+        the composed state count exceeds :data:`DENSE_STATE_LIMIT`; an
+        explicit ``hop_mode`` pins it to factored). ``hop_mode`` (factored
+        only): ``"dense"``, ``"backoff"``, ``"rank1"`` or ``"auto"``.
+        ``vad`` is any object with ``process(audio) -> per-frame flags``,
+        ``FRAME_LEN`` and ``reset()``."""
+        self.am = am
+        self.device = am.device
+        self.lexicon = lexicon
+        self.lm = lm
+        self.vad = vad
+        self.decoder_config = decoder_config
+        self.sample_rate = am.mfcc.config.sample_rate
+        vad_rate = getattr(vad, "sample_rate", None)
+        if vad_rate is not None and vad_rate != self.sample_rate:
+            raise ValueError(
+                f"VAD sample rate {vad_rate} != acoustic model rate {self.sample_rate}; "
+                f"construct the detector with sample_rate={self.sample_rate}")
+        self.bucket_frames = int(bucket_frames)
+        if self.bucket_frames and am.mfcc.config.mean_norm:
+            raise ValueError(
+                "bucket_frames requires an MFCC config with mean_norm=False "
+                "(padded frames would shift per-utterance normalization)")
+        # a unit named "<sil>" becomes the decoder's background model
+        silence = am.units.get(SILENCE)
+        if graph == "auto":
+            n_states = sum(am.units[u].n for w in lexicon for u in lexicon[w]) + (
+                silence.n if silence is not None else 0)
+            if hop_mode != "auto":
+                graph = "factored"
+            else:
+                graph = "dense" if n_states <= self.DENSE_STATE_LIMIT else "factored"
+        if graph != "factored" and hop_mode != "auto":
+            raise ValueError(
+                f'hop_mode={hop_mode!r} only applies to graph="factored" (got '
+                f"graph={graph!r}); the dense and trigram graphs have no word-hop "
+                "realization choice")
+        if graph == "trigram":
+            raise NotImplementedError(
+                'graph="trigram" (TrigramDecodingGraph) is not ported yet; use '
+                '"dense" or "factored"')
+        if graph not in ("dense", "factored"):
+            raise ValueError(f"unknown graph type: {graph!r}")
+        graph_cls = DecodingGraph if graph == "dense" else FactoredDecodingGraph
+        kw = {"hop_mode": hop_mode} if graph == "factored" else {}
+        self.graph = graph_cls.build(lexicon, am.units, lm.ngram if lm is not None else None,
+                                     decoder_config, silence_model=silence, dtype=am.dtype,
+                                     device=self.device, **kw)
+
+    def _segments(self, audio: np.ndarray) -> List[Tuple[int, int]]:
+        if self.vad is None:
+            return [(0, len(audio))]
+        # streaming detectors carry state across calls; a fresh utterance
+        # must not depend on the previous one
+        if hasattr(self.vad, "reset"):
+            self.vad.reset()
+        flags = self.vad.process(audio)
+        return segment_speech(flags, getattr(self.vad, "FRAME_LEN", 160))
+
+    def recognize_segments(self, audio, word_times: bool = False) -> List[SegmentResult]:
+        """VAD-segment and decode ``audio``. With ``word_times`` each result
+        also carries per-word ``(word, start_s, end_s)`` in absolute stream
+        seconds."""
+        audio = np.asarray(audio)
+        results = []
+        sr = float(self.sample_rate)
+        for a, b in self._segments(audio):
+            if word_times:
+                words, score, times = self.decode_segment_aligned(audio[a:b])
+                times = [(w, a / sr + t0, a / sr + t1) for w, t0, t1 in times]
+            else:
+                words, score = self.decode_segment(audio[a:b])
+                times = None
+            results.append(SegmentResult(start_s=a / sr, end_s=b / sr, words=words,
+                                         score=score, word_times=times))
+        return results
+
+    def decode_segment_aligned(self, audio_seg):
+        """Decode one segment: ``(words, score, word_times)`` with per-word
+        ``(word, start_s, end_s)`` relative to the segment."""
+        if self.bucket_frames:
+            path, score, n_valid = self._decode_segment_padded(audio_seg)
+            words = self.graph._path_to_words(path)
+        else:
+            feats, mask = self._segment_features(audio_seg)
+            words, path, score = self.graph.decode(feats, mask)
+            n_valid = len(path)
+        align = self.graph.path_to_alignment(np.asarray(path), n_frames=n_valid)
+        cfg = self.am.mfcc.config
+        sr = float(self.sample_rate)
+        seg_s = len(np.asarray(audio_seg)) / sr
+        times = [(w, a * cfg.frame_step / sr,
+                  min(seg_s, (b * cfg.frame_step + cfg.frame_len) / sr))
+                 for w, a, b in align]
+        return words, score, times
+
+    def _pad_to_bucket(self, audio_seg, dtype=np.float32):
+        """Zero-pad a segment onto the bucket grid: ``(padded, n_samples,
+        n_valid_frames)``."""
+        cfg = self.am.mfcc.config
+        audio_seg = np.asarray(audio_seg)
+        bucket_samples = self.bucket_frames * cfg.frame_step
+        n = len(audio_seg)
+        n_pad = max(bucket_samples, -(-n // bucket_samples) * bucket_samples)
+        padded = np.zeros(n_pad, dtype=dtype)
+        padded[:n] = audio_seg
+        return padded, n, num_frames(n, cfg.frame_len, cfg.frame_step)
+
+    def _segment_features(self, audio_seg):
+        """Features (+ validity mask when shape-bucketed) for one segment."""
+        audio_seg = np.asarray(audio_seg)
+        if not self.bucket_frames:
+            return self.am.features(audio_seg), None
+        padded, n, n_valid = self._pad_to_bucket(audio_seg, dtype=audio_seg.dtype)
+        feats = self.am.features(padded)
+        return feats, torch.arange(feats.shape[0], device=self.device) < n_valid
+
+    def _segment_arrays(self, padded: torch.Tensor, length: torch.Tensor):
+        """The bucketed segment decode on the device: padded samples and the
+        real sample count in, ``(path, score)`` tensors out: MFCC (fused
+        frontend kernel on CUDA) with the length mask, then the graph's
+        decode, with no host round trip in between."""
+        feats, mask = self.am.mfcc.features_fast(padded, lengths=length)
+        return self.graph.decode_arrays(feats, mask)
+
+    def _decode_segment_padded(self, audio_seg):
+        """Bucket-padded decode: ``(path, score, n_valid)``. The samples go
+        to the device in one copy and ``(path, score)`` come back in one."""
+        padded, n, n_valid = self._pad_to_bucket(audio_seg)
+        sig = torch.from_numpy(padded).to(self.device)
+        length = torch.tensor([n], device=self.device)
+        path, score = to_host(*self._segment_arrays(sig, length))
+        return path, float(score), n_valid
+
+    def decode_segment(self, audio_seg) -> Tuple[List[str], float]:
+        """Features + composed-graph decode of one speech segment."""
+        if self.bucket_frames:
+            path, score, _ = self._decode_segment_padded(audio_seg)
+            return self.graph._path_to_words(path), score
+        feats, mask = self._segment_features(audio_seg)
+        words, _, score = self.graph.decode(feats, mask)
+        return words, score
+
+    def recognize(self, audio) -> str:
+        """Audio in, text out."""
+        return " ".join(w for seg in self.recognize_segments(audio) for w in seg.words)

@@ -1,0 +1,333 @@
+"""Factored word-graph Viterbi: the forward (every frame's ``(V, S)`` grid)
+and the exact-replay backtrace over the stored grids.
+
+Counterpart of the JAX package's ``ops/factored_pallas.py``
+(``factored_forward_pallas``, ``factored_decode_pallas`` and the XLA
+``factored_backtrace``). For CUDA tensors :func:`factored_forward` launches
+the kernel of ``csrc/factored_forward.cu`` (a cooperative launch over the
+card, one grid barrier per frame) and :func:`factored_backtrace` the kernel
+of ``csrc/factored_backtrace.cu`` (one block per utterance); for CPU
+tensors they run :func:`factored_forward_plain` and
+:func:`factored_backtrace_plain`, which the kernels are held to bitwise.
+
+The word hop is ``None`` (loop-free graph), a dense ``(V, V)`` matrix
+``hop[from, to]``, or backoff factors (``from_w``, ``uni``, ``sil_from``,
+``sil_idx``, ``pred``, ``val``: :class:`lnasr_tpu_torch.models.decoder.
+HopFactors`, duck-typed here). The kernels take the dense matrix and the
+edge-free ("rank-1") factors; factors with sparse edges take the scan in
+:mod:`lnasr_tpu_torch.models.decoder`, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from lnasr_tpu_torch import _build
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
+GRID_BUDGET = 2 * 1024**3  # bytes of stored grids one decode may take
+MAX_THREADS = 1024  # a forward block's threads: csrc/factored_forward.cu's launch bounds
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
+# sil_idx, log_b, mask, T, V, S, n_sm, grids, exits, stream
+_FWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# grids, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
+# sil_idx, final, mask, T, V, S, path, score, stream
+_BWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]
+
+
+class Rank1Hop(NamedTuple):
+    """Edge-free backoff factors, the kernels' rank-1 hop operand:
+    ``entry[w] = max_v(exit[v] + from_w[v]) + uni[w]``, and for the silence
+    word ``max_v(exit[v] + sil_from[v])``. Telling the kind by type keeps
+    the dispatch free of a device read of ``val``."""
+
+    from_w: torch.Tensor  # (V,)
+    uni: torch.Tensor  # (V,)
+    sil_from: torch.Tensor  # (V,)
+    sil_idx: int  # silence word id, -1 when absent
+
+
+def _is_factors(hop) -> bool:
+    return hop is not None and hasattr(hop, "from_w")
+
+
+def hop_kind(hop) -> str:
+    """``"none"``, ``"dense"``, ``"rank1"`` (:class:`Rank1Hop`, or factors
+    without a finite sparse edge) or ``"backoff"`` (factors with sparse
+    seen-bigram edges)."""
+    if hop is None:
+        return "none"
+    if not _is_factors(hop):
+        return "dense"
+    if not hasattr(hop, "val"):
+        return "rank1"
+    return "backoff" if bool(torch.isfinite(torch.as_tensor(hop.val)).any()) else "rank1"
+
+
+def hop_entry(exit_v: torch.Tensor, hop) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Word entry ``entry[w] = max_v exit_v[v] + hop[v, w]`` and its first
+    argmax source, for a dense matrix or backoff factors (the JAX package's
+    ``models/decoder.py:_hop_entry``). The factored argmax reproduces the
+    dense first-index rule: the rank-1 family's achiever is the lowest
+    index, the sparse family's the lowest achieving predecessor (rows are
+    sorted by source id), and the source is the smaller of the achieving
+    families' sources; the silence word rides ``sil_from``."""
+    if _is_factors(hop):
+        big = hop.from_w.shape[0] + 1
+        m1, a1 = torch.max(exit_v + hop.from_w, dim=0)
+        r1 = m1 + hop.uni
+        if not hasattr(hop, "pred"):  # Rank1Hop: max(r1, -inf) is r1
+            entry, esrc = r1, a1.to(torch.int32).expand(r1.shape[0]).clone()
+        else:
+            cand = exit_v[hop.pred.long()] + hop.val  # (V, K)
+            sp, ksel = torch.max(cand, dim=1)
+            sp_src = torch.gather(hop.pred, 1, ksel[:, None])[:, 0]
+            entry = torch.maximum(r1, sp)
+            fill = torch.full_like(sp_src, big)
+            esrc = torch.minimum(torch.where(r1 >= entry, a1.to(sp_src.dtype), fill),
+                                 torch.where(sp >= entry, sp_src, fill)).to(torch.int32)
+        sil = int(hop.sil_idx)
+        if sil >= 0:
+            m2, a2 = torch.max(exit_v + hop.sil_from, dim=0)
+            entry = entry.clone()
+            entry[sil] = m2
+            esrc[sil] = a2.to(torch.int32)
+        return entry, esrc
+    best, arg = torch.max(exit_v[:, None] + hop, dim=0)
+    return best, arg.to(torch.int32)
+
+
+def factored_forward_plain(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                           hop, log_b_grid: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every frame's grid ``(T, V, S)``: the forward half of
+    :func:`~lnasr_tpu_torch.models.decoder.factored_trellis_scan` (the same
+    adds in the same order; max is exact). Masked frames keep the grid."""
+    exit_l = exit_idx.long()[:, None]
+    v = pi_grid + log_b_grid[0]
+    grids = [v]
+    for t in range(1, log_b_grid.shape[0]):
+        if mask is not None and not bool(mask[t]):
+            grids.append(v)
+            continue
+        within = torch.amax(v[:, :, None] + inner_a, dim=1)
+        if hop is not None:
+            entry, _ = hop_entry(torch.gather(v, 1, exit_l)[:, 0], hop)
+            within[:, 0] = torch.maximum(within[:, 0], entry)
+        v = within + log_b_grid[t]
+        grids.append(v)
+    return torch.stack(grids)
+
+
+def factored_backtrace_plain(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                             hop, final_grid: torch.Tensor,
+                             mask: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact-replay backtrace over ``grids (T, V, S)`` -> ``(path (T,) int32
+    in v*S+s ids, score)``: the JAX package's ``factored_backtrace``
+    extended with the rank-1 rules of its ``_bwd_kernel``. Per step: the
+    first s maximizing ``grid[t-1][w, s] + inner_a[w, s, j]``; at j = 0 the
+    first hop source, taken only when strictly better; masked frames point
+    to themselves; termination is the first maximum over flat ids."""
+    kind = hop_kind(hop)
+    if kind == "backoff":
+        raise ValueError("the replay backtrace takes a dense hop, rank-1 factors or "
+                         "no hop; factors with sparse edges decode with the scan")
+    t_len, v_words, s_max = grids.shape
+    exit_l = exit_idx.long()
+    exit_host = exit_l.tolist()
+    rows = torch.arange(v_words, device=grids.device)
+    score, last = torch.max((grids[-1] + final_grid).reshape(-1), dim=0)
+    state = int(last)
+    path = [0] * t_len
+    path[-1] = state
+    sil = int(hop.sil_idx) if kind == "rank1" else -1
+    for t in range(t_len - 1, 0, -1):
+        if mask is not None and not bool(mask[t]):
+            path[t - 1] = state
+            continue
+        vprev = grids[t - 1]
+        w, j = divmod(state, s_max)
+        m, s_arg = torch.max(vprev[w] + inner_a[w, :, j], dim=0)
+        pred = w * s_max + int(s_arg)
+        if kind != "none" and j == 0:
+            exit_vals = vprev[rows, exit_l]
+            if kind == "dense":
+                hmax, src = torch.max(exit_vals + hop[:, w], dim=0)
+            elif w == sil:
+                hmax, src = torch.max(exit_vals + hop.sil_from, dim=0)
+            else:
+                hmax, src = torch.max(exit_vals + hop.from_w, dim=0)
+                hmax = hmax + hop.uni[w]
+            if bool(hmax > m):
+                src = int(src)
+                pred = src * s_max + exit_host[src]
+        path[t - 1] = pred
+        state = pred
+    return torch.tensor(path, dtype=torch.int32, device=grids.device), score
+
+
+# -- capacity rule -------------------------------------------------------------
+
+
+def forward_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
+    """Shared memory of one forward block (``csrc/factored_forward.cu:
+    smem_bytes``): its grid rows, inner blocks, entries, exit indices, the
+    V exit scores of the previous frame and, for a dense hop, its ``wpb``
+    hop columns."""
+    floats = wpb * s + wpb * s * s + wpb + v
+    return 4 * (floats + wpb) + (4 * wpb * v if kind == "dense" else 0)
+
+
+def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
+    """The kernels' H100 capacity rule (it replaces the TPU's VMEM budgets
+    ``factored_pallas_ok`` / ``factored_rank1_ok``): the forward spreads
+    the V words over ``n_sm`` blocks of ``wpb = ceil(V / n_sm)`` words, one
+    thread per (word, state) cell (``wpb * S <= 1024``, the most threads a
+    block may have; the kernel is compiled for 1024 threads per block, so
+    its registers stay within the SM's 64 K); a block's 227 KB of shared
+    memory must hold its rows and, for a dense hop, its ``wpb`` hop columns
+    (4 * wpb * V bytes: V up to ~2,500 words on 132 SMs); the stored grids
+    (4 T V S bytes) stay within 2 GiB of HBM. Factors with sparse edges
+    have no kernel."""
+    kind = hop_kind(hop)
+    if kind == "backoff" or min(t_len, v, s, n_sm) < 1:
+        return False
+    wpb = -(-v // n_sm)
+    return (wpb * s <= MAX_THREADS and forward_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
+            and 4 * t_len * v * s <= GRID_BUDGET)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# -- kernels -------------------------------------------------------------------
+
+
+def _check(name, x, shape, dtype, dev):
+    if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {dtype} {tuple(shape)} on {dev}, got "
+                         f"{x.dtype} {tuple(x.shape)} on {x.device}")
+    return x.contiguous()
+
+
+def _hop_args(hop, hop_t, v, dev):
+    """``(kind id, hop_t, from_w, uni, sil_from, sil_idx)`` for a launch;
+    absent operands are ``None`` (null pointers)."""
+    kind = hop_kind(hop)
+    if kind == "backoff":
+        raise ValueError("the factored kernels take a dense hop, rank-1 factors or no "
+                         "hop; factors with sparse edges decode with the scan")
+    f32 = torch.float32
+    if kind == "dense":
+        _check("hop", hop, (v, v), f32, dev)
+        hop_t = hop.t().contiguous() if hop_t is None else _check("hop_t", hop_t, (v, v), f32, dev)
+        return 1, hop_t, None, None, None, -1
+    if kind == "rank1":
+        parts = [_check(n, getattr(hop, n), (v,), f32, dev) for n in ("from_w", "uni", "sil_from")]
+        return (2, None, *parts, int(hop.sil_idx))
+    return 0, None, None, None, None, -1
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _mask_arg(mask, shape, dev):
+    if mask is None:
+        return None
+    if tuple(mask.shape) != tuple(shape) or mask.device != dev:
+        raise ValueError(f"mask must be {tuple(shape)} on {dev}, got {tuple(mask.shape)}")
+    return mask.to(torch.bool).contiguous()
+
+
+def factored_forward(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                     hop, log_b_grid: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     hop_t: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Every frame's grid ``(T, V, S)``: the CUDA kernel for CUDA tensors
+    (float32, within :func:`factored_kernel_ok`; it raises otherwise), the
+    plain forward for CPU tensors; bitwise equal on the same inputs.
+    ``hop_t`` is the dense hop transposed, if the caller keeps one."""
+    dev = log_b_grid.device
+    if dev.type == "cpu":
+        return factored_forward_plain(pi_grid, inner_a, exit_idx, hop, log_b_grid, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"factored_forward runs on cpu or cuda tensors, got {dev}")
+    t, v, s = log_b_grid.shape
+    n_sm = sm_count(dev)
+    if not factored_kernel_ok(t, v, s, hop, n_sm):
+        raise ValueError(f"T={t}, V={v}, S={s} with a {hop_kind(hop)} hop is past the "
+                         "factored kernels' capacity")
+    f32 = torch.float32
+    log_b_grid = _check("log_b_grid", log_b_grid, (t, v, s), f32, dev)
+    pi_grid = _check("pi_grid", pi_grid, (v, s), f32, dev)
+    inner_a = _check("inner_a", inner_a, (v, s, s), f32, dev)
+    exit_idx = _check("exit_idx", exit_idx, (v,), torch.int32, dev)
+    mask = _mask_arg(mask, (t,), dev)
+    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    grids = torch.empty((t, v, s), dtype=f32, device=dev)
+    exits = torch.empty((2, v), dtype=f32, device=dev)
+    lib = _build.load("factored_forward", _FWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = lib.factored_forward_launch(
+            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
+            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
+            _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exits.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, "factored_forward", rc)
+    factored_forward.launches += 1
+    return grids
+
+
+factored_forward.launches = 0  # kernel launches; plain CPU calls do not count
+
+
+def factored_backtrace(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                       hop, final_grid: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                       hop_t: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Replay backtrace: ``grids (T, V, S)`` -> ``(path (T,) int32, score
+    ())``. The CUDA kernel for CUDA tensors (float32; it raises otherwise),
+    the plain replay for CPU tensors; bitwise equal."""
+    dev = grids.device
+    if dev.type == "cpu":
+        return factored_backtrace_plain(grids, inner_a, exit_idx, hop, final_grid, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"factored_backtrace runs on cpu or cuda tensors, got {dev}")
+    if grids.dim() != 3:
+        raise ValueError(f"grids must be (T, V, S), got {tuple(grids.shape)}")
+    t, v, s = grids.shape
+    f32 = torch.float32
+    grids = _check("grids", grids, (t, v, s), f32, dev)
+    inner_a = _check("inner_a", inner_a, (v, s, s), f32, dev)
+    exit_idx = _check("exit_idx", exit_idx, (v,), torch.int32, dev)
+    final_grid = _check("final_grid", final_grid, (v, s), f32, dev)
+    mask = _mask_arg(mask, (t,), dev)
+    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    path = torch.empty((t,), dtype=torch.int32, device=dev)
+    score = torch.empty((), dtype=f32, device=dev)
+    lib = _build.load("factored_backtrace", _BWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = lib.factored_backtrace_launch(
+            grids.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
+            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, final_grid.data_ptr(),
+            _ptr(mask), t, v, s, path.data_ptr(), score.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, "factored_backtrace", rc)
+    factored_backtrace.launches += 1
+    return path, score
+
+
+factored_backtrace.launches = 0  # kernel launches; plain CPU calls do not count

@@ -18,6 +18,7 @@ import torch
 
 from lnasr_tpu_torch import _build
 from lnasr_tpu_torch.ops.trellis import viterbi_scan
+from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 N_MAX = 32  # one warp per utterance, one lane per state
 
@@ -82,15 +83,11 @@ viterbi_small.launches = 0  # kernel launches; plain CPU calls do not count
 
 def viterbi_batched(log_pi: torch.Tensor, log_a: torch.Tensor,
                     log_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched Viterbi dispatch: the small-N kernel for N <= 32. Larger N
-    runs the plain scan on the CPU; on CUDA it raises until the dense-graph
-    kernel (the port of ``viterbi_pallas_dense``) exists."""
+    """Batched Viterbi dispatch: the small-N kernel for N <= 32, the
+    dense-graph kernel (:func:`~lnasr_tpu_torch.ops.viterbi_dense.
+    viterbi_dense`, the port of ``viterbi_pallas_dense``) above that; on
+    CPU tensors both run their plain scans."""
     n = log_b.shape[-1]
     if n <= N_MAX:
         return viterbi_small(log_pi, log_a, log_b)
-    if log_b.device.type == "cuda":
-        raise NotImplementedError(
-            f"N={n} > {N_MAX} states on CUDA needs the dense-graph Viterbi kernel "
-            "(port of lnasr_tpu/ops/trellis_pallas.py:viterbi_pallas_dense), "
-            "which is not ported yet")
-    return viterbi_plain(log_pi, log_a, log_b)
+    return viterbi_dense(log_pi, log_a, log_b)

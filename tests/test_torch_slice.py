@@ -12,6 +12,7 @@ import ast
 import os
 import subprocess
 import sys
+import types
 
 import jax
 import jax.numpy as jnp
@@ -26,9 +27,13 @@ from lnasr_tpu.models.gmmhmm import _emissions as j_emissions
 from lnasr_tpu.models.mfcc import mfcc_features as j_mfcc_features
 from lnasr_tpu.ops.trellis_pallas import viterbi_batched as j_viterbi_batched
 from lnasr_tpu_torch import entry
+from lnasr_tpu_torch.config import GMMHMMConfig
 from lnasr_tpu_torch.convert import params_from_numpy
 from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+from lnasr_tpu_torch.models.decoder import DecodingGraph, FactoredDecodingGraph
+from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.mfcc import MFCC
+from lnasr_tpu_torch.models.recognizer import AcousticModel
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "lnasr_tpu_torch")
@@ -121,13 +126,42 @@ def test_port_imports_no_jax_and_no_jax_package():
             assert top not in ("jax", "jaxlib", "lnasr_tpu"), f"{path} imports {mod}"
 
 
+PORT_MODULES = [
+    "lnasr_tpu_torch.entry", "lnasr_tpu_torch.convert", "lnasr_tpu_torch._build",
+    "lnasr_tpu_torch.models", "lnasr_tpu_torch.models.recognizer",
+    "lnasr_tpu_torch.models.decoder", "lnasr_tpu_torch.models.ngram",
+    "lnasr_tpu_torch.models.lexicon", "lnasr_tpu_torch.ops.factored",
+    "lnasr_tpu_torch.ops.viterbi_dense", "lnasr_tpu_torch.utils.text",
+]
+
+
+def test_port_sources_cover_the_slice_modules():
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    for mod in PORT_MODULES:
+        path = mod.replace(".", "/")
+        assert f"{path}.py" in rel or f"{path}/__init__.py" in rel, mod
+
+
 def test_port_import_loads_no_jax():
-    code = ("import sys, lnasr_tpu_torch.entry, lnasr_tpu_torch.convert, "
-            "lnasr_tpu_torch._build; "
+    code = (f"import sys, {', '.join(PORT_MODULES)}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'lnasr_tpu')); "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     subprocess.run([sys.executable, "-c", code], check=True, cwd=REPO, env=env, timeout=120)
+
+
+def _one_word():
+    """A one-word lexicon over a duck-typed 2-state NumPy unit."""
+    unit = types.SimpleNamespace(
+        n=2, config=GMMHMMConfig(), log_a=np.log(np.full((2, 2), 0.5)),
+        log_w=np.zeros((2, 1)), mu=np.zeros((2, 1, 39)), cov=np.ones((2, 1, 39)))
+    return Lexicon.whole_word(["a"]), {"a": unit}
+
+
+def test_one_word_graphs_build_on_cpu():
+    lex, units = _one_word()
+    assert DecodingGraph.build(lex, units, device="cpu").n_states == 2
+    assert FactoredDecodingGraph.build(lex, units, device="cpu").grid_shape == (1, 2)
 
 
 @pytest.mark.parametrize("make", [
@@ -136,6 +170,10 @@ def test_port_import_loads_no_jax():
     lambda: entry.flagship_model(),
     lambda: MFCC(),
     lambda: GMMHMM(),
+    lambda: entry.recognizer_serving(2),
+    lambda: AcousticModel(),
+    lambda: DecodingGraph.build(*_one_word()),
+    lambda: FactoredDecodingGraph.build(*_one_word()),
 ])
 def test_default_device_is_cuda_and_raises_without_it(make, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
