@@ -15,10 +15,14 @@ kernels' launch counters reset just before and read just after:
   word graph with a dense hop: mel frontend, forward and backtrace
   kernels) and V = 22 (179-state dense graph: mel frontend and dense-graph
   Viterbi kernels), ``entry.recognizer_serving(...).decode_segment``;
+- the recognizer's bucketed N-best segment decode at V = 1000 (mel
+  frontend and lattice-recording kernels, then the host's word lattice),
+  ``entry.recognizer_serving(1000)[0].decode_segment_nbest``;
 
-checks each against the plain CPU path on the same weights and input, and
-times each kernel, its plain version and the paths with CUDA events
-(medians after warm-up), with torch.profiler breakdowns.
+checks each against the plain CPU path on the same weights and input
+(plus planted word sequences, decoded and lattice-searched), and times
+each kernel, its plain version and the paths with CUDA events or the host
+clock (medians after warm-up), with torch.profiler breakdowns.
 
 Ends with a ``{"kernels": [...]}`` line, the card's name and power limit,
 and ``{"ok": true, "device": {...}}`` as the last line. Any failed check
@@ -194,6 +198,13 @@ def check_dense_viterbi(torch, vd, dev, rng, n, t_len):
               f"(score {float(score_k)})")
 
 
+def cpu_hop(torch, hop):
+    """A kernel hop operand (dense matrix, Rank1Hop or None) on the CPU."""
+    if hop is None or torch.is_tensor(hop):
+        return None if hop is None else hop.cpu()
+    return type(hop)(*(x.cpu() if torch.is_tensor(x) else x for x in hop))
+
+
 def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask, what):
     """Kernels D and E against their plain versions and the scan decoder:
     grids bitwise at feasible states, paths and scores bitwise, on the card
@@ -210,12 +221,11 @@ def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask,
     path_s, score_s = tdec.factored_trellis_scan(log_b, graph.inner_a, graph.hop, pi_grid,
                                                  final_grid, graph.exit_idx, mask)
     cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
-    cpu_hop = (None if hop is None else hop.cpu() if torch.is_tensor(hop)
-               else type(hop)(*(cpu(x) if torch.is_tensor(x) else x for x in hop)))
+    hop_c = cpu_hop(torch, hop)
     grids_c = F.factored_forward_plain(cpu(pi_grid), cpu(graph.inner_a), cpu(graph.exit_idx),
-                                       cpu_hop, cpu(log_b), cpu(mask))
+                                       hop_c, cpu(log_b), cpu(mask))
     path_c, score_c = F.factored_backtrace_plain(grids_c, cpu(graph.inner_a),
-                                                 cpu(graph.exit_idx), cpu_hop, cpu(final_grid),
+                                                 cpu(graph.exit_idx), hop_c, cpu(final_grid),
                                                  cpu(mask))
     torch.cuda.synchronize()
     feasible = torch.isfinite(grids_p)
@@ -241,6 +251,37 @@ def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask,
           f"S={log_b.shape[2]}): grids bitwise at feasible states (infeasible states "
           f"{'also' if same_inf else 'NOT'} -inf in both), paths and scores bitwise equal to "
           f"the plain replay and the scan (score {float(score_k)}, {hops} word changes)")
+    return err
+
+
+def check_lattice(torch, F, graph, log_b, pi_grid, mask, what):
+    """Kernel F against its plain version, on the card and on the CPU:
+    scores bitwise (``-inf`` included), starts and preds equal at every
+    record. Returns the largest score difference (0.0 when bitwise)."""
+    hop, ia, ei = graph._kernel_hop, graph.inner_a, graph.exit_idx
+    got = F.factored_lattice(pi_grid, ia, ei, hop, log_b, mask, hop_t=graph.hop_t)
+    ref = F.factored_lattice_plain(pi_grid, ia, ei, hop, log_b, mask)
+    cpu = lambda x: None if x is None else x.cpu()  # noqa: E731
+    ref_c = F.factored_lattice_plain(cpu(pi_grid), cpu(ia), cpu(ei), cpu_hop(torch, hop),
+                                     cpu(log_b), cpu(mask))
+    torch.cuda.synchronize()
+    finite = torch.isfinite(ref[0])
+    err = float((got[0] - ref[0])[finite].abs().max()) if bool(finite.any()) else 0.0
+    for rs, where in ((ref, "on the card"), (ref_c, "on the CPU")):
+        gs = [x.to(rs[0].device) for x in got]
+        same_inf = torch.equal(torch.isfinite(gs[0]), torch.isfinite(rs[0]))
+        require(torch.equal(gs[0].view(torch.int32), rs[0].view(torch.int32)),
+                f"kernel F scores differ from the plain version {where} ({what}): max err {err}, "
+                f"-inf at the same records: {same_inf}")
+        for k, name in ((1, "starts"), (2, "preds")):
+            require(torch.equal(gs[k], rs[k]),
+                    f"kernel F {name} differ from the plain version {where} ({what}): "
+                    f"{int((gs[k] != rs[k]).sum())} records")
+    t_len, v_words = got[0].shape
+    entered = int((got[1] > 0).sum())
+    print(f"kernel F vs plain ({what}, T={t_len}, V={v_words}, S={log_b.shape[2]}): records "
+          f"bitwise on the card and the CPU ({int(finite.sum())} finite, the rest -inf in both; "
+          f"{entered} records of tokens entered after frame 0)")
     return err
 
 
@@ -275,6 +316,107 @@ def planted_features(torch, graph, rng, words):
     return np.asarray(frames, np.float32)
 
 
+def ambiguous_features(graph, in_lm, n_frames, rng, n_words=21, sites=(3, 9, 15)):
+    """Planted frames with real N-best alternatives, at a segment's geometry:
+    ``n_words`` words of the LM's vocabulary (3 frames per state), where
+    each of ``sites`` sits at the midpoint of one of the vocabulary's
+    closest word pairs, so both words of the pair score within the
+    lattice's beam there. Returns ``(features (n_frames, D), n_valid,
+    pairs)``, zero-padded past ``n_valid`` as a bucket would be."""
+    mu = graph.mu[:, 0].cpu().numpy()
+    sm, pm = graph.state_map.cpu().numpy(), graph.pad_mask.cpu().numpy()
+    cands = [w for w in graph.words if w in in_lm]
+    rows = {w: sm[graph.words.index(w)][pm[graph.words.index(w)]] for w in cands}
+    cen = np.stack([mu[rows[w]].mean(0) for w in cands])
+    dist = ((cen[:, None] - cen[None]) ** 2).sum(-1)
+    np.fill_diagonal(dist, np.inf)
+    pairs, used = [], set()
+    for k in np.argsort(dist, axis=None):
+        i, j = divmod(int(k), len(cands))
+        if not used & {i, j}:
+            pairs.append((cands[i], cands[j]))
+            used |= {i, j}
+        if len(pairs) == len(sites):
+            break
+    rest = sorted(set(cands) - {w for p in pairs for w in p})
+    words = list(rng.choice(rest, size=n_words))
+    for site, (a, _) in zip(sites, pairs):
+        words[site] = a
+    blend = dict(zip(sites, pairs))
+    frames = []
+    for i, w in enumerate(words):
+        m = 0.5 * (mu[rows[blend[i][0]]] + mu[rows[blend[i][1]]]) if i in blend else mu[rows[w]]
+        frames += [x + rng.normal(scale=0.5, size=mu.shape[1]) for x in m for _ in range(3)]
+    n_valid = len(frames)
+    require(n_valid <= n_frames, f"{n_valid} planted frames exceed the segment's {n_frames}")
+    feats = np.zeros((n_frames, mu.shape[1]), np.float32)
+    feats[:n_valid] = frames
+    return feats, n_valid, pairs
+
+
+def host_records(tdec, graph, feats, mask, n_valid):
+    """The device part of ``decode_segment_nbest`` after its MFCC, on given
+    features: the lattice records and their one device->host copy."""
+    return tdec.records_to_host(*(r[:n_valid] for r in graph.lattice_records_arrays(feats, mask)))
+
+
+def lattice_nbest(graph, recs):
+    """The host lattice work of an N-best segment decode: ``from_records``,
+    ``nbest(5)``, ``posteriors`` and each hypothesis's confidences.
+    Returns ``(hyps, tokens)``."""
+    lat = graph.lattice_from_records(*recs)
+    hyps = lat.nbest(5)
+    post = lat.posteriors()
+    for h in hyps:
+        h.confidence = lat.confidences(h, post)
+    return hyps, len(lat)
+
+
+def check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec, graph_cpu, obs,
+                          planted, score_1best):
+    """The V = 1000 graph's word lattice on planted frames: its top
+    hypothesis is the planted sequence with the 1-best decode's score; a
+    trigram LM counted from the bigram's own corpus rescores it as the CPU
+    graph's lattice does; a masked 2-utterance ``decode_lattice_batch``
+    (kernel F once per utterance) equals looping ``decode_lattice``."""
+    g = rec.graph
+    top = g.decode_lattice(obs).nbest(5)
+    print(f"V=1000 lattice of the planted frames: top hypotheses "
+          f"{[(h.words, h.score) for h in top[:3]]}; the 1-best decode scored {score_1best}")
+    require(len(top) >= 1 and top[0].words == planted,
+            f"the lattice's top hypothesis {top[0].words if top else None} is not {planted}")
+    require(abs(top[0].score - score_1best) <= 1e-4 * abs(score_1best),
+            f"the lattice's top score {top[0].score} is not the 1-best's {score_1best}")
+    cfg = rec.decoder_config
+    kw = dict(lm_scale=cfg.lm_scale, word_insertion_penalty=cfg.word_insertion_penalty,
+              exit_logp=cfg.exit_logp)
+    tri = NGramModel(NGramCounter(3, entry.serving_corpus(len(g.words) - 1)))
+    got = g.decode_lattice(obs).rescore(tri, n=5, **kw)
+    ref = graph_cpu.decode_lattice(obs).rescore(tri, n=5, **kw)
+    require(len(got) >= 1 and [h.words for h in got] == [h.words for h in ref],
+            f"trigram rescoring: {[h.words for h in got]} on the card, {[h.words for h in ref]} "
+            "on the CPU")
+    rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(got, ref))
+    require(rel < 1e-4, f"trigram rescoring scores differ by {rel} relative")
+    print(f"trigram rescoring of the planted lattice: {len(got)} hypotheses, top "
+          f"{got[0].words} ({got[0].score}), as on the CPU (max score rel err {rel:.3g})")
+    cut = 9
+    feats = np.stack([obs, np.concatenate([obs[cut:], np.zeros((cut, obs.shape[1]), obs.dtype)])])
+    masks = np.stack([np.ones(len(obs), bool), np.arange(len(obs)) < len(obs) - cut])
+    before = F.factored_lattice.launches
+    batch = g.decode_lattice_batch(feats, masks)
+    require(F.factored_lattice.launches - before == 2,
+            "decode_lattice_batch of 2 utterances did not launch kernel F twice")
+    for b in range(2):
+        solo = g.decode_lattice(feats[b], masks[b])
+        require(batch[b].tokens == solo.tokens and
+                [(h.words, h.score) for h in batch[b].nbest(5)]
+                == [(h.words, h.score) for h in solo.nbest(5)],
+                f"decode_lattice_batch utterance {b} differs from decode_lattice")
+    print(f"decode_lattice_batch (B=2, masks of {len(obs)} and {len(obs) - cut} frames): kernel F "
+          "twice, tokens and N-best equal to looping decode_lattice")
+
+
 def main():
     import torch
 
@@ -286,6 +428,7 @@ def main():
     from lnasr_tpu_torch import _build, entry
     from lnasr_tpu_torch.models import decoder as tdec
     from lnasr_tpu_torch.models.lexicon import Lexicon
+    from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel
     from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
@@ -435,6 +578,10 @@ def main():
     log_b1000, pi1000, final1000 = g1000._grid_inputs(feats1000)
     d_err = check_factored(torch, F, tdec, dev, g1000, log_b1000, pi1000, final1000, mask1000,
                            "the V=1000 segment, dense hop")
+    require(F.lattice_kernel_ok(*g1000.grid_shape, g1000._kernel_hop, F.sm_count(dev)),
+            "the V=1000 graph is not lattice-kernel-eligible")
+    f_err = check_lattice(torch, F, g1000, log_b1000, pi1000, mask1000,
+                          "the V=1000 segment, dense hop")
     rng = np.random.default_rng(5)
     rec1000 = recs[1000][0]
     lm = rec1000.lm.ngram
@@ -453,6 +600,8 @@ def main():
         for lb, what in ((rand_b, "random emissions"), (torch.round(rand_b), "integer ties")):
             d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, bucket,
                                               f"{kind} hop, {what}, bucket mask"))
+            f_err = max(f_err, check_lattice(torch, F, g, lb, pi_g, bucket,
+                                             f"{kind} hop, {what}, bucket mask"))
     # the largest forward blocks the capacity rule admits (edge-free hops,
     # whose rows leave shared memory room for 1024-thread blocks)
     n_sm = F.sm_count(dev)
@@ -468,6 +617,11 @@ def main():
         d_err = max(d_err, check_factored(
             torch, F, tdec, dev, g, lb, pi_g, fin_g, torch.arange(64, device=dev) < 57,
             f"{F.hop_kind(g._kernel_hop)} hop, {wpb * s_max} threads per forward block"))
+        require(F.lattice_kernel_ok(vw, s_max, g._kernel_hop, n_sm),
+                f"the near-limit graph V={vw}, S={s_max} is not lattice-kernel-eligible")
+        f_err = max(f_err, check_lattice(
+            torch, F, g, lb, pi_g, torch.arange(64, device=dev) < 57,
+            f"{F.hop_kind(g._kernel_hop)} hop, {wpb * s_max} threads per block"))
     # mixed word lengths at a small V
     mixed_units = {}
     for i in range(40):
@@ -487,6 +641,9 @@ def main():
         d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, mask,
                                           f"mixed word lengths 2-6, {F.hop_kind(g._kernel_hop)}"
                                           " hop, bucket mask"))
+        f_err = max(f_err, check_lattice(torch, F, g, lb, pi_g, mask,
+                                         f"mixed word lengths 2-6, {F.hop_kind(g._kernel_hop)} "
+                                         "hop, bucket mask"))
     # decode_batch: one forward and one backtrace launch per utterance
     masks = torch.stack([mask, torch.arange(200, device=dev) < 140])
     before = F.factored_forward.launches, F.factored_backtrace.launches
@@ -502,13 +659,31 @@ def main():
                 f"decode_batch utterance {b} differs from the plain forward and replay")
     print("decode_batch (B=2, mixed word lengths, loop-free, masks of 170 and 140 frames): D and "
           "E twice each, paths and scores bitwise those of the plain versions")
+    # exact ties: uniform emissions, identical hops, stay == advance (the
+    # graph of tests/test_factored_pallas.py's tie test: 7 words x 3 states)
+    v_t, s_t, t_t = 7, 3, 23
+    inner = np.full((v_t, s_t, s_t), -np.inf, np.float32)
+    for j in range(s_t):
+        inner[:, j, j] = np.log(0.5)
+        if j + 1 < s_t:
+            inner[:, j, j + 1] = np.log(0.5)
+    pi_t = np.full((v_t, s_t), -np.inf, np.float32)
+    pi_t[:, 0] = 0.0
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    for hop in (on(np.zeros((v_t, v_t), np.float32)),
+                F.Rank1Hop(on(np.zeros(v_t, np.float32)), on(np.zeros(v_t, np.float32)),
+                           on(np.full(v_t, -np.inf, np.float32)), -1)):
+        g = types.SimpleNamespace(inner_a=on(inner), exit_idx=on(np.full(v_t, s_t - 1, np.int32)),
+                                  _kernel_hop=hop, hop_t=None)
+        f_err = max(f_err, check_lattice(torch, F, g, on(np.zeros((t_t, v_t, s_t), np.float32)),
+                                         on(pi_t), None, f"exact ties, {F.hop_kind(hop)} hop"))
 
     # -- 7. the main paths ---------------------------------------------------
     flag_model = entry.flagship_model(device=dev)
     step = entry.flagship(device=dev, params=flag_model.params)
     torch.cuda.synchronize()
     wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
-                F.factored_backtrace)
+                F.factored_backtrace, F.factored_lattice)
     reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
@@ -568,6 +743,67 @@ def main():
                 f"V={v}: planted words {planted} decoded as {got} (GPU) / {got_c} (CPU)")
         require(abs(score_g - score_gc) <= 1e-4 * abs(score_gc),
                 f"V={v}: planted decode scores {score_g} vs {score_gc}")
+        if v == 1000:
+            check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec,
+                                  recs_cpu[v].graph, obs, planted, score_g)
+
+    # the recognizer's bucketed N-best segment decode at V = 1000
+    rec = recs[1000][0]
+    nb_path = ("mel_frontend", "factored_lattice")
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    hyps = rec.decode_segment_nbest(seg, n=5, with_confidence=True)
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["V=1000 nbest"] = counts
+    print(f"main path: Recognizer.decode_segment_nbest(n=5, with_confidence=True) at V=1000 on "
+          f"{seg_s} s -> {len(hyps)} hypotheses {[(h.words[:6], h.score) for h in hyps]}; "
+          f"launches {counts}")
+    require(all(counts[n] == 1 for n in nb_path) and
+            all(counts[n] == 0 for n in counts if n not in nb_path),
+            f"the N-best segment decode did not launch exactly mel_frontend and factored_lattice "
+            f"once each: {counts}")
+    require(len(hyps) >= 1 and all(np.isfinite(h.score) for h in hyps),
+            "the N-best segment decode gave no finite hypothesis")
+    hyps_c = recs_cpu[1000].decode_segment_nbest(seg, n=5, with_confidence=True)
+    rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(hyps, hyps_c))
+    print(f"main path V=1000 N-best vs the port's CPU recognizer on the same weights and audio: "
+          f"{len(hyps)} vs {len(hyps_c)} hypotheses, word lists "
+          f"{'equal' if [h.words for h in hyps] == [h.words for h in hyps_c] else 'DIFFER'}, "
+          f"max score rel err {rel:.3g}, confidences {[h.confidence for h in hyps][:2]}")
+    require([h.words for h in hyps] == [h.words for h in hyps_c],
+            f"N-best word lists differ: {[h.words for h in hyps]} vs {[h.words for h in hyps_c]}")
+    require(rel < 1e-4, f"N-best scores differ by {rel} relative")
+    # the segment decodes to silence, so its list has one hypothesis: the
+    # same steps on planted frames at the segment's geometry, with three
+    # word sites each between two close words, give a list with alternatives
+    alt_feats, alt_n, alt_pairs = ambiguous_features(
+        g1000, set(rec.lm.ngram.vocabulary()), seg_frames, np.random.default_rng(7))
+    alt_mask = torch.arange(seg_frames, device=dev) < alt_n
+    alt_obs = torch.as_tensor(alt_feats, device=dev)
+    alt_recs = host_records(tdec, g1000, alt_obs, alt_mask, alt_n)
+    alt = lattice_nbest(g1000, alt_recs)[0]
+    g_cpu = recs_cpu[1000].graph
+    alt_c = lattice_nbest(g_cpu, host_records(tdec, g_cpu, alt_obs.cpu(), alt_mask.cpu(),
+                                              alt_n))[0]
+    rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(alt, alt_c))
+    # confidences are posteriors of float32 path scores near 6e4 nats, whose
+    # ulp is 0.004 nats: the card's and the CPU's emissions may differ by a
+    # few ulps along a path, which moves a posterior by under 0.02
+    conf_err = max(float(np.max(np.abs(np.subtract(a.confidence, b.confidence))))
+                   for a, b in zip(alt, alt_c))
+    print(f"N-best with alternatives (V=1000, {alt_n} planted frames of {seg_frames}, word sites "
+          f"between {alt_pairs}): {len(alt)} hypotheses {[(len(h.words), h.score) for h in alt]}, "
+          f"least confidence of each {[round(min(h.confidence), 4) for h in alt]}; "
+          f"vs the CPU graph: word lists "
+          f"{'equal' if [h.words for h in alt] == [h.words for h in alt_c] else 'DIFFER'}, max "
+          f"score rel err {rel:.3g}, max confidence err {conf_err:.3g}")
+    require(len({tuple(h.words) for h in alt}) >= 3,
+            f"the planted N-best list has fewer than 3 surface hypotheses: {len(alt)}")
+    require([h.words for h in alt] == [h.words for h in alt_c],
+            f"planted N-best word lists differ: {[h.words for h in alt]} vs "
+            f"{[h.words for h in alt_c]}")
+    require(rel < 1e-4, f"planted N-best scores differ by {rel} relative")
+    require(conf_err < 0.02, f"planted N-best confidences differ by {conf_err}")
 
     # -- 8. timing ----------------------------------------------------------
     y = mf.preemphasize(x, cfg)
@@ -644,7 +880,37 @@ def main():
         device_breakdown(torch, lambda v=v: recs[v][0].decode_segment(seg), seg_ms[v],
                          f"{card}, segment decode V={v}")
 
-    no_library = None  # no single PyTorch call computes a Viterbi trellis or its replay
+    # kernel F at the N-best segment's own inputs: D's work (the same
+    # trellis), bytes of the graph and emissions in and the (T, V) records out
+    f_args = (pi1000, ia, ei, hop, log_b1000, mask1000)
+    f_ms = cuda_ms(lambda: F.factored_lattice(*f_args, hop_t=hop_t), reps=30)
+    f_plain_ms = cuda_ms(lambda: F.factored_lattice_plain(*f_args), reps=3, warmup=1)
+    f_bound, f_by = bound(graph_bytes + grid_bytes + 12 * seg_frames * vw + seg_frames,
+                          steps * (2 * vw * vw + 2 * vw * sw * sw + 2 * vw + vw * sw))
+    rec1000 = recs[1000][0]
+    nbest = lambda: rec1000.decode_segment_nbest(seg, n=5, with_confidence=True)  # noqa: E731
+    nb_ms = host_ms(nbest, reps=10)
+    nb_dev_ms = host_ms(lambda: rec1000._segment_records(seg), reps=10)
+    host_recs = rec1000._segment_records(seg)
+    nb_host_ms = host_ms(lambda: lattice_nbest(g1000, host_recs), reps=10)
+    # the same two parts on the planted frames with alternatives
+    alt_dev_ms = host_ms(lambda: host_records(tdec, g1000, alt_obs, alt_mask, alt_n), reps=10)
+    alt_host_ms = host_ms(lambda: lattice_nbest(g1000, alt_recs), reps=10)
+    print(f"timing on {card}: kernel F {f_ms:.4f} ms (plain {f_plain_ms:.4f} ms, bound "
+          f"{f_bound:.5f} ms by {f_by}) at T={seg_frames}, V={vw}, S={sw}; N-best segment V=1000 "
+          f"(n=5, with confidences): {nb_ms:.4f} ms per {seg_s} s segment = "
+          f"{seg_s / (nb_ms / 1e3):.1f} audio-s/s (host clock), of which the device part up to "
+          f"the records' one device->host copy {nb_dev_ms:.4f} ms and the host lattice work "
+          f"(from_records + nbest + posteriors + confidences, "
+          f"{lattice_nbest(g1000, host_recs)[1]} tokens, {len(hyps)} hypotheses) "
+          f"{nb_host_ms:.4f} ms")
+    print(f"timing on {card}: N-best with alternatives ({alt_n} planted frames of {seg_frames}): "
+          f"the records and their one device->host copy {alt_dev_ms:.4f} ms, the host "
+          f"lattice work ({lattice_nbest(g1000, alt_recs)[1]} tokens, {len(alt)} hypotheses) "
+          f"{alt_host_ms:.4f} ms")
+    device_breakdown(torch, nbest, nb_ms, f"{card}, N-best segment V=1000")
+
+    no_library = None  # no single PyTorch call computes a Viterbi trellis, its replay or its records
 
     def launch_keys(name, own_path):
         """``launches`` on the kernel's own slice's main path, and its count
@@ -675,6 +941,11 @@ def main():
          "replaces": "lnasr_tpu/ops/factored_pallas.py:399",
          **launch_keys("factored_backtrace", "V=1000"), "max_abs_err": 0.0, "ms": e_ms,
          "plain_ms": e_plain_ms, "bound_ms": e_bound, "bound_by": e_by, "library_ms": no_library},
+        {"name": "factored_lattice", "route": "cuda",
+         "source": "lnasr_tpu_torch/csrc/factored_lattice.cu",
+         "replaces": "lnasr_tpu/ops/factored_pallas.py:661",
+         **launch_keys("factored_lattice", "V=1000 nbest"), "max_abs_err": f_err, "ms": f_ms,
+         "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by, "library_ms": no_library},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

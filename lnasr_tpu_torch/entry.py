@@ -9,7 +9,12 @@
 - :func:`recognizer_serving`: the recognizer's 1-best segment decode at the
   serving geometry of the JAX package's ``bench.py``
   (``recognizer_serving_measurements``): whole-word models, a bigram LM, a
-  bucketed ~5 s segment, through ``Recognizer.decode_segment``.
+  bucketed ~5 s segment, through ``Recognizer.decode_segment``. Its N-best
+  path is ``recognizer_serving(1000)[0].decode_segment_nbest(segment,
+  n=5)``: the factored graph with a dense hop records a word lattice
+  (mel frontend and lattice kernels on CUDA) and the host extracts the
+  N-best list (at V = 22 the dense graph has no lattice, and N-best
+  raises, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -98,6 +103,27 @@ def serving_segment(seed: int = 0) -> np.ndarray:
     return x.astype(np.int16)[: n - SERVING_TRIM].astype(np.float32)
 
 
+def _serving_draws(vocab: int, seed: int):
+    """The serving geometry's seeded draws, in order: each word's ``(8, 2,
+    39)`` state means, the silence unit's ``(3, 4, 39)`` means and the LM
+    corpus of 100 random 4-word sentences."""
+    dim = SERVING_MFCC_CONFIG.feature_dim
+    rng = np.random.default_rng(seed)
+    means = rng.normal(scale=25.0, size=(vocab, dim))
+    word_mu = [means[i][None, None, :] + rng.normal(scale=2.0, size=(8, 2, dim))
+               for i in range(vocab)]
+    sil_mu = rng.normal(scale=5.0, size=(3, 4, dim))
+    names = [f"w{i:04d}" for i in range(vocab)]
+    corpus = [tuple(["<s>"] + list(rng.choice(names, size=4)) + ["</s>"]) for _ in range(100)]
+    return word_mu, sil_mu, corpus
+
+
+def serving_corpus(vocab: int, seed: int = 0):
+    """The sentences :func:`recognizer_serving`'s bigram LM is counted from
+    (for a higher-order LM of the same text, e.g. to rescore lattices)."""
+    return _serving_draws(vocab, seed)[2]
+
+
 def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int = 0):
     """``(Recognizer, segment)`` at the recognizer's serving geometry:
 
@@ -105,7 +131,8 @@ def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int
       39 dims (diagonal variance 40; means ``N(0, 25^2)`` per word plus
       ``N(0, 2^2)`` per state and mixture) and a 3-state x 4-mixture
       ``<sil>`` unit (variance 80);
-    - a bigram LM counted from 100 random 4-word sentences;
+    - a bigram LM counted from 100 random 4-word sentences
+      (:func:`serving_corpus`);
     - ``DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0)``,
       ``mean_norm=False`` MFCCs, ``bucket_frames=128``, ``graph="auto"``:
       at V = 22 the 179-state dense graph, at V = 1000 the factored graph
@@ -115,22 +142,16 @@ def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int
     Weights are random, drawn from ``seed`` with NumPy, so every device
     gets the same model."""
     dev = resolve_device(device)
-    dim = SERVING_MFCC_CONFIG.feature_dim
-    rng = np.random.default_rng(seed)
-    n_states, n_mix = 8, 2
+    n_states = 8
     with np.errstate(divide="ignore"):
         l2r = np.log(np.where(np.eye(n_states) + np.eye(n_states, k=1) > 0, 0.5, 0.0))
-    means = rng.normal(scale=25.0, size=(vocab, dim))
-    units = {}
-    for i in range(vocab):
-        mu = means[i][None, None, :] + rng.normal(scale=2.0, size=(n_states, n_mix, dim))
-        units[f"w{i:04d}"] = _serving_unit(n_states, n_mix, l2r, mu, 40.0, dev, dtype)
-    units[SILENCE] = _serving_unit(3, 4, np.full((3, 3), -np.log(3)),
-                                   rng.normal(scale=5.0, size=(3, 4, dim)), 80.0, dev, dtype)
-    names = sorted(u for u in units if u != SILENCE)
-    corpus = [tuple(["<s>"] + list(rng.choice(names, size=4)) + ["</s>"]) for _ in range(100)]
+    word_mu, sil_mu, corpus = _serving_draws(vocab, seed)
+    units = {f"w{i:04d}": _serving_unit(n_states, 2, l2r, mu, 40.0, dev, dtype)
+             for i, mu in enumerate(word_mu)}
+    units[SILENCE] = _serving_unit(3, 4, np.full((3, 3), -np.log(3)), sil_mu, 80.0, dev, dtype)
     rec = Recognizer(AcousticModel(units, SERVING_MFCC_CONFIG, dtype=dtype, device=dev),
-                     Lexicon.whole_word(names), LanguageModel(NGramModel(NGramCounter(2, corpus))),
+                     Lexicon.whole_word(sorted(units.keys() - {SILENCE})),
+                     LanguageModel(NGramModel(NGramCounter(2, corpus))),
                      decoder_config=SERVING_DECODER_CONFIG, graph="auto",
                      bucket_frames=SERVING_BUCKET_FRAMES)
     return rec, serving_segment(seed)

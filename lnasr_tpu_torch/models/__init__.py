@@ -1,6 +1,6 @@
 """Models of the port: MFCC frontend, HMM and GMM-HMM (inference),
-lexicon, n-gram LM, the composed word-graph decoders and the recognizer
-(1-best)."""
+lexicon, n-gram LM, the composed word-graph decoders, word lattices and
+the recognizer (1-best and N-best)."""
 
 from lnasr_tpu_torch.models.mfcc import MFCC, mfcc_features
 from lnasr_tpu_torch.models.hmm import HMM
@@ -13,6 +13,7 @@ from lnasr_tpu_torch.models.decoder import (
     FactoredDecodingGraph,
     HopFactors,
 )
+from lnasr_tpu_torch.models.lattice import Hypothesis, WordLattice, WordToken
 from lnasr_tpu_torch.models.recognizer import (
     AcousticModel,
     LanguageModel,
@@ -35,6 +36,9 @@ __all__ = [
     "DecodingGraph",
     "FactoredDecodingGraph",
     "HopFactors",
+    "Hypothesis",
+    "WordLattice",
+    "WordToken",
     "AcousticModel",
     "LanguageModel",
     "Recognizer",

@@ -17,9 +17,17 @@ weights. Two graph realizations share these semantics:
   forward and the replay backtrace run the kernels of ``ops/factored.py``;
   elsewhere, and for factors with sparse edges, :func:`factored_trellis_scan`.
 
+The factored graph also records word lattices (:meth:`FactoredDecodingGraph.
+decode_lattice`): per frame and word the exit record ``(score, start,
+pred)``: kernel F of ``ops/factored.py`` on CUDA and its plain version on
+the CPU, or :func:`~lnasr_tpu_torch.ops.factored.factored_lattice_scan`
+for factors with sparse edges. The host turns them into a
+:class:`~lnasr_tpu_torch.models.lattice.WordLattice` (N-best, posteriors,
+LM rescoring).
+
 Graphs are built once on the host (NumPy, float64) and held on one device;
-``decode`` reads ``(path, score)`` back with one device->host copy.
-Not ported yet: the lattice methods, ``factored_lattice_scan`` and
+``decode`` reads ``(path, score)`` back with one device->host copy, and the
+lattice methods their records with one. Not ported yet:
 ``TrigramDecodingGraph``.
 """
 
@@ -40,6 +48,8 @@ from lnasr_tpu_torch.ops.factored import (
     factored_backtrace,
     factored_forward,
     factored_kernel_ok,
+    factored_lattice,
+    factored_lattice_scan,
     hop_entry as _hop_entry,
     sm_count,
 )
@@ -70,6 +80,15 @@ def to_host(path: torch.Tensor, score: torch.Tensor) -> Tuple[np.ndarray, np.nda
         return (buf[:n].reshape(path.shape).numpy(),
                 buf[n:].view(torch.float32).reshape(score.shape).numpy())
     return path.cpu().numpy(), score.cpu().numpy()
+
+
+def records_to_host(score: torch.Tensor, start: torch.Tensor, pred: torch.Tensor
+                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lattice records ``(exit_score, exit_start, exit_pred)`` of one shape
+    as NumPy with ONE device->host copy: the float32 scores ride beside the
+    int32 starts and preds as their bit patterns."""
+    buf = torch.stack([score.view(torch.int32), start, pred]).cpu()
+    return buf[0].view(torch.float32).numpy(), buf[1].numpy(), buf[2].numpy()
 
 
 _LN10 = math.log(10.0)
@@ -614,6 +633,8 @@ class FactoredDecodingGraph:
         self.pad_mask = torch.as_tensor(np.asarray(pad_mask), dtype=torch.bool, device=dev)
         self.log_pi_w = tensor(log_pi_w)
         self.log_final_w = tensor(log_final_w)
+        # host copies for the lattice layer, so a lattice costs one copy
+        self._host_pi_final = (self.log_pi_w.cpu().numpy(), self.log_final_w.cpu().numpy())
         self.hop_t = None  # the dense hop transposed, the kernels' layout
         self._kernel_hop = None
         if hop is None:
@@ -769,6 +790,86 @@ class FactoredDecodingGraph:
                                 torch.stack([s for _, s in outs]))
         return [(self._path_to_words(paths[b]), paths[b], float(scores[b]))
                 for b in range(paths.shape[0])]
+
+    # -- lattices --------------------------------------------------------------
+
+    def _lattice_grid(self, log_b, pi_grid, mask):
+        """Records by hop kind alone: factors with sparse edges take the
+        scan (they have no kernel, as in the JAX package); every other
+        graph takes :func:`~lnasr_tpu_torch.ops.factored.factored_lattice`,
+        kernel F on CUDA (which raises past its capacity or off float32)
+        and its plain version on the CPU."""
+        if self.hop is not None and self._kernel_hop is None:
+            return factored_lattice_scan(log_b, self.inner_a, self.hop, pi_grid, self.exit_idx,
+                                         mask)[:3]
+        return factored_lattice(pi_grid, self.inner_a, self.exit_idx, self._kernel_hop, log_b,
+                                mask, hop_t=self.hop_t)
+
+    def lattice_records_arrays(self, obs: torch.Tensor, mask: Optional[torch.Tensor]):
+        """Device lattice-record core: ``(features (T, D), mask) ->
+        (exit_score, exit_start, exit_pred)`` ``(T, V)`` tensors on the
+        graph's device: kernel F on CUDA, its plain version on the CPU, the
+        scan for factors with sparse edges (:meth:`_lattice_grid`);
+        identical records. Unreachable records stay ``-inf``
+        (the port has no finite sentinel to restore)."""
+        log_b, pi_grid, _ = self._grid_inputs(obs)
+        return self._lattice_grid(log_b, pi_grid, mask)
+
+    def _require_loop(self):
+        if self.hop is None:
+            raise ValueError("lattice decoding requires a looped graph "
+                             "(DecoderConfig(loop=True))")
+
+    def lattice_from_records(self, score: np.ndarray, start: np.ndarray, pred: np.ndarray,
+                             beam: float = 40.0, max_tokens_per_frame: Optional[int] = None):
+        """A :class:`~lnasr_tpu_torch.models.lattice.WordLattice` from host
+        records ``(n_valid, V)`` of this graph."""
+        from lnasr_tpu_torch.models.lattice import WordLattice
+
+        return WordLattice.from_records(
+            self.words, score, start, pred, self.host_hop(), *self._host_pi_final, beam=beam,
+            max_tokens_per_frame=max_tokens_per_frame)
+
+    def decode_lattice(self, features, mask=None, beam: float = 40.0,
+                       max_tokens_per_frame: Optional[int] = None):
+        """Run the lattice-recording forward and build a word lattice.
+
+        Its best path equals :meth:`decode` (same search, same scores); its
+        N-best list and LM rescoring generalize it. ``beam`` keeps, per
+        frame, only word-exit records within that many nats of the frame's
+        best (``inf`` disables pruning); ``max_tokens_per_frame`` caps each
+        frame's surviving records by rank. ``mask (T,)`` marks the valid
+        prefix of a padded decode."""
+        self._require_loop()
+        obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
+        n_valid = obs.shape[0]
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool)
+            n_valid = int(mask.sum())
+            mask = mask.to(self.device)
+        recs = self.lattice_records_arrays(obs, mask)
+        score, start, pred = records_to_host(*(r[:n_valid] for r in recs))
+        return self.lattice_from_records(score, start, pred, beam, max_tokens_per_frame)
+
+    def decode_lattice_batch(self, features, masks, beam: float = 40.0,
+                             max_tokens_per_frame: Optional[int] = None):
+        """Lattices of a padded ``(B, T, D)`` batch with ``(B, T)`` frame
+        masks: one emission product for the batch, one record pass per
+        utterance (on CUDA one launch of kernel F each), one device->host
+        copy for all. Identical to looping :meth:`decode_lattice`."""
+        self._require_loop()
+        obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
+        masks = torch.as_tensor(masks, dtype=torch.bool)
+        n_valid = masks.sum(dim=1).tolist()
+        masks = masks.to(self.device)
+        log_b, pi_grid, _ = self._grid_inputs(obs)
+        recs = [self._lattice_grid(log_b[b], pi_grid, masks[b]) for b in range(obs.shape[0])]
+        if not recs:
+            return []
+        score, start, pred = records_to_host(*(torch.stack(r) for r in zip(*recs)))
+        return [self.lattice_from_records(score[b, :n], start[b, :n], pred[b, :n], beam,
+                                          max_tokens_per_frame)
+                for b, n in enumerate(n_valid)]
 
     def path_to_alignment(self, path: np.ndarray, n_frames: Optional[int] = None
                           ) -> List[Tuple[str, int, int]]:

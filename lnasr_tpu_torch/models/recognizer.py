@@ -1,13 +1,15 @@
 """The recognizer: VAD -> MFCC -> composed lexicon+LM Viterbi -> text.
 
-The port of the JAX package's ``models/recognizer.py`` (1-best decoding).
-Per segment: MFCC features (the fused mel frontend kernel on CUDA), GMM
-emissions, and one Viterbi over the composed word graph
+The port of the JAX package's ``models/recognizer.py`` (1-best and N-best
+decoding). Per segment: MFCC features (the fused mel frontend kernel on
+CUDA), GMM emissions, and one Viterbi over the composed word graph
 (:mod:`lnasr_tpu_torch.models.decoder`: the dense-graph kernel or the
-factored forward and backtrace kernels on CUDA). With ``bucket_frames``
-a segment is padded onto a bucket grid and decoded with a frame mask: one
+factored forward and backtrace kernels on CUDA). N-best decoding records
+a word lattice instead (kernel F on CUDA) and searches it on the host
+(:mod:`lnasr_tpu_torch.models.lattice`). With ``bucket_frames`` a segment
+is padded onto a bucket grid and decoded with a frame mask: one
 host->device copy of the samples in, one device->host copy of
-``(path, score)`` out. Not ported yet: N-best and lattice decoding,
+``(path, score)`` or of the lattice records out. Not ported yet:
 ``StreamingRecognizer`` and ``train_unit_models``.
 """
 
@@ -27,9 +29,11 @@ from lnasr_tpu_torch.models.decoder import (
     DecoderConfig,
     DecodingGraph,
     FactoredDecodingGraph,
+    records_to_host,
     to_host,
 )
 from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+from lnasr_tpu_torch.models.lattice import Hypothesis
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.mfcc import MFCC
 from lnasr_tpu_torch.models.ngram import NGramModel, NGramModelARPA
@@ -262,14 +266,40 @@ class Recognizer:
         feats, mask = self.am.mfcc.features_fast(padded, lengths=length)
         return self.graph.decode_arrays(feats, mask)
 
+    def _upload_bucket(self, audio_seg):
+        """The bucket-padded segment on the device: ``(samples, length,
+        n_valid_frames)``, the samples in one host->device copy."""
+        padded, n, n_valid = self._pad_to_bucket(audio_seg)
+        sig = torch.from_numpy(padded).to(self.device)
+        return sig, torch.tensor([n], device=self.device), n_valid
+
     def _decode_segment_padded(self, audio_seg):
         """Bucket-padded decode: ``(path, score, n_valid)``. The samples go
         to the device in one copy and ``(path, score)`` come back in one."""
-        padded, n, n_valid = self._pad_to_bucket(audio_seg)
-        sig = torch.from_numpy(padded).to(self.device)
-        length = torch.tensor([n], device=self.device)
+        sig, length, n_valid = self._upload_bucket(audio_seg)
         path, score = to_host(*self._segment_arrays(sig, length))
         return path, float(score), n_valid
+
+    def _segment_records(self, audio_seg):
+        """Bucketed lattice records of one segment as NumPy ``(n_valid, V)``
+        arrays ``(exit_score, exit_start, exit_pred)``: the MFCC (fused
+        frontend kernel on CUDA) and the records (kernel F) run on the
+        device with no host round trip, and the records come back in one
+        device->host copy."""
+        self.graph._require_loop()
+        sig, length, n_valid = self._upload_bucket(audio_seg)
+        feats, mask = self.am.mfcc.features_fast(sig, lengths=length)
+        recs = self.graph.lattice_records_arrays(feats, mask)
+        return records_to_host(*(r[:n_valid] for r in recs))
+
+    def _segment_lattice(self, audio_seg, beam: float):
+        """Word lattice of one segment: :meth:`_segment_records` when
+        bucketed, the two-step path (:meth:`FactoredDecodingGraph.
+        decode_lattice`) otherwise."""
+        if not self.bucket_frames:
+            feats, mask = self._segment_features(audio_seg)
+            return self.graph.decode_lattice(feats, mask, beam=beam)
+        return self.graph.lattice_from_records(*self._segment_records(audio_seg), beam=beam)
 
     def decode_segment(self, audio_seg) -> Tuple[List[str], float]:
         """Features + composed-graph decode of one speech segment."""
@@ -280,6 +310,41 @@ class Recognizer:
         words, _, score = self.graph.decode(feats, mask)
         return words, score
 
+    def decode_segment_nbest(self, audio_seg, n: int = 5, rescore_lm=None,
+                             pool: Optional[int] = None, beam: float = 40.0,
+                             with_confidence: bool = False) -> List[Hypothesis]:
+        """N-best hypotheses for one speech segment via a word lattice;
+        requires the ``"factored"`` graph. ``rescore_lm`` (an
+        :class:`NGramModel` or :class:`LanguageModel`, usually of higher
+        order than the decoding LM) re-ranks ``pool`` hypotheses (default
+        ``4 * n``) with full-history scores; ``with_confidence`` adds each
+        surface word's lattice-posterior confidence."""
+        if not isinstance(self.graph, FactoredDecodingGraph):
+            raise ValueError("N-best decoding needs the factored graph "
+                             '(build the Recognizer with graph="factored")')
+        lattice = self._segment_lattice(audio_seg, beam)
+        if rescore_lm is None:
+            hyps = lattice.nbest(n)
+        else:
+            cfg = self.decoder_config
+            hyps = lattice.rescore(getattr(rescore_lm, "ngram", rescore_lm), n=n, pool=pool,
+                                   lm_scale=cfg.lm_scale,
+                                   word_insertion_penalty=cfg.word_insertion_penalty,
+                                   exit_logp=cfg.exit_logp)
+        if with_confidence:
+            post = lattice.posteriors()
+            for h in hyps:
+                h.confidence = lattice.confidences(h, post)
+        return hyps
+
     def recognize(self, audio) -> str:
         """Audio in, text out."""
         return " ".join(w for seg in self.recognize_segments(audio) for w in seg.words)
+
+    def recognize_nbest(self, audio, n: int = 5, rescore_lm=None, pool: Optional[int] = None,
+                        with_confidence: bool = False) -> List[List[Hypothesis]]:
+        """Per-VAD-segment N-best lists (see :meth:`decode_segment_nbest`)."""
+        audio = np.asarray(audio)
+        return [self.decode_segment_nbest(audio[a:b], n, rescore_lm, pool,
+                                          with_confidence=with_confidence)
+                for a, b in self._segments(audio)]

@@ -1,21 +1,28 @@
-"""Factored word-graph Viterbi: the forward (every frame's ``(V, S)`` grid)
-and the exact-replay backtrace over the stored grids.
+"""Factored word-graph Viterbi: the forward (every frame's ``(V, S)`` grid),
+the exact-replay backtrace over the stored grids, and the lattice-recording
+forward (per frame and word, the exit record ``(score, start, pred)``).
 
 Counterpart of the JAX package's ``ops/factored_pallas.py``
-(``factored_forward_pallas``, ``factored_decode_pallas`` and the XLA
-``factored_backtrace``). For CUDA tensors :func:`factored_forward` launches
-the kernel of ``csrc/factored_forward.cu`` (a cooperative launch over the
-card, one grid barrier per frame) and :func:`factored_backtrace` the kernel
-of ``csrc/factored_backtrace.cu`` (one block per utterance); for CPU
-tensors they run :func:`factored_forward_plain` and
-:func:`factored_backtrace_plain`, which the kernels are held to bitwise.
+(``factored_forward_pallas``, ``factored_decode_pallas``, the XLA
+``factored_backtrace`` and ``factored_lattice_pallas``). For CUDA tensors
+:func:`factored_forward` launches the kernel of
+``csrc/factored_forward.cu`` (a cooperative launch over the card, one grid
+barrier per frame), :func:`factored_backtrace` the kernel of
+``csrc/factored_backtrace.cu`` (one block per utterance) and
+:func:`factored_lattice` the kernel of ``csrc/factored_lattice.cu`` (the
+forward's layout carrying each state's token start and predecessor word);
+for CPU tensors they run :func:`factored_forward_plain`,
+:func:`factored_backtrace_plain` and :func:`factored_lattice_plain`, which
+the kernels are held to bitwise.
 
 The word hop is ``None`` (loop-free graph), a dense ``(V, V)`` matrix
 ``hop[from, to]``, or backoff factors (``from_w``, ``uni``, ``sil_from``,
 ``sil_idx``, ``pred``, ``val``: :class:`lnasr_tpu_torch.models.decoder.
 HopFactors`, duck-typed here). The kernels take the dense matrix and the
-edge-free ("rank-1") factors; factors with sparse edges take the scan in
-:mod:`lnasr_tpu_torch.models.decoder`, as in the JAX package.
+edge-free ("rank-1") factors; factors with sparse edges take the scans,
+as in the JAX package: :func:`factored_lattice_scan` here (it is also the
+lattice kernel's plain version) and ``factored_trellis_scan`` in
+:mod:`lnasr_tpu_torch.models.decoder`.
 """
 
 from __future__ import annotations
@@ -40,6 +47,10 @@ _FWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P,
 # grids, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
 # sil_idx, final, mask, T, V, S, path, score, stream
 _BWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]
+# pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
+# sil_idx, log_b, mask, T, V, S, n_sm, exit_score, exit_start, exit_pred,
+# exits, stream
+_LAT_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 
 
 class Rank1Hop(NamedTuple):
@@ -174,6 +185,61 @@ def factored_backtrace_plain(grids: torch.Tensor, inner_a: torch.Tensor, exit_id
     return torch.tensor(path, dtype=torch.int32, device=grids.device), score
 
 
+def factored_lattice_scan(log_b_grid: torch.Tensor, inner_a: torch.Tensor, hop,
+                          pi_grid: torch.Tensor, exit_idx: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The lattice-recording forward, ``(exit_score (T, V), exit_start (T, V)
+    int32, exit_pred (T, V) int32, v_last (V, S))``: the JAX package's
+    ``models/decoder.py:factored_lattice_scan`` with its argument order and
+    the same adds in the same order, for every hop kind (:func:`hop_entry`),
+    so also the scan path of factors with sparse edges. Each state carries
+    the frame its word token was entered (``start``) and the word it was
+    entered from (``pred``, -1 at sentence begin), both following the first
+    within-word argmax; state 0 takes ``(t, hop source)`` only where the
+    hop is strictly better. Masked frames are identity steps and repeat
+    the previous frame's records."""
+    t_len, v_words, s_max = log_b_grid.shape
+    dev = log_b_grid.device
+    exit_l = exit_idx.long()[:, None]
+    valid = [True] * t_len if mask is None else mask.tolist()
+
+    def records(v, start, pred):
+        return (torch.gather(v, 1, exit_l)[:, 0], torch.gather(start, 1, exit_l)[:, 0],
+                torch.gather(pred, 1, exit_l)[:, 0])
+
+    v = pi_grid + log_b_grid[0]
+    start = torch.zeros((v_words, s_max), dtype=torch.int32, device=dev)
+    pred = torch.full((v_words, s_max), -1, dtype=torch.int32, device=dev)
+    recs = [records(v, start, pred)]
+    for t in range(1, t_len):
+        if not valid[t]:
+            recs.append(recs[-1])
+            continue
+        within, wsrc = torch.max(v[:, :, None] + inner_a, dim=1)
+        new_start = torch.gather(start, 1, wsrc)
+        new_pred = torch.gather(pred, 1, wsrc)
+        if hop is not None:
+            entry, esrc = hop_entry(torch.gather(v, 1, exit_l)[:, 0], hop)
+            wins = entry > within[:, 0]
+            within[:, 0] = torch.maximum(within[:, 0], entry)
+            new_start[:, 0] = torch.where(wins, torch.full_like(new_start[:, 0], t),
+                                          new_start[:, 0])
+            new_pred[:, 0] = torch.where(wins, esrc, new_pred[:, 0])
+        v, start, pred = within + log_b_grid[t], new_start, new_pred
+        recs.append(records(v, start, pred))
+    score, st, pr = (torch.stack(x) for x in zip(*recs))
+    return score, st, pr, v
+
+
+def factored_lattice_plain(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                           hop, log_b_grid: torch.Tensor, mask: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Kernel F's plain version: ``(exit_score, exit_start, exit_pred)``, the
+    first three outputs of :func:`factored_lattice_scan`."""
+    return factored_lattice_scan(log_b_grid, inner_a, hop, pi_grid, exit_idx, mask)[:3]
+
+
 # -- capacity rule -------------------------------------------------------------
 
 
@@ -203,6 +269,25 @@ def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
     wpb = -(-v // n_sm)
     return (wpb * s <= MAX_THREADS and forward_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
             and 4 * t_len * v * s <= GRID_BUDGET)
+
+
+def lattice_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
+    """Shared memory of one lattice block (``csrc/factored_lattice.cu:
+    smem_bytes``): the forward's (:func:`forward_smem_bytes`) plus each
+    word's hop source and its cells' start and pred rows."""
+    return forward_smem_bytes(v, s, wpb, kind) + 4 * (wpb + 2 * wpb * s)
+
+
+def lattice_kernel_ok(v: int, s: int, hop, n_sm: int) -> bool:
+    """Kernel F's H100 capacity rule: the forward's threads and shared-memory
+    test (:func:`factored_kernel_ok`) with F's own shared memory; no grid
+    budget, since F stores no grids, only its ``(T, V)`` records. Factors
+    with sparse edges have no kernel."""
+    kind = hop_kind(hop)
+    if kind == "backoff" or min(v, s, n_sm) < 1:
+        return False
+    wpb = -(-v // n_sm)
+    return wpb * s <= MAX_THREADS and lattice_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,3 +416,51 @@ def factored_backtrace(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
 
 
 factored_backtrace.launches = 0  # kernel launches; plain CPU calls do not count
+
+
+def factored_lattice(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: torch.Tensor,
+                     hop, log_b_grid: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     hop_t: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lattice records ``(exit_score (T, V), exit_start (T, V) int32,
+    exit_pred (T, V) int32)``: the CUDA kernel for CUDA tensors (float32,
+    within :func:`lattice_kernel_ok`; it raises otherwise), the plain
+    version for CPU tensors; bitwise equal on the same inputs. ``hop_t``
+    is the dense hop transposed, if the caller keeps one."""
+    dev = log_b_grid.device
+    if dev.type == "cpu":
+        return factored_lattice_plain(pi_grid, inner_a, exit_idx, hop, log_b_grid, mask)
+    if dev.type != "cuda":
+        raise ValueError(f"factored_lattice runs on cpu or cuda tensors, got {dev}")
+    if log_b_grid.dim() != 3:
+        raise ValueError(f"log_b_grid must be (T, V, S), got {tuple(log_b_grid.shape)}")
+    t, v, s = log_b_grid.shape
+    n_sm = sm_count(dev)
+    if t < 1 or not lattice_kernel_ok(v, s, hop, n_sm):
+        raise ValueError(f"T={t}, V={v}, S={s} with a {hop_kind(hop)} hop is past the "
+                         "lattice kernel's capacity")
+    f32, i32 = torch.float32, torch.int32
+    log_b_grid = _check("log_b_grid", log_b_grid, (t, v, s), f32, dev)
+    pi_grid = _check("pi_grid", pi_grid, (v, s), f32, dev)
+    inner_a = _check("inner_a", inner_a, (v, s, s), f32, dev)
+    exit_idx = _check("exit_idx", exit_idx, (v,), i32, dev)
+    mask = _mask_arg(mask, (t,), dev)
+    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    score = torch.empty((t, v), dtype=f32, device=dev)
+    start = torch.empty((t, v), dtype=i32, device=dev)
+    pred = torch.empty((t, v), dtype=i32, device=dev)
+    exits = torch.empty((2, v), dtype=f32, device=dev)
+    lib = _build.load("factored_lattice", _LAT_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = lib.factored_lattice_launch(
+            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
+            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
+            _ptr(mask), t, v, s, n_sm, score.data_ptr(), start.data_ptr(), pred.data_ptr(),
+            exits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, "factored_lattice", rc)
+    factored_lattice.launches += 1
+    return score, start, pred
+
+
+factored_lattice.launches = 0  # kernel launches; plain CPU calls do not count

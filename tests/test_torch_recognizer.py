@@ -270,3 +270,61 @@ def test_serving_geometry_matches_jax_recognizer(tmp_path):
     big, _ = entry.recognizer_serving(300, device="cpu")
     assert isinstance(big.graph, FactoredDecodingGraph)
     assert big.graph.grid_shape == (301, 8) and big.graph.hop.shape == (301, 301)
+
+
+def _assert_nbest_close(got, ref, conf=False):
+    """The same word lists in the same order; scores within 1e-4 relative
+    (the packages' MFCCs differ by fp32 reassociation) and confidences
+    within 1e-3."""
+    assert [h.words for h in got] == [h.words for h in ref] and len(got) >= 1
+    for a, b in zip(got, ref):
+        assert a.score == pytest.approx(b.score, rel=1e-4)
+        if conf:
+            assert len(a.confidence) == len(a.words)
+            np.testing.assert_allclose(a.confidence, b.confidence, atol=1e-3)
+        else:
+            assert a.confidence is None
+
+
+@pytest.mark.parametrize("bucket", [0, 64])
+def test_nbest_matches_jax(models, bucket):
+    """``decode_segment_nbest`` through a word lattice: plain, with
+    confidences, and rescored with a trigram LM, bucketed and not; the
+    1-best equals the 1-best decode."""
+    j, t = _pair(models, graph="factored", bucket_frames=bucket)
+    rng = np.random.default_rng(11)
+    truth = ["low", "mid", "high", "low"]
+    audio = _utterance(truth, rng)
+    hyps = t.decode_segment_nbest(audio, n=4)
+    _assert_nbest_close(hyps, j.decode_segment_nbest(audio, n=4))
+    words, score = t.decode_segment(audio)
+    assert len(hyps) >= 2 and hyps[0].words == words and len(words) >= len(truth)
+    assert hyps[0].score == pytest.approx(score, rel=1e-5)
+    _assert_nbest_close(t.decode_segment_nbest(audio, n=3, with_confidence=True),
+                        j.decode_segment_nbest(audio, n=3, with_confidence=True), conf=True)
+    tokens = [tuple(["<s>"] + s.split() + ["</s>"]) for s in CORPUS]
+    tri, j_tri = NGramModel(NGramCounter(3, tokens)), JNGramModel(JNGramCounter(3, tokens))
+    got = t.decode_segment_nbest(audio, n=3, rescore_lm=LanguageModel(tri), pool=6)
+    _assert_nbest_close(got, j.decode_segment_nbest(audio, n=3, rescore_lm=j_tri, pool=6))
+    assert got == t.decode_segment_nbest(audio, n=3, rescore_lm=tri, pool=6)
+
+
+def test_recognize_nbest_matches_jax(models):
+    """Per-VAD-segment N-best lists, bucketed; the dense graph has no
+    lattice and refuses N-best, as in the JAX package."""
+    j, _ = _pair(models, graph="factored", vad=_Vad(), bucket_frames=64)
+    _, t = _pair(models, graph="factored", vad=_Vad(), bucket_frames=64)
+    rng = np.random.default_rng(12)
+    audio = np.concatenate([_utterance(["high", "low"], rng), _gap(rng, 0.6),
+                            _utterance(["mid"], rng)])
+    lists = t.recognize_nbest(audio, n=3, with_confidence=True)
+    j_lists = j.recognize_nbest(audio, n=3, with_confidence=True)
+    assert t.vad.resets == 1 and len(lists) == len(j_lists) >= 1
+    for got, ref in zip(lists, j_lists):
+        _assert_nbest_close(got, ref, conf=True)
+    assert [h.words for h in lists[0][:1]] == [t.recognize_segments(audio)[0].words]
+    dense = _pair(models, graph="dense")[1]
+    with pytest.raises(ValueError, match="factored graph"):
+        dense.decode_segment_nbest(audio)
+    with pytest.raises(ValueError, match="factored graph"):
+        dense.recognize_nbest(audio)
