@@ -5,7 +5,10 @@
 
 Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
-PyTorch version at the serving shapes (the Viterbi kernels bitwise). Then
+PyTorch version at the serving shapes (the Viterbi kernels bitwise: the
+dense-graph kernel on sparse and dense graphs of 33 to 2000 states, ties
+across the lanes that split one source list, and batches with masks; the
+factored forward also over 60 back-to-back launches). Then
 it drives the port's main paths through their entry points, each with the
 kernels' launch counters reset just before and read just after:
 
@@ -160,13 +163,16 @@ def model(rng, n, kind):
 
 def dense_cases(rng, n, t_len):
     """Kernel C's check inputs: ``(name, log_pi, log_a, log_b, mask,
-    log_final)`` NumPy arrays."""
+    log_final)`` NumPy arrays: random dense graphs (one with a target no
+    source reaches), all-tied ones, and left-to-right bands."""
     bucket = np.arange(t_len) < t_len - 37
     bucket[100] = False
     out = []
-    for kind, masked in (("random", False), ("random", True), ("ties", True),
+    for kind, masked in (("random", False), ("random", True), ("column", True), ("ties", True),
                          ("left_to_right", True)):
-        log_pi, log_a = model(rng, n, kind)
+        log_pi, log_a = model(rng, n, "random" if kind == "column" else kind)
+        if kind == "column":
+            log_a[:, n // 2] = -np.inf
         lb = rng.normal(scale=3.0, size=(t_len, n)).astype(np.float32)
         if kind == "ties":
             lb = np.round(lb)
@@ -196,6 +202,56 @@ def check_dense_viterbi(torch, vd, dev, rng, n, t_len):
                 f"kernel C differs from the plain scan on the CPU ({name}, N={n})")
         print(f"kernel C vs plain ({name}, T={t_len}, N={n}): paths and scores bitwise equal "
               f"(score {float(score_k)})")
+
+
+def sparse_graph(rng, n, per_col):
+    """A random graph ``(log_pi, log_a)`` whose every target has
+    ``per_col`` finite sources (log-probabilities) and -inf elsewhere."""
+    log_a = np.full((n, n), -np.inf, np.float32)
+    for j in range(n):
+        src = rng.choice(n, size=per_col, replace=False)
+        log_a[src, j] = np.log(rng.dirichlet(np.ones(per_col)))
+    return np.log(rng.dirichlet(np.ones(n))).astype(np.float32), log_a
+
+
+def check_dense_lists(torch, vd, dev, g22, t_len):
+    """Kernel C on source lists: the V = 22 graph's own (its 24-25-long
+    word-entry lists split over 4 lanes) with every finite transition 0 and
+    integer emissions, so that equal maxima fall in different lanes'
+    sub-ranges; a batch of 4 utterances with their own masks; and sparse
+    graphs whose lists are too long for registers (N = 179, 40 sources a
+    target over 2 lanes, beside log_a in shared memory; N = 1000, 20
+    sources, one lane each) or whose lanes take two rounds of the block's
+    threads (N = 2000, 8 sources a target)."""
+    rng = np.random.default_rng(9)
+    n = g22.n_states
+    log_a = torch.where(torch.isfinite(g22.log_a), torch.zeros_like(g22.log_a), g22.log_a)
+    lb = torch.as_tensor(np.round(rng.normal(scale=2.0, size=(4, t_len, n))).astype(np.float32),
+                         device=dev)
+    masks = torch.arange(t_len, device=dev)[None, :] < torch.tensor([[t_len], [400], [129], [1]],
+                                                                      device=dev)
+    masks[0, 50:60] = False
+    on = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    cases = [("V=22 lists, all transitions 0, integer emissions",
+              (g22.log_pi, log_a, lb[0], None, g22.log_final)),
+             ("V=22 graph, B=4 with masks",
+              (g22.log_pi, g22.log_a, on(rng.normal(scale=3.0, size=(4, t_len, n))
+                                         .astype(np.float32)), masks, g22.log_final)),
+             ("V=22 lists tied, B=4 with masks", (g22.log_pi, log_a, lb, masks, g22.log_final))]
+    for big, per_col in ((179, 40), (1000, 20), (2000, 8)):
+        log_pi, la = sparse_graph(rng, big, per_col)
+        cases.append((f"sparse, {per_col} sources a target, masked",
+                      (on(log_pi), on(la), on(rng.normal(scale=3.0, size=(t_len, big))
+                                               .astype(np.float32)), masks[1], None)))
+    for what, args in cases:
+        path_k, score_k = vd.viterbi_dense(*args)
+        path_p, score_p = vd.viterbi_dense_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+                f"kernel C differs from the plain scan ({what}): "
+                f"{int((path_k != path_p).sum())} path entries")
+        print(f"kernel C vs plain ({what}, T={t_len}, N={args[1].shape[0]}): paths and scores "
+              "bitwise equal")
 
 
 def cpu_hop(torch, hop):
@@ -252,6 +308,22 @@ def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask,
           f"{'also' if same_inf else 'NOT'} -inf in both), paths and scores bitwise equal to "
           f"the plain replay and the scan (score {float(score_k)}, {hops} word changes)")
     return err
+
+
+def check_forward_repeats(torch, F, graph, log_b, pi_grid, mask, launches):
+    """Kernel D launched back to back on the same inputs, each launch's
+    grids bitwise (``-inf`` included) equal to the plain forward's: an
+    ordering race in the exit exchange, or a stale tag taken as ready from
+    the previous launch's buffer, would show as a differing grid."""
+    args = (pi_grid, graph.inner_a, graph.exit_idx, graph._kernel_hop, log_b, mask)
+    ref = F.factored_forward_plain(*args).view(torch.int32)
+    grids = [F.factored_forward(*args, hop_t=graph.hop_t) for _ in range(launches)]
+    torch.cuda.synchronize()
+    bad = [k for k, g in enumerate(grids) if not torch.equal(g.view(torch.int32), ref)]
+    require(not bad, f"kernel D grids differ from the plain forward in launches {bad} of "
+                     f"{launches} back to back")
+    print(f"kernel D, {launches} back-to-back launches at T={log_b.shape[0]}, V={log_b.shape[1]}, "
+          f"S={log_b.shape[2]}: every grid bitwise equal to the plain forward's (-inf included)")
 
 
 def check_lattice(torch, F, graph, log_b, pi_grid, mask, what):
@@ -571,13 +643,17 @@ def main():
     c_err = float((score_k - score_p).abs())
     print(f"kernel C vs plain (the V=22 segment: T={seg_frames}, N={g22.n_states}, bucket mask, "
           "log_final): bitwise equal")
-    check_dense_viterbi(torch, vd, dev, np.random.default_rng(3), 179, seg_frames)
-    check_dense_viterbi(torch, vd, dev, np.random.default_rng(4), 256, seg_frames)
+    # random dense graphs: source lists in registers (33, 64), whole columns
+    # from shared memory (179) and through L2 (256, 1000)
+    for k, n in enumerate((33, 64, 179, 256, 1000)):
+        check_dense_viterbi(torch, vd, dev, np.random.default_rng(30 + k), n, seg_frames)
+    check_dense_lists(torch, vd, dev, g22, seg_frames)
 
     # -- 6. kernels D and E vs their plain versions (bitwise) -----------------
     log_b1000, pi1000, final1000 = g1000._grid_inputs(feats1000)
     d_err = check_factored(torch, F, tdec, dev, g1000, log_b1000, pi1000, final1000, mask1000,
                            "the V=1000 segment, dense hop")
+    check_forward_repeats(torch, F, g1000, log_b1000, pi1000, mask1000, 60)
     require(F.lattice_kernel_ok(*g1000.grid_shape, g1000._kernel_hop, F.sm_count(dev)),
             "the V=1000 graph is not lattice-kernel-eligible")
     f_err = check_lattice(torch, F, g1000, log_b1000, pi1000, mask1000,
@@ -595,7 +671,9 @@ def main():
             tdec.DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0, loop=loop),
             silence_model=rec1000.am.units[tdec.SILENCE], hop_mode=hop_mode, device=dev)
         kind = F.hop_kind(g._kernel_hop)
-        require(g._kernel_ok(seg_frames), f"the {kind} hop graph is not kernel-eligible")
+        require(g.has_kernel and F.factored_kernel_ok(seg_frames, *g.grid_shape, g._kernel_hop,
+                                                      F.sm_count(dev)),
+                f"the {kind} hop graph is not kernel-eligible")
         _, pi_g, fin_g = g._grid_inputs(feats1000[:1])
         for lb, what in ((rand_b, "random emissions"), (torch.round(rand_b), "integer ties")):
             d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, bucket,
@@ -719,8 +797,8 @@ def main():
         launches[f"V={v}"] = counts
         print(f"main path: Recognizer.decode_segment at V={v} ({type(rec.graph).__name__}) on "
               f"{seg_s} s -> {len(words)} words {words[:8]}, score {score}; launches {counts}")
-        require(all(counts[n] > 0 for n in names),
-                f"a kernel of the V={v} segment decode never ran: {counts}")
+        require(all(counts[n] == 1 for n in names),
+                f"the V={v} segment decode did not launch each of {names} once: {counts}")
         require(all(counts[n] == 0 for n in counts if n not in names),
                 f"the V={v} segment decode launched a kernel off its path: {counts}")
         require(np.isfinite(score), f"V={v} segment score is not finite")
@@ -839,7 +917,21 @@ def main():
     steps = int(mask22[1:].sum())
     nc = g22.n_states
     c_ms = cuda_ms(lambda: vd.viterbi_dense(*c_args), reps=50)
+    # what bounds C: the same frames on the graph's self-loops alone (lists
+    # of i = 0 and j, one lane each, no shuffle), the frame loop's floor
+    diag = torch.where(torch.eye(g22.n_states, dtype=torch.bool, device=dev), g22.log_a,
+                       torch.tensor(-np.inf, device=dev))
+    c_floor_ms = cuda_ms(lambda: vd.viterbi_dense(g22.log_pi, diag, *c_args[2:]), reps=50)
     c_plain_ms = cuda_ms(lambda: vd.viterbi_dense_plain(*c_args), reps=5, warmup=1)
+    # C on random dense graphs (viterbi_batched's N > 32): whole columns, of
+    # log_a in shared memory at N = 179 and through L2 at N = 256
+    c_dense_ms = {}
+    for n in (179, 256):
+        rng = np.random.default_rng(40 + n)
+        dense_args = [torch.as_tensor(x, device=dev) for x in model(rng, n, "random")]
+        dense_args.append(torch.as_tensor(rng.normal(scale=3.0, size=(seg_frames, n))
+                                          .astype(np.float32), device=dev))
+        c_dense_ms[n] = cuda_ms(lambda: vd.viterbi_dense(*dense_args, mask22), reps=30)
     c_bytes = 4 * (3 * nc + nc * nc + seg_frames * nc + seg_frames + 1) + seg_frames
     c_bound, c_by = bound(c_bytes, steps * (2 * nc * nc + nc))
 
@@ -850,6 +942,14 @@ def main():
     grids = F.factored_forward(*d_args, hop_t=hop_t)
     e_args = (grids, ia, ei, hop, final1000, mask1000)
     d_ms = cuda_ms(lambda: F.factored_forward(*d_args, hop_t=hop_t), reps=30)
+    # what bounds D: the same frames with no hop (no exchange at all) and
+    # with a rank-1 hop (the exchange and a V-long block max, no V x V work)
+    r1 = F.Rank1Hop(*(torch.as_tensor(np.random.default_rng(k).normal(size=vw)
+                                      .astype(np.float32), device=dev) for k in range(3)), 0)
+    d_none_ms = cuda_ms(lambda: F.factored_forward(pi1000, ia, ei, None, log_b1000, mask1000),
+                        reps=30)
+    d_rank1_ms = cuda_ms(lambda: F.factored_forward(pi1000, ia, ei, r1, log_b1000, mask1000),
+                         reps=30)
     d_plain_ms = cuda_ms(lambda: F.factored_forward_plain(*d_args), reps=3, warmup=1)
     e_ms = cuda_ms(lambda: F.factored_backtrace(*e_args, hop_t=hop_t), reps=30)
     e_plain_ms = cuda_ms(lambda: F.factored_backtrace_plain(*e_args), reps=3, warmup=1)
@@ -873,6 +973,14 @@ def main():
           f"{d_plain_ms:.4f} ms, bound {d_bound:.5f} ms by {d_by}) and kernel E {e_ms:.4f} ms "
           f"(plain {e_plain_ms:.4f} ms, bound {e_bound:.5f} ms by {e_by}) at T={seg_frames}, "
           f"V={vw}, S={sw}")
+    print(f"timing on {card}: kernel C on the graph's self-loops alone (the frame loop's "
+          f"floor) {c_floor_ms:.4f} ms, so the lists of the V=22 graph add "
+          f"{1e3 * (c_ms - c_floor_ms) / int(mask22[1:].sum()):.3f} us a frame; on random dense "
+          f"graphs (whole columns) N=179 {c_dense_ms[179]:.4f} ms, N=256 {c_dense_ms[256]:.4f} ms")
+    print(f"timing on {card}: kernel D's frames without the dense hop: no hop (no exchange) "
+          f"{d_none_ms:.4f} ms, rank-1 hop (exchange + block max) {d_rank1_ms:.4f} ms, so the "
+          f"exchange and the dense reduction take {1e3 * (d_ms - d_none_ms) / steps:.3f} us a "
+          f"frame")
     for v, ms in seg_ms.items():
         print(f"timing on {card}: segment decode V={v}: {ms:.4f} ms per {seg_s} s segment = "
               f"{seg_s / (ms / 1e3):.1f} audio-s/s (host clock, one device->host copy)")

@@ -25,26 +25,54 @@
 // V = 1000), keeps its hop columns (32 KB), its inner blocks and its grid
 // rows in shared memory for the whole utterance, and the V^2 work of a
 // frame runs on all SMs at once. The one thing a block needs from the
-// others is the previous frame's V exit scores: owners write them to a
-// double-buffered (2, V) exchange array, and a cooperative launch's grid
-// barrier (one per frame) orders the write before every read. The
-// barrier, not the arithmetic, is what each frame waits on. Hop kind
-// "none" (loop-free graphs) has no cross-word term and skips it.
+// others is the previous frame's V exit scores, so the time is T times the
+// latency of that exchange plus the block's hop reduction.
+//
+// The first design ordered the exchange with a cooperative grid barrier
+// per frame (3.8 us: a block barrier, a device-wide fence that also waited
+// for the block's grid rows, an atomic on one counter shared by 126
+// blocks, a spin; then a second trip through L2 for the exits). This one
+// has no barrier across blocks in its frame loop. Each word's exit travels
+// with its frame's tag in one aligned 64-bit word, (tag << 32) | bits, that
+// the exit cell's thread stores with st.relaxed.gpu; readers poll the V
+// slots with ld.relaxed.gpu (all their slots loaded at once, one L2 round
+// trip when the values are there) until every tag is the frame they need.
+// A 64-bit access is single-copy atomic, so a matching tag brings its own
+// value and nothing needs a fence or a counter; the grid rows' stores are
+// never waited for (only kernel E reads them, after the kernel ends). Each
+// block's own within-word step is computed before the poll, while the
+// other blocks' exits are in flight.
+//
+// Tags and buffers. Frame 0 and every valid frame publish; a masked frame
+// leaves the grid, so its exits are those of the last published frame and
+// it publishes nothing (readers ask for the last published frame's tag).
+// The k-th publication goes to buffer k & 1 of a (2, V) array. Two buffers
+// are enough: a block publishes k + 1 (overwriting k - 1) only after
+// reading every word's k, and each block publishes k only after reading
+// all of k - 1, so nobody still reads k - 1. Stale tags: the launcher
+// fills the exchange with tag 0xffffffff (cudaMemsetAsync on the kernel's
+// stream, before it) on every launch, a tag no frame uses (T < 2^31), so a
+// buffer that PyTorch's caching allocator hands back from an earlier
+// launch is never taken as ready. The cooperative launch is kept: it
+// guarantees that every block is resident, without which a spin could
+// wait for a block that never runs. A spin that lasts seconds traps (a
+// launch error, not a hung card).
+//
+// Hop kind "none" (loop-free graphs) has no exchange. The rank-1 hop reads
+// the same exchange.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int HOP_NONE = 0;
 constexpr int HOP_DENSE = 1;
-constexpr int HOP_RANK1 = 2;
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
+constexpr int POLL = 4;             // exchange slots a thread loads at once
+constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
 
 struct Args {
     const float* pi_grid;   // (V, S)
@@ -57,9 +85,23 @@ struct Args {
     const float* log_b;     // (T, V, S)
     const uint8_t* mask;    // (T,) or null
     float* grids;           // (T, V, S)
-    float* exits;           // (2, V) exchange
+    unsigned long long* xch;  // (2, V) exchange: (frame tag << 32) | exit bits
     int hop_kind, sil_idx, T, V, S, wpb;
 };
+
+__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
+    unsigned long long x;
+    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(x) : "l"(p) : "memory");
+    return x;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long x) {
+    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(x) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long tagged(int t, float x) {
+    return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
+}
 
 __device__ __forceinline__ float block_max(float x, float* red) {
 #pragma unroll
@@ -73,12 +115,44 @@ __device__ __forceinline__ float block_max(float x, float* red) {
     return r;
 }
 
+// ex[v] = the exit of word v tagged `tag`, from one buffer of the exchange.
+// A thread's slots are polled together: every round reloads all its slots
+// not yet tagged, so a round costs one L2 round trip however many of them
+// were early.
+__device__ void read_exits(const unsigned long long* src, unsigned tag, int V, float* ex) {
+    const int tid = threadIdx.x, nth = blockDim.x;
+    for (int base = tid; base < V; base += nth * POLL) {
+        unsigned long long x[POLL];
+        unsigned pending = 0;
+#pragma unroll
+        for (int q = 0; q < POLL; ++q) {
+            const int v = base + q * nth;
+            if (v < V) {
+                x[q] = ld_relaxed(src + v);
+                pending |= 1u << q;
+            }
+        }
+        for (long long round = 0; pending; ++round) {
+            if (round > SPIN_LIMIT) __trap();
+#pragma unroll
+            for (int q = 0; q < POLL; ++q) {
+                if ((pending >> q & 1) && (unsigned)(x[q] >> 32) == tag) {
+                    ex[base + q * nth] = __uint_as_float((unsigned)x[q]);
+                    pending &= ~(1u << q);
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < POLL; ++q)
+                if (pending >> q & 1) x[q] = ld_relaxed(src + base + q * nth);
+        }
+    }
+}
+
 // The launch bounds hold registers to 64 per thread, so that a block of
 // up to 1024 threads fits the SM's 64 K registers.
 __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float red[32];
-    cg::grid_group grid = cg::this_grid();
 
     const int V = p.V, S = p.S, T = p.T;
     const int w0 = blockIdx.x * p.wpb;
@@ -90,7 +164,7 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     float* g = reinterpret_cast<float*>(smem);       // [wpb * S] this block's rows
     float* ia = g + p.wpb * S;                       // [wpb * S * S]
     float* ent = ia + p.wpb * S * S;                 // [wpb]
-    float* ex = ent + p.wpb;                         // [V] exits of the previous frame
+    float* ex = ent + p.wpb;                         // [V] exits of the last published frame
     int* eidx = reinterpret_cast<int*>(ex + V);      // [wpb]
     float* hs = reinterpret_cast<float*>(eidx + p.wpb);  // [wpb * V] hop columns (dense)
 
@@ -101,48 +175,63 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     }
     const size_t row0 = (size_t)w0 * S;
     const size_t frame = (size_t)V * S;
-    for (int k = tid; k < cells; k += nth) {
-        const float x = p.pi_grid[row0 + k] + p.log_b[row0 + k];
-        g[k] = x;
-        p.grids[row0 + k] = x;
+    // this thread's cell (word w, state j), if it has one
+    const int k_own = tid < cells ? tid : -1;
+    const int w_own = k_own >= 0 ? k_own / S : 0, j_own = k_own >= 0 ? k_own - w_own * S : 0;
+    if (k_own >= 0) {
+        const float x = p.pi_grid[row0 + k_own] + p.log_b[row0 + k_own];
+        g[k_own] = x;
+        p.grids[row0 + k_own] = x;
     }
     __syncthreads();
-    if (hk != HOP_NONE) {
-        for (int k = tid; k < nw; k += nth) p.exits[w0 + k] = g[k * S + eidx[k]];
-        grid.sync();
-    }
+    const bool exits_own = hk != HOP_NONE && k_own >= 0 && j_own == eidx[w_own];
+    if (exits_own) st_relaxed(p.xch + w0 + w_own, tagged(0, g[k_own]));
+    int n_pub = 0, last_pub = 0;  // publications so far - 1, frame of the last
 
+    bool valid_next = T > 1 && (p.mask == nullptr || p.mask[1]);
     for (int t = 1; t < T; ++t) {
-        const bool valid = p.mask == nullptr || p.mask[t];
+        const bool valid = valid_next;
+        if (t + 1 < T) valid_next = p.mask == nullptr || p.mask[t + 1];  // ahead of its use
         float* out = p.grids + (size_t)t * frame + row0;
-        if (!valid) {  // identity step: the grid carries over unchanged
-            for (int k = tid; k < cells; k += nth) out[k] = g[k];
-            if (hk != HOP_NONE) {
-                for (int k = tid; k < nw; k += nth)
-                    p.exits[(t & 1) * V + w0 + k] = g[k * S + eidx[k]];
-                grid.sync();
-            }
+        if (!valid) {  // identity step: the grid carries over; nothing is published
+            if (k_own >= 0) out[k_own] = g[k_own];
             continue;
         }
-        // emissions of this frame, issued before the hop reduction
-        const int k_own = tid < cells ? tid : -1;
-        const float e = k_own >= 0 ? p.log_b[(size_t)t * frame + row0 + k_own] : 0.0f;
+        // this frame's emission and the block's own within-word step,
+        // loaded before the wait for the other blocks' exits
+        float e = 0.0f, m = -INFINITY;
+        if (k_own >= 0) {
+            e = p.log_b[(size_t)t * frame + row0 + k_own];
+            const float* gr = g + w_own * S;
+            const float* a = ia + (size_t)w_own * S * S + j_own;
+            m = gr[0] + a[0];
+            for (int s = 1; s < S; ++s) m = fmaxf(m, gr[s] + a[(size_t)s * S]);
+        }
 
         if (hk != HOP_NONE) {
-            const float* prev = p.exits + ((t - 1) & 1) * V;
-            for (int v = tid; v < V; v += nth) ex[v] = __ldcg(prev + v);  // L2: written by other SMs
+            read_exits(p.xch + (n_pub & 1) * V, (unsigned)last_pub, V, ex);
             __syncthreads();
             if (hk == HOP_DENSE) {
                 // one warp per destination word, lanes over source words
                 const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
                 for (int w = warp; w < nw; w += nwarps) {
                     const float* col = hs + (size_t)w * V;
-                    float m = -INFINITY;
-                    for (int v = lane; v < V; v += 32) m = fmaxf(m, ex[v] + col[v]);
+                    // four running maxima (max is exact and order-free), so
+                    // four sources' loads are in flight at once
+                    float h0 = -INFINITY, h1 = -INFINITY, h2 = -INFINITY, h3 = -INFINITY;
+                    int v = lane;
+                    for (; v + 96 < V; v += 128) {
+                        h0 = fmaxf(h0, ex[v] + col[v]);
+                        h1 = fmaxf(h1, ex[v + 32] + col[v + 32]);
+                        h2 = fmaxf(h2, ex[v + 64] + col[v + 64]);
+                        h3 = fmaxf(h3, ex[v + 96] + col[v + 96]);
+                    }
+                    for (; v < V; v += 32) h0 = fmaxf(h0, ex[v] + col[v]);
+                    float h = fmaxf(fmaxf(h0, h1), fmaxf(h2, h3));
 #pragma unroll
                     for (int off = 16; off > 0; off >>= 1)
-                        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-                    if (lane == 0) ent[w] = m;
+                        h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, off));
+                    if (lane == 0) ent[w] = h;
                 }
             } else {
                 float m1 = -INFINITY, m2 = -INFINITY;
@@ -155,29 +244,21 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
                 for (int w = tid; w < nw; w += nth)
                     ent[w] = (w0 + w == p.sil_idx) ? m2 : m1 + p.uni[w0 + w];
             }
-            __syncthreads();
+            __syncthreads();  // also: every read of g is done
+        } else {
+            __syncthreads();  // every read of g is done
         }
 
-        float nv = 0.0f;
         if (k_own >= 0) {
-            const int w = k_own / S, j = k_own - w * S;
-            const float* gr = g + w * S;
-            const float* a = ia + (size_t)w * S * S + j;
-            float m = gr[0] + a[0];
-            for (int s = 1; s < S; ++s) m = fmaxf(m, gr[s] + a[(size_t)s * S]);
-            if (hk != HOP_NONE && j == 0 && ent[w] > m) m = ent[w];
-            nv = m + e;
-        }
-        __syncthreads();  // every read of g is done
-        if (k_own >= 0) {
+            if (hk != HOP_NONE && j_own == 0 && ent[w_own] > m) m = ent[w_own];
+            const float nv = m + e;
             g[k_own] = nv;
             out[k_own] = nv;
+            if (exits_own) st_relaxed(p.xch + ((n_pub + 1) & 1) * V + w0 + w_own, tagged(t, nv));
         }
-        if (hk != HOP_NONE) {
-            __syncthreads();
-            for (int k = tid; k < nw; k += nth) p.exits[(t & 1) * V + w0 + k] = g[k * S + eidx[k]];
-            grid.sync();
-        }
+        ++n_pub;
+        last_pub = t;
+        __syncthreads();  // the new rows are in g
     }
 }
 
@@ -195,7 +276,8 @@ extern "C" int factored_forward_launch(const float* pi_grid, const float* inner_
                                        int hop_kind, const float* hop_t, const float* from_w,
                                        const float* uni, const float* sil_from, int sil_idx,
                                        const float* log_b, const uint8_t* mask, int T, int V, int S,
-                                       int n_sm, float* grids, float* exits, void* stream) {
+                                       int n_sm, float* grids, unsigned long long* xch,
+                                       void* stream) {
     if (T < 1 || V < 1 || S < 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
     const int wpb = (V + n_sm - 1) / n_sm;
     const int blocks = (V + wpb - 1) / wpb;
@@ -207,7 +289,11 @@ extern "C" int factored_forward_launch(const float* pi_grid, const float* inner_
     cudaError_t err = cudaFuncSetAttribute(factored_forward_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, log_b, mask, grids, exits,
+    // tag 0xffffffff in every slot: no frame's (see the note on stale tags)
+    err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * sizeof(unsigned long long),
+                          (cudaStream_t)stream);
+    if (err != cudaSuccess) return (int)err;
+    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, log_b, mask, grids, xch,
            hop_kind, sil_idx, T, V, S, wpb};
     void* params[] = {&a};
     err = cudaLaunchCooperativeKernel((const void*)factored_forward_kernel, dim3(blocks), dim3(threads),

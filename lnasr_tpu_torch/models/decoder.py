@@ -9,13 +9,14 @@ weights. Two graph realizations share these semantics:
 
 - :class:`DecodingGraph`: one dense ``(n_states, n_states)`` matrix and a
   dense Viterbi (:func:`dense_viterbi`: the kernel of
-  ``ops/viterbi_dense.py`` on CUDA, the scan elsewhere). Right for small
+  ``ops/viterbi_dense.py`` on CUDA, the scan on the CPU). Right for small
   vocabularies, and the parity oracle of the factored form.
 - :class:`FactoredDecodingGraph`: states on a ``(V, S)`` word-by-state
   grid; a frame is a batched ``(V, S, S)`` within-word max-plus and a word
-  hop reduction (dense ``(V, V)``, backoff factors, or none). On CUDA the
-  forward and the replay backtrace run the kernels of ``ops/factored.py``;
-  elsewhere, and for factors with sparse edges, :func:`factored_trellis_scan`.
+  hop reduction (dense ``(V, V)``, backoff factors, or none). The forward
+  and the replay backtrace are the wrappers of ``ops/factored.py`` (the
+  kernels on CUDA, their plain versions on the CPU); factors with sparse
+  edges take :func:`factored_trellis_scan`.
 
 The factored graph also records word lattices (:meth:`FactoredDecodingGraph.
 decode_lattice`): per frame and word the exit record ``(score, start,
@@ -47,28 +48,21 @@ from lnasr_tpu_torch.ops.factored import (
     Rank1Hop,
     factored_backtrace,
     factored_forward,
-    factored_kernel_ok,
     factored_lattice,
     factored_lattice_scan,
     hop_entry as _hop_entry,
-    sm_count,
 )
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
-from lnasr_tpu_torch.ops.trellis import viterbi_scan
-from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense, viterbi_dense_ok
+from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 
 def dense_viterbi(log_pi, log_a, log_b, log_final=None, mask=None):
-    """Dense-graph Viterbi dispatch: the hand-written kernel for float32
-    graphs on CUDA within its capacity (masked decodes included: masked
-    frames are identity steps in the kernel too), the scan otherwise. Both
-    give the scan's paths and scores bitwise."""
-    t_len, n = log_b.shape
-    if (log_b.dtype == torch.float32 and log_b.device.type == "cuda"
-            and viterbi_dense_ok(t_len, n)):
-        return viterbi_dense(log_pi, log_a, log_b, mask, log_final)
-    res = viterbi_scan(log_pi, log_a, log_b, mask=mask, log_final=log_final)
-    return res.path, res.score
+    """Dense-graph Viterbi: :func:`~lnasr_tpu_torch.ops.viterbi_dense.
+    viterbi_dense`, the hand-written kernel on CUDA (masked frames are
+    identity steps there too; it raises off float32 or past its capacity)
+    and the scan on the CPU. Both give the scan's paths and scores
+    bitwise."""
+    return viterbi_dense(log_pi, log_a, log_b, mask, log_final)
 
 
 def to_host(path: torch.Tensor, score: torch.Tensor) -> Tuple[np.ndarray, np.ndarray]:
@@ -610,9 +604,10 @@ class FactoredDecodingGraph:
       new_v        = within with entry merged at local state 0, + emissions
 
     O(V S^2 + V^2) per frame instead of the dense graph's O((V S)^2), with
-    the same words, paths and scores. On CUDA the forward and the replay
-    backtrace are the kernels of ``ops/factored.py`` (:meth:`_kernel_ok`);
-    elsewhere :func:`factored_trellis_scan`."""
+    the same words, paths and scores. The forward and the replay backtrace
+    are the wrappers of ``ops/factored.py`` (kernels D and E on CUDA, their
+    plain versions on the CPU); factors with sparse edges take
+    :func:`factored_trellis_scan` (:meth:`_decode_grid`)."""
 
     SILENCE = SILENCE
     # "auto" hop_mode switches to backoff factors past this vocabulary,
@@ -719,18 +714,12 @@ class FactoredDecodingGraph:
     def grid_shape(self) -> Tuple[int, int]:
         return self.inner_a.shape[0], self.inner_a.shape[1]
 
-    def _kernel_ok(self, t_len: int) -> bool:
-        """Kernel dispatch, made up front from dtype, device and shapes:
-        float32 on CUDA, a dense hop, edge-free factors or no hop, within
-        the kernels' H100 capacity (:func:`~lnasr_tpu_torch.ops.factored.
-        factored_kernel_ok`). Factors with sparse edges take the scan, as
-        in the JAX package."""
-        if self.dtype != torch.float32 or self.device.type != "cuda":
-            return False
-        if self.hop is not None and self._kernel_hop is None:
-            return False
-        v, s = self.grid_shape
-        return factored_kernel_ok(t_len, v, s, self._kernel_hop, sm_count(self.device))
+    @property
+    def has_kernel(self) -> bool:
+        """Whether the graph's hop kind has kernels: a dense hop, edge-free
+        factors or no hop. Factors with sparse edges decode with the scans,
+        as in the JAX package."""
+        return self.hop is None or self._kernel_hop is not None
 
     def host_hop(self):
         """Host-side hop accessor: the dense NumPy matrix, or a
@@ -748,19 +737,23 @@ class FactoredDecodingGraph:
                                      self.cov, self.cov_type)
 
     def _decode_grid(self, log_b, pi_grid, final_grid, mask):
-        if self._kernel_ok(log_b.shape[0]):
-            hop = self._kernel_hop
-            grids = factored_forward(pi_grid, self.inner_a, self.exit_idx, hop, log_b, mask,
-                                     hop_t=self.hop_t)
-            return factored_backtrace(grids, self.inner_a, self.exit_idx, hop, final_grid,
-                                      mask, hop_t=self.hop_t)
-        return factored_trellis_scan(log_b, self.inner_a, self.hop, pi_grid, final_grid,
-                                     self.exit_idx, mask)
+        """The 1-best decode by hop kind alone: factors with sparse edges
+        take the scan; every other graph the forward and backtrace
+        wrappers, kernels D and E on CUDA (which raise past their capacity
+        or off float32) and their plain versions on the CPU."""
+        if not self.has_kernel:
+            return factored_trellis_scan(log_b, self.inner_a, self.hop, pi_grid, final_grid,
+                                         self.exit_idx, mask)
+        hop = self._kernel_hop
+        grids = factored_forward(pi_grid, self.inner_a, self.exit_idx, hop, log_b, mask,
+                                 hop_t=self.hop_t)
+        return factored_backtrace(grids, self.inner_a, self.exit_idx, hop, final_grid, mask,
+                                  hop_t=self.hop_t)
 
     def decode_arrays(self, obs: torch.Tensor, mask: Optional[torch.Tensor]):
         """Device decode core: ``(features (T, D), mask) -> (path (T,) int32
-        in v*S+s ids, score ())``: the forward and backtrace kernels when
-        :meth:`_kernel_ok`, the scan otherwise; identical results."""
+        in v*S+s ids, score ())`` (:meth:`_decode_grid`); every route gives
+        the scan's results."""
         return self._decode_grid(*self._grid_inputs(obs), mask)
 
     def decode(self, features, mask=None) -> Tuple[List[str], np.ndarray, float]:
@@ -799,7 +792,7 @@ class FactoredDecodingGraph:
         graph takes :func:`~lnasr_tpu_torch.ops.factored.factored_lattice`,
         kernel F on CUDA (which raises past its capacity or off float32)
         and its plain version on the CPU."""
-        if self.hop is not None and self._kernel_hop is None:
+        if not self.has_kernel:
             return factored_lattice_scan(log_b, self.inner_a, self.hop, pi_grid, self.exit_idx,
                                          mask)[:3]
         return factored_lattice(pi_grid, self.inner_a, self.exit_idx, self._kernel_hop, log_b,

@@ -6,8 +6,9 @@ Counterpart of the JAX package's ``ops/factored_pallas.py``
 (``factored_forward_pallas``, ``factored_decode_pallas``, the XLA
 ``factored_backtrace`` and ``factored_lattice_pallas``). For CUDA tensors
 :func:`factored_forward` launches the kernel of
-``csrc/factored_forward.cu`` (a cooperative launch over the card, one grid
-barrier per frame), :func:`factored_backtrace` the kernel of
+``csrc/factored_forward.cu`` (a cooperative launch over the card; the
+blocks exchange each frame's exit scores through tagged 64-bit slots,
+with no grid barrier), :func:`factored_backtrace` the kernel of
 ``csrc/factored_backtrace.cu`` (one block per utterance) and
 :func:`factored_lattice` the kernel of ``csrc/factored_lattice.cu`` (the
 forward's layout carrying each state's token start and predecessor word);
@@ -42,7 +43,7 @@ MAX_THREADS = 1024  # a forward block's threads: csrc/factored_forward.cu's laun
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
-# sil_idx, log_b, mask, T, V, S, n_sm, grids, exits, stream
+# sil_idx, log_b, mask, T, V, S, n_sm, grids, exchange, stream
 _FWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 # grids, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
 # sil_idx, final, mask, T, V, S, path, score, stream
@@ -361,13 +362,15 @@ def factored_forward(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     mask = _mask_arg(mask, (t,), dev)
     kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
     grids = torch.empty((t, v, s), dtype=f32, device=dev)
-    exits = torch.empty((2, v), dtype=f32, device=dev)
+    # the exit exchange, (frame tag, fp32 exit) in 8 bytes a slot; the
+    # launcher fills it with a tag no frame uses before the kernel runs
+    exchange = torch.empty((2, v), dtype=torch.int64, device=dev)
     lib = _build.load("factored_forward", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_forward_launch(
             pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
             _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
-            _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exits.data_ptr(),
+            _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exchange.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_forward", rc)

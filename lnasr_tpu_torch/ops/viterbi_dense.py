@@ -6,8 +6,10 @@ Counterpart of the JAX package's ``ops/trellis_pallas.py:
 viterbi_pallas_dense`` (one utterance, no mask), widened to a batch and a
 mask so that the recognizer's bucketed decodes and ``viterbi_batched`` for
 N > 32 both run it. For CUDA tensors :func:`viterbi_dense` launches the
-hand-written kernel of ``csrc/viterbi_dense.cu`` (one block per utterance,
-int16 first-index backpointers, backtrace in the same kernel); for CPU
+hand-written kernel of ``csrc/viterbi_dense.cu`` (one block per utterance;
+per-target lists of the finite sources, or whole columns of ``log_a``,
+split across the lanes of a warp (:func:`route`); int16 first-index
+backpointers; backtrace in the same kernel); for CPU
 tensors it runs :func:`viterbi_dense_plain`, the scan it is held to
 bitwise.
 """
@@ -23,9 +25,14 @@ from lnasr_tpu_torch import _build
 from lnasr_tpu_torch.ops.trellis import viterbi_scan
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
-_CHUNK = 32  # backtrace frames the kernel stages in shared memory
+MAX_THREADS = 1024
 N_LIMIT = 32767  # int16 backpointers
 BP_BUDGET = 2 * 1024**3  # bytes of backpointer scratch one call may take
+# csrc/viterbi_dense.cu's constants
+_CHUNK = 32  # backtrace frames staged in shared memory
+_RING = 8  # emission frames in the cp.async ring
+_MASK_CHUNK = 1024  # mask frames staged at a time
+KREG = 8  # list entries a lane keeps in registers
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -33,27 +40,80 @@ _I = ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
 
 
-def smem_bytes(n: int, a_in_smem: bool) -> int:
-    """Shared memory of one block (``csrc/viterbi_dense.cu:smem_bytes``):
-    ``v`` double-buffered, 32 staged backpointer frames, and ``log_a``
-    when it is staged too."""
-    base = 2 * n * 4 + ((_CHUNK * n + 7) & ~7) * 2
-    return base + (n * n * 4 if a_in_smem else 0)
+def _a16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def threads_for(n: int) -> int:
+    """Threads of one block: eight lanes a state, at most 1024."""
+    return min(MAX_THREADS, (8 * n + 31) // 32 * 32)
+
+
+def _layout(n: int) -> Tuple[int, int, int]:
+    """``(pool bytes, bytes a staged log_a may take, total bytes)`` of one
+    block's shared memory (``csrc/viterbi_dense.cu:layout``): ``v``
+    double-buffered, then the forward's emission ring, staged mask, list
+    offsets, lane descriptors and the pool that holds the source lists,
+    all sharing their space with the backtrace's staged backpointer
+    frames. A staged ``log_a`` (no lists, so no descriptors) starts at the
+    descriptors."""
+    nth = threads_for(n)
+    d = -(-n // nth) * nth
+    u = _a16(8 * n)
+    dj = u + _a16(_RING * n * 4) + _MASK_CHUNK + _a16(4 * (n + 1))
+    pool = dj + 3 * _a16(4 * d)
+    cap = SMEM_LIMIT - 1024
+    avail = (cap - pool) & ~15 if cap > pool else 0
+    pool_bytes = min(_a16(6 * n * n), avail)
+    return pool_bytes, pool - dj + pool_bytes, u + max(pool - u + pool_bytes, _a16(_CHUNK * n * 2))
+
+
+def smem_bytes(n: int) -> int:
+    """Shared memory of one block (:func:`_layout`)."""
+    return _layout(n)[2]
+
+
+def lists_fit(n: int, entries: int) -> bool:
+    """Whether source lists of ``entries`` (index, value) pairs fit the
+    pool; otherwise the kernel walks whole columns of ``log_a``."""
+    return 6 * entries <= _layout(n)[0]
+
+
+def route(lengths) -> str:
+    """The frame loop kernel C picks, from its source lists' ``lengths``
+    (one a target: i = 0 and the finite sources i >= 1), as the prologue of
+    ``csrc/viterbi_dense.cu`` does: ``"registers"`` (every lane <= KREG
+    entries, one round of the block), ``"lists"`` (lists in shared memory,
+    where ``log_a`` does not fit there or they hold under a third of it)
+    or ``"columns"``."""
+    n, total = len(lengths), sum(lengths)
+    if not lists_fit(n, total):
+        return "columns"
+    per = KREG
+    while True:
+        groups = [min(32, 1 << max(0, (-(-ln // per) - 1).bit_length())) for ln in lengths]
+        if sum(groups) <= threads_for(n) or per >= n:
+            break
+        per *= 2
+    if sum(groups) <= threads_for(n) and max(-(-ln // g) for ln, g in zip(lengths, groups)) <= KREG:
+        return "registers"
+    return "lists" if not a_in_smem(n) or 3 * total <= n * n else "columns"
 
 
 def a_in_smem(n: int) -> bool:
-    """Whether the kernel stages ``log_a`` in shared memory (N <= 230);
-    above that it reads it through L1/L2 every frame."""
-    return smem_bytes(n, True) + 1024 <= SMEM_LIMIT
+    """Whether ``log_a`` fits in shared memory (N <= 234) for the columns
+    route; above that the kernel reads it through L1/L2."""
+    return 4 * n * n <= _layout(n)[1]
 
 
 def viterbi_dense_ok(t_len: int, n: int, batch: int = 1) -> bool:
     """The kernel's H100 capacity rule (it replaces the TPU's VMEM budget
     ``viterbi_dense_vmem_ok``): a block's 227 KB of shared memory must
     hold ``v`` and the backtrace's staged frames (72 N bytes, so
-    N <= 3,214), backpointers are int16 (N <= 32,767), and the (B, T, N)
-    int16 backpointer scratch stays within 2 GiB of the 80 GB of HBM."""
-    return (1 <= n <= N_LIMIT and smem_bytes(n, False) + 1024 <= SMEM_LIMIT
+    N <= 3,214; the forward's regions share that space), backpointers are
+    int16 (N <= 32,767), and the (B, T, N) int16 backpointer scratch stays
+    within 2 GiB of the 80 GB of HBM."""
+    return (1 <= n <= N_LIMIT and smem_bytes(n) + 1024 <= SMEM_LIMIT
             and batch * t_len * n * 2 <= BP_BUDGET)
 
 
@@ -70,6 +130,10 @@ def viterbi_dense_plain(log_pi: torch.Tensor, log_a: torch.Tensor, log_b: torch.
 def _launch(log_pi, log_a, log_b, mask, log_final):
     b, t, n = log_b.shape
     dev = log_b.device
+    if log_b.dtype != torch.float32:
+        raise ValueError(f"the dense Viterbi kernel takes float32, got {log_b.dtype}")
+    if not viterbi_dense_ok(t, n, b):
+        raise ValueError(f"N={n}, T={t}, B={b} is past the dense kernel's capacity")
     named = [("log_pi", log_pi, (n,)), ("log_a", log_a, (n, n))]
     if log_final is not None:
         named.append(("log_final", log_final, (n,)))
@@ -77,10 +141,6 @@ def _launch(log_pi, log_a, log_b, mask, log_final):
         if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"{name} must be float32 {shape} on {dev}, got "
                              f"{x.dtype} {tuple(x.shape)} on {x.device}")
-    if log_b.dtype != torch.float32:
-        raise ValueError(f"the dense Viterbi kernel takes float32, got {log_b.dtype}")
-    if not viterbi_dense_ok(t, n, b):
-        raise ValueError(f"N={n}, T={t}, B={b} is past the dense kernel's capacity")
     if mask is not None:
         if mask.shape != (b, t) or mask.device != dev:
             raise ValueError(f"mask must be ({b}, {t}) on {dev}, got {tuple(mask.shape)}")

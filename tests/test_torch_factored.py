@@ -248,12 +248,15 @@ def test_graph_decode_and_batch_match_jax():
 
 
 def test_kernel_dispatch_and_capacity():
-    """``_kernel_ok`` is decided from dtype, device and shapes: never on the
-    CPU; the H100 rule takes the serving graph (V = 1001, S = 8) and the
-    rank-1 factors far past it (up to one thread per cell of a block's
-    ceil(V / SMs) words), never sparse edges."""
-    _, tg, _ = _graphs(6, "dense", seed=1)
-    assert not tg._kernel_ok(100)
+    """The graph's kernels are picked by hop kind alone (``has_kernel``):
+    a dense hop, edge-free factors or no hop, never sparse edges. The H100
+    rule takes the serving graph (V = 1001, S = 8) and the rank-1 factors
+    far past it (up to one thread per cell of a block's ceil(V / SMs)
+    words)."""
+    for hop_mode, loop, has in (("dense", True, True), ("rank1", True, True),
+                                ("dense", False, True), ("backoff", True, False)):
+        _, tg, _ = _graphs(6, hop_mode, loop, seed=1)
+        assert tg.has_kernel == has
     assert F.factored_kernel_ok(511, 1001, 8, torch.zeros(1001, 1001), 132)
     assert not F.factored_kernel_ok(511, 8000, 8, torch.zeros(1, 1), 132)  # hop columns past smem
     rank1 = F.Rank1Hop(*(torch.zeros(16000) for _ in range(3)), -1)
@@ -263,4 +266,64 @@ def test_kernel_dispatch_and_capacity():
     assert not F.factored_kernel_ok(200_000, 16000, 8, None, 132)  # grids past 2 GiB
     _, tb, _ = _graphs(6, "backoff", seed=1)
     assert not F.factored_kernel_ok(100, 7, 4, tb.hop, 132)
+    assert F.factored_forward.launches == 0 and F.factored_backtrace.launches == 0
+
+
+def test_decode_grid_routes_by_hop_kind(monkeypatch):
+    """The 1-best decode takes the forward and backtrace wrappers for dense
+    and rank-1 hops and the loop-free graph (their plain versions on the
+    CPU, counting no launch; results as before, the scan's bitwise) and the
+    scan for factors with sparse edges. A CUDA graph past D's capacity (a
+    1-SM card) or in float64 raises instead of dropping to the scan."""
+    calls = []
+    for name in ("factored_forward", "factored_backtrace", "factored_trellis_scan"):
+        real = getattr(tdec, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*args, **kw)
+
+        monkeypatch.setattr(tdec, name, spy)
+    routes = {}
+    for hop_mode, loop in (("dense", True), ("rank1", True), ("dense", False), ("backoff", True)):
+        jg, tg, rng = _graphs(7, hop_mode, loop, seed=3)
+        obs = rng.normal(scale=8.0, size=(23, DIM)).astype(np.float32)
+        log_b, pi_grid, final_grid = _grid_inputs(jg, obs)
+        mask = np.arange(23) < 19
+        calls.clear()
+        path, score = tg._decode_grid(_t(log_b), _t(pi_grid), _t(final_grid), _t(mask))
+        routes[(hop_mode, loop)] = list(calls)
+        j_path, j_score = jdec.factored_trellis_scan(
+            jnp.asarray(log_b), jg.inner_a, jg.hop, jnp.asarray(pi_grid),
+            jnp.asarray(final_grid), jg.exit_idx, jnp.asarray(mask))
+        np.testing.assert_array_equal(path.numpy(), np.asarray(j_path))
+        np.testing.assert_array_equal(score.numpy(), np.asarray(j_score))
+    kernels = ["factored_forward", "factored_backtrace"]
+    assert routes == {("dense", True): kernels, ("rank1", True): kernels,
+                      ("dense", False): kernels, ("backoff", True): ["factored_trellis_scan"]}
+    monkeypatch.undo()
+
+    # a 300-word dense graph: within D's capacity on 132 SMs, past it on 1;
+    # the CUDA emissions stand in with their device, dtype and shape, all
+    # the wrapper reads before it refuses
+    rng = np.random.default_rng(2)
+    units = {f"u{i:03d}": _unit(rng.normal(scale=8.0, size=DIM), 2 + i % 3, rng)
+             for i in range(300)}
+    big = tdec.FactoredDecodingGraph.build(Lexicon.whole_word(sorted(units)), units, None,
+                                           tdec.DecoderConfig(), hop_mode="dense", device="cpu")
+    v, s = big.grid_shape
+    assert F.factored_kernel_ok(5, v, s, big._kernel_hop, 132)
+    assert not F.factored_kernel_ok(5, v, s, big._kernel_hop, 1)
+
+    def cuda_log_b(dtype):
+        return types.SimpleNamespace(device=torch.device("cuda"), shape=(5, v, s), dtype=dtype,
+                                     dim=lambda: 3)
+
+    grid = torch.zeros(v, s)
+    monkeypatch.setattr(F, "sm_count", lambda dev: 1)
+    with pytest.raises(ValueError, match="past the factored kernels' capacity"):
+        big._decode_grid(cuda_log_b(torch.float32), grid, grid, None)
+    monkeypatch.setattr(F, "sm_count", lambda dev: 132)
+    with pytest.raises(ValueError, match="log_b_grid must be torch.float32"):
+        big._decode_grid(cuda_log_b(torch.float64), grid, grid, None)
     assert F.factored_forward.launches == 0 and F.factored_backtrace.launches == 0
