@@ -8,7 +8,9 @@ Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
 PyTorch version at the serving shapes (the Viterbi kernels bitwise: the
 dense-graph kernel on sparse and dense graphs of 33 to 2000 states, ties
 across the lanes that split one source list, and batches with masks; the
-factored forward also over 60 back-to-back launches). Then
+factored forward and the lattice-recording forward also over 60
+back-to-back launches; the replay backtrace also on a planted path of 21
+words with masks at its windows' edges, for every hop kind). Then
 it drives the port's main paths through their entry points, each with the
 kernels' launch counters reset just before and read just after:
 
@@ -84,6 +86,23 @@ def cuda_ms(fn, reps, warmup=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, calls=10):
+    """Device milliseconds per call of ``fn``: the device time of the
+    kernels and memsets it launches (torch.profiler over ``calls`` calls
+    after one warm-up), without the host time between them that CUDA events
+    around a short wrapper call also catch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
 
 
 def device_breakdown(torch, fn, step_ms, card, steps=5):
@@ -301,29 +320,60 @@ def check_factored(torch, F, tdec, dev, graph, log_b, pi_grid, final_grid, mask,
                 f"{float(ref_score)}")
     require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
             f"kernels D+E differ from the plain versions on the CPU ({what})")
-    s_max = graph.grid_shape[1]
-    hops = int(((path_k[1:] // s_max) != (path_k[:-1] // s_max)).sum())
+    entries, hops, windows = replay_counts(torch, F, path_k, mask, graph.grid_shape[1])
     print(f"kernels D+E vs plain ({what}, T={log_b.shape[0]}, V={log_b.shape[1]}, "
           f"S={log_b.shape[2]}): grids bitwise at feasible states (infeasible states "
           f"{'also' if same_inf else 'NOT'} -inf in both), paths and scores bitwise equal to "
-          f"the plain replay and the scan (score {float(score_k)}, {hops} word changes)")
+          f"the plain replay and the scan (score {float(score_k)}; E's walk: {entries} steps at "
+          f"a word's first state, {hops} word changes, {len(windows)} windows)")
     return err
 
 
-def check_forward_repeats(torch, F, graph, log_b, pi_grid, mask, launches):
-    """Kernel D launched back to back on the same inputs, each launch's
-    grids bitwise (``-inf`` included) equal to the plain forward's: an
+def replay_counts(torch, F, path, mask, s_max):
+    """Kernel E's walk over ``path``: its valid steps at a word's first
+    state (where the replay's hop rule applies), its word changes, and the
+    frames its windows start from (``ops.factored.backtrace_windows``)."""
+    path = path.cpu()
+    mask = torch.ones(len(path), dtype=torch.bool) if mask is None else mask.cpu().to(torch.bool)
+    entries = int(((path[1:] % s_max == 0) & mask[1:]).sum())
+    hops = int(((path[1:] // s_max) != (path[:-1] // s_max)).sum())
+    return entries, hops, F.backtrace_windows(path, mask, s_max)
+
+
+def check_repeats(torch, wrapper, plain, graph, log_b, pi_grid, mask, launches):
+    """A forward kernel (D: ``factored_forward``, F: ``factored_lattice``)
+    launched back to back on the same inputs, each launch's outputs bitwise
+    (float bits, ``-inf`` included) equal to the plain version's: an
     ordering race in the exit exchange, or a stale tag taken as ready from
-    the previous launch's buffer, would show as a differing grid."""
+    the previous launch's buffer, would show as a differing output."""
+    def bits(out):
+        out = out if isinstance(out, tuple) else (out,)
+        return [x.view(torch.int32) if x.is_floating_point() else x for x in out]
+
     args = (pi_grid, graph.inner_a, graph.exit_idx, graph._kernel_hop, log_b, mask)
-    ref = F.factored_forward_plain(*args).view(torch.int32)
-    grids = [F.factored_forward(*args, hop_t=graph.hop_t) for _ in range(launches)]
+    ref = bits(plain(*args))
+    got = [wrapper(*args, hop_t=graph.hop_t) for _ in range(launches)]
     torch.cuda.synchronize()
-    bad = [k for k, g in enumerate(grids) if not torch.equal(g.view(torch.int32), ref)]
-    require(not bad, f"kernel D grids differ from the plain forward in launches {bad} of "
+    bad = [k for k, out in enumerate(got)
+           if not all(torch.equal(a, b) for a, b in zip(bits(out), ref))]
+    require(not bad, f"{wrapper.__name__} differs from its plain version in launches {bad} of "
                      f"{launches} back to back")
-    print(f"kernel D, {launches} back-to-back launches at T={log_b.shape[0]}, V={log_b.shape[1]}, "
-          f"S={log_b.shape[2]}: every grid bitwise equal to the plain forward's (-inf included)")
+    print(f"{wrapper.__name__}, {launches} back-to-back launches at T={log_b.shape[0]}, "
+          f"V={log_b.shape[1]}, S={log_b.shape[2]}: every launch's output bitwise equal to the "
+          "plain version's (-inf included)")
+
+
+def window_edge_mask(torch, F, path, mask, s_max):
+    """``mask`` with frames also masked at the edges of kernel E's windows
+    over ``path``: each window's first frame and, for the first few, the
+    frame 31 steps on (a full window's last step) and the one past it."""
+    out = mask.clone()
+    starts = F.backtrace_windows(path.cpu(), mask.cpu(), s_max)
+    for k, t0 in enumerate(starts):
+        out[t0] = False
+        if k < 6:
+            out[max(t0 - 31, 0)] = out[max(t0 - 32, 0)] = False
+    return out
 
 
 def check_lattice(torch, F, graph, log_b, pi_grid, mask, what):
@@ -649,18 +699,35 @@ def main():
         check_dense_viterbi(torch, vd, dev, np.random.default_rng(30 + k), n, seg_frames)
     check_dense_lists(torch, vd, dev, g22, seg_frames)
 
-    # -- 6. kernels D and E vs their plain versions (bitwise) -----------------
+    # -- 6. kernels D, E and F vs their plain versions (bitwise) --------------
     log_b1000, pi1000, final1000 = g1000._grid_inputs(feats1000)
     d_err = check_factored(torch, F, tdec, dev, g1000, log_b1000, pi1000, final1000, mask1000,
                            "the V=1000 segment, dense hop")
-    check_forward_repeats(torch, F, g1000, log_b1000, pi1000, mask1000, 60)
+    check_repeats(torch, F.factored_forward, F.factored_forward_plain, g1000, log_b1000, pi1000,
+                  mask1000, 60)
     require(F.lattice_kernel_ok(*g1000.grid_shape, g1000._kernel_hop, F.sm_count(dev)),
             "the V=1000 graph is not lattice-kernel-eligible")
     f_err = check_lattice(torch, F, g1000, log_b1000, pi1000, mask1000,
                           "the V=1000 segment, dense hop")
+    check_repeats(torch, F.factored_lattice, F.factored_lattice_plain, g1000, log_b1000, pi1000,
+                  mask1000, 60)
     rng = np.random.default_rng(5)
     rec1000 = recs[1000][0]
     lm = rec1000.lm.ngram
+    # 21 planted words at the segment's geometry, three of them between
+    # close word pairs: a path with many word changes (and N-best
+    # alternatives, section 7), with the bucket's mask and with frames also
+    # masked at the edges of kernel E's windows
+    alt_feats, alt_n, alt_pairs = ambiguous_features(
+        g1000, set(lm.vocabulary()), seg_frames, np.random.default_rng(7))
+    alt_mask = torch.arange(seg_frames, device=dev) < alt_n
+    alt_obs = torch.as_tensor(alt_feats, device=dev)
+    lb_alt, pi_alt, fin_alt = g1000._grid_inputs(alt_obs)
+    alt_path, _ = F.factored_backtrace(
+        F.factored_forward(pi_alt, g1000.inner_a, g1000.exit_idx, g1000._kernel_hop, lb_alt,
+                           alt_mask, hop_t=g1000.hop_t),
+        g1000.inner_a, g1000.exit_idx, g1000._kernel_hop, fin_alt, alt_mask, hop_t=g1000.hop_t)
+    edge_mask = window_edge_mask(torch, F, alt_path, alt_mask, g1000.grid_shape[1])
     bucket = torch.arange(seg_frames, device=dev) < seg_frames - 41
     t_grid = (seg_frames,) + g1000.grid_shape
     rand_b = torch.as_tensor(rng.normal(scale=6.0, size=t_grid).astype(np.float32), device=dev)
@@ -674,12 +741,18 @@ def main():
         require(g.has_kernel and F.factored_kernel_ok(seg_frames, *g.grid_shape, g._kernel_hop,
                                                       F.sm_count(dev)),
                 f"the {kind} hop graph is not kernel-eligible")
+        require(kind != "rank1" or g._kernel_hop.sil_idx >= 0,
+                "the rank-1 graph has no silence word")
         _, pi_g, fin_g = g._grid_inputs(feats1000[:1])
         for lb, what in ((rand_b, "random emissions"), (torch.round(rand_b), "integer ties")):
             d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb, pi_g, fin_g, bucket,
                                               f"{kind} hop, {what}, bucket mask"))
             f_err = max(f_err, check_lattice(torch, F, g, lb, pi_g, bucket,
                                              f"{kind} hop, {what}, bucket mask"))
+        lb_p, pi_p, fin_p = g._grid_inputs(alt_obs)
+        for m, what in ((alt_mask, "bucket mask"), (edge_mask, "masks at E's window edges")):
+            d_err = max(d_err, check_factored(torch, F, tdec, dev, g, lb_p, pi_p, fin_p, m,
+                                              f"{kind} hop, 21 planted words, {what}"))
     # the largest forward blocks the capacity rule admits (edge-free hops,
     # whose rows leave shared memory room for 1024-thread blocks)
     n_sm = F.sm_count(dev)
@@ -854,10 +927,6 @@ def main():
     # the segment decodes to silence, so its list has one hypothesis: the
     # same steps on planted frames at the segment's geometry, with three
     # word sites each between two close words, give a list with alternatives
-    alt_feats, alt_n, alt_pairs = ambiguous_features(
-        g1000, set(rec.lm.ngram.vocabulary()), seg_frames, np.random.default_rng(7))
-    alt_mask = torch.arange(seg_frames, device=dev) < alt_n
-    alt_obs = torch.as_tensor(alt_feats, device=dev)
     alt_recs = host_records(tdec, g1000, alt_obs, alt_mask, alt_n)
     alt = lattice_nbest(g1000, alt_recs)[0]
     g_cpu = recs_cpu[1000].graph
@@ -959,7 +1028,13 @@ def main():
     d_bound, d_by = bound(graph_bytes + 2 * grid_bytes + seg_frames,
                           steps * (2 * vw * vw + 2 * vw * sw * sw + 2 * vw + vw * sw))
     path_e, _ = F.factored_backtrace(*e_args, hop_t=hop_t)
-    entries = int(((path_e[1:] % sw == 0) & mask1000[1:]).sum())
+    entries, e_hops, e_windows = replay_counts(torch, F, path_e, mask1000, sw)
+    # E on the planted path of 21 words (many word changes, more windows)
+    e_alt_args = (F.factored_forward(pi_alt, ia, ei, hop, lb_alt, alt_mask, hop_t=hop_t), ia, ei,
+                  hop, fin_alt, alt_mask)
+    e_alt_ms = cuda_ms(lambda: F.factored_backtrace(*e_alt_args, hop_t=hop_t), reps=30)
+    alt_counts = replay_counts(torch, F, F.factored_backtrace(*e_alt_args, hop_t=hop_t)[0],
+                               alt_mask, sw)
     # E touches grid[T-1] and final once, one S-row of grid[t-1] and one
     # inner_a column per valid step, and V exit scores and V hop entries
     # only where the path sits at a word's first state
@@ -977,6 +1052,11 @@ def main():
           f"floor) {c_floor_ms:.4f} ms, so the lists of the V=22 graph add "
           f"{1e3 * (c_ms - c_floor_ms) / int(mask22[1:].sum()):.3f} us a frame; on random dense "
           f"graphs (whole columns) N=179 {c_dense_ms[179]:.4f} ms, N=256 {c_dense_ms[256]:.4f} ms")
+    print(f"timing on {card}: kernel E's walk on the segment: {entries} valid steps at a word's "
+          f"first state, {e_hops} word changes, {len(e_windows)} windows of up to "
+          f"{F.BACKTRACE_WINDOW} frames; on the planted path of 21 words {e_alt_ms:.4f} ms "
+          f"({alt_counts[0]} steps at a first state, {alt_counts[1]} word changes, "
+          f"{len(alt_counts[2])} windows)")
     print(f"timing on {card}: kernel D's frames without the dense hop: no hop (no exchange) "
           f"{d_none_ms:.4f} ms, rank-1 hop (exchange + block max) {d_rank1_ms:.4f} ms, so the "
           f"exchange and the dense reduction take {1e3 * (d_ms - d_none_ms) / steps:.3f} us a "
@@ -1018,42 +1098,47 @@ def main():
           f"{alt_host_ms:.4f} ms")
     device_breakdown(torch, nbest, nb_ms, f"{card}, N-best segment V=1000")
 
-    no_library = None  # no single PyTorch call computes a Viterbi trellis, its replay or its records
+    # each kernel's device time per wrapper call (A: its launch alone, as
+    # timed above); the event times above also count the host's time
+    # between a wrapper's launches, which a short kernel no longer hides
+    calls = {"mel_frontend": lambda: mf._launch(y, cfg),
+             "viterbi": lambda: vt.viterbi_small(lp, la, log_b),
+             "viterbi_dense": lambda: vd.viterbi_dense(*c_args),
+             "factored_forward": lambda: F.factored_forward(*d_args, hop_t=hop_t),
+             "factored_backtrace": lambda: F.factored_backtrace(*e_args, hop_t=hop_t),
+             "factored_lattice": lambda: F.factored_lattice(*f_args, hop_t=hop_t)}
+    dev_ms = {name: device_ms(torch, fn) for name, fn in calls.items()}
+    e_alt_dev_ms = device_ms(torch, lambda: F.factored_backtrace(*e_alt_args, hop_t=hop_t))
+    print(f"timing on {card}: device time per call (torch.profiler, 10 calls): "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
+          + f"; kernel E on the planted path of 21 words {e_alt_dev_ms:.4f} ms")
 
-    def launch_keys(name, own_path):
-        """``launches`` on the kernel's own slice's main path, and its count
-        on every main path run here."""
-        return {"launches": launches[own_path][name],
-                "launches_by_path": {p: c[name] for p, c in launches.items()}}
+    def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
+        """One kernel's entry: ``launches`` on its own slice's main path and
+        ``launches_by_path`` on every main path run here; ``ms`` its device
+        time per call, ``wrapper_ms`` the CUDA-event time of the call. No
+        single PyTorch call computes any of these kernels' functions."""
+        return {"name": name, "route": "cuda", "source": f"lnasr_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": launches[own_path][counter],
+                "launches_by_path": {p: c[counter] for p, c in launches.items()},
+                "max_abs_err": err, "ms": dev_ms[name], "wrapper_ms": wrapper_ms,
+                "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
-        {"name": "mel_frontend", "route": "cuda", "source": "lnasr_tpu_torch/csrc/mel_frontend.cu",
-         "replaces": "lnasr_tpu/ops/mfcc_pallas.py:429", **launch_keys("mel_frontend", "flagship"),
-         "max_abs_err": mel_err, "ms": a_ms, "plain_ms": a_plain_ms, "bound_ms": a_bound,
-         "bound_by": a_by, "library_ms": None},
-        {"name": "viterbi", "route": "cuda", "source": "lnasr_tpu_torch/csrc/viterbi.cu",
-         "replaces": "lnasr_tpu/ops/trellis_pallas.py:129", **launch_keys("viterbi_small", "flagship"),
-         "max_abs_err": 0.0, "ms": b_ms, "plain_ms": b_plain_ms, "bound_ms": b_bound,
-         "bound_by": b_by, "library_ms": None},
-        {"name": "viterbi_dense", "route": "cuda", "source": "lnasr_tpu_torch/csrc/viterbi_dense.cu",
-         "replaces": "lnasr_tpu/ops/trellis_pallas.py:299", **launch_keys("viterbi_dense", "V=22"),
-         "max_abs_err": c_err, "ms": c_ms, "plain_ms": c_plain_ms, "bound_ms": c_bound,
-         "bound_by": c_by, "library_ms": no_library},
-        {"name": "factored_forward", "route": "cuda",
-         "source": "lnasr_tpu_torch/csrc/factored_forward.cu",
-         "replaces": "lnasr_tpu/ops/factored_pallas.py:240",
-         **launch_keys("factored_forward", "V=1000"), "max_abs_err": d_err, "ms": d_ms,
-         "plain_ms": d_plain_ms, "bound_ms": d_bound, "bound_by": d_by, "library_ms": no_library},
-        {"name": "factored_backtrace", "route": "cuda",
-         "source": "lnasr_tpu_torch/csrc/factored_backtrace.cu",
-         "replaces": "lnasr_tpu/ops/factored_pallas.py:399",
-         **launch_keys("factored_backtrace", "V=1000"), "max_abs_err": 0.0, "ms": e_ms,
-         "plain_ms": e_plain_ms, "bound_ms": e_bound, "bound_by": e_by, "library_ms": no_library},
-        {"name": "factored_lattice", "route": "cuda",
-         "source": "lnasr_tpu_torch/csrc/factored_lattice.cu",
-         "replaces": "lnasr_tpu/ops/factored_pallas.py:661",
-         **launch_keys("factored_lattice", "V=1000 nbest"), "max_abs_err": f_err, "ms": f_ms,
-         "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_by, "library_ms": no_library},
+        kernel_row("mel_frontend", "mel_frontend", "flagship", "lnasr_tpu/ops/mfcc_pallas.py:429",
+                   mel_err, a_ms, a_plain_ms, (a_bound, a_by)),
+        kernel_row("viterbi", "viterbi_small", "flagship", "lnasr_tpu/ops/trellis_pallas.py:129",
+                   0.0, b_ms, b_plain_ms, (b_bound, b_by)),
+        kernel_row("viterbi_dense", "viterbi_dense", "V=22", "lnasr_tpu/ops/trellis_pallas.py:299",
+                   c_err, c_ms, c_plain_ms, (c_bound, c_by)),
+        kernel_row("factored_forward", "factored_forward", "V=1000",
+                   "lnasr_tpu/ops/factored_pallas.py:240", d_err, d_ms, d_plain_ms,
+                   (d_bound, d_by)),
+        kernel_row("factored_backtrace", "factored_backtrace", "V=1000",
+                   "lnasr_tpu/ops/factored_pallas.py:399", 0.0, e_ms, e_plain_ms, (e_bound, e_by)),
+        kernel_row("factored_lattice", "factored_lattice", "V=1000 nbest",
+                   "lnasr_tpu/ops/factored_pallas.py:661", f_err, f_ms, f_plain_ms,
+                   (f_bound, f_by)),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

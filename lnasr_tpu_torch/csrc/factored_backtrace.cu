@@ -8,23 +8,49 @@
 // (bitwise) grid values: the first s maximizing grid[t-1][w, s] +
 // inner_a[w, s, j] within the word; at local state j = 0 the first source
 // word maximizing exit[v] + hop[v, w] (or the rank-1 argmax over
-// exit + from_w, and over exit + sil_from for the silence word), taken
-// only when strictly better than the within-word candidate; masked frames
-// point to themselves. Termination is the first maximum of
+// exit + from_w, plus uni[w], and over exit + sil_from for the silence
+// word), taken only when strictly better than the within-word candidate;
+// masked frames point to themselves. Termination is the first maximum of
 // grid[T-1] + final over flat v*S+s ids. These are the rules of
 // lnasr_tpu_torch/models/decoder.py:factored_trellis_scan, so the path and
 // score are bitwise those of the scan. Hop kind "none" (loop-free graphs)
 // is taken here too, where the JAX package fell back to an XLA scan.
 //
-// What bounds it on an H100: it reads at most the 16 MB of grids once
-// (V = 1000, S = 8, T = 510), ~5 us at 3.35 TB/s, and computes little. In
-// practice it is a latency chain: T - 1 dependent steps, each needing the
-// previous state. The design keeps a step short: one block per utterance,
-// the within-word
-// argmax is one warp's S-wide shuffle reduction, and the V-wide hop
-// argmax (the expensive part: one hop column and V exit scores) runs with
-// the whole block only at steps where the path sits at a word's first
-// state, the only place the reference's rule can take the hop.
+// What bounds it on an H100: the work is small (it reads at most the 16 MB
+// of grids once at V = 1000, S = 8, T = 510, ~5 us at 3.35 TB/s) but it is
+// a chain of T - 1 dependent steps. The first design walked it on one
+// block of 512 threads with every step's reads on the chain: an L2 round
+// trip for the state's S-row of grid[t-1], two block barriers every step,
+// and at a word's first state (237 of the serving segment's 510 steps) a
+// V-wide gather of exit scores (two dependent loads a source) and a block
+// argmax with two more barriers; ~1.45 us a step.
+//
+// Now everything that does not depend on the path's state comes off the
+// chain. (a) A pre-pass over all SMs gathers exits[t, v] =
+// grids[t, v, exit_idx[v]] into a compact (T, Vp) buffer (Vp: V rounded up
+// to 4, padded with -inf). (b) The chain runs in windows of K = 32 frames
+// of one word. With the path in word w at frame t, warp i of one
+// 1024-thread block takes the step from frame t - i: it loads the S-row
+// grids[t-i-1, w, :], and on a valid frame with a hop it takes the hop's
+// first argmax over v of exits[t-i-1, v] + w's hop column (staged in
+// shared memory when the word changes; rank-1: from_w, or sil_from for the
+// silence word, with uni[w] added after the argmax), its lanes loading the
+// exit row as float4s, four (value, index) pairs a lane merged by the
+// larger value and then the smaller index. Then for every local state j it
+// writes row i of a table: the step's predecessor of j, which is j itself
+// on a masked frame, else the first within-word argmax s, replaced at
+// j = 0 by the hop's source exit where the hop's value is strictly larger.
+// After one barrier one thread walks the K steps through the table, one
+// shared load a step and no block barrier. The window ends after its K-th
+// step or at the first step that leaves the word (only a hop does; a hop
+// from the word to itself keeps the table valid), and the next starts
+// there (ops/factored.py:backtrace_windows counts them from a path). The
+// hop work is speculative (done for every frame of a window, used at j = 0
+// only), but the block does it in parallel. What bounds it now: per
+// window, the L2 round trips of the rows and of the K exit rows (K * V * 4
+// bytes) and two block barrier waits (three when the word changes), plus
+// the walk's chain of shared loads; windows are ~T / K plus the path's
+// word changes.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,7 +61,10 @@ namespace {
 constexpr int HOP_NONE = 0;
 constexpr int HOP_DENSE = 1;
 constexpr int HOP_RANK1 = 2;
-constexpr int THREADS = 512;
+constexpr int K = 32;                 // frames a window; one warp each
+constexpr int THREADS = K * 32;
+constexpr int SMEM_LIMIT = 232448;    // a block's shared memory on sm_90
+constexpr int GATHER_THREADS = 256;
 
 struct Args {
     const float* grids;     // (T, V, S)
@@ -47,98 +76,173 @@ struct Args {
     const float* sil_from;  // (V,)
     const float* final_grid;  // (V, S)
     const uint8_t* mask;    // (T,) or null
+    const float* exits;     // (T, Vp) from the pre-pass, or null (no hop)
     int* path;              // (T,)
     float* score;           // ()
     int hop_kind, sil_idx, T, V, S;
 };
 
-__device__ __forceinline__ void argmax_merge(float& bv, int& bi, float ov, int oi) {
-    if (ov > bv || (ov == bv && oi < bi)) { bv = ov; bi = oi; }
-}
-
-__device__ __forceinline__ void warp_argmax(float& bv, int& bi) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        argmax_merge(bv, bi, ov, oi);
+// (value, index) argmax: the larger value, the smaller index on a tie.
+__device__ __forceinline__ void arg_take(float& m, int& a, float om, int oa) {
+    if (om > m || (om == m && oa < a)) {
+        m = om;
+        a = oa;
     }
 }
 
-// First argmax over the whole block; every thread gets the result.
-__device__ __forceinline__ void block_argmax(float& bv, int& bi, float* rv, int* ri) {
-    warp_argmax(bv, bi);
-    const int warp = threadIdx.x >> 5;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) { rv[warp] = bv; ri[warp] = bi; }
-    __syncthreads();
-    bv = rv[0];
-    bi = ri[0];
-    for (int w = 1; w < (int)(blockDim.x >> 5); ++w) argmax_merge(bv, bi, rv[w], ri[w]);
+__device__ __forceinline__ void warp_argmax(float& m, int& a) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float om = __shfl_xor_sync(0xffffffffu, m, off);
+        const int oa = __shfl_xor_sync(0xffffffffu, a, off);
+        arg_take(m, a, om, oa);
+    }
+}
+
+// exits[t, v] = grids[t, v, exit_idx[v]], spread over the card; rows
+// padded to Vp = V rounded up to 4 with -inf (never a hop's argmax).
+__global__ void gather_exits_kernel(const float* grids, const int* exit_idx, int T, int V, int Vp,
+                                    int S, float* exits) {
+    const size_t n = (size_t)T * Vp;
+    for (size_t k = (size_t)blockIdx.x * blockDim.x + threadIdx.x; k < n;
+         k += (size_t)gridDim.x * blockDim.x) {
+        const int t = (int)(k / Vp), v = (int)(k - (size_t)t * Vp);
+        exits[k] = v < V ? grids[((size_t)t * V + v) * S + exit_idx[v]] : -INFINITY;
+    }
 }
 
 __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
-    __shared__ float rv[THREADS / 32];
-    __shared__ int ri[THREADS / 32];
-    __shared__ int state_sh;
-    const int tid = threadIdx.x, nth = blockDim.x;
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ float redv[K];
+    __shared__ int redi[K];
+    __shared__ int state_sh, tau_sh;
+
+    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
     const int V = p.V, S = p.S, T = p.T;
     const size_t frame = (size_t)V * S;
+    const int hk = p.hop_kind;
     const int BIG = 0x7fffffff;
 
-    // termination over flat v*S+s ids
-    float bv = -INFINITY;
-    int bi = BIG;
-    const float* last = p.grids + (size_t)(T - 1) * frame;
-    for (int k = tid; k < (int)frame; k += nth) argmax_merge(bv, bi, last[k] + p.final_grid[k], k);
-    block_argmax(bv, bi, rv, ri);
-    int state = bi < (int)frame ? bi : 0;
-    if (tid == 0) {
-        p.score[0] = bv;
-        p.path[T - 1] = state;
-    }
-    __syncthreads();  // rv is rewritten by the first step
+    const int Vp = (V + 3) & ~3;                  // exits' and the column's padded width
+    float* col = reinterpret_cast<float*>(smem);  // [Vp] w's hop column (hop kinds only)
+    float* ia = col + (hk != HOP_NONE ? Vp : 0);  // [S * S] w's inner block
+    float* row = ia + S * S;                      // [K * S] staged S-rows
+    int* tab = reinterpret_cast<int*>(row + K * S);  // [K * S] each step's predecessor of each j
 
-    for (int t = T - 1; t >= 1; --t) {
-        if (p.mask != nullptr && !p.mask[t]) {  // identity step: self backpointer
-            if (tid == 0) p.path[t - 1] = state;
-            continue;
+    // termination over flat v*S+s ids
+    {
+        float bv = -INFINITY;
+        int bi = BIG;
+        const float* last = p.grids + (size_t)(T - 1) * frame;
+        for (int k = tid; k < (int)frame; k += THREADS)
+            arg_take(bv, bi, last[k] + p.final_grid[k], k);
+        warp_argmax(bv, bi);
+        if (lane == 0) {
+            redv[warp] = bv;
+            redi[warp] = bi;
         }
-        const float* vprev = p.grids + (size_t)(t - 1) * frame;
-        const int w = state / S, j = state - w * S;
-        int pred = 0;
-        if (tid < 32) {  // within-word first argmax over s (warp 0)
-            float mv = -INFINITY;
-            int ms = BIG;
-            for (int s = tid; s < S; s += 32)
-                argmax_merge(mv, ms, vprev[(size_t)w * S + s] + p.inner_a[((size_t)w * S + s) * S + j], s);
-            warp_argmax(mv, ms);
-            if (ms >= S) ms = 0;
-            pred = w * S + ms;
-            if (tid == 0) { rv[0] = mv; state_sh = pred; }
+        __syncthreads();
+        if (tid == 0) {
+            for (int w = 1; w < K; ++w) arg_take(bv, bi, redv[w], redi[w]);
+            const int state = bi < (int)frame ? bi : 0;
+            p.score[0] = bv;
+            p.path[T - 1] = state;
+            state_sh = state;
+            tau_sh = T - 1;
         }
-        if (p.hop_kind != HOP_NONE && j == 0) {  // uniform across the block
+        __syncthreads();
+    }
+
+    int w_staged = -1;
+    for (;;) {
+        const int state = state_sh, tau0 = tau_sh;  // the path is at `state` at frame tau0
+        if (tau0 < 1) break;
+        const int w = state / S, lo = w * S;
+        if (w != w_staged) {  // uniform across the block
+            if (hk != HOP_NONE) {
+                const float* add = hk == HOP_DENSE ? p.hop_t + (size_t)w * V
+                                   : (w == p.sil_idx ? p.sil_from : p.from_w);
+                for (int v = tid; v < Vp; v += THREADS) col[v] = v < V ? add[v] : 0.0f;
+            }
+            for (int k = tid; k < S * S; k += THREADS) ia[k] = p.inner_a[(size_t)lo * S + k];
+            w_staged = w;
             __syncthreads();
-            const float m = rv[0];
+        }
+        // warp i: the step from frame tau = tau0 - i to tau - 1, as row i of
+        // the table: the predecessor of each local state j
+        const int tau = tau0 - warp;
+        if (tau >= 1) {
+            const float* src = p.grids + (size_t)(tau - 1) * frame + lo;
+            const float rv = lane < S ? src[lane] : 0.0f;  // in flight during the hop
+            const bool valid = p.mask == nullptr || p.mask[tau];
             float hv = -INFINITY;
-            int hi = BIG;
-            const bool sil = p.hop_kind == HOP_RANK1 && w == p.sil_idx;
-            const float* add = p.hop_kind == HOP_DENSE ? p.hop_t + (size_t)w * V
-                               : (sil ? p.sil_from : p.from_w);
-            for (int v = tid; v < V; v += nth)
-                argmax_merge(hv, hi, vprev[(size_t)v * S + p.exit_idx[v]] + add[v], v);
-            block_argmax(hv, hi, rv, ri);
-            if (p.hop_kind == HOP_RANK1 && !sil) hv = hv + p.uni[w];
-            if (tid == 0) {
-                if (hi < V && hv > m) pred = hi * S + p.exit_idx[hi];
-                state_sh = pred;
+            int hpred = -1;
+            if (hk != HOP_NONE && valid) {
+                // first argmax over v of exits[tau - 1, v] + col[v]: lane l
+                // loads the float4s l, l + 32, ...; pair k takes their
+                // component k, sources 4 (l + 32 m) + k in increasing order
+                const float4* ex4 =
+                    reinterpret_cast<const float4*>(p.exits + (size_t)(tau - 1) * Vp);
+                const float4* c4 = reinterpret_cast<const float4*>(col);
+                float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+                int a0 = 4 * lane, a1 = 4 * lane + 1, a2 = 4 * lane + 2, a3 = 4 * lane + 3;
+#pragma unroll 8
+                for (int q = lane; q < Vp / 4; q += 32) {
+                    const float4 e = __ldg(ex4 + q), c = c4[q];
+                    const float c0 = e.x + c.x, c1 = e.y + c.y, c2 = e.z + c.z, c3 = e.w + c.w;
+                    if (c0 > m0) { m0 = c0; a0 = 4 * q; }
+                    if (c1 > m1) { m1 = c1; a1 = 4 * q + 1; }
+                    if (c2 > m2) { m2 = c2; a2 = 4 * q + 2; }
+                    if (c3 > m3) { m3 = c3; a3 = 4 * q + 3; }
+                }
+                arg_take(m0, a0, m1, a1);
+                arg_take(m2, a2, m3, a3);
+                arg_take(m0, a0, m2, a2);
+                warp_argmax(m0, a0);  // every lane holds it
+                hv = hk == HOP_RANK1 && w != p.sil_idx ? m0 + p.uni[w] : m0;
+                hpred = a0 * S + p.exit_idx[a0];
+            }
+            float* r = row + warp * S;
+            if (lane < S) r[lane] = rv;
+            for (int s = lane + 32; s < S; s += 32) r[s] = src[s];
+            __syncwarp();
+            for (int j = lane; j < S; j += 32) {
+                int pred = lo + j;  // a masked frame points to itself
+                if (valid) {  // first s, strict > in increasing s
+                    float m = r[0] + ia[j];
+                    int sa = 0;
+                    for (int s = 1; s < S; ++s) {
+                        const float c = r[s] + ia[s * S + j];
+                        if (c > m) {
+                            m = c;
+                            sa = s;
+                        }
+                    }
+                    pred = j == 0 && hv > m ? hpred : lo + sa;
+                }
+                tab[warp * S + j] = pred;
             }
         }
         __syncthreads();
-        state = state_sh;
-        if (tid == 0) p.path[t - 1] = state;
-        __syncthreads();  // state_sh / rv are rewritten next step
+        if (tid == 0) {  // the walk: one shared load a step, no barrier
+            int cur = state, t = tau0;
+            const int steps = min(K, tau0);
+            for (int i = 0; i < steps; ++i) {
+                cur = tab[i * S + cur - lo];
+                p.path[--t] = cur;
+                if ((unsigned)(cur - lo) >= (unsigned)S) break;  // a hop into another word
+            }
+            state_sh = cur;
+            tau_sh = t;
+        }
+        __syncthreads();
     }
+}
+
+// Mirrored by lnasr_tpu_torch/ops/factored.py:backtrace_smem_bytes (capacity rule).
+size_t smem_bytes(int V, int S, int hop_kind) {
+    const size_t vp = (size_t)((V + 3) & ~3);
+    return ((hop_kind != HOP_NONE ? vp : 0) + (size_t)S * S + 2 * (size_t)K * S) * sizeof(float);
 }
 
 }  // namespace
@@ -147,11 +251,29 @@ extern "C" int factored_backtrace_launch(const float* grids, const float* inner_
                                          int hop_kind, const float* hop_t, const float* from_w,
                                          const float* uni, const float* sil_from, int sil_idx,
                                          const float* final_grid, const uint8_t* mask, int T, int V,
-                                         int S, int* path, float* score, void* stream) {
+                                         int S, float* exits, int* path, float* score,
+                                         void* stream) {
     if (T < 1 || V < 1 || S < 1) return (int)cudaErrorInvalidValue;
-    Args a{grids, inner_a, exit_idx, hop_t, from_w, uni, sil_from, final_grid, mask, path, score,
-           hop_kind, sil_idx, T, V, S};
-    factored_backtrace_kernel<<<1, THREADS, 0, (cudaStream_t)stream>>>(a);
+    if (hop_kind != HOP_NONE && hop_kind != HOP_DENSE && hop_kind != HOP_RANK1)
+        return (int)cudaErrorInvalidValue;
+    if (hop_kind != HOP_NONE && exits == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t smem = smem_bytes(V, S, hop_kind);
+    if (smem + 1024 > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(factored_backtrace_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (hop_kind != HOP_NONE) {
+        const int vp = (V + 3) & ~3;
+        const size_t want = ((size_t)T * vp + GATHER_THREADS - 1) / GATHER_THREADS;
+        const int blocks = (int)(want < 4096 ? want : 4096);
+        gather_exits_kernel<<<blocks, GATHER_THREADS, 0, (cudaStream_t)stream>>>(
+            grids, exit_idx, T, V, vp, S, exits);
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return (int)err;
+    }
+    Args a{grids, inner_a, exit_idx, hop_t, from_w, uni, sil_from, final_grid, mask,
+           exits, path, score, hop_kind, sil_idx, T, V, S};
+    factored_backtrace_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

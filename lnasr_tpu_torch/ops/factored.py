@@ -8,10 +8,12 @@ Counterpart of the JAX package's ``ops/factored_pallas.py``
 :func:`factored_forward` launches the kernel of
 ``csrc/factored_forward.cu`` (a cooperative launch over the card; the
 blocks exchange each frame's exit scores through tagged 64-bit slots,
-with no grid barrier), :func:`factored_backtrace` the kernel of
-``csrc/factored_backtrace.cu`` (one block per utterance) and
-:func:`factored_lattice` the kernel of ``csrc/factored_lattice.cu`` (the
-forward's layout carrying each state's token start and predecessor word);
+with no grid barrier), :func:`factored_backtrace` the kernels of
+``csrc/factored_backtrace.cu`` (a pre-pass over the card gathering every
+frame's exit scores, then one block per utterance walking the replay in
+windows of :data:`BACKTRACE_WINDOW` frames) and :func:`factored_lattice`
+the kernel of ``csrc/factored_lattice.cu`` (the forward's layout and
+exchange, carrying each state's token start and predecessor word);
 for CPU tensors they run :func:`factored_forward_plain`,
 :func:`factored_backtrace_plain` and :func:`factored_lattice_plain`, which
 the kernels are held to bitwise.
@@ -39,6 +41,7 @@ from lnasr_tpu_torch import _build
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 GRID_BUDGET = 2 * 1024**3  # bytes of stored grids one decode may take
 MAX_THREADS = 1024  # a forward block's threads: csrc/factored_forward.cu's launch bounds
+BACKTRACE_WINDOW = 32  # frames a backtrace window stages: csrc/factored_backtrace.cu's K
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,11 +49,11 @@ _I = ctypes.c_int
 # sil_idx, log_b, mask, T, V, S, n_sm, grids, exchange, stream
 _FWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
 # grids, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
-# sil_idx, final, mask, T, V, S, path, score, stream
-_BWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P]
+# sil_idx, final, mask, T, V, S, exits, path, score, stream
+_BWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]
 # pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
 # sil_idx, log_b, mask, T, V, S, n_sm, exit_score, exit_start, exit_pred,
-# exits, stream
+# exchange, stream
 _LAT_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
 
 
@@ -253,6 +256,16 @@ def forward_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
     return 4 * (floats + wpb) + (4 * wpb * v if kind == "dense" else 0)
 
 
+def backtrace_smem_bytes(v: int, s: int, kind: str) -> int:
+    """Shared memory of the backtrace block (``csrc/factored_backtrace.cu:
+    smem_bytes``): a window's :data:`BACKTRACE_WINDOW` staged S-rows and
+    its table of each step's predecessor of each local state, the word's
+    inner block and, with a hop, its hop column (V rounded up to 4
+    floats)."""
+    vp = -(-v // 4) * 4 if kind != "none" else 0
+    return 4 * (vp + s * s + 2 * BACKTRACE_WINDOW * s)
+
+
 def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
     """The kernels' H100 capacity rule (it replaces the TPU's VMEM budgets
     ``factored_pallas_ok`` / ``factored_rank1_ok``): the forward spreads
@@ -262,14 +275,39 @@ def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
     its registers stay within the SM's 64 K); a block's 227 KB of shared
     memory must hold its rows and, for a dense hop, its ``wpb`` hop columns
     (4 * wpb * V bytes: V up to ~2,500 words on 132 SMs); the stored grids
-    (4 T V S bytes) stay within 2 GiB of HBM. Factors with sparse edges
-    have no kernel."""
+    (4 T V S bytes) stay within 2 GiB of HBM. The backtrace's one block
+    must hold a window (:func:`backtrace_smem_bytes`: with a hop, V up to
+    ~57,000 words at S = 8, past the ~16,900 the forward takes on 132
+    SMs). Factors with sparse edges have no kernel."""
     kind = hop_kind(hop)
     if kind == "backoff" or min(t_len, v, s, n_sm) < 1:
         return False
     wpb = -(-v // n_sm)
     return (wpb * s <= MAX_THREADS and forward_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
+            and backtrace_smem_bytes(v, s, kind) + 1024 <= SMEM_LIMIT
             and 4 * t_len * v * s <= GRID_BUDGET)
+
+
+def backtrace_windows(path, mask, s_max: int, window: int = BACKTRACE_WINDOW) -> list:
+    """The windows kernel E walks for the decoded ``path`` (``(T,)`` in
+    v*S+s ids; ``mask`` ``(T,)`` or ``None``), as the frame each starts
+    from: from the last frame, a window takes up to ``window`` steps in one
+    word and ends early at the first valid step whose predecessor lies in
+    another word (only a hop changes the word; a masked step keeps the
+    state)."""
+    path = [int(x) for x in path]
+    valid = [True] * len(path) if mask is None else [bool(x) for x in mask]
+    windows, tau = [], len(path) - 1
+    while tau >= 1:
+        windows.append(tau)
+        w, steps = path[tau] // s_max, min(window, tau)
+        for t in range(tau, tau - steps, -1):
+            if valid[t] and path[t - 1] // s_max != w:
+                tau = t - 1
+                break
+        else:
+            tau -= steps
+    return windows
 
 
 def lattice_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
@@ -386,8 +424,10 @@ def factored_backtrace(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
                        hop_t: Optional[torch.Tensor] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Replay backtrace: ``grids (T, V, S)`` -> ``(path (T,) int32, score
-    ())``. The CUDA kernel for CUDA tensors (float32; it raises otherwise),
-    the plain replay for CPU tensors; bitwise equal."""
+    ())``. The CUDA kernels for CUDA tensors (float32, within
+    :func:`backtrace_smem_bytes`; it raises otherwise: the exit pre-pass
+    and the windowed walk, two launches counted as one), the plain replay
+    for CPU tensors; bitwise equal."""
     dev = grids.device
     if dev.type == "cpu":
         return factored_backtrace_plain(grids, inner_a, exit_idx, hop, final_grid, mask)
@@ -405,12 +445,15 @@ def factored_backtrace(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
     path = torch.empty((t,), dtype=torch.int32, device=dev)
     score = torch.empty((), dtype=f32, device=dev)
+    # every frame's exit scores, gathered by the pre-pass into rows of V
+    # rounded up to 4 (no hop: unused)
+    exits = torch.empty((t, -(-v // 4) * 4), dtype=f32, device=dev) if kind else None
     lib = _build.load("factored_backtrace", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_backtrace_launch(
             grids.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
             _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, final_grid.data_ptr(),
-            _ptr(mask), t, v, s, path.data_ptr(), score.data_ptr(),
+            _ptr(mask), t, v, s, _ptr(exits), path.data_ptr(), score.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_backtrace", rc)
@@ -452,14 +495,16 @@ def factored_lattice(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     score = torch.empty((t, v), dtype=f32, device=dev)
     start = torch.empty((t, v), dtype=i32, device=dev)
     pred = torch.empty((t, v), dtype=i32, device=dev)
-    exits = torch.empty((2, v), dtype=f32, device=dev)
+    # the exit exchange, as in factored_forward: the launcher fills it with
+    # a tag no frame uses before the kernel runs
+    exchange = torch.empty((2, v), dtype=torch.int64, device=dev)
     lib = _build.load("factored_lattice", _LAT_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_lattice_launch(
             pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
             _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
             _ptr(mask), t, v, s, n_sm, score.data_ptr(), start.data_ptr(), pred.data_ptr(),
-            exits.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            exchange.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_lattice", rc)
     factored_lattice.launches += 1

@@ -327,3 +327,270 @@ def test_decode_grid_routes_by_hop_kind(monkeypatch):
     with pytest.raises(ValueError, match="log_b_grid must be torch.float32"):
         big._decode_grid(cuda_log_b(torch.float64), grid, grid, None)
     assert F.factored_forward.launches == 0 and F.factored_backtrace.launches == 0
+
+
+# -- kernel E's windowed replay (csrc/factored_backtrace.cu), a NumPy model --
+
+
+def _take(best, pair):
+    """(value, index) argmax merge: the larger value, the smaller index on
+    a tie."""
+    if best is None or pair[0] > best[0] or (pair[0] == best[0] and pair[1] < best[1]):
+        return pair
+    return best
+
+
+def _lane_argmax(cand, vec):
+    """First argmax of ``cand`` as kernels F (``vec=1``) and E (``vec=4``)
+    reduce it over one warp: lane l carries four (value, index) pairs, each
+    over increasing sources with strict >. F: pair k over l + 32k + 128m
+    (the tail past the last full 128 into pair 0), starting at (-inf,
+    l + 32k). E: lane l loads the float4s l + 32m of the row padded to a
+    multiple of 4 with -inf, pair k over their component k, 4 (l + 32m) + k,
+    starting at (-inf, 4l + k). The pairs, then the lanes, merge by the
+    larger value and, on a tie, the smaller index."""
+    n, best = len(cand), None
+    if vec == 4:
+        cand = np.concatenate([cand, np.full(-n % 4, -np.inf, np.float32)])
+    for lane in range(32):
+        if vec == 1:
+            pairs = [(np.float32(-np.inf), lane + 32 * k) for k in range(4)]
+            v = lane
+            while v + 96 < n:
+                for k in range(4):
+                    if cand[v + 32 * k] > pairs[k][0]:
+                        pairs[k] = (cand[v + 32 * k], v + 32 * k)
+                v += 128
+            while v < n:
+                if cand[v] > pairs[0][0]:
+                    pairs[0] = (cand[v], v)
+                v += 32
+        else:
+            pairs = [(np.float32(-np.inf), 4 * lane + k) for k in range(4)]
+            for q in range(lane, len(cand) // 4, 32):
+                for k in range(4):
+                    if cand[4 * q + k] > pairs[k][0]:
+                        pairs[k] = (cand[4 * q + k], 4 * q + k)
+        for pair in pairs:
+            best = _take(best, pair)
+    return best
+
+
+def _windowed_backtrace(grids, inner_a, exit_idx, hop, final_grid, mask, k):
+    """What kernel E computes, step by step: the pre-pass's exit scores;
+    termination at the first flat maximum; then windows of ``k`` frames of
+    one word. For each frame of a window (a warp each, in parallel) the hop's
+    first argmax (``_lane_argmax``, E's float4 lanes; rank-1 adds ``uni[w]``
+    after it) and a table row: each local state's predecessor (itself on a
+    masked frame, else the first within-word s, or at j = 0 the hop's source
+    exit where the hop is strictly larger). One thread walks the table and
+    ends the window at a step that leaves the word. Returns ``(path, score,
+    windows)`` with each window as ``(first frame, steps, the step that left
+    the word or None, whether its first step is masked)``."""
+    grids = np.asarray(grids, np.float32)
+    ia = np.asarray(inner_a, np.float32)
+    ei = np.asarray(exit_idx)
+    t_len, v_words, s_max = grids.shape
+    kind = F.hop_kind(hop)
+    valid = np.ones(t_len, bool) if mask is None else np.asarray(mask, bool)
+    exits = grids[:, np.arange(v_words), ei]  # the pre-pass
+    flat = (grids[-1] + np.asarray(final_grid, np.float32)).reshape(-1)
+    state = int(np.argmax(flat))
+    score = flat[state]
+    path = np.zeros(t_len, np.int32)
+    path[-1] = state
+    windows, tau = [], t_len - 1
+    while tau >= 1:
+        w, steps = state // s_max, min(k, tau)
+        lo = w * s_max
+        if kind == "dense":
+            col = np.asarray(hop, np.float32)[:, w]
+        elif kind == "rank1":
+            col = np.asarray(hop.sil_from if w == hop.sil_idx else hop.from_w, np.float32)
+        tab = np.zeros((steps, s_max), np.int64)
+        for i in range(steps):  # warp i, all in parallel in the kernel
+            r = grids[tau - i - 1, w]
+            hv, hpred = np.float32(-np.inf), -1
+            if kind != "none" and valid[tau - i]:
+                hv, a = _lane_argmax(exits[tau - i - 1] + col, 4)
+                if kind == "rank1" and w != hop.sil_idx:
+                    hv = np.float32(hv + np.float32(hop.uni[w]))
+                hpred = a * s_max + int(ei[a])
+            for j in range(s_max):
+                tab[i, j] = lo + j
+                if valid[tau - i]:
+                    m, sa = r[0] + ia[w, 0, j], 0
+                    for s in range(1, s_max):
+                        c = r[s] + ia[w, s, j]
+                        if c > m:
+                            m, sa = c, s
+                    tab[i, j] = hpred if j == 0 and hv > m else lo + sa
+        cur, end = state, None  # the walk: one thread, no barrier
+        for i in range(steps):
+            cur = int(tab[i, cur - lo])
+            path[tau - i - 1] = cur
+            if not lo <= cur < lo + s_max:
+                end = i
+                break
+        windows.append((tau, steps, end, not valid[tau]))
+        tau -= steps if end is None else end + 1
+        state = cur
+    return path, score, windows
+
+
+def _np_hop(hop):
+    if hop is None or torch.is_tensor(hop):
+        return None if hop is None else hop.numpy()
+    return F.Rank1Hop(*(x.numpy() if torch.is_tensor(x) else x for x in hop))
+
+
+def _planted_obs(jg, words, durations, rng, noise=0.3):
+    """Frames near the means of ``words``, word i spread over
+    ``durations[i]`` frames (as evenly as its states allow)."""
+    mu = np.asarray(jg.mu)[:, 0]
+    sm, pm = np.asarray(jg.state_map), np.asarray(jg.pad_mask)
+    frames = []
+    for w, d in zip(words, durations):
+        wi = jg.words.index(w)
+        states = sm[wi][pm[wi]]
+        n = len(states)
+        for q, st in enumerate(states):
+            frames += [mu[st] + rng.normal(scale=noise, size=DIM)
+                       for _ in range(d // n + (q < d % n))]
+    return np.asarray(frames, np.float32)
+
+
+def _window_case(name):
+    """``(log_b, pi_grid, final_grid, mask, jax hop, port kernel hop,
+    inner_a, exit_idx)`` NumPy/port inputs for one case of kernel E's model;
+    the JAX package decodes the same arrays."""
+    if name == "ties":  # uniform emissions, stay == advance, all hops equal
+        v, s, t = 7, 3, 23
+        inner = np.full((v, s, s), -np.inf, np.float32)
+        for j in range(s):
+            inner[:, j, j] = np.log(0.5)
+            if j + 1 < s:
+                inner[:, j, j + 1] = np.log(0.5)
+        pi = np.full((v, s), -np.inf, np.float32)
+        pi[:, 0] = 0.0
+        mask = np.arange(t) < 20
+        mask[7] = False
+        return (np.zeros((t, v, s), np.float32), pi, np.zeros((v, s), np.float32), mask,
+                jnp.zeros((v, v), jnp.float32), _t(np.zeros((v, v), np.float32)), _t(inner),
+                _t(np.full(v, s - 1, np.int32)))
+    hop_mode, loop, with_lm = {
+        "dense": ("dense", True, True), "rank1-silence": ("rank1", True, True),
+        "no-hop": ("dense", False, True), "integer-ties": ("dense", True, True),
+        "planted": ("dense", True, False)}[name]
+    jg, tg, rng = _graphs(9, hop_mode, loop, with_lm=with_lm, seed=21)
+    if name == "planted":  # many word changes, words of 2-33 steps and 64
+        words = [jg.words[i] for i in (3, 0, 5, 8, 1, 6, 2, 7, 4, 3, 1, 8, 0, 5)]
+        durations = [33, 3, 32, 4, 64, 6, 7, 33, 2, 32, 5, 65, 3, 9]
+        obs = _planted_obs(jg, words, durations, rng)
+    else:
+        obs = rng.normal(scale=8.0, size=(77, DIM)).astype(np.float32)
+    log_b, pi_grid, final_grid = _grid_inputs(jg, obs)
+    if name == "integer-ties":
+        log_b = np.round(log_b / 8.0)
+    t = len(obs)
+    mask = np.arange(t) < t - 5  # a bucket's tail: the first window starts masked
+    mask[[1, t - 38, t - 37, t // 2]] = False  # and gaps inside and at window edges
+    return log_b, pi_grid, final_grid, mask, jg.hop, tg._kernel_hop, tg.inner_a, tg.exit_idx
+
+
+WINDOW_CASES = ["dense", "rank1-silence", "no-hop", "ties", "integer-ties", "planted"]
+
+
+def _check_window_case(name, k):
+    """Kernel E's model on one case, held bitwise (path and score) against
+    the plain replay, the JAX package's scan decoder and, for a dense hop or
+    none, its ``factored_backtrace``; and ``backtrace_windows`` finds its
+    windows from the path. Returns ``(the model's windows, the inputs)``."""
+    from lnasr_tpu.ops.factored_pallas import factored_backtrace as j_backtrace
+
+    case = _window_case(name)
+    log_b, pi_grid, final_grid, mask, j_hop, hop, inner_a, exit_idx = case
+    grids = F.factored_forward_plain(_t(pi_grid), inner_a, exit_idx, hop, _t(log_b), _t(mask))
+    path, score, windows = _windowed_backtrace(grids.numpy(), inner_a.numpy(), exit_idx.numpy(),
+                                               _np_hop(hop), final_grid, mask, k)
+    p_path, p_score = F.factored_backtrace(grids, inner_a, exit_idx, hop, _t(final_grid), _t(mask))
+    np.testing.assert_array_equal(path, p_path.numpy())
+    assert score.view(np.int32) == p_score.numpy().view(np.int32)
+    j_path, j_score = jdec.factored_trellis_scan(
+        jnp.asarray(log_b), jnp.asarray(inner_a.numpy()), j_hop, jnp.asarray(pi_grid),
+        jnp.asarray(final_grid), jnp.asarray(exit_idx.numpy()), jnp.asarray(mask))
+    np.testing.assert_array_equal(path, np.asarray(j_path))
+    assert score.view(np.int32) == np.asarray(j_score).view(np.int32)
+    if F.hop_kind(hop) != "rank1":
+        b_path, b_score = j_backtrace(jnp.asarray(grids.numpy()), jnp.asarray(inner_a.numpy()),
+                                      jnp.asarray(exit_idx.numpy()), None if hop is None else j_hop,
+                                      jnp.asarray(final_grid), jnp.asarray(mask))
+        np.testing.assert_array_equal(path, np.asarray(b_path))
+        assert score.view(np.int32) == np.asarray(b_score).view(np.int32)
+    assert F.backtrace_windows(path, mask, grids.shape[2], k) == [w[0] for w in windows]
+    return windows, case
+
+
+@pytest.mark.parametrize("name", WINDOW_CASES)
+@pytest.mark.parametrize("k", [1, 3, 32])
+def test_windowed_backtrace_model_bitwise(name, k):
+    """Kernel E's windowed walk, modelled in NumPy, gives the plain
+    replay's and the JAX package's path and score bitwise: dense and
+    rank-1 hops (with a silence word), no hop, exact ties in the hop argmax
+    and within words, masks inside windows and at their first step."""
+    windows, case = _check_window_case(name, k)
+    assert sum(w[1] if w[2] is None else w[2] + 1 for w in windows) == case[0].shape[0] - 1
+    if name == "rank1-silence":
+        assert case[5].sil_idx >= 0
+
+
+@pytest.mark.parametrize("k", [3, 32])
+def test_windowed_backtrace_model_edges(k):
+    """Across the cases, windows end on a hop at their first and at their
+    last step, start on a masked frame, and hold masked frames inside."""
+    ends, first_masked, masked_inside = set(), False, False
+    for name in WINDOW_CASES:
+        windows, case = _check_window_case(name, k)
+        mask = case[3]
+        for tau, steps, end, masked_first in windows:
+            walked = steps if end is None else end + 1
+            ends.add(end)
+            first_masked |= masked_first
+            masked_inside |= not mask[tau - walked + 1:tau].all()
+    assert 0 in ends and k - 1 in ends
+    assert first_masked and masked_inside
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 97, 128, 129, 257, 1001])
+@pytest.mark.parametrize("vec", [1, 4])
+def test_lane_argmax_takes_the_first_index(n, vec):
+    """The four-pair lane reductions of kernels F (strided) and E (float4)
+    return torch.max's first index on random values, on integer ties and
+    when every candidate is -inf (index 0)."""
+    rng = np.random.default_rng(n)
+    for cand in (rng.normal(size=n), np.round(rng.normal(size=n)), np.full(n, -np.inf),
+                 np.where(rng.random(n) < 0.7, -np.inf, np.round(rng.normal(size=n)))):
+        cand = cand.astype(np.float32)
+        m, a = torch.max(torch.as_tensor(cand), dim=0)
+        assert _lane_argmax(cand, vec) == (cand[int(a)], int(a))
+        assert cand[int(a)] == m.numpy() or (np.isinf(m.numpy()) and np.isinf(cand[int(a)]))
+
+
+def test_backtrace_windows_and_capacity():
+    """``backtrace_windows`` counts windows from a path (K steps, or up to a
+    step into another word; masked steps keep the word) and the backtrace's
+    shared memory enters the capacity rule."""
+    s = 4
+    path = np.array([0] * 10 + [5] * 3 + [9] * 40, np.int32)  # words 0, 1, 2
+    assert F.backtrace_windows(path, None, s, 32) == [52, 20, 12, 9]  # 40 = 32 + 8 in word 2
+    assert len(F.backtrace_windows(path, None, s, 1)) == len(path) - 1
+    assert F.backtrace_windows(path[:1], None, s) == []
+    assert F.backtrace_smem_bytes(1001, 8, "dense") == 4 * (1004 + 64 + 2 * 32 * 8)
+    assert F.backtrace_smem_bytes(1001, 8, "none") == 4 * (64 + 2 * 32 * 8)
+    # one word a forward block, S = 2: the forward's block fits, E's hop column does not
+    v = 57800
+    rank1 = F.Rank1Hop(*(torch.zeros(v) for _ in range(3)), -1)
+    assert F.forward_smem_bytes(v, 2, 1, "rank1") + 1024 <= F.SMEM_LIMIT
+    assert F.backtrace_smem_bytes(v, 2, "rank1") + 1024 > F.SMEM_LIMIT
+    assert not F.factored_kernel_ok(16, v, 2, rank1, v)
+    assert F.factored_kernel_ok(16, v, 2, None, v)  # no hop, no column
