@@ -180,6 +180,136 @@ def model(rng, n, kind):
             np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32))
 
 
+def check_mel_frontend(torch, mf, cfg, x, dev):
+    """Kernel A against its plain version: mel energies and frame energy
+    within ``2e-6 * max_energy + 1e-4 * |ref|``, features within 0.01, at
+    the serving geometry (with and without lengths), at the segment's
+    shape, and at other geometries: both routes of the kernel (the warp
+    FFT at fft_n 256 to 2048, the block-wide FFT at 128 and 4096). Prints
+    both fp32 paths' feature errors against a float64 oracle (the kernel's
+    within 0.0057). Returns the largest mel error at the serving geometry."""
+    from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
+
+    def within_bars(got, ref, what, scale, where):
+        require(got.shape == ref.shape, f"kernel A {what} shape {tuple(got.shape)} ({where})")
+        err = (got - ref).abs()
+        require(bool((err <= 2e-6 * scale + 1e-4 * ref.abs()).all()),
+                f"kernel A {what} off the bar ({where}): max err {float(err.max())}, "
+                f"scale {scale}")
+        return float(err.max())
+
+    def features_err(sig, c, lens):
+        feats_k, mask_k = mfcc_features_fused(sig, c, lengths=lens)
+        ref = mfcc_features(sig, c, lens)
+        require(torch.equal(mask_k, ref.mask), "kernel A feature masks differ")
+        return float(((feats_k - ref.features).abs() * ref.mask[..., None]).max())
+
+    lengths = torch.as_tensor(np.random.default_rng(1).integers(S // 2, S + 1, size=x.shape[0]),
+                              device=dev)
+    lengths[0] = S
+    mel_err = 0.0
+    for lens in (None, lengths):
+        where = "variable lengths" if lens is not None else "full length"
+        mel_k, en_k = mf.mel_frontend(x, cfg, lengths=lens)
+        mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(x, cfg, lens), cfg)
+        torch.cuda.synchronize()
+        scale = float(en_p.max())
+        mel_err = max(mel_err, within_bars(mel_k, mel_p, "mel", scale, where))
+        within_bars(en_k, en_p, "energy", scale, where)
+        ferr = features_err(x, cfg, lens)
+        require(ferr < 0.01, f"kernel A features off by {ferr} ({where})")
+        print(f"kernel A vs plain ({where}): mel max err {float((mel_k - mel_p).abs().max()):.6g} "
+              f"of energy scale {scale:.6g} (bar 2e-6*scale + 1e-4*|ref|), features max err "
+              f"{ferr:.3g} (bar 0.01): ok")
+    # which side is nearer the truth: both fp32 paths against the plain chain in float64
+    mel64, en64 = mf.mel_frontend_plain(mf.preemphasize(x, cfg).double(), cfg)
+    all_frames = torch.ones(mel64.shape[:2], dtype=torch.bool, device=dev)
+    f64 = cepstral_epilogue(mel64, en64, all_frames, cfg, torch.float64, False)[1]
+    k_err = float((mfcc_features_fused(x, cfg)[0].double() - f64).abs().max())
+    p_err = float((mfcc_features(x, cfg).features.double() - f64).abs().max())
+    print(f"features vs a float64 oracle: kernel path max err {k_err:.3g}, "
+          f"plain fp32 path max err {p_err:.3g}")
+    # the block-wide float32 FFT of the first port sat 0.0057 from the
+    # oracle on these signals; no kernel may drift farther
+    require(k_err <= 0.0057, f"kernel A features {k_err} from the float64 oracle (bar 0.0057)")
+    # the segment's shape (one utterance of 511 frames: four frames a block)
+    # and other geometries: any n_mels, other frame lengths and FFT sizes
+    seg_len = 510 * cfg.frame_step + cfg.frame_len
+    for sig, other in ((x[:1, :seg_len], cfg),
+                       (x[:4, :SR], dataclasses.replace(cfg, frame_t=20e-3, n_mels=26)),
+                       (x[:4, :SR], dataclasses.replace(cfg, fft_n=1024, n_mels=80)),
+                       (x[:4, :SR], dataclasses.replace(cfg, frame_t=15e-3, fft_n=256)),
+                       (x[:4, :SR], dataclasses.replace(cfg, fft_n=2048)),
+                       (x[:4, :SR], dataclasses.replace(cfg, frame_t=8e-3, fft_n=128)),
+                       (x[:4, :SR], dataclasses.replace(cfg, fft_n=4096))):
+        where = (f"B={sig.shape[0]}, frame_len {other.frame_len}, fft_n {other.fft_n}, "
+                 f"n_mels {other.n_mels}, "
+                 f"{'warp' if mf.fft_plan(other.fft_n) else 'block-wide'} route")
+        mel_k, en_k = mf.mel_frontend(sig, other)
+        mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(sig, other), other)
+        scale = float(en_p.max())
+        err = within_bars(mel_k, mel_p, "mel", scale, where)
+        within_bars(en_k, en_p, "energy", scale, where)
+        ferr = features_err(sig, other, None)
+        require(ferr < 0.01, f"kernel A features off by {ferr} ({where})")
+        print(f"kernel A vs plain ({where}): within the mel bar (max err {err:.6g} of scale "
+              f"{scale:.6g}), features max err {ferr:.3g}")
+    return mel_err
+
+
+def check_viterbi_small(torch, vt, vd, dev, t_frames):
+    """Kernel B against its plain scan, bitwise, on the card and on the
+    CPU: the serving shape (random, ties, left-to-right), short utterances
+    (T = 1, 2, 33) at N = 1, 8, 9, 16, 32, an all -inf column, and
+    utterances past the shared-memory capacity (backpointers in device
+    memory); then ``viterbi_batched`` above 32 states, which takes kernel C."""
+    rng = np.random.default_rng(2)
+    past5, past32 = vt.BP_SMEM_BYTES // 5 + 1, vt.BP_SMEM_BYTES // 32 + 7
+    cases = [(5, B, t_frames, "random"), (32, 16, t_frames, "random"), (5, B, t_frames, "ties"),
+             (5, B, t_frames, "left_to_right"), (5, 8, t_frames, "column")]
+    cases += [(n, 4, t, kind) for t in (1, 2, 33) for n in (1, 8, 9, 16, 32)
+              for kind in ("random", "ties")]
+    cases += [(5, 2, past5, "ties"), (32, 3, past32, "random"), (9, 2, past32 * 4, "column")]
+    routes = set()
+    for n, b, t, kind in cases:
+        log_pi, log_a = model(rng, n, "random" if kind == "column" else kind)
+        if kind == "column" and n > 1:
+            log_a[:, n // 2] = -np.inf
+        lb = rng.normal(scale=3.0, size=(b, t, n)).astype(np.float32)
+        if kind == "ties":
+            lb = np.round(lb)
+        args = [torch.as_tensor(v, device=dev) for v in (log_pi, log_a, lb)]
+        path_k, score_k = vt.viterbi_small(*args)
+        path_p, score_p = vt.viterbi_plain(*args)
+        path_c, score_c = vt.viterbi_plain(*[a.cpu() for a in args])
+        torch.cuda.synchronize()
+        route = "shared memory" if vt.viterbi_smem_ok(t, n) else "device memory"
+        routes.add(route)
+        where = f"{kind}, B={b}, T={t}, N={n}, backpointers in {route}"
+        require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+                f"kernel B differs from the plain scan on the card ({where}): "
+                f"{int((path_k != path_p).sum())} path entries")
+        require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
+                f"kernel B differs from the plain scan on the CPU ({where})")
+        print(f"kernel B vs plain ({where}): paths and scores bitwise equal")
+    require(routes == {"shared memory", "device memory"}, f"kernel B routes run: {routes}")
+    # viterbi_batched above 32 states takes kernel C
+    log_pi, log_a = model(rng, 33, "random")
+    lb = torch.as_tensor(rng.normal(scale=3.0, size=(16, t_frames, 33)).astype(np.float32),
+                         device=dev)
+    args = [torch.as_tensor(v, device=dev) for v in (log_pi, log_a)] + [lb]
+    before = vd.viterbi_dense.launches
+    path_k, score_k = vt.viterbi_batched(*args)
+    path_p, score_p = vt.viterbi_plain(*args)
+    torch.cuda.synchronize()
+    require(vd.viterbi_dense.launches == before + 1,
+            "viterbi_batched N=33 on CUDA did not launch the dense-graph kernel")
+    require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
+            "viterbi_batched N=33 on CUDA differs from the plain scan")
+    print(f"viterbi_batched (B=16, T={t_frames}, N=33) on CUDA: kernel C, bitwise equal to the "
+          "plain scan")
+
+
 def dense_cases(rng, n, t_len):
     """Kernel C's check inputs: ``(name, log_pi, log_a, log_b, mask,
     log_final)`` NumPy arrays: random dense graphs (one with a target no
@@ -551,12 +681,12 @@ def main():
     from lnasr_tpu_torch.models import decoder as tdec
     from lnasr_tpu_torch.models.lexicon import Lexicon
     from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel
-    from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
+    from lnasr_tpu_torch.models.mfcc import mfcc_features_fused
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
-    from lnasr_tpu_torch.ops.framing import num_frames
+    from lnasr_tpu_torch.ops.framing import hamming_window, num_frames, split_frames
     from lnasr_tpu_torch.ops.spectral import mel_filterbank
 
     dev = torch.device(DEVICE)
@@ -576,86 +706,9 @@ def main():
     x = make_signals(torch, dev)
     t_frames = num_frames(S, cfg.frame_len, cfg.frame_step)
 
-    # -- 2. kernel A vs its plain version -----------------------------------
-    lengths = torch.as_tensor(np.random.default_rng(1).integers(S // 2, S + 1, size=B), device=dev)
-    lengths[0] = S
-    mel_err = 0.0
-    for lens in (None, lengths):
-        mel_k, en_k = mf.mel_frontend(x, cfg, lengths=lens)
-        y = mf.preemphasize(x, cfg, lens)
-        mel_p, en_p = mf.mel_frontend_plain(y, cfg)
-        torch.cuda.synchronize()
-        scale = float(en_p.max())
-        for got, ref, what in ((mel_k, mel_p, "mel"), (en_k, en_p, "energy")):
-            require(got.shape == ref.shape, f"kernel A {what} shape {tuple(got.shape)}")
-            err = (got - ref).abs()
-            bar = 2e-6 * scale + 1e-4 * ref.abs()
-            require(bool((err <= bar).all()),
-                    f"kernel A {what} off the bar: max err {float(err.max())}, scale {scale}")
-            if what == "mel":
-                mel_err = max(mel_err, float(err.max()))
-        feats_k, mask_k = mfcc_features_fused(x, cfg, lengths=lens)
-        ref = mfcc_features(x, cfg, lens)
-        require(torch.equal(mask_k, ref.mask), "kernel A feature masks differ")
-        ferr = float(((feats_k - ref.features).abs() * ref.mask[..., None]).max())
-        require(ferr < 0.01, f"kernel A features off by {ferr}")
-        print(f"kernel A vs plain ({'variable lengths' if lens is not None else 'full length'}): "
-              f"mel max err {float((mel_k - mel_p).abs().max()):.6g} of energy scale {scale:.6g} "
-              f"(bar 2e-6*scale + 1e-4*|ref|), features max err {ferr:.3g} (bar 0.01): ok")
-    # which side is nearer the truth: both fp32 paths against the plain chain in float64
-    mel64, en64 = mf.mel_frontend_plain(mf.preemphasize(x, cfg).double(), cfg)
-    all_frames = torch.ones(mel64.shape[:2], dtype=torch.bool, device=dev)
-    f64 = cepstral_epilogue(mel64, en64, all_frames, cfg, torch.float64, False)[1]
-    k_err = float((mfcc_features_fused(x, cfg)[0].double() - f64).abs().max())
-    p_err = float((mfcc_features(x, cfg).features.double() - f64).abs().max())
-    print(f"features vs a float64 oracle: kernel path max err {k_err:.3g}, "
-          f"plain fp32 path max err {p_err:.3g}")
-    # other geometries the kernel takes: any n_mels, other frame lengths and FFT sizes
-    for other in (dataclasses.replace(cfg, frame_t=20e-3, n_mels=26),
-                  dataclasses.replace(cfg, fft_n=1024, n_mels=80)):
-        mel_k, en_k = mf.mel_frontend(x[:4, :SR], other)
-        mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(x[:4, :SR], other), other)
-        scale = float(en_p.max())
-        ok = all(bool(((g - r).abs() <= 2e-6 * scale + 1e-4 * r.abs()).all())
-                 for g, r in ((mel_k, mel_p), (en_k, en_p)))
-        require(ok, f"kernel A off the bar at frame_len={other.frame_len}, fft_n={other.fft_n}, "
-                    f"n_mels={other.n_mels}")
-        print(f"kernel A vs plain (frame_len {other.frame_len}, fft_n {other.fft_n}, "
-              f"n_mels {other.n_mels}): within the mel bar")
-
-    # -- 3. kernel B vs its plain version (bitwise) --------------------------
-    rng = np.random.default_rng(2)
-    for n, b, kind in ((5, B, "random"), (32, 16, "random"), (5, B, "ties"), (5, B, "left_to_right")):
-        log_pi, log_a = model(rng, n, kind)
-        lb = rng.normal(scale=3.0, size=(b, t_frames, n)).astype(np.float32)
-        if kind == "ties":
-            lb = np.round(lb)
-        args = [torch.as_tensor(v, device=dev) for v in (log_pi, log_a, lb)]
-        path_k, score_k = vt.viterbi_small(*args)
-        path_p, score_p = vt.viterbi_plain(*args)
-        path_c, score_c = vt.viterbi_plain(*[a.cpu() for a in args])
-        torch.cuda.synchronize()
-        require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
-                f"kernel B differs from the plain scan on the card ({kind}, N={n}): "
-                f"{int((path_k != path_p).sum())} path entries")
-        require(torch.equal(path_k.cpu(), path_c) and torch.equal(score_k.cpu(), score_c),
-                f"kernel B differs from the plain scan on the CPU ({kind}, N={n})")
-        print(f"kernel B vs plain ({kind}, B={b}, T={t_frames}, N={n}): paths and scores bitwise equal")
-    # viterbi_batched above 32 states takes kernel C
-    log_pi, log_a = model(rng, 33, "random")
-    lb = torch.as_tensor(rng.normal(scale=3.0, size=(16, t_frames, 33)).astype(np.float32),
-                         device=dev)
-    args = [torch.as_tensor(v, device=dev) for v in (log_pi, log_a)] + [lb]
-    before = vd.viterbi_dense.launches
-    path_k, score_k = vt.viterbi_batched(*args)
-    path_p, score_p = vt.viterbi_plain(*args)
-    torch.cuda.synchronize()
-    require(vd.viterbi_dense.launches == before + 1,
-            "viterbi_batched N=33 on CUDA did not launch the dense-graph kernel")
-    require(torch.equal(path_k, path_p) and torch.equal(score_k, score_p),
-            "viterbi_batched N=33 on CUDA differs from the plain scan")
-    print(f"viterbi_batched (B=16, T={t_frames}, N=33) on CUDA: kernel C, bitwise equal to the "
-          "plain scan")
+    # -- 2, 3. kernels A and B vs their plain versions ------------------------
+    mel_err = check_mel_frontend(torch, mf, cfg, x, dev)
+    check_viterbi_small(torch, vt, vd, dev, t_frames)
 
     # -- 4. the recognizers of the slice, on the card and on the CPU ----------
     recs = {v: entry.recognizer_serving(v, device=dev) for v in (1000, 22)}
@@ -964,6 +1017,21 @@ def main():
     a_ops = frames * (5 * half * int(np.log2(half)) + cfg.frame_len + 14 * bins + 2 * nnz + bins)
     a_bytes = 4 * (B * S + frames * (cfg.n_mels + 1))
     a_bound, a_by = bound(a_bytes, a_ops)
+    # the yardstick: the same function as a chain of library calls (cuFFT
+    # through torch.fft, then cuBLAS); not one call, so library_ms stays null
+    window = torch.as_tensor(hamming_window(cfg.frame_len), dtype=torch.float32, device=dev)
+    fbank_t = torch.as_tensor(mel_filterbank(cfg.n_mels, cfg.fft_n, cfg.sample_rate).T,
+                              dtype=torch.float32, device=dev).contiguous()
+
+    def cufft_chain():
+        spec = torch.fft.rfft(split_frames(y, cfg.frame_len, cfg.frame_step) * window, cfg.fft_n)
+        power = (spec.real * spec.real + spec.imag * spec.imag) / cfg.fft_n
+        return power @ fbank_t, power.sum(-1)
+
+    chain_mel = cufft_chain()[0]
+    chain_err = float((chain_mel - mf._launch(y, cfg)[0]).abs().max())
+    chain_ms = cuda_ms(cufft_chain, reps=50)
+    chain_dev_ms = device_ms(torch, cufft_chain)
 
     log_b = flag_model.emissions(mfcc_features_fused(x, cfg)[0])
     lp, la = flag_model.log_pi, flag_model.log_a
@@ -975,6 +1043,10 @@ def main():
     b_bound, b_by = bound(b_bytes, b_ops)
 
     step_ms = cuda_ms(lambda: step(x), reps=20)
+    print(f"timing on {card}: the cuFFT chain for kernel A's function (split_frames -> "
+          f"torch.fft.rfft -> |X|^2/n -> @ fbank.T and .sum(-1)): {chain_ms:.4f} ms by events, "
+          f"{chain_dev_ms:.4f} ms of device time; its mel differs from kernel A's by at most "
+          f"{chain_err:.6g}")
     print(f"timing on {card}: kernel A {a_ms:.4f} ms (wrapper with pre-emphasis {a_wrap_ms:.4f} ms, "
           f"plain {a_plain_ms:.4f} ms, bound {a_bound:.4f} ms by {a_by}); kernel B {b_ms:.4f} ms "
           f"(plain {b_plain_ms:.4f} ms, bound {b_bound:.5f} ms by {b_by}); step {step_ms:.4f} ms = "

@@ -1,0 +1,303 @@
+#!/usr/bin/env python3
+"""Split kernels A (mel frontend) and B (small-N Viterbi) of a checkout
+into phases on one NVIDIA GPU, with ``clock64()`` stamps.
+
+    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR]
+
+The kernel sources under ``DIR/lnasr_tpu_torch/csrc`` are copied, a
+``clock64()`` stamp is inserted at each phase boundary (text patches keyed
+by the lines they follow; a source whose anchors are missing is refused),
+and the copy is built with ``nvcc`` under ``_archive/phases/``. The
+committed sources never carry the stamps. Each block (A) or warp (B)
+records its stamps from its first thread; the script prints the mean
+cycles of each phase over the blocks or warps, the shares, and the event
+time of the stamped and of the unstamped kernel (the stamps' cost):
+
+- A at the flagship shape (B = 64 x 10 s) and the segment shape (B = 1,
+  T = 511): the block-wide radix-2 FFT (the first port) in signal load,
+  window/pack, butterflies, split/power, mel + energy (per block); the
+  warp-per-frame FFT in span + constants load, window/pack, FFT passes,
+  split/power + energy, mel + stores (each warp's first frame);
+- B at the flagship shape (B = 64, T = 999, N = 5): forward and backtrace,
+  the backtrace of the chunk-map version split into its three phases.
+
+Each launch goes through the checkout's own wrapper (``ops.*._launch``)
+pointed at the stamped library, and its output is checked against the
+plain version as ``chip_smoke.py`` checks it.
+
+``--sass DIR`` also writes ``cuobjdump -sass`` of each unstamped library
+there, for counting the instructions on a kernel's dependent chain.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+WORK = os.path.join(HERE, "_archive", "phases")
+N_STAMPS = 1 << 20
+
+HEADER = """
+__device__ unsigned long long g_stamps[%d];
+#define STAMP(slot) (g_stamps[(slot)] = clock64())
+""" % N_STAMPS
+
+FOOTER = """
+extern "C" int read_stamps(unsigned long long* out, int n) {
+    return (int)cudaMemcpyFromSymbol(out, g_stamps, sizeof(unsigned long long) * n);
+}
+extern "C" int clear_stamps() {
+    void* p = nullptr;
+    cudaError_t err = cudaGetSymbolAddress(&p, g_stamps);
+    return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(g_stamps)));
+}
+"""
+
+# (anchor, text inserted after it) per kernel and version; the first set
+# whose anchors all occur once in the source is applied (the warp route's
+# first: the file that has it keeps the block-wide route as well)
+A_BLOCK = "(blockIdx.y * gridDim.x + blockIdx.x) * 6"
+A_WARP = "((blockIdx.y * gridDim.x + blockIdx.x) * 8 + warp) * 6"
+PATCH_SETS = {
+    "mel_frontend": [
+        # the warp route: each warp's first frame
+        ("warp-per-frame FFT", 6,
+         ["span + constants load", "window/pack", "FFT passes", "split/power + energy",
+          "mel + stores"], [
+             ("    const int t0 = blockIdx.x * fpb;\n",
+              f"    if (lane == 0) STAMP({A_WARP} + 0);\n"),
+             ("i < span; i += blockDim.x) seg[i] = 0.0f;\n    __syncthreads();\n",
+              f"    if (lane == 0) STAMP({A_WARP} + 1);\n"),
+             ("                vi[m] = (double)seg[fo + n + 1] * w2.y;\n            }\n        }\n",
+              f"        if (lane == 0 && f == warp) STAMP({A_WARP} + 2);\n"),
+             ("        fft_passes<H, 0>(vr, vi, pr, pi, tw_s, lane);\n",
+              f"        if (lane == 0 && f == warp) STAMP({A_WARP} + 3);\n"),
+             ("part += __shfl_xor_sync(FULL, part, off);\n        __syncwarp();\n",
+              f"        if (lane == 0 && f == warp) STAMP({A_WARP} + 4);\n"),
+             ("        if (lane == 0) energy[row] = (float)part;\n",
+              f"        if (lane == 0 && f == warp) STAMP({A_WARP} + 5);\n"),
+         ]),
+        ("block-wide radix-2 FFT", 6,
+         ["signal load", "window/pack", "butterflies", "split/power", "mel + energy"], [
+             ("    const float* yb = y + (size_t)b * S;\n",
+              f"    if (tid == 0) STAMP({A_BLOCK} + 0);\n"),
+             ("        tws[k] = tw_sin[k];\n    }\n    __syncthreads();\n",
+              f"    if (tid == 0) STAMP({A_BLOCK} + 1);\n"),
+             ("        zim[f * half + r] = x1;\n    }\n    __syncthreads();\n",
+              f"    if (tid == 0) STAMP({A_BLOCK} + 2);\n"),
+             ("            zim[i1] = ui - ti;\n        }\n        __syncthreads();\n    }\n",
+              f"    if (tid == 0) STAMP({A_BLOCK} + 3);\n"),
+             ("        pw[idx] = (xr * xr + xi * xi) * inv_n;\n    }\n    __syncthreads();\n",
+              f"    if (tid == 0) STAMP({A_BLOCK} + 4);\n"),
+             ("            energy[(size_t)b * T + t] = acc;\n        }\n    }\n",
+              f"    __syncthreads();\n    if (tid == 0) STAMP({A_BLOCK} + 5);\n"),
+         ]),
+    ],
+    "viterbi": [
+        ("frame-by-frame backtrace", 3, ["forward", "backtrace"], [
+            ("    float v = on ? log_pi[lane] + lb[lane] : NEG_INF;\n",
+             "    if (lane == 0) STAMP(b * 3 + 0);\n"),
+            ("        for (int k = 0; k < STEPS; ++k) cur[k] = nxt[k];\n    }\n",
+             "    __syncwarp();\n    if (lane == 0) STAMP(b * 3 + 1);\n"),
+            ("                pb[t - 1] = state;\n            }\n        }\n"
+             "        __syncwarp();\n    }\n",
+             "    if (lane == 0) STAMP(b * 3 + 2);\n"),
+        ]),
+        ("chunk-map backtrace", 5,
+         ["forward", "final argmax + chunk walks", "map composition", "path fill"], [
+            ("    float v = on ? log_pi[lane] + lb[lane] : NEG_INF;\n",
+             "    if (lane == 0) STAMP(b * 5 + 0);\n"),
+            ("        for (int k = 0; k < STEPS; ++k) cur[k] = nxt[k];\n    }\n",
+             "    __syncwarp();\n    if (lane == 0) STAMP(b * 5 + 1);\n"),
+            ("            if (w < n_walks) maps[w] = (int8_t)s[q];\n        }\n    }\n"
+             "    __syncwarp();\n",
+             "    if (lane == 0) STAMP(b * 5 + 2);\n"),
+            ("            ends[c - 1] = (int8_t)e;\n        }\n    }\n    __syncwarp();\n",
+             "    if (lane == 0) STAMP(b * 5 + 3);\n"),
+            ("                    pb[t - 1] = s[q];\n                }\n            }\n"
+             "        }\n    }\n",
+             "    __syncwarp();\n    if (lane == 0) STAMP(b * 5 + 4);\n"),
+        ]),
+    ],
+}
+
+
+def stamped_source(src, name):
+    """``(source with stamps, (version, stride, phases))`` for the first
+    patch set of ``name`` whose anchors all occur once in ``src``."""
+    for version, stride, phases, patches in PATCH_SETS[name]:
+        if all(src.count(anchor) == 1 for anchor, _ in patches):
+            for anchor, text in patches:
+                src = src.replace(anchor, anchor + text)
+            head = "#include <stdint.h>\n"
+            return src.replace(head, head + HEADER, 1) + FOOTER, (version, stride, phases)
+    raise SystemExit(f"{name}.cu: no phase patch set matches this source")
+
+
+def build(nvcc, src_path, out):
+    cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-o", out, src_path]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def event_ms(torch, fn, reps=30):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--out", default="")
+    ap.add_argument("--sass", default="")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_phases: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    from lnasr_tpu_torch import _build
+    from lnasr_tpu_torch.config import MFCCConfig
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import viterbi as vt
+
+    card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60, check=True).stdout.strip()
+    tag = os.path.basename(root.rstrip("/"))
+    work = os.path.join(WORK, tag)
+    os.makedirs(work, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs, versions = {}, {}
+    for name in PATCH_SETS:
+        with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
+            src, versions[name] = stamped_source(f.read(), name)
+        path = os.path.join(work, f"{name}_stamped.cu")
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"))
+    _build.build_all()  # the unstamped kernels: the stamps' cost, and the SASS
+    wrappers = {"mel_frontend": mf, "viterbi": vt}
+    stamped, plain = {}, {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed on the stamped {name}.cu:\n{log}")
+        lib = ctypes.CDLL(os.path.join(work, f"{name}_stamped.so"))
+        launch = getattr(lib, f"{name}_launch")
+        launch.argtypes, launch.restype = wrappers[name]._ARGTYPES, ctypes.c_int
+        getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+        lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        stamped[name] = lib
+        plain[name] = _build.load(name, wrappers[name]._ARGTYPES)
+    if args.sass:
+        os.makedirs(args.sass, exist_ok=True)
+        for name in PATCH_SETS:
+            sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+                                   _build.library_path(name)], capture_output=True, text=True)
+            with open(os.path.join(args.sass, f"{tag}_{name}.sass"), "w") as f:
+                f.write(sass.stdout + sass.stderr)
+
+    rows = []
+
+    def emit(**row):
+        row = {"root": root, "card": card, **row}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    def use(name, lib):
+        """Point the checkout's wrapper at ``lib`` (stamped or not)."""
+        _build._loaded[name] = lib
+
+    def split(name, call):
+        """Mean cycles of each phase over the units (blocks or warps) that
+        stamped every boundary, their shares, and a unit's mean total."""
+        version, stride, phases = versions[name]
+        lib = stamped[name]
+        use(name, lib)
+        torch.cuda.synchronize()
+        lib.clear_stamps()
+        call()
+        torch.cuda.synchronize()
+        stamps = np.zeros(N_STAMPS, np.uint64)
+        rc = lib.read_stamps(stamps.ctypes.data, N_STAMPS)
+        if rc:
+            raise SystemExit(f"read_stamps failed: cudaError {rc}")
+        units = stamps[: N_STAMPS // stride * stride].reshape(-1, stride)[:, : len(phases) + 1]
+        units = units[(units != 0).all(1)].astype(np.int64)
+        if not len(units):
+            raise SystemExit(f"{name}: no block or warp stamped every boundary ({version})")
+        d = np.diff(units, axis=1)
+        mean = d.mean(0)
+        return dict(version=version, units=len(units),
+                    cycles={p: float(c) for p, c in zip(phases, mean)},
+                    shares={p: float(c / mean.sum()) for p, c in zip(phases, mean)},
+                    unit_cycles=float(d.sum(1).mean()))
+
+    def times(name, call):
+        use(name, stamped[name])
+        st = event_ms(torch, call)
+        use(name, plain[name])
+        return dict(stamped_ms=st, unstamped_ms=event_ms(torch, call))
+
+    dev = torch.device("cuda")
+    cfg = MFCCConfig()
+    rng = np.random.default_rng(0)
+    for what, b, s in (("flagship B=64 x 10 s", 64, 160000), ("segment B=1, T=511", 1, 82000)):
+        y = torch.as_tensor(rng.normal(scale=3000.0, size=(b, s)).astype(np.float32), device=dev)
+        call = lambda: mf._launch(y, cfg)  # noqa: E731
+        res = split("mel_frontend", call)
+        use("mel_frontend", plain["mel_frontend"])
+        mel_k, en_k = call()
+        mel_p, en_p = mf.mel_frontend_plain(y, cfg)
+        scale = float(en_p.max())
+        if not bool(((mel_k - mel_p).abs() <= 2e-6 * scale + 1e-4 * mel_p.abs()).all()):
+            raise SystemExit(f"kernel A off its bar at {what}")
+        emit(kernel="A", what=what, **res, **times("mel_frontend", call))
+
+    b, t, n = 64, 999, 5
+    log_pi = torch.as_tensor(np.log(rng.dirichlet(np.ones(n))).astype(np.float32), device=dev)
+    log_a = torch.as_tensor(np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32),
+                            device=dev)
+    log_b = torch.as_tensor(rng.normal(scale=3.0, size=(b, t, n)).astype(np.float32), device=dev)
+    call = lambda: vt._launch(log_pi, log_a, log_b)  # noqa: E731
+    res = split("viterbi", call)
+    use("viterbi", stamped["viterbi"])
+    path, score = call()
+    ref = vt.viterbi_plain(log_pi, log_a, log_b)
+    if not (torch.equal(path, ref[0]) and torch.equal(score, ref[1])):
+        raise SystemExit("the stamped kernel B differs from the plain scan")
+    emit(kernel="B", what=f"flagship B={b}, T={t}, N={n}", **res,
+         cycles_per_forward_step=res["cycles"]["forward"] / (t - 1), **times("viterbi", call),
+         sm_clock_mhz=subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                                      "--format=csv,noheader,nounits"], capture_output=True,
+                                     text=True, timeout=60).stdout.strip())
+    print(card)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "a") as f:
+            for row in rows:
+                f.write(json.dumps(row) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

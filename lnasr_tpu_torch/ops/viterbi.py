@@ -4,9 +4,11 @@ score (B,))``.
 Counterpart of the JAX package's ``ops/trellis_pallas.py:viterbi_pallas``
 and its dispatcher ``viterbi_batched``. For CUDA tensors
 :func:`viterbi_small` launches the hand-written kernel of
-``csrc/viterbi.cu`` (one warp per utterance, lane j = state j, backtrace in
-the same kernel); for CPU tensors it runs :func:`viterbi_plain`, the scan
-it is held to bitwise.
+``csrc/viterbi.cu`` (one warp per utterance, lane j = state j, a tree
+argmax a step, backpointers in shared memory where
+:func:`viterbi_smem_ok` says they fit, and a backtrace by composed chunk
+maps in the same kernel); for CPU tensors it runs :func:`viterbi_plain`,
+the scan it is held to bitwise.
 """
 
 from __future__ import annotations
@@ -21,11 +23,20 @@ from lnasr_tpu_torch.ops.trellis import viterbi_scan
 from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 N_MAX = 32  # one warp per utterance, one lane per state
+BACKTRACE_CHUNK = 32  # frames a chunk map of the kernel's backtrace covers
+BP_SMEM_BYTES = 48 * 1024  # most int8 backpointers an utterance keeps on chip
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# log_pi, log_a, log_b, B, T, N, backpointer scratch, path, score, stream
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P]
+# log_pi, log_a, log_b, B, T, N, on_chip, backpointer scratch, path, score,
+# stream
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P]
+
+
+def viterbi_smem_ok(t: int, n: int) -> bool:
+    """Whether the kernel keeps an utterance's ``T x N`` int8 backpointers
+    in shared memory (else in a device-memory scratch buffer)."""
+    return t * n <= BP_SMEM_BYTES
 
 
 def viterbi_plain(log_pi: torch.Tensor, log_a: torch.Tensor,
@@ -46,13 +57,14 @@ def _launch(log_pi, log_a, log_b):
     score = torch.empty((b,), dtype=torch.float32, device=dev)
     if b == 0 or t == 0:
         return path, score
-    bp = torch.empty((b, t, n), dtype=torch.int8, device=dev)
+    on_chip = viterbi_smem_ok(t, n)
+    bp = None if on_chip else torch.empty((b, t, n), dtype=torch.int8, device=dev)
     log_pi, log_a = log_pi.contiguous(), log_a.contiguous()
     lib = _build.load("viterbi", _ARGTYPES)
     with torch.cuda.device(dev):  # launch on the tensors' card
         rc = lib.viterbi_launch(
-            log_pi.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), b, t, n,
-            bp.data_ptr(), path.data_ptr(), score.data_ptr(),
+            log_pi.data_ptr(), log_a.data_ptr(), log_b.data_ptr(), b, t, n, int(on_chip),
+            None if bp is None else bp.data_ptr(), path.data_ptr(), score.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "viterbi", rc)
