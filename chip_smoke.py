@@ -23,6 +23,17 @@ kernels' launch counters reset just before and read just after:
 - the recognizer's bucketed N-best segment decode at V = 1000 (mel
   frontend and lattice-recording kernels, then the host's word lattice),
   ``entry.recognizer_serving(1000)[0].decode_segment_nbest``;
+- live serving at V = 1000, ``entry.streaming_serving(1000)``: a ~60 s
+  stream in 100 ms chunks through ``StreamingRecognizer`` (the native
+  VAD, built with ``g++``, closes segments; each segment launches the mel
+  frontend, forward and backtrace kernels once), against the CPU stream,
+  with a ``reset()`` replay and ``Recognizer.recognize_segments``;
+- the exact trigram graph at V = 200, ``entry.recognizer_serving(200,
+  graph="trigram", lm_order=3)``: its segment decode launches the mel
+  frontend once (the decode itself is a frame loop of torch ops);
+- the device VADs on the stream's audio (LTSD fixed and adaptive, the
+  WebRTC-style torch VAD in modes 0-3) against their CPU runs and the
+  native detector;
 
 checks each against the plain CPU path on the same weights and input
 (plus planted word sequences, decoded and lattice-searched), and times
@@ -668,6 +679,221 @@ def check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec, graph_
     print(f"decode_lattice_batch (B=2, masks of {len(obs)} and {len(obs) - cut} frames): kernel F "
           "twice, tokens and N-best equal to looping decode_lattice")
 
+def percentile(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
+
+
+def same_segments(got, ref, what, rel=1e-4):
+    """Segment boundaries and words equal, scores within ``rel``."""
+    require([(g.start_s, g.end_s) for g in got] == [(r.start_s, r.end_s) for r in ref],
+            f"{what}: segment boundaries differ: {[(g.start_s, g.end_s) for g in got][:6]} vs "
+            f"{[(r.start_s, r.end_s) for r in ref][:6]}")
+    require([g.words for g in got] == [r.words for r in ref],
+            f"{what}: segment words differ: {[g.words for g in got]} vs {[r.words for r in ref]}")
+    err = max((abs(g.score - r.score) / abs(r.score) for g, r in zip(got, ref)), default=0.0)
+    require(err < rel, f"{what}: segment scores differ by {err} relative")
+    return err
+
+
+def feed_stream(torch, srec, audio, chunk, wrappers=None, on_path=()):
+    """Feed ``audio`` in ``chunk``-sample pieces, then flush. With
+    ``wrappers``, the launch counters are reset before every call and each
+    call must launch each kernel of ``on_path`` once per segment it closed,
+    and no other kernel. Returns ``(segments, per-segment latencies in ms,
+    the largest buffer in samples, launch totals)``."""
+    segs, lat, peak = [], [], 0
+    totals = {w.__name__: 0 for w in wrappers or ()}
+    pieces = [audio[i: i + chunk] for i in range(0, len(audio), chunk)] + [None]
+    for piece in pieces:
+        if wrappers:
+            torch.cuda.synchronize()
+            reset_counts(*wrappers)
+        before = srec.stats.decode_seconds
+        out = srec.flush() if piece is None else srec.process(piece)
+        if wrappers:
+            counts = {w.__name__: w.launches for w in wrappers}
+            require(all(counts[n] == (len(out) if n in on_path else 0) for n in counts),
+                    f"a stream call that closed {len(out)} segments launched {counts}; "
+                    f"expected each of {list(on_path)} once a segment and nothing else")
+            for n, c in counts.items():
+                totals[n] += c
+        if out:  # a call that closes k segments gives each the mean
+            lat += [1e3 * (srec.stats.decode_seconds - before) / len(out)] * len(out)
+        segs += out
+        peak = max(peak, srec.stats.buffer_samples)
+    return segs, lat, peak, totals
+
+
+def stream_phase(torch, entry, wrappers, card, launches):
+    """Live serving at V = 1000: ``entry.streaming_serving(1000)``'s stream
+    in 100 ms chunks on the card (mel frontend, forward and backtrace
+    kernels once per segment) against the CPU stream on the same weights
+    and audio; a reset replay under torch.profiler for the device's busy
+    share; the same audio through ``Recognizer.recognize_segments`` with
+    the same detector."""
+    from torch.profiler import ProfilerActivity, profile
+
+    srec, audio = entry.streaming_serving(1000, device=DEVICE)
+    srec_cpu, _ = entry.streaming_serving(1000, device="cpu")
+    audio_s = len(audio) / entry.SERVING_MFCC_CONFIG.sample_rate
+    on_path = ("mel_frontend", "factored_forward", "factored_backtrace")
+    # one segment decoded first: the kernels' first calls out of the timing
+    srec.rec.decode_segment(audio[:16000])
+    srec.reset()
+    t0 = time.perf_counter()
+    segs, lat, peak, totals = feed_stream(torch, srec, audio, entry.STREAM_CHUNK, wrappers,
+                                          on_path)
+    wall = time.perf_counter() - t0
+    launches["V=1000 stream"] = totals
+    stats = srec.stats
+    require(len(segs) >= 10, f"the stream closed {len(segs)} segments; at least 10 expected")
+    require(stats.segments == len(segs) and all(np.isfinite(g.score) for g in segs),
+            "the stream's segment count or scores are off")
+    require(all(totals[n] == len(segs) for n in on_path),
+            f"the stream launched {totals} over {len(segs)} segments")
+    segs_cpu, _, peak_cpu, _ = feed_stream(torch, srec_cpu, audio, entry.STREAM_CHUNK)
+    err = same_segments(segs, segs_cpu, "V=1000 stream, card vs CPU")
+    require(peak == peak_cpu, f"buffer peaks differ: {peak} vs {peak_cpu}")
+    print(f"main path: StreamingRecognizer at V=1000 on {audio_s} s in "
+          f"{entry.STREAM_CHUNK}-sample chunks -> {len(segs)} segments, "
+          f"{sum(len(g.words) for g in segs)} words; launches {totals} (each of {list(on_path)} "
+          f"once a segment, checked call by call); equal to the CPU stream (boundaries, words; "
+          f"max score rel err {err:.3g})")
+    srec.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        replay, _, _, _ = feed_stream(torch, srec, audio, entry.STREAM_CHUNK)
+        torch.cuda.synchronize()
+        replay_wall = time.perf_counter() - t0
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    same_segments(replay, segs, "V=1000 stream, reset() replay", rel=1e-12)
+    print(f"timing on {card}: stream V=1000: per-segment latency p50 {percentile(lat, 50):.4f} "
+          f"ms, p99 {percentile(lat, 99):.4f} ms, max {max(lat):.4f} ms (host clock around "
+          f"decode_segment); stats.rtf {stats.rtf:.6f} ({stats.decode_seconds:.4f} s of decode "
+          f"for {stats.audio_seconds:.3f} s of audio), whole feed {wall:.3f} s = "
+          f"{audio_s / wall:.1f} audio-s/s; largest buffer {peak} samples "
+          f"({peak / 16000:.3f} s); reset() replay under torch.profiler: equal segments, device "
+          f"busy {busy * 1e3:.3f} ms of {replay_wall * 1e3:.1f} ms "
+          f"({100 * busy / replay_wall:.2f}%)")
+    rec = srec.rec
+    rec.vad = type(srec.vad)(mode=0, sample_rate=srec.sample_rate)
+    batch = rec.recognize_segments(audio)
+    rec.vad = None
+    spans = lambda segments: [(round(float(g.start_s), 2), round(float(g.end_s), 2))  # noqa: E731
+                              for g in segments]
+    print(f"segmentations of the stream: StreamingRecognizer {len(segs)} segments "
+          f"{spans(segs)}; Recognizer.recognize_segments (same detector, mode 0) {len(batch)} "
+          f"segments {spans(batch)}: spans {'equal' if spans(batch) == spans(segs) else 'differ'}, "
+          f"words {'equal' if [g.words for g in batch] == [g.words for g in segs] else 'differ'}")
+    return {"segments": len(segs), "p50_ms": percentile(lat, 50),
+            "p99_ms": percentile(lat, 99), "rtf": stats.rtf, "max_buffer": peak,
+            "busy": busy / replay_wall}
+
+
+def trigram_phase(torch, entry, wrappers, card, launches):
+    """The exact trigram graph at V = 200 (an order-3 LM counted from
+    ``serving_corpus(200)``): the bucketed segment decode launches the mel
+    frontend once and no other kernel, and equals the CPU recognizer; a
+    planted 6-word sequence decodes to itself."""
+    from lnasr_tpu_torch.models.decoder import TrigramDecodingGraph
+
+    rec, seg = entry.recognizer_serving(200, device=DEVICE, graph="trigram", lm_order=3)
+    rec_cpu, _ = entry.recognizer_serving(200, device="cpu", graph="trigram", lm_order=3)
+    g = rec.graph
+    require(isinstance(g, TrigramDecodingGraph) and rec.lm.ngram.order == 3,
+            "V=200 did not compose the trigram graph over an order-3 LM")
+    rec.decode_segment(seg)  # first calls out of the count and the timing
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    words, score = rec.decode_segment(seg)
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["V=200 trigram"] = counts
+    require(counts["mel_frontend"] == 1 and all(c == 0 for n, c in counts.items()
+                                                if n != "mel_frontend"),
+            f"the trigram segment decode did not launch the mel frontend once and nothing "
+            f"else: {counts}")
+    words_c, score_c = rec_cpu.decode_segment(seg)
+    rel = abs(score - score_c) / abs(score_c)
+    require(words == words_c and rel < 1e-4,
+            f"V=200 trigram: card {words} ({score}) vs CPU {words_c} ({score_c})")
+    in_lm = set(rec.lm.ngram.vocabulary())
+    planted = [w for w in g.words if w in in_lm][3:9]
+    obs = planted_features(torch, g, np.random.default_rng(200), planted)
+    got, path_g, score_g = g.decode(obs)
+    got_c, path_c, score_gc = rec_cpu.graph.decode(obs)
+    require(got == planted and got_c == planted,
+            f"V=200 trigram: planted {planted} decoded as {got} (card) / {got_c} (CPU)")
+    require(abs(score_g - score_gc) <= 1e-4 * abs(score_gc),
+            f"V=200 trigram planted scores {score_g} vs {score_gc}")
+    seg_s = len(seg) / entry.SERVING_MFCC_CONFIG.sample_rate
+    ms = host_ms(lambda: rec.decode_segment(seg), reps=5, warmup=1)
+    dev = device_ms(torch, lambda: rec.decode_segment(seg), calls=3)
+    print(f"main path: Recognizer(graph='trigram').decode_segment at V=200 (grid {g.grid_shape}, "
+          f"hop {tuple(g.hop3.shape)}) on {seg_s} s -> {len(words)} words {words[:8]}, score "
+          f"{score}; launches {counts}; equal to the CPU recognizer (score rel err {rel:.3g}); "
+          f"planted {planted} -> {got} (paths "
+          f"{'equal' if np.array_equal(path_g, path_c) else 'differ'} to the CPU's)")
+    print(f"timing on {card}: trigram segment V=200: {ms:.4f} ms per {seg_s} s segment = "
+          f"{seg_s / (ms / 1e3):.1f} audio-s/s (host clock, one device->host copy); device time "
+          f"{dev:.4f} ms per call (torch.profiler)")
+    device_breakdown(torch, lambda: rec.decode_segment(seg), ms, f"{card}, trigram segment V=200",
+                     steps=2)
+    return {"ms": ms, "device_ms": dev}
+
+
+def vad_phase(torch, entry, card):
+    """The device VADs on the stream's audio: LTSD (fixed and adaptive) and
+    the WebRTC-style torch VAD in modes 0-3, each on the card against the
+    same module on CPU tensors; WebRTC's flags against the native
+    detector's."""
+    from lnasr_tpu_torch.config import LTSDConfig
+    from lnasr_tpu_torch.vad import VadLtsd, WebRtcVad, WebRtcVadTorch
+
+    audio = entry.serving_stream(0)
+    audio_s = len(audio) / 16000
+    x = audio.astype(np.float64) / 32768.0
+    out = {}
+    threads = torch.get_num_threads()
+    for alpha in (None, 0.4):
+        cfg = LTSDConfig(alpha=alpha)
+        name = f"ltsd {'adaptive' if alpha else 'fixed'}"
+        # float64 on both sides: the JAX package's own LTSD bar
+        got = VadLtsd(cfg, dtype=torch.float64, device=DEVICE).detect(x).ltsd.cpu().numpy()
+        ref = VadLtsd(cfg, dtype=torch.float64, device="cpu").detect(x).ltsd.numpy()
+        require(np.allclose(got, ref, rtol=1e-8, atol=1e-10),
+                f"{name}: card vs CPU float64 scores differ by {np.abs(got - ref).max()}")
+        vad = VadLtsd(cfg, device=DEVICE)
+        got32 = vad.detect(x).ltsd.cpu().numpy()
+        ms = host_ms(lambda: vad.detect(x).ltsd.cpu(), reps=5, warmup=1)
+        out[name] = ms / audio_s
+        print(f"{name} VAD on the stream ({audio_s} s, {len(got)} frames): card equal to CPU in "
+              f"float64 (rtol 1e-8, atol 1e-10; max err {np.abs(got - ref).max():.3g}); float32 "
+              f"on the card {np.abs(got32 - ref).max():.3g} dB from the float64 scores, "
+              f"{int((got32 > cfg.threshold).sum())} vs {int((ref > cfg.threshold).sum())} speech "
+              f"frames; {ms:.4f} ms = {ms / audio_s:.4f} ms per second of audio on {card}")
+    for mode in range(4):
+        t0 = time.perf_counter()
+        flags = WebRtcVadTorch(mode=mode, device=DEVICE).process(audio)
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.set_num_threads(1)  # the frame loop's tiny ops run faster on one thread
+        try:
+            flags_cpu = WebRtcVadTorch(mode=mode, device="cpu").process(audio)
+        finally:
+            torch.set_num_threads(threads)
+        native = WebRtcVad(mode=mode).process(audio)
+        require(np.array_equal(flags, flags_cpu), f"WebRtcVadTorch mode {mode}: card != CPU "
+                f"on {int((flags != flags_cpu).sum())} frames")
+        require(np.array_equal(flags, native), f"WebRtcVadTorch mode {mode}: card != native "
+                f"on {int((flags != native).sum())} frames")
+        out[f"webrtc mode {mode}"] = ms / audio_s
+        print(f"WebRtcVadTorch mode {mode} on the stream ({len(flags)} frames, "
+              f"{int((flags > 0).sum())} flagged): equal to the CPU run and to the native "
+              f"detector frame for frame; {ms:.1f} ms = {ms / audio_s:.3f} ms per second of "
+              f"audio on {card} (host clock; the GMM's frame loop)")
+    return out
+
 
 def main():
     import torch
@@ -701,6 +927,10 @@ def main():
     for name, (secs, log) in built.items():
         info = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"  {name}: done at {secs:.1f} s; " + " | ".join(info))
+    t0 = time.perf_counter()
+    vad_lib = _build.build_native_vad()
+    print(f"native VAD build: {time.perf_counter() - t0:.1f} s (g++ of the port's copy of "
+          f"{', '.join(_build.NATIVE_VAD_SOURCES)}) -> {os.path.relpath(vad_lib)}")
 
     cfg = entry.MFCC_CONFIG
     x = make_signals(torch, dev)
@@ -1184,6 +1414,11 @@ def main():
     print(f"timing on {card}: device time per call (torch.profiler, 10 calls): "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
           + f"; kernel E on the planted path of 21 words {e_alt_dev_ms:.4f} ms")
+
+    # -- 9, 10, 11. live serving: the stream, the trigram graph, device VADs --
+    stream_phase(torch, entry, wrappers, card, launches)
+    trigram_phase(torch, entry, wrappers, card, launches)
+    vad_phase(torch, entry, card)
 
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and

@@ -21,6 +21,9 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
+NATIVE_VAD = os.path.join(_HERE, "native", "vad")
+NATIVE_VAD_SOURCES = ("vad_amrwb.cpp", "vad_webrtc.cpp", "vad_api.cpp")
+GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -117,3 +120,32 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+
+
+def native_vad_path() -> str:
+    """Path of the native VAD library, keyed by its sources' hash."""
+    digest = hashlib.sha256()
+    for name in sorted(os.listdir(NATIVE_VAD)):
+        with open(os.path.join(NATIVE_VAD, name), "rb") as f:
+            digest.update(name.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"native_vad-{digest.hexdigest()[:16]}.so")
+
+
+def build_native_vad() -> str:
+    """Compile the native VAD detectors with ``g++`` (once; concurrent
+    builds race to an atomic rename) and return the library's path."""
+    out = native_vad_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = ["g++", *GXX_FLAGS, "-I", NATIVE_VAD,
+           *(os.path.join(NATIVE_VAD, s) for s in NATIVE_VAD_SOURCES), "-o", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise KernelBuildError(f"g++ failed for the native VAD (rc {proc.returncode}):\n"
+                               f"{proc.stderr}")
+    os.replace(tmp, out)
+    return out

@@ -1,13 +1,14 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 Same fields, defaults and derived properties as the JAX package's
-``MFCCConfig``, ``GMMHMMConfig`` and ``NGramConfig``; this package keeps
-its own copy so it never imports the JAX package.
+``MFCCConfig``, ``GMMHMMConfig``, ``NGramConfig`` and ``LTSDConfig``;
+this package keeps its own copy so it never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,3 +106,21 @@ class NGramConfig:
     smoothing: str = "fixed"
     gt_max_count: int = 5
     open_vocab: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LTSDConfig:
+    """Long-Term Spectral Divergence VAD: window and stride in samples,
+    the LTSE order, the decision threshold in dB, and the noise
+    adaptation weight (``None``: no adaptation)."""
+
+    sample_rate: int = 16000
+    win_size: int = 2048
+    step_size: int = 1024
+    order: int = 6
+    threshold: float = -6.0
+    alpha: Optional[float] = None
+
+    @property
+    def fft_size(self) -> int:
+        return self.win_size // 2 + 1

@@ -14,7 +14,13 @@
   n=5)``: the factored graph with a dense hop records a word lattice
   (mel frontend and lattice kernels on CUDA) and the host extracts the
   N-best list (at V = 22 the dense graph has no lattice, and N-best
-  raises, as in the JAX package).
+  raises, as in the JAX package). With ``graph="trigram", lm_order=3``
+  (at V = 200) it decodes with the exact trigram graph.
+- :func:`streaming_serving`: live serving. A :class:`StreamingRecognizer`
+  over :func:`recognizer_serving`'s recognizer and its default native
+  WebRTC VAD, and a seeded ~60 s stream of speech-like bursts between
+  near-silent gaps, fed in 100 ms chunks (:data:`STREAM_CHUNK`): each
+  segment the VAD closes is decoded by ``Recognizer.decode_segment``.
 """
 
 from __future__ import annotations
@@ -30,7 +36,12 @@ from lnasr_tpu_torch.models.gmmhmm import GMMHMM, GMMHMMParams
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.mfcc import MFCC
 from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel
-from lnasr_tpu_torch.models.recognizer import AcousticModel, LanguageModel, Recognizer
+from lnasr_tpu_torch.models.recognizer import (
+    AcousticModel,
+    LanguageModel,
+    Recognizer,
+    StreamingRecognizer,
+)
 from lnasr_tpu_torch.ops.viterbi import viterbi_batched
 
 MODEL_CONFIG = GMMHMMConfig(n_states=5, n_mix=8, dim=39)
@@ -41,6 +52,8 @@ SERVING_DECODER_CONFIG = DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0
 SERVING_BUCKET_FRAMES = 128
 SERVING_BUCKETS = 4  # a ~5 s segment: a realistic VAD segment's upper bound
 SERVING_TRIM = 80  # samples short of the bucket grid, so the decode is masked
+STREAM_SECONDS = 60.0  # the live stream's length
+STREAM_CHUNK = 1600  # samples a chunk: 100 ms at 16 kHz
 
 
 def flagship_model(device="cuda", dtype=torch.float32) -> GMMHMM:
@@ -86,6 +99,16 @@ def _serving_unit(n, n_mix, log_a, mu, var, device, dtype) -> GMMHMM:
     return GMMHMM(cfg, dtype=dtype, device=device).set_params(params)
 
 
+def _voice(n: int, rng, f_base: float = 140.0, phase: float = 0.0) -> np.ndarray:
+    """A harmonic voice with a moving pitch and an AM envelope, over a
+    noise floor (the JAX package's ``bench.py:_make_audio``), float64."""
+    t = np.arange(n) / SERVING_MFCC_CONFIG.sample_rate
+    f0 = f_base + 40.0 * np.sin(2 * np.pi * 0.4 * t)
+    base = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
+    env = 0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t + phase)
+    return base * env * 8000.0 + rng.normal(0, 100.0, n)
+
+
 def serving_segment(seed: int = 0) -> np.ndarray:
     """The seeded speech-like segment of the serving geometry: a harmonic
     voice with a moving pitch and an AM envelope over a noise floor (the
@@ -95,12 +118,27 @@ def serving_segment(seed: int = 0) -> np.ndarray:
     cfg = SERVING_MFCC_CONFIG
     rng = np.random.default_rng(seed)
     n = SERVING_BUCKETS * SERVING_BUCKET_FRAMES * cfg.frame_step
-    t = np.arange(n) / cfg.sample_rate
-    f0 = 140.0 + 40.0 * np.sin(2 * np.pi * 0.4 * t)
-    base = sum(np.sin(2 * np.pi * k * f0 * t) / k for k in range(1, 6))
-    env = 0.5 + 0.5 * np.sin(2 * np.pi * 1.7 * t)
-    x = np.clip(base * env * 8000.0 + rng.normal(0, 100.0, n), -32768, 32767)
+    x = np.clip(_voice(n, rng), -32768, 32767)
     return x.astype(np.int16)[: n - SERVING_TRIM].astype(np.float32)
+
+
+def serving_stream(seed: int = 0) -> np.ndarray:
+    """The seeded live stream of :func:`streaming_serving`, int16 at 16
+    kHz, about :data:`STREAM_SECONDS` long: speech-like bursts of 0.5 to 5
+    s (:func:`serving_segment`'s voice, each with its own pitch and
+    envelope phase) between near-silent gaps of 0.3 to 1.2 s (noise of
+    standard deviation 30), starting and ending with a gap."""
+    sr = SERVING_MFCC_CONFIG.sample_rate
+    rng = np.random.default_rng(seed)
+    gap = lambda: rng.normal(0, 30.0, int(sr * rng.uniform(0.3, 1.2)))  # noqa: E731
+    parts = [gap()]
+    n = len(parts[0])
+    while n < STREAM_SECONDS * sr:
+        burst = _voice(int(sr * rng.uniform(0.5, 5.0)), rng, rng.uniform(100.0, 220.0),
+                       rng.uniform(0.0, 2 * np.pi))
+        parts += [burst, gap()]
+        n += len(burst) + len(parts[-1])
+    return np.clip(np.concatenate(parts), -32768, 32767).astype(np.int16)
 
 
 def _serving_draws(vocab: int, seed: int):
@@ -124,19 +162,22 @@ def serving_corpus(vocab: int, seed: int = 0):
     return _serving_draws(vocab, seed)[2]
 
 
-def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int = 0):
+def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int = 0,
+                       graph: str = "auto", lm_order: int = 2):
     """``(Recognizer, segment)`` at the recognizer's serving geometry:
 
     - ``vocab`` whole-word units of 8 left-to-right states x 2 mixtures x
       39 dims (diagonal variance 40; means ``N(0, 25^2)`` per word plus
       ``N(0, 2^2)`` per state and mixture) and a 3-state x 4-mixture
       ``<sil>`` unit (variance 80);
-    - a bigram LM counted from 100 random 4-word sentences
-      (:func:`serving_corpus`);
+    - an ``lm_order``-gram LM (a bigram by default) counted from 100
+      random 4-word sentences (:func:`serving_corpus`);
     - ``DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0)``,
-      ``mean_norm=False`` MFCCs, ``bucket_frames=128``, ``graph="auto"``:
-      at V = 22 the 179-state dense graph, at V = 1000 the factored graph
-      with a dense (V, V) hop;
+      ``mean_norm=False`` MFCCs, ``bucket_frames=128``; ``graph="auto"``
+      composes the 179-state dense graph at V = 22 and the factored graph
+      with a dense (V, V) hop at V = 1000; ``graph="trigram"`` with
+      ``lm_order=3`` the history-expanded trigram graph (at V = 200 its
+      hop tensor is 202 x 201 x 201 floats, 32.6 MB);
     - the segment of :func:`serving_segment`.
 
     Weights are random, drawn from ``seed`` with NumPy, so every device
@@ -151,7 +192,17 @@ def recognizer_serving(vocab: int, device="cuda", dtype=torch.float32, seed: int
     units[SILENCE] = _serving_unit(3, 4, np.full((3, 3), -np.log(3)), sil_mu, 80.0, dev, dtype)
     rec = Recognizer(AcousticModel(units, SERVING_MFCC_CONFIG, dtype=dtype, device=dev),
                      Lexicon.whole_word(sorted(units.keys() - {SILENCE})),
-                     LanguageModel(NGramModel(NGramCounter(2, corpus))),
-                     decoder_config=SERVING_DECODER_CONFIG, graph="auto",
+                     LanguageModel(NGramModel(NGramCounter(lm_order, corpus))),
+                     decoder_config=SERVING_DECODER_CONFIG, graph=graph,
                      bucket_frames=SERVING_BUCKET_FRAMES)
     return rec, serving_segment(seed)
+
+
+def streaming_serving(vocab: int, device="cuda", seed: int = 0):
+    """``(StreamingRecognizer, stream)``: live serving over
+    :func:`recognizer_serving`'s recognizer (bucketed segment decodes) with
+    the default detector, the native WebRTC VAD in mode 0, and the stream
+    of :func:`serving_stream`. Feed it in chunks of :data:`STREAM_CHUNK`
+    samples, then ``flush()``."""
+    rec, _ = recognizer_serving(vocab, device=device, seed=seed)
+    return StreamingRecognizer(rec), serving_stream(seed)

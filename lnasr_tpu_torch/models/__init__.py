@@ -1,6 +1,6 @@
 """Models of the port: MFCC frontend, HMM and GMM-HMM (inference),
 lexicon, n-gram LM, the composed word-graph decoders, word lattices and
-the recognizer (1-best and N-best)."""
+the recognizer (1-best, N-best and streaming)."""
 
 from lnasr_tpu_torch.models.mfcc import MFCC, mfcc_features
 from lnasr_tpu_torch.models.hmm import HMM
@@ -12,6 +12,7 @@ from lnasr_tpu_torch.models.decoder import (
     DecodingGraph,
     FactoredDecodingGraph,
     HopFactors,
+    TrigramDecodingGraph,
 )
 from lnasr_tpu_torch.models.lattice import Hypothesis, WordLattice, WordToken
 from lnasr_tpu_torch.models.recognizer import (
@@ -19,6 +20,8 @@ from lnasr_tpu_torch.models.recognizer import (
     LanguageModel,
     Recognizer,
     SegmentResult,
+    StreamingRecognizer,
+    StreamingStats,
     segment_speech,
 )
 
@@ -36,6 +39,7 @@ __all__ = [
     "DecodingGraph",
     "FactoredDecodingGraph",
     "HopFactors",
+    "TrigramDecodingGraph",
     "Hypothesis",
     "WordLattice",
     "WordToken",
@@ -43,5 +47,7 @@ __all__ = [
     "LanguageModel",
     "Recognizer",
     "SegmentResult",
+    "StreamingRecognizer",
+    "StreamingStats",
     "segment_speech",
 ]

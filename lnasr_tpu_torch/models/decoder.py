@@ -26,10 +26,13 @@ for factors with sparse edges. The host turns them into a
 :class:`~lnasr_tpu_torch.models.lattice.WordLattice` (N-best, posteriors,
 LM rescoring).
 
+:class:`TrigramDecodingGraph` decodes with an exact trigram LM by
+expanding the factored grid with one word of LM history, a frame loop of
+torch ops on the graph's device (no kernel: the JAX package has none).
+
 Graphs are built once on the host (NumPy, float64) and held on one device;
 ``decode`` reads ``(path, score)`` back with one device->host copy, and the
-lattice methods their records with one. Not ported yet:
-``TrigramDecodingGraph``.
+lattice methods their records with one.
 """
 
 from __future__ import annotations
@@ -878,6 +881,242 @@ class FactoredDecodingGraph:
             if path[t] == path[t - 1]:
                 continue
             if locals_[t] == 0 and (word_ids[t] != word_ids[t - 1]
+                                    or locals_[t - 1] == self._exit_idx_np[word_ids[t - 1]]):
+                ids.append(int(word_ids[t]))
+                starts.append(t)
+        return _assemble_alignment(self.words, ids, starts, n_frames or len(path))
+
+    def _path_to_words(self, path: np.ndarray) -> List[str]:
+        return [w for w, _, _ in self.path_to_alignment(path)]
+
+
+class TrigramDecodingGraph:
+    """Exact trigram-LM decoding by expanding the factored graph with the
+    one-word LM history (the JAX package's ``TrigramDecodingGraph``).
+
+    Search states are ``(h, w, s)``: history word h (V words, then one
+    sentence-begin slot), current word w, local state s. Within-word
+    transitions keep the copy; the word hop moves ``(., u) -> (u, w)`` with
+    the full trigram score ``P(w | h, u)``. Sentence begin and end use
+    ``P(w | <s>)`` and ``P(</s> | h, w)``. Memory is O(V^2 S) of state and
+    O(V^3) for the dense hop: exact decoding for vocabularies of a few
+    hundred words. An order-2 LM broadcasts its bigram table over the
+    histories, and the search is then the factored bigram graph's.
+
+    With a ``silence_model``, silence is a pseudo-word whose copy keeps the
+    pre-silence word as its history slot, so a hop across silence scores
+    with the bigram of the pre-silence word.
+
+    The decode is a frame loop of torch ops on the graph's device (the
+    JAX package's ``lax.scan``; it has no Pallas kernel) that stores
+    ``(T-1, H*V*S)`` int32 backpointers and walks them back on the device,
+    so ``(path, score)`` come to the host in one copy.
+    """
+
+    SILENCE = SILENCE
+
+    def __init__(self, words, inner_a, exit_idx, state_map, pad_mask, log_pi_w, final3, hop3,
+                 emission_params, cov_type: str, dtype=torch.float32, device="cuda"):
+        self.words = list(words)
+        self.dtype = dtype
+        self.device = dev = resolve_device(device)
+        self.cov_type = cov_type
+        tensor = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
+        self.inner_a = tensor(inner_a)
+        self.exit_idx = torch.as_tensor(np.asarray(exit_idx), dtype=torch.int64, device=dev)
+        self._exit_idx_np = np.asarray(exit_idx)
+        self.state_map = torch.as_tensor(np.asarray(state_map), dtype=torch.long, device=dev)
+        self.pad_mask = torch.as_tensor(np.asarray(pad_mask), dtype=torch.bool, device=dev)
+        self.log_pi_w = tensor(log_pi_w)
+        self.final3 = tensor(final3)
+        self.hop3 = tensor(hop3)
+        self.log_w, self.mu, self.cov = (tensor(x) for x in emission_params)
+
+    @classmethod
+    def build(cls, lexicon: Lexicon, unit_models: Mapping, lm: NGramModel,
+              config: DecoderConfig = DecoderConfig(), silence_model=None,
+              dtype=torch.float32, max_table_bytes: float = 1 << 30,
+              device="cuda") -> "TrigramDecodingGraph":
+        """Compose the history-expanded graph (same inputs as
+        :meth:`FactoredDecodingGraph.build`; the LM is required). Fails
+        before building the ``(V+1, V, V)`` hop tensor when it would exceed
+        ``max_table_bytes``."""
+        if lm is None:
+            raise ValueError("TrigramDecodingGraph requires a language model")
+        if not config.loop:
+            raise ValueError("history expansion is for connected decoding")
+        v_est = len(lexicon) + (1 if silence_model is not None else 0)
+        hop_bytes = (v_est + 1) * v_est * v_est * torch.finfo(dtype).bits // 8
+        if hop_bytes > max_table_bytes:
+            raise ValueError(
+                f"trigram history expansion needs a ({v_est + 1}, {v_est}, {v_est}) hop "
+                f"tensor ({hop_bytes / 2**20:.0f} MiB > budget {max_table_bytes / 2**20:.0f} "
+                "MiB). For this vocabulary decode with FactoredDecodingGraph and rescore the "
+                "word lattice with the trigram LM (decode_lattice().rescore(lm): the same "
+                "objective, O(V*S^2 + V^2) instead of O(V^3)); or raise max_table_bytes "
+                "explicitly.")
+        cov_type = next(iter(unit_models.values())).config.cov_type
+        words, blocks, emission_params, state_offsets = _compose_words(
+            lexicon, unit_models, silence_model, config.exit_logp)
+        v = len(words)
+        s_max = max(b.shape[0] for b in blocks)
+        inner_a = np.full((v, s_max, s_max), -np.inf)
+        state_map = np.zeros((v, s_max), np.int64)
+        pad_mask = np.zeros((v, s_max), bool)
+        exit_idx = np.zeros(v, np.int64)
+        for wi, block in enumerate(blocks):
+            s_w = block.shape[0]
+            inner_a[wi, :s_w, :s_w] = block
+            state_map[wi, :s_w] = state_offsets[wi] + np.arange(s_w)
+            pad_mask[wi, :s_w] = True
+            exit_idx[wi] = s_w - 1
+
+        scale = config.lm_scale * _LN10
+        has_eos = _has_eos(lm)
+        wip = config.word_insertion_penalty
+        # history rows: the V words (silence included), then <s>
+        s2 = scale * lm.score_table(list(words) + [BOS, EOS])
+        hsel = list(range(v)) + [v]
+        if lm.order >= 3:
+            t3 = scale * lm.score_table_trigram(list(words) + [BOS, EOS])
+            hop3 = t3[hsel][:, :v, :v].copy()
+            final3 = t3[hsel][:, :v, v + 1].copy() if has_eos else np.zeros((v + 1, v))
+        else:
+            hop3 = np.broadcast_to(s2[:v, :v], (v + 1, v, v)).copy()
+            final3 = (np.broadcast_to(s2[:v, v + 1], (v + 1, v)).copy()
+                      if has_eos else np.zeros((v + 1, v)))
+        pi_w = s2[v, :v].copy()
+        hop3 = hop3 + config.exit_logp + wip
+        if silence_model is not None:
+            si = v - 1  # _compose_words appends silence last
+            # leaving silence from copy (h, sil): bigram P(w | h), the
+            # pre-silence word having survived as the copy's history
+            hop3[:, si, :] = s2[hsel, :v] + config.exit_logp + wip
+            # a copy whose history is silence scores its next hop with the
+            # bigram of its current word
+            hop3[si, :, :] = s2[:v, :v] + config.exit_logp + wip
+            # entering silence: exit penalty only, no LM or insertion cost
+            hop3[:, :, si] = config.exit_logp
+            hop3[:, si, si] = -np.inf  # silence never follows itself
+            pi_w[si] = 0.0
+            final3[:, si] = 0.0
+            final3[si, :] = s2[:v, v + 1] if has_eos else 0.0
+            final3[si, si] = 0.0
+        return cls(words, inner_a, exit_idx, state_map, pad_mask, pi_w, final3, hop3,
+                   emission_params, cov_type, dtype, device)
+
+    @property
+    def grid_shape(self) -> Tuple[int, int, int]:
+        h, v, _ = self.hop3.shape
+        return h, v, self.inner_a.shape[1]
+
+    def _decode_log_b(self, log_b: torch.Tensor, mask: Optional[torch.Tensor]):
+        """The decode core on grid emissions ``(T, V, S)``: ``(path (T,)
+        int32 in (h*V + w)*S + s ids, score ())`` on the graph's device.
+        Ties go as in the JAX package's scan: the first within-word source,
+        the first history on a hop, a hop only when strictly better at local
+        state 0; the <s> history row is never re-entered; masked frames keep
+        the grid and point to themselves; the final argmax takes the first
+        of the flattened (H, V, S) states."""
+        h_hist, v_words, s_max = self.grid_shape
+        t_len = log_b.shape[0]
+        dev = log_b.device
+        n_states = h_hist * v_words * s_max
+        copy_self = torch.arange(n_states, device=dev).reshape(h_hist, v_words, s_max)
+        copy_base = copy_self[:, :, :1]  # (H, V, 1) id of each copy's state 0
+        # the hop into copy (u, w) comes from copy (hsrc, u) at u's exit state
+        hop_src_base = (torch.arange(v_words, device=dev) * s_max + self.exit_idx)[:, None]
+        exit_sel = self.exit_idx[None, :, None].expand(h_hist, v_words, 1)
+        inner_a = self.inner_a[None]
+
+        vgrid = torch.full((h_hist, v_words, s_max), -math.inf, dtype=log_b.dtype, device=dev)
+        vgrid[h_hist - 1, :, 0] = self.log_pi_w.to(log_b.dtype)
+        vgrid = vgrid + log_b[0][None]
+        bts = torch.empty((max(t_len - 1, 0), h_hist, v_words, s_max), dtype=torch.int32,
+                          device=dev)
+        for t in range(1, t_len):
+            within, wsrc = torch.max(vgrid[:, :, :, None] + inner_a, dim=2)
+            bt = wsrc + copy_base
+            exit_v = torch.gather(vgrid, 2, exit_sel)  # (H, V, 1)
+            entry, hsrc = torch.max(exit_v + self.hop3, dim=0)  # (V, V): [u, w]
+            w0 = within[:v_words, :, 0]
+            hop_wins = entry > w0
+            within[:v_words, :, 0] = torch.maximum(w0, entry)
+            bt[:v_words, :, 0] = torch.where(
+                hop_wins, torch.add(hop_src_base, hsrc, alpha=v_words * s_max),
+                bt[:v_words, :, 0])
+            new_v = within + log_b[t][None]
+            if mask is None:
+                vgrid = new_v
+                bts[t - 1] = bt
+            else:
+                vgrid = torch.where(mask[t], new_v, vgrid)
+                bts[t - 1] = torch.where(mask[t], bt, copy_self)
+
+        final_grid = torch.where(
+            torch.arange(s_max, device=dev)[None, None, :] == self.exit_idx[None, :, None],
+            self.final3[:, :, None].to(vgrid.dtype),
+            torch.tensor(-math.inf, dtype=vgrid.dtype, device=dev))
+        score, last = torch.max((vgrid + final_grid).reshape(-1), dim=0)
+        bts_flat = bts.reshape(bts.shape[0], -1)
+        # a gather a step, so that the walk never waits on the host
+        states = [last.reshape(1).to(torch.int32)]
+        for t in range(t_len - 2, -1, -1):
+            states.append(torch.gather(bts_flat[t], 0, states[-1].long()))
+        path = torch.cat(states[::-1])
+        return path, score
+
+    def _grid_log_b(self, obs: torch.Tensor) -> torch.Tensor:
+        """Grid emissions ``(..., T, V, S)``, -inf at padded states."""
+        log_b_real = _emissions(obs, self.log_w, self.mu, self.cov, self.cov_type)
+        neg = torch.tensor(-math.inf, dtype=log_b_real.dtype, device=log_b_real.device)
+        return torch.where(self.pad_mask, log_b_real[..., self.state_map], neg)
+
+    def decode_arrays(self, obs: torch.Tensor, mask: Optional[torch.Tensor]):
+        """Device decode core: ``(features (T, D), mask (T,) or None) ->
+        (path (T,) int32, score ())`` tensors on the graph's device."""
+        return self._decode_log_b(self._grid_log_b(obs), mask)
+
+    def decode(self, features, mask=None) -> Tuple[List[str], np.ndarray, float]:
+        """Viterbi over the history-expanded graph: ``(words, per-frame
+        state path (h*V + w)*S + s, score)``; ``mask (T,)`` marks valid
+        frames (padded frames are identity steps)."""
+        obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
+        if mask is not None:
+            mask = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        path, score = to_host(*self.decode_arrays(obs, mask))
+        return self._path_to_words(path), path, float(score)
+
+    def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
+        """Decode padded ``(B, T, D)`` features with ``(B, T)`` masks: one
+        emission product for the batch, one decode per utterance, one
+        device->host copy for all. Identical to looping :meth:`decode`."""
+        obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
+        masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
+        log_b = self._grid_log_b(obs)
+        outs = [self._decode_log_b(log_b[b], masks[b]) for b in range(obs.shape[0])]
+        if not outs:
+            return []
+        paths, scores = to_host(torch.stack([p for p, _ in outs]),
+                                torch.stack([s for _, s in outs]))
+        return [(self._path_to_words(paths[b]), paths[b], float(scores[b]))
+                for b in range(paths.shape[0])]
+
+    def path_to_alignment(self, path: np.ndarray, n_frames: Optional[int] = None
+                          ) -> List[Tuple[str, int, int]]:
+        """``(word, start_frame, end_frame)`` per decoded word instance
+        (inclusive frames; silence dropped), see
+        :meth:`DecodingGraph.path_to_alignment`."""
+        _, v_words, s_max = self.grid_shape
+        path = np.asarray(path)
+        copy_ids, locals_ = path // s_max, path % s_max
+        word_ids = copy_ids % v_words
+        ids = [int(word_ids[0])]
+        starts = [0]
+        for t in range(1, len(path)):
+            if path[t] == path[t - 1]:
+                continue
+            if locals_[t] == 0 and (copy_ids[t] != copy_ids[t - 1]
                                     or locals_[t - 1] == self._exit_idx_np[word_ids[t - 1]]):
                 ids.append(int(word_ids[t]))
                 starts.append(t)

@@ -1,22 +1,27 @@
 """The recognizer: VAD -> MFCC -> composed lexicon+LM Viterbi -> text.
 
-The port of the JAX package's ``models/recognizer.py`` (1-best and N-best
-decoding). Per segment: MFCC features (the fused mel frontend kernel on
-CUDA), GMM emissions, and one Viterbi over the composed word graph
-(:mod:`lnasr_tpu_torch.models.decoder`: the dense-graph kernel or the
-factored forward and backtrace kernels on CUDA). N-best decoding records
-a word lattice instead (kernel F on CUDA) and searches it on the host
+The port of the JAX package's ``models/recognizer.py``. Per segment: MFCC
+features (the fused mel frontend kernel on CUDA), GMM emissions, and one
+Viterbi over the composed word graph
+(:mod:`lnasr_tpu_torch.models.decoder`: the dense-graph kernel, the
+factored forward and backtrace kernels on CUDA, or the trigram graph's
+frame loop of torch ops). N-best decoding records a word lattice instead
+(kernel F on CUDA) and searches it on the host
 (:mod:`lnasr_tpu_torch.models.lattice`). With ``bucket_frames`` a segment
 is padded onto a bucket grid and decoded with a frame mask: one
 host->device copy of the samples in, one device->host copy of
-``(path, score)`` or of the lattice records out. Not ported yet:
-``StreamingRecognizer`` and ``train_unit_models``.
+``(path, score)`` or of the lattice records out.
+
+:class:`StreamingRecognizer` serves a live stream: chunks of audio in, a
+VAD (the native WebRTC-style detector by default) closing segments, each
+closed segment decoded as above. Not ported yet: ``train_unit_models``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -29,6 +34,7 @@ from lnasr_tpu_torch.models.decoder import (
     DecoderConfig,
     DecodingGraph,
     FactoredDecodingGraph,
+    TrigramDecodingGraph,
     records_to_host,
     to_host,
 )
@@ -141,9 +147,11 @@ class Recognizer:
         """``bucket_frames`` > 0 pads each segment so its feature count lands
         on a multiple of the bucket and decodes with a frame mask (requires
         ``mean_norm=False`` MFCC; results equal the unbucketed decode).
-        ``graph``: ``"dense"``, ``"factored"``, or ``"auto"`` (factored once
-        the composed state count exceeds :data:`DENSE_STATE_LIMIT`; an
-        explicit ``hop_mode`` pins it to factored). ``hop_mode`` (factored
+        ``graph``: ``"dense"``, ``"factored"``, ``"trigram"`` (exact
+        trigram LM by history expansion; needs an LM), or ``"auto"``
+        (factored once the composed state count exceeds
+        :data:`DENSE_STATE_LIMIT`; an explicit ``hop_mode`` pins it to
+        factored). ``hop_mode`` (factored
         only): ``"dense"``, ``"backoff"``, ``"rank1"`` or ``"auto"``.
         ``vad`` is any object with ``process(audio) -> per-frame flags``,
         ``FRAME_LEN`` and ``reset()``."""
@@ -179,16 +187,20 @@ class Recognizer:
                 f"graph={graph!r}); the dense and trigram graphs have no word-hop "
                 "realization choice")
         if graph == "trigram":
-            raise NotImplementedError(
-                'graph="trigram" (TrigramDecodingGraph) is not ported yet; use '
-                '"dense" or "factored"')
-        if graph not in ("dense", "factored"):
+            if lm is None:
+                raise ValueError('graph="trigram" requires a language model')
+            self.graph = TrigramDecodingGraph.build(lexicon, am.units, lm.ngram, decoder_config,
+                                                    silence_model=silence, dtype=am.dtype,
+                                                    device=self.device)
+        elif graph in ("dense", "factored"):
+            graph_cls = DecodingGraph if graph == "dense" else FactoredDecodingGraph
+            kw = {"hop_mode": hop_mode} if graph == "factored" else {}
+            self.graph = graph_cls.build(lexicon, am.units,
+                                         lm.ngram if lm is not None else None, decoder_config,
+                                         silence_model=silence, dtype=am.dtype,
+                                         device=self.device, **kw)
+        else:
             raise ValueError(f"unknown graph type: {graph!r}")
-        graph_cls = DecodingGraph if graph == "dense" else FactoredDecodingGraph
-        kw = {"hop_mode": hop_mode} if graph == "factored" else {}
-        self.graph = graph_cls.build(lexicon, am.units, lm.ngram if lm is not None else None,
-                                     decoder_config, silence_model=silence, dtype=am.dtype,
-                                     device=self.device, **kw)
 
     def _segments(self, audio: np.ndarray) -> List[Tuple[int, int]]:
         if self.vad is None:
@@ -348,3 +360,139 @@ class Recognizer:
         return [self.decode_segment_nbest(audio[a:b], n, rescore_lm, pool,
                                           with_confidence=with_confidence)
                 for a, b in self._segments(audio)]
+
+
+@dataclasses.dataclass
+class StreamingStats:
+    """Observability for a live stream: totals since ``reset``."""
+
+    audio_seconds: float = 0.0     # audio fed in
+    segments: int = 0              # segments decoded
+    decode_seconds: float = 0.0    # wall time spent in MFCC + Viterbi
+    last_latency_s: float = 0.0    # decode wall time of the latest segment
+    buffer_samples: int = 0        # current retained-buffer size
+
+    @property
+    def rtf(self) -> float:
+        """Decode real-time factor (decode wall time / audio time); below 1
+        the decoder keeps up with the stream."""
+        return self.decode_seconds / max(self.audio_seconds, 1e-12)
+
+
+class StreamingRecognizer:
+    """Incremental recognition: feed audio chunks of any size; speech
+    segments are decoded and returned as they close.
+
+    The host-side streaming VAD (the native
+    :class:`~lnasr_tpu_torch.vad.native.WebRtcVad` by default) classifies
+    every whole 10 ms frame of a chunk in one call; a segment closes after
+    ``min_gap_frames`` of silence, its samples are cut with ``pad_frames``
+    margins, and :meth:`Recognizer.decode_segment` decodes it (on CUDA:
+    one copy of the samples in, one of ``(path, score)`` out).
+    :meth:`flush` closes an open segment at the end of the stream.
+
+    Memory is bounded: audio no future segment can use (decoded, or
+    silence beyond the ``pad_frames`` look-back) is dropped, so the buffer
+    holds O(longest open segment) over an unbounded stream. Per-segment
+    decode latency and the stream's real-time factor are kept in
+    :attr:`stats`.
+    """
+
+    def __init__(self, recognizer: Recognizer, vad=None, min_gap_frames: int = 10,
+                 min_len_frames: int = 5, pad_frames: int = 2):
+        from lnasr_tpu_torch.vad.native import WebRtcVad
+
+        self.rec = recognizer
+        self.sample_rate = recognizer.sample_rate
+        self.vad = vad if vad is not None else WebRtcVad(mode=0, sample_rate=self.sample_rate)
+        vad_rate = getattr(self.vad, "sample_rate", None)
+        if vad_rate is not None and vad_rate != self.sample_rate:
+            raise ValueError(f"VAD sample rate {vad_rate} != recognizer rate {self.sample_rate}")
+        self.frame_len = getattr(self.vad, "FRAME_LEN", 160)
+        self.min_gap = min_gap_frames
+        self.min_len = min_len_frames
+        self.pad = pad_frames
+        self.reset()
+
+    def reset(self) -> None:
+        if hasattr(self.vad, "reset"):
+            self.vad.reset()
+        # frame bookkeeping is in absolute frame indices; the buffer holds
+        # the samples from frame self._base_f on
+        self._buffer = np.zeros(0, np.int16)
+        self._base_f = 0
+        self._next_f = 0  # next frame to classify
+        self._open_start: Optional[int] = None
+        self._last_speech: Optional[int] = None
+        self.stats = StreamingStats()
+
+    def _cut_segment(self, start_f: int, end_f: int) -> Optional[SegmentResult]:
+        if end_f - start_f < self.min_len:
+            return None
+        a_f = max(0, start_f - self.pad)
+        a = (a_f - self._base_f) * self.frame_len
+        b = min(len(self._buffer), (end_f + self.pad - self._base_f) * self.frame_len)
+        t0 = time.perf_counter()
+        words, score = self.rec.decode_segment(self._buffer[a:b])
+        dt = time.perf_counter() - t0
+        self.stats.segments += 1
+        self.stats.decode_seconds += dt
+        self.stats.last_latency_s = dt
+        sr = float(self.sample_rate)
+        return SegmentResult(start_s=a_f * self.frame_len / sr,
+                             end_s=(self._base_f * self.frame_len + b) / sr,
+                             words=words, score=score)
+
+    def _trim(self) -> None:
+        """Drop buffered audio no future segment can reference: everything
+        before the open segment's padded start or, with no open segment,
+        before the pad look-back behind the VAD cursor."""
+        keep_f = (self._open_start if self._open_start is not None else self._next_f) - self.pad
+        keep_f = max(self._base_f, keep_f)
+        drop = (keep_f - self._base_f) * self.frame_len
+        if drop > 0:
+            self._buffer = self._buffer[drop:]
+            self._base_f = keep_f
+        self.stats.buffer_samples = len(self._buffer)
+
+    def process(self, chunk) -> List[SegmentResult]:
+        """Feed samples; returns the segments this chunk closed."""
+        chunk = np.asarray(chunk, np.int16)
+        self._buffer = np.concatenate([self._buffer, chunk])
+        self.stats.audio_seconds += len(chunk) / float(self.sample_rate)
+        total_f = self._base_f + len(self._buffer) // self.frame_len
+        results: List[SegmentResult] = []
+        if self._next_f < total_f:
+            # classify every pending whole frame in one detector call
+            off = (self._next_f - self._base_f) * self.frame_len
+            n_pend = total_f - self._next_f
+            out = self.vad.process(self._buffer[off: off + n_pend * self.frame_len])
+            flags = out[0] if isinstance(out, tuple) else out  # AMR-WB: (flags, power)
+            for i in range(n_pend):
+                f = self._next_f + i
+                if int(flags[i]) > 0:
+                    if self._open_start is None:
+                        self._open_start = f
+                    self._last_speech = f
+                elif (self._open_start is not None and self._last_speech is not None
+                      and f - self._last_speech >= self.min_gap):
+                    seg = self._cut_segment(self._open_start, self._last_speech + 1)
+                    if seg is not None:
+                        results.append(seg)
+                    self._open_start = None
+                    self._last_speech = None
+            self._next_f = total_f
+        self._trim()
+        return results
+
+    def flush(self) -> List[SegmentResult]:
+        """End of stream: close and decode any open segment."""
+        results = []
+        if self._open_start is not None and self._last_speech is not None:
+            seg = self._cut_segment(self._open_start, self._last_speech + 1)
+            if seg is not None:
+                results.append(seg)
+        self._open_start = None
+        self._last_speech = None
+        self._trim()
+        return results

@@ -1,1 +1,26 @@
-"""Host-side utilities of the port."""
+"""Host-side utilities of the port: audio I/O, evaluation metrics, text
+constants."""
+
+from lnasr_tpu_torch.utils.audio import (
+    Recorder, read_audio, read_pcm, read_wave, record, resample, write_pcm,
+    write_wave,
+)
+from lnasr_tpu_torch.utils.metrics import cer, edit_distance, wer, wer_details
+from lnasr_tpu_torch.utils.text import PUNCTUATION_ASCII, PUNCTUATION_UNICODE
+
+__all__ = [
+    "Recorder",
+    "record",
+    "resample",
+    "read_audio",
+    "read_pcm",
+    "write_pcm",
+    "read_wave",
+    "write_wave",
+    "cer",
+    "edit_distance",
+    "wer",
+    "wer_details",
+    "PUNCTUATION_ASCII",
+    "PUNCTUATION_UNICODE",
+]

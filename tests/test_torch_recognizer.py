@@ -21,6 +21,7 @@ from lnasr_tpu.config import GMMHMMConfig as JGMMHMMConfig
 from lnasr_tpu.config import MFCCConfig as JMFCCConfig
 from lnasr_tpu.models.decoder import DecoderConfig as JDecoderConfig
 from lnasr_tpu.models.decoder import FactoredDecodingGraph as JFactored
+from lnasr_tpu.models.decoder import TrigramDecodingGraph as JTrigram
 from lnasr_tpu.models.gmmhmm import GMMHMM as JGMMHMM
 from lnasr_tpu.models.lexicon import Lexicon as JLexicon
 from lnasr_tpu.models.ngram import NGramCounter as JNGramCounter
@@ -33,6 +34,7 @@ from lnasr_tpu_torch import entry
 from lnasr_tpu_torch.config import GMMHMMConfig, MFCCConfig
 from lnasr_tpu_torch.convert import units_from_numpy
 from lnasr_tpu_torch.models.decoder import DecoderConfig, DecodingGraph, FactoredDecodingGraph
+from lnasr_tpu_torch.models.decoder import TrigramDecodingGraph
 from lnasr_tpu_torch.models.decoder import HopFactors
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel, NGramModelARPA
@@ -146,7 +148,7 @@ def test_dense_graph_build_matches_jax(models, loop):
         np.testing.assert_array_equal(getattr(t, name), np.asarray(getattr(j, name)))
 
 
-@pytest.mark.parametrize("graph", ["dense", "factored"])
+@pytest.mark.parametrize("graph", ["dense", "factored", "trigram"])
 @pytest.mark.parametrize("bucket", [0, 64])
 def test_decode_matches_jax(models, graph, bucket):
     j, t = _pair(models, graph=graph, bucket_frames=bucket)
@@ -218,7 +220,10 @@ def test_selection_rules_match_jax(models, monkeypatch):
     with pytest.raises(ValueError, match="mean_norm"):
         Recognizer(AcousticModel(models[1].units, MFCCConfig(energy_floor=1e-10), device="cpu"),
                    Lexicon.whole_word(list(WORD_F0)), bucket_frames=64)
-    with pytest.raises(NotImplementedError, match="trigram"):
+    j, t = _pair(models, graph="trigram")
+    assert isinstance(t.graph, TrigramDecodingGraph) and isinstance(j.graph, JTrigram)
+    assert t.graph.grid_shape == j.graph.grid_shape
+    with pytest.raises(ValueError, match="requires a language model"):
         Recognizer(models[1], Lexicon.whole_word(list(WORD_F0)), graph="trigram")
 
 
