@@ -34,6 +34,14 @@ kernels' launch counters reset just before and read just after:
 - the device VADs on the stream's audio (LTSD fixed and adaptive, the
   WebRTC-style torch VAD in modes 0-3) against their CPU runs and the
   native detector;
+- training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
+  frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (torch
+  frame loops and GEMMs, no kernel of the port), float64 against the CPU
+  and float32 against a float64 oracle, timed and split; kill and resume
+  bitwise (the GMM-HMM and a 65,536-symbol discrete HMM);
+  ``entry.unit_training(22)`` (mel frontend once) against the CPU, with a
+  planted decode by the trained units (mel frontend, dense-graph
+  Viterbi); the word segmenter against the CPU;
 
 checks each against the plain CPU path on the same weights and input
 (plus planted word sequences, decoded and lattice-searched), and times
@@ -113,7 +121,7 @@ def device_ms(torch, fn, calls=10):
             fn()
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / calls
+               if on_device(torch, e)) / 1e3 / calls
 
 
 def device_breakdown(torch, fn, step_ms, card, steps=5):
@@ -126,8 +134,7 @@ def device_breakdown(torch, fn, step_ms, card, steps=5):
             fn()
         torch.cuda.synchronize()
     rows = sorted(((e.self_device_time_total / 1e3 / steps, e.count // steps, e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), reverse=True)
+                   for e in prof.key_averages() if on_device(torch, e)), reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"step breakdown on {card} (torch.profiler, {steps} steps): device busy {busy:.4f} ms "
           f"of {step_ms:.4f} ms per step ({100 * busy / step_ms:.1f}%), {len(rows)} kernel kinds")
@@ -140,6 +147,13 @@ def device_breakdown(torch, fn, step_ms, card, steps=5):
           f"(profiler overhead included), {sum(r[1] for r in host)} ops; the largest:")
     for ms, count, name in host[:6]:
         print(f"  {ms:.4f} ms  x{count}  {name[:90]}")
+
+
+def on_device(torch, e):
+    """A profiler entry of device work (a kernel or a copy), not the device
+    side of a ``record_function`` range, which spans its idle time too."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
 
 
 def bound(n_bytes, n_ops):
@@ -165,14 +179,10 @@ def host_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
-def make_signals(torch, device):
-    """Seeded speech-like noise: amplitude-modulated, never digital silence."""
-    rng = np.random.default_rng(0)
-    t = np.arange(S) / SR
-    rate = rng.uniform(1.0, 4.0, size=(B, 1))
-    env = 0.05 + np.clip(np.sin(2 * np.pi * rate * t[None, :]), 0.0, None) ** 2
-    x = rng.normal(scale=3000.0, size=(B, S)) * env
-    return torch.as_tensor(x.astype(np.float32), device=device)
+def make_signals(torch, entry, device):
+    """The flagship batch: the training path's seeded speech-like noise
+    (amplitude-modulated, never digital silence), B x S."""
+    return torch.as_tensor(entry.training_signals(B, SECONDS), device=device)
 
 
 def model(rng, n, kind):
@@ -191,17 +201,14 @@ def model(rng, n, kind):
             np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32))
 
 
-def check_mel_frontend(torch, mf, cfg, x, dev):
-    """Kernel A against its plain version: mel energies and frame energy
-    within ``2e-6 * max_energy + 1e-4 * |ref|``, features within 0.01, at
-    the serving geometry (with and without lengths), at the segment's
-    shape, and at other geometries: both routes of the kernel (the warp
-    FFT at fft_n 256 to 2048, the block-wide FFT at 128 and 4096). Prints
-    both fp32 paths' feature errors against a float64 oracle (the kernel's
-    within 0.0057). Returns the largest mel error at the serving geometry."""
-    from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
+def check_a_shape(torch, mf, sig, cfg, lens, where):
+    """Kernel A against its plain version on ``sig`` (with ``lens``): mel
+    energies and frame energy within ``2e-6 * max_energy + 1e-4 * |ref|``,
+    the feature masks equal, features within 0.01. Returns ``(mel max err,
+    energy scale, features max err)``."""
+    from lnasr_tpu_torch.models.mfcc import mfcc_features, mfcc_features_fused
 
-    def within_bars(got, ref, what, scale, where):
+    def within_bars(got, ref, what, scale):
         require(got.shape == ref.shape, f"kernel A {what} shape {tuple(got.shape)} ({where})")
         err = (got - ref).abs()
         require(bool((err <= 2e-6 * scale + 1e-4 * ref.abs()).all()),
@@ -209,29 +216,52 @@ def check_mel_frontend(torch, mf, cfg, x, dev):
                 f"scale {scale}")
         return float(err.max())
 
-    def features_err(sig, c, lens):
-        feats_k, mask_k = mfcc_features_fused(sig, c, lengths=lens)
-        ref = mfcc_features(sig, c, lens)
-        require(torch.equal(mask_k, ref.mask), "kernel A feature masks differ")
-        return float(((feats_k - ref.features).abs() * ref.mask[..., None]).max())
+    mel_k, en_k = mf.mel_frontend(sig, cfg, lengths=lens)
+    mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(sig, cfg, lens), cfg)
+    torch.cuda.synchronize()
+    scale = float(en_p.max())
+    mel_err = within_bars(mel_k, mel_p, "mel", scale)
+    within_bars(en_k, en_p, "energy", scale)
+    feats_k, mask_k = mfcc_features_fused(sig, cfg, lengths=lens)
+    ref = mfcc_features(sig, cfg, lens)
+    require(torch.equal(mask_k, ref.mask), f"kernel A feature masks differ ({where})")
+    ferr = float(((feats_k - ref.features).abs() * ref.mask[..., None]).max())
+    require(ferr < 0.01, f"kernel A features off by {ferr} ({where})")
+    return mel_err, scale, ferr
+
+
+def a_route(mf, sig, cfg):
+    """Kernel A's route at this shape: the warp FFT with its frames a
+    block, or the block-wide FFT."""
+    from lnasr_tpu_torch.ops.framing import num_frames
+
+    if not mf.fft_plan(cfg.fft_n):
+        return "block-wide route"
+    b, t = sig.shape[0], num_frames(sig.shape[1], cfg.frame_len, cfg.frame_step)
+    return f"warp route, {mf.frames_per_block(b, t, mf.sm_count(sig.device))} frames a block"
+
+
+def check_mel_frontend(torch, mf, cfg, x, dev):
+    """Kernel A against its plain version (:func:`check_a_shape`) at the
+    serving geometry (with and without lengths), at the segment's shape,
+    and at other geometries: both routes of the kernel (the warp FFT at
+    fft_n 256 to 2048, the block-wide FFT at 128 and 4096). Prints both
+    fp32 paths' feature errors against a float64 oracle (the kernel's
+    within 0.0057). Returns the largest mel error at the serving
+    geometry."""
+    from lnasr_tpu_torch.models.mfcc import cepstral_epilogue, mfcc_features, mfcc_features_fused
 
     lengths = torch.as_tensor(np.random.default_rng(1).integers(S // 2, S + 1, size=x.shape[0]),
                               device=dev)
     lengths[0] = S
     mel_err = 0.0
     for lens in (None, lengths):
-        where = "variable lengths" if lens is not None else "full length"
-        mel_k, en_k = mf.mel_frontend(x, cfg, lengths=lens)
-        mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(x, cfg, lens), cfg)
-        torch.cuda.synchronize()
-        scale = float(en_p.max())
-        mel_err = max(mel_err, within_bars(mel_k, mel_p, "mel", scale, where))
-        within_bars(en_k, en_p, "energy", scale, where)
-        ferr = features_err(x, cfg, lens)
-        require(ferr < 0.01, f"kernel A features off by {ferr} ({where})")
-        print(f"kernel A vs plain ({where}): mel max err {float((mel_k - mel_p).abs().max()):.6g} "
-              f"of energy scale {scale:.6g} (bar 2e-6*scale + 1e-4*|ref|), features max err "
-              f"{ferr:.3g} (bar 0.01): ok")
+        where = (f"{'variable lengths' if lens is not None else 'full length'}, "
+                 f"{a_route(mf, x, cfg)}")
+        err, scale, ferr = check_a_shape(torch, mf, x, cfg, lens, where)
+        mel_err = max(mel_err, err)
+        print(f"kernel A vs plain ({where}): mel max err {err:.6g} of energy scale {scale:.6g} "
+              f"(bar 2e-6*scale + 1e-4*|ref|), features max err {ferr:.3g} (bar 0.01): ok")
     # which side is nearer the truth: both fp32 paths against the plain chain in float64
     mel64, en64 = mf.mel_frontend_plain(mf.preemphasize(x, cfg).double(), cfg)
     all_frames = torch.ones(mel64.shape[:2], dtype=torch.bool, device=dev)
@@ -254,15 +284,8 @@ def check_mel_frontend(torch, mf, cfg, x, dev):
                        (x[:4, :SR], dataclasses.replace(cfg, frame_t=8e-3, fft_n=128)),
                        (x[:4, :SR], dataclasses.replace(cfg, fft_n=4096))):
         where = (f"B={sig.shape[0]}, frame_len {other.frame_len}, fft_n {other.fft_n}, "
-                 f"n_mels {other.n_mels}, "
-                 f"{'warp' if mf.fft_plan(other.fft_n) else 'block-wide'} route")
-        mel_k, en_k = mf.mel_frontend(sig, other)
-        mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(sig, other), other)
-        scale = float(en_p.max())
-        err = within_bars(mel_k, mel_p, "mel", scale, where)
-        within_bars(en_k, en_p, "energy", scale, where)
-        ferr = features_err(sig, other, None)
-        require(ferr < 0.01, f"kernel A features off by {ferr} ({where})")
+                 f"n_mels {other.n_mels}, {a_route(mf, sig, other)}")
+        err, scale, ferr = check_a_shape(torch, mf, sig, other, None, where)
         print(f"kernel A vs plain ({where}): within the mel bar (max err {err:.6g} of scale "
               f"{scale:.6g}), features max err {ferr:.3g}")
     return mel_err
@@ -767,7 +790,7 @@ def stream_phase(torch, entry, wrappers, card, launches):
         torch.cuda.synchronize()
         replay_wall = time.perf_counter() - t0
     busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+               if on_device(torch, e)) / 1e6
     same_segments(replay, segs, "V=1000 stream, reset() replay", rel=1e-12)
     print(f"timing on {card}: stream V=1000: per-segment latency p50 {percentile(lat, 50):.4f} "
           f"ms, p99 {percentile(lat, 99):.4f} ms, max {max(lat):.4f} ms (host clock around "
@@ -895,6 +918,315 @@ def vad_phase(torch, entry, card):
     return out
 
 
+# the segmenter's corpus: space-separated words (tests/test_seg.py's)
+SEG_CORPUS = [
+    "我们 喜欢 学习 语言 模型",
+    "他们 喜欢 学习 数学",
+    "我们 学习 中文 分词",
+    "语言 模型 帮助 中文 分词",
+    "他们 使用 语言 模型",
+    "我们 使用 中文",
+    "中文 分词 需要 语言 模型",
+    "学习 中文 需要 模型",
+    "我 在 图书馆 学习",
+    "他 喜欢 去 图书馆",
+    "隐马尔可夫 模型 很 有用",
+    "我 用 隐马尔可夫 模型 分词",
+] * 4
+SEG_SENTENCES = ["我们喜欢学习中文", "他们使用语言模型", "语言模型帮助分词",
+                 "我在图书馆学习隐马尔可夫模型。", "żółw隐马尔可夫"]
+
+
+def param_dist(torch, got, ref):
+    """The largest distance between two parameter sets (NamedTuples of
+    the same type): log-probability fields as probabilities (absolute),
+    every other field relative to the reference's largest magnitude;
+    equal entries (also -inf) count 0, a finite entry against -inf inf."""
+    worst = 0.0
+    for name, g, r in zip(ref._fields, got, ref):
+        g, r = g.detach().double().cpu(), r.detach().double().cpu()
+        if name.startswith("log_"):
+            d = (torch.exp(g) - torch.exp(r)).abs()
+        else:
+            d = (g - r).abs() / r[torch.isfinite(r)].abs().max()
+        d = torch.where(g == r, torch.zeros_like(d), d)
+        worst = max(worst, float(torch.nan_to_num(d, nan=np.inf).max()))
+    return worst
+
+
+def hist_dist(got, ref):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, ref))
+
+
+def host_launches(prof):
+    """Kernel launches the host made under ``prof`` (runtime API events)."""
+    return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
+
+
+def training_phase(torch, entry, wrappers, card, launches):
+    """Training: the flagship EM sweep at full width (B = 64 x 10 s, 5 x 8 x
+    39 diagonal), its float64 sweeps against the CPU's and its float32
+    sweeps against a float64 oracle, its time and split; kill and resume
+    bitwise for the GMM-HMM and a 65,536-symbol discrete HMM; a small
+    full-covariance sweep; isolated-unit training of the V = 22 inventory
+    against the CPU's, a planted decode with the trained units; the
+    segmenter against the CPU's."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from lnasr_tpu_torch.config import GMMHMMConfig
+    from lnasr_tpu_torch.models import gmmhmm as tgh
+    from lnasr_tpu_torch.models import hmm as thmm
+    from lnasr_tpu_torch.models.decoder import SILENCE, DecodingGraph
+    from lnasr_tpu_torch.models.recognizer import AcousticModel
+    from lnasr_tpu_torch.models.seg import Seg, SegDataSet
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.utils.checkpoints import Checkpointer, em_loop
+
+    f32, f64 = torch.float32, torch.float64
+
+    def only_a(counts, what):
+        require(counts["mel_frontend"] == 1 and all(c == 0 for n, c in counts.items()
+                                                    if n != "mel_frontend"),
+                f"{what} did not launch the mel frontend once and nothing else: {counts}")
+
+    # -- the training path: features (kernel A once) and one sweep ----------
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    run = entry.training(device=DEVICE)
+    params1, loglik1 = run.step(run.params)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    only_a(counts, "the training path")
+    launches["training"] = {"mel_frontend": counts["mel_frontend"]}
+    b, t_frames, _ = run.features.shape
+    audio_s = b * entry.TRAIN_SECONDS
+    require(np.isfinite(float(loglik1)) and all(bool(torch.isfinite(x[x != -np.inf]).all())
+                                                for x in params1),
+            "the first sweep is not finite")
+    print(f"main path: entry.training() on B={b} x {entry.TRAIN_SECONDS} s -> features "
+          f"{tuple(run.features.shape)}, one gmmhmm_em_step sweep, loglik {float(loglik1):.6e}; "
+          f"launches {counts}")
+
+    # -- 3 sweeps at float64 (card vs CPU) and float32 (vs the oracle) -----
+    host = run.features.cpu()
+
+    def sweeps(device, dtype, k=3):
+        r = entry.training(device=device, dtype=dtype,
+                           features=host if device == "cpu" else run.features)
+        p, hist = r.params, []
+        for _ in range(k):
+            p, ll = r.step(p)
+            hist.append(float(ll))
+        return p, hist
+
+    threads = torch.get_num_threads()
+    p64, h64 = sweeps(DEVICE, f64)
+    t0 = time.perf_counter()
+    c64, ch64 = sweeps("cpu", f64)
+    cpu_s = time.perf_counter() - t0
+    p32, h32 = sweeps(DEVICE, f32)
+    c32, ch32 = sweeps("cpu", f32)
+    e64 = max(param_dist(torch, p64, c64), hist_dist(h64, ch64))
+    d_card, d_cpu = (max(param_dist(torch, p, c64), hist_dist(h, ch64))
+                     for p, h in ((p32, h32), (c32, ch32)))
+    print(f"training sweeps (3, from the flagship start, features of kernel A copied to the host): "
+          f"float64 card vs CPU {e64:.3g} (bar 1e-9); float32 from the float64 CPU oracle: card "
+          f"{d_card:.3g}, CPU {d_cpu:.3g} (bar: card within 2x the CPU's); logliks {h32} "
+          f"(card f32), {ch64} (CPU f64); CPU f64 {cpu_s:.2f} s on {threads} threads")
+    require(e64 < 1e-9, f"float64 training sweeps: card and CPU differ by {e64}")
+    require(d_card <= 2 * d_cpu, f"float32 training sweeps: the card is {d_card} from the "
+            f"float64 oracle, the CPU {d_cpu}")
+    require(all(b2 >= a2 - 1e-6 * abs(a2) for a2, b2 in zip(h64, h64[1:])),
+            f"the float64 loglik fell: {h64}")
+
+    # -- no host sync inside a sweep (em_loop's float(loglik) is the one) --
+    import warnings
+
+    def syncs(fn):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return [str(w.message)[:120] for w in caught
+                if "called a synchronizing" in str(w.message)]
+
+    run.step(run.params)  # warm: the first call may allocate
+    found = syncs(lambda: run.step(run.params))
+    require(not found, f"the EM sweep synchronized with the host: {found[:3]}")
+
+    # -- one sweep's time, device share, launches and split ---------------
+    step_ms = cuda_ms(lambda: run.step(run.params), reps=5, warmup=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run.step(run.params)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages() if on_device(torch, e)) / 1e3
+    n_launch = host_launches(prof)
+    # the sweep's stages: the profiler ranges of models/gmmhmm.py, their host
+    # side (wall time of the range, and the device time of the kernels
+    # launched inside it)
+    stages = {e.key[len("gmmhmm."):]: (e.cpu_time_total / 1e3, e.device_time_total / 1e3)
+              for e in prof.key_averages()
+              if e.key.startswith("gmmhmm.") and e.device_type == torch.autograd.DeviceType.CPU}
+    require(len(stages) == 4, f"the sweep's profile lacks its stage ranges: {sorted(stages)}")
+    p0, obs = run.params, run.features
+    em_ms = cuda_ms(lambda: tgh._emissions(p0, obs, "diag"), reps=5, warmup=1)
+    print(f"timing on {card}: EM sweep (B={b} x {entry.TRAIN_SECONDS} s, T={t_frames}, 5x8x39 "
+          f"diag, float32): {step_ms:.4f} ms = {audio_s / (step_ms / 1e3):.1f} audio-s/s (CUDA "
+          f"events, median of 5 after 1 warm-up); under torch.profiler: device busy {busy:.4f} ms "
+          f"of the profiled sweep's {prof_ms:.4f} ms wall ({100 * busy / prof_ms:.1f}%; of the "
+          f"unprofiled events time {100 * busy / step_ms:.1f}%), {n_launch} kernel launches by "
+          f"the host; stages (host ms / device ms under the profiler): "
+          + ", ".join(f"{k} {h:.4f} / {d:.4f}" for k, (h, d) in stages.items())
+          + f"; emissions alone {em_ms:.4f} ms by events")
+    device_breakdown(torch, lambda: run.step(run.params), step_ms, f"{card}, EM sweep", steps=1)
+
+    # -- kill and resume, bitwise ------------------------------------------
+    def kill_and_resume(step, start, what):
+        straight, hist = em_loop(step, start, 4, 0.0)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = Checkpointer(d, every=1)
+            em_loop(step, start, 2, 0.0, checkpointer=ckpt)
+            resumed, hist_r = em_loop(step, start, 4, 0.0, checkpointer=ckpt)
+        same = all(torch.equal(x, y) for x, y in zip(straight, resumed)) and hist == hist_r
+        require(all(np.isfinite(hist)), f"{what}: logliks {hist}")
+        require(same, f"{what}: 2 sweeps, a checkpoint and a resume to 4 differ from 4 straight")
+        return hist
+
+    hist = kill_and_resume(run.step, run.params, "flagship GMM-HMM")
+    # 300 symbols spread over the 65,536 (each seen ~10 times: a symbol seen
+    # only at a sequence's last valid frame gets no emission mass under the
+    # estimator, and the next sweep's loglik is -inf, in both packages)
+    rng = np.random.default_rng(8)
+    n_sym, bh, th = 65536, 8, 400
+    sym = rng.choice(n_sym, size=300, replace=False)[rng.integers(0, 300, size=(bh, th))]
+    sym_mask = np.arange(th)[None, :] < rng.integers(th // 2, th + 1, size=(bh, 1))
+    hmm = thmm.HMM(4, n_sym, device=DEVICE).reset("random", torch.Generator().manual_seed(8))
+    obs_d, mask_d = (torch.as_tensor(x, device=DEVICE) for x in (sym, sym_mask))
+    hist_d = kill_and_resume(lambda p: thmm.em_step(p, obs_d, mask_d), hmm.params,
+                             "discrete HMM, 65,536 symbols")
+    found = syncs(lambda: thmm.em_step(hmm.params, obs_d, mask_d))
+    require(not found, f"the discrete EM sweep synchronized with the host: {found[:3]}")
+    p_card, l_card = thmm.em_step(hmm.params, obs_d, mask_d)
+    hmm64 = [x.double() for x in hmm.params]
+    p_d64, l_d64 = thmm.em_step(thmm.HMMParams(*hmm64), obs_d, mask_d)
+    p_c64, l_c64 = thmm.em_step(thmm.HMMParams(*(x.cpu() for x in hmm64)),
+                                torch.as_tensor(sym), torch.as_tensor(sym_mask))
+    e_disc = max(param_dist(torch, p_d64, p_c64), abs(float(l_d64) - float(l_c64)) / abs(float(l_c64)))
+    require(e_disc < 1e-9, f"discrete HMM em_step at float64: card vs CPU {e_disc}")
+    # full covariance at a small size, float64, card vs CPU
+    rng = np.random.default_rng(9)
+    feats_f = rng.normal(size=(4, 60, 8)) + np.linspace(-2, 2, 60)[None, :, None]
+    full = tgh.GMMHMM(GMMHMMConfig(n_states=3, n_mix=2, dim=8, cov_type="full"),
+                      dtype=f64, device="cpu").init_left_to_right(feats_f,
+                                                                 torch.Generator().manual_seed(9))
+    mask_f = np.arange(60)[None, :] < np.array([[60], [51], [60], [33]])
+    pf_c, lf_c = tgh.gmmhmm_em_step(full.params, torch.as_tensor(feats_f),
+                                    torch.as_tensor(mask_f), cov_type="full")
+    pf_g, lf_g = tgh.gmmhmm_em_step(tgh.GMMHMMParams(*(x.to(DEVICE) for x in full.params)),
+                                    torch.as_tensor(feats_f, device=DEVICE),
+                                    torch.as_tensor(mask_f, device=DEVICE), cov_type="full")
+    e_full = max(param_dist(torch, pf_g, pf_c), abs(float(lf_g) - float(lf_c)) / abs(float(lf_c)))
+    require(e_full < 1e-9, f"full-covariance sweep at float64: card vs CPU {e_full}")
+    print(f"kill and resume on the card: 4 sweeps straight == 2 sweeps, a Checkpointer save and a "
+          f"resume to 4, bitwise (parameters and history), for the flagship GMM-HMM (logliks "
+          f"{hist}) and a discrete HMM of 4 states x {n_sym} symbols on {bh} x {th} masked "
+          f"symbols (logliks {hist_d}); neither sweep synchronized with the host (sync debug "
+          f"mode); discrete em_step at float64 card vs CPU {e_disc:.3g}; "
+          f"full-covariance sweep (4 x 60 frames, 3x2x8) at float64 card vs CPU {e_full:.3g}")
+
+    # -- isolated-unit training of the V = 22 inventory ---------------------
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    am64, examples = entry.unit_training(22, device=DEVICE, dtype=f64)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    only_a(counts, "unit training")
+    launches["unit training"] = {"mel_frontend": counts["mel_frontend"]}
+    # kernel A at the examples' padded batch (its own frames a block at this
+    # shape), held against its plain version: the CPU's units below train on
+    # the card's features, so only this check covers A's output here
+    _, unit_sig, unit_lens = entry.unit_signals(22)
+    unit_sig = torch.as_tensor(unit_sig, device=DEVICE)
+    cfg_u = entry.SERVING_MFCC_CONFIG
+    where = f"unit examples B={unit_sig.shape[0]} with lengths, {a_route(mf, unit_sig, cfg_u)}"
+    err, scale, ferr = check_a_shape(torch, mf, unit_sig, cfg_u,
+                                     torch.as_tensor(unit_lens, device=DEVICE), where)
+    print(f"kernel A vs plain ({where}): mel max err {err:.6g} of energy scale {scale:.6g} "
+          f"(bar 2e-6*scale + 1e-4*|ref|), features max err {ferr:.3g} (bar 0.01): ok")
+    am_cpu, _ = entry.unit_training(22, device="cpu", dtype=f64, examples=examples)
+    e_units = max(param_dist(torch, am64.units[u].params, am_cpu.units[u].params)
+                  for u in am_cpu.units)
+    require(sorted(am64.units) == sorted(am_cpu.units) and e_units < 1e-8,
+            f"unit training at float64: card vs CPU {e_units}")
+    t0 = time.perf_counter()
+    am32, _ = entry.unit_training(22, device=DEVICE, examples=examples)
+    torch.cuda.synchronize()
+    unit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    entry.unit_examples(22, device=DEVICE)
+    torch.cuda.synchronize()
+    feat_s = time.perf_counter() - t0
+    n_frames = sum(len(f) for v in examples.values() for f in v)
+
+    def as32(device):
+        units = {u: tgh.GMMHMM(m.config, dtype=f32, device=device).set_params(m.params)
+                 for u, m in am64.units.items()}
+        return entry.unit_recognizer(AcousticModel(units, entry.SERVING_MFCC_CONFIG,
+                                                   device=device))
+
+    rec, rec_cpu = as32(DEVICE), as32("cpu")
+    require(isinstance(rec.graph, DecodingGraph) and rec.graph.n_states == 179,
+            "the trained V=22 units did not compose the 179-state dense graph")
+    planted = ["w0008", "w0019", "w0011", "w0015", "w0013", "w0020"]
+    audio = entry.unit_utterance(planted)
+    rec.decode_segment(audio)
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    words, score = rec.decode_segment(audio)
+    counts = {w.__name__: w.launches for w in wrappers}
+    require(counts["mel_frontend"] == 1 and counts["viterbi_dense"] == 1 and
+            sum(counts.values()) == 2, f"the planted decode did not launch A and C once: {counts}")
+    words_c, score_c = rec_cpu.decode_segment(audio)
+    require(words == words_c and abs(score - score_c) <= 1e-4 * abs(score_c),
+            f"trained units, planted decode: card {words} ({score}) vs CPU {words_c} ({score_c})")
+    # where each decoded word lies, beside the planted spans (0.2 s gaps, 0.4 s words)
+    spans = [(w, round(a, 3), round(b, 3)) for w, a, b in rec.decode_segment_aligned(audio)[2]]
+    planted_spans = [(w, round(0.2 + 0.6 * k, 3), round(0.6 + 0.6 * k, 3))
+                     for k, w in enumerate(planted)]
+    print(f"main path: entry.unit_training(22): {len(examples)} units ({SILENCE} 3x4, words 8x2), "
+          f"{entry.UNIT_EXAMPLES} examples each, {n_frames} frames; launches {launches['unit training']}"
+          f" (one batched features_fast); float64 card vs CPU {e_units:.3g} (bar 1e-8)")
+    print(f"timing on {card}: unit training V=22 at float32, 5 sweeps a unit: {unit_s:.3f} s "
+          f"(host clock; the examples' features, kernel A once: {feat_s:.3f} s)")
+    print(f"planted decode with the trained units (float64-trained, cast to float32), V=22 dense "
+          f"graph: {planted} -> card {words}, CPU {words_c} (equal; score rel err "
+          f"{abs(score - score_c) / abs(score_c):.3g}); launches {counts}; "
+          f"{'all planted words' if words == planted else 'not all planted words'} recovered; "
+          f"card word spans (s) {spans}, planted {planted_spans}")
+
+    # -- the segmenter ------------------------------------------------------
+    t0 = time.perf_counter()
+    seg = Seg(device=DEVICE).train(SegDataSet.mark(line) for line in SEG_CORPUS)
+    got = [seg.segment(text) for text in SEG_SENTENCES]
+    seg_s = time.perf_counter() - t0
+    seg_cpu = Seg(device="cpu").train(SegDataSet.mark(line) for line in SEG_CORPUS)
+    ref = [seg_cpu.segment(text) for text in SEG_SENTENCES]
+    require(got == ref, f"segmenter: card {got} vs CPU {ref}")
+    require(got[0] == ["我们", "喜欢", "学习", "中文"], f"segmenter: {got[0]}")
+    print(f"segmenter on the card: {got} (equal to the CPU's); training and {len(got)} "
+          f"segmentations {seg_s:.3f} s")
+    return {"sweep_ms": step_ms, "busy": busy / prof_ms, "launches": n_launch, "stages": stages,
+            "unit_s": unit_s}
+
+
 def main():
     import torch
 
@@ -933,7 +1265,7 @@ def main():
           f"{', '.join(_build.NATIVE_VAD_SOURCES)}) -> {os.path.relpath(vad_lib)}")
 
     cfg = entry.MFCC_CONFIG
-    x = make_signals(torch, dev)
+    x = make_signals(torch, entry, dev)
     t_frames = num_frames(S, cfg.frame_len, cfg.frame_step)
 
     # -- 2, 3. kernels A and B vs their plain versions ------------------------
@@ -1420,14 +1752,18 @@ def main():
     trigram_phase(torch, entry, wrappers, card, launches)
     vad_phase(torch, entry, card)
 
+    # -- 12. training -------------------------------------------------------
+    training_phase(torch, entry, wrappers, card, launches)
+
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and
-        ``launches_by_path`` on every main path run here; ``ms`` its device
+        ``launches_by_path`` on every main path run here that counted it
+        (the training paths count the mel frontend only); ``ms`` its device
         time per call, ``wrapper_ms`` the CUDA-event time of the call. No
         single PyTorch call computes any of these kernels' functions."""
         return {"name": name, "route": "cuda", "source": f"lnasr_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches[own_path][counter],
-                "launches_by_path": {p: c[counter] for p, c in launches.items()},
+                "launches_by_path": {p: c[counter] for p, c in launches.items() if counter in c},
                 "max_abs_err": err, "ms": dev_ms[name], "wrapper_ms": wrapper_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 

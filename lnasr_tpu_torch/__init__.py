@@ -5,7 +5,11 @@ Slice 1 holds the serving step: MFCC features (fused mel frontend kernel)
 adds the recognizer's 1-best decode over composed word graphs: the dense
 graph (dense-graph Viterbi kernel) and the factored graph (forward and
 replay-backtrace kernels), with the lexicon and n-gram LM that compose
-them (``models/``, entry point ``entry.recognizer_serving``). The CUDA
+them (``models/``, entry point ``entry.recognizer_serving``). Step 3
+adds live serving (VAD, the streaming recognizer, the trigram graph) and
+training: Baum-Welch EM for the GMM-HMM, the discrete HMM and the GMM,
+checkpointed EM loops, isolated-unit training and the HMM word segmenter
+(entry points ``entry.training``, ``entry.unit_training``). The CUDA
 kernels live in ``csrc/`` and are compiled with ``nvcc`` at first use
 (:mod:`lnasr_tpu_torch._build`); nothing is compiled on import. The port
 imports neither JAX nor the JAX package.
@@ -22,3 +26,25 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from lnasr_tpu_torch.config import (  # noqa: E402
+    GMMHMMConfig,
+    HMMConfig,
+    LTSDConfig,
+    MFCCConfig,
+    NGramConfig,
+    TrainConfig,
+)
+from lnasr_tpu_torch.models import GMM, Seg, train_unit_models  # noqa: E402
+
+__all__ = [
+    "MFCCConfig",
+    "HMMConfig",
+    "GMMHMMConfig",
+    "NGramConfig",
+    "LTSDConfig",
+    "TrainConfig",
+    "GMM",
+    "Seg",
+    "train_unit_models",
+]

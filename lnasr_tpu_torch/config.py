@@ -1,7 +1,8 @@
 """Typed configuration dataclasses of the PyTorch port.
 
 Same fields, defaults and derived properties as the JAX package's
-``MFCCConfig``, ``GMMHMMConfig``, ``NGramConfig`` and ``LTSDConfig``;
+``MFCCConfig``, ``HMMConfig``, ``GMMHMMConfig``, ``NGramConfig``,
+``LTSDConfig`` and ``TrainConfig``;
 this package keeps its own copy so it never imports the JAX package.
 """
 
@@ -68,6 +69,14 @@ class MFCCConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class HMMConfig:
+    """Discrete-emission HMM topology (states x symbols)."""
+
+    n_states: int = 2
+    n_symbols: int = 3
+
+
+@dataclasses.dataclass(frozen=True)
 class GMMHMMConfig:
     """Continuous GMM-HMM topology.
 
@@ -124,3 +133,17 @@ class LTSDConfig:
     @property
     def fft_size(self) -> int:
         return self.win_size // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """EM training loop: a budget of ``max_iters`` sweeps, stopping when
+    |delta loglik| < ``eps``; ``checkpoint_every`` > 0 with a
+    ``checkpoint_dir`` saves the training state every that many sweeps
+    (:mod:`lnasr_tpu_torch.utils.checkpoints`)."""
+
+    max_iters: int = 100
+    eps: float = 1e-4
+    seed: int = 0
+    checkpoint_every: int = 0  # 0 disables periodic checkpoints
+    checkpoint_dir: Optional[str] = None

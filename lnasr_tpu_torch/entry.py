@@ -21,9 +21,22 @@
   WebRTC VAD, and a seeded ~60 s stream of speech-like bursts between
   near-silent gaps, fed in 100 ms chunks (:data:`STREAM_CHUNK`): each
   segment the VAD closes is decoded by ``Recognizer.decode_segment``.
+- :func:`training`: the flagship Baum-Welch sweep, the counterpart of the
+  JAX package's ``bench_train.py``. B=64 seeded 10 s utterances -> MFCCs
+  (fused mel frontend kernel on CUDA, once) -> a step function doing one
+  ``gmmhmm_em_step`` sweep of the 5 x 8 x 39 diagonal GMM-HMM, started from
+  :func:`flagship_model`'s parameters.
+- :func:`unit_training`: isolated-unit training of the V = 22 serving
+  geometry's inventory (8-state x 2-mixture word units and a 3-state x
+  4-mixture ``<sil>``) from seeded voiced examples, whose features come
+  from one batched frontend call, through ``train_unit_models``; it
+  returns an :class:`AcousticModel`. :func:`unit_recognizer` decodes with
+  it, and :func:`unit_utterance` plants a word sequence in audio.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Dict, List, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +45,7 @@ from lnasr_tpu_torch._device import resolve_device
 from lnasr_tpu_torch.config import GMMHMMConfig, MFCCConfig
 from lnasr_tpu_torch.convert import params_from_numpy
 from lnasr_tpu_torch.models.decoder import SILENCE, DecoderConfig
-from lnasr_tpu_torch.models.gmmhmm import GMMHMM, GMMHMMParams
+from lnasr_tpu_torch.models.gmmhmm import GMMHMM, GMMHMMParams, gmmhmm_em_step
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.mfcc import MFCC
 from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel
@@ -41,6 +54,7 @@ from lnasr_tpu_torch.models.recognizer import (
     LanguageModel,
     Recognizer,
     StreamingRecognizer,
+    train_unit_models,
 )
 from lnasr_tpu_torch.ops.viterbi import viterbi_batched
 
@@ -54,6 +68,10 @@ SERVING_BUCKETS = 4  # a ~5 s segment: a realistic VAD segment's upper bound
 SERVING_TRIM = 80  # samples short of the bucket grid, so the decode is masked
 STREAM_SECONDS = 60.0  # the live stream's length
 STREAM_CHUNK = 1600  # samples a chunk: 100 ms at 16 kHz
+TRAIN_BATCH, TRAIN_SECONDS = 64, 10  # the training batch: 64 utterances of 10 s
+WORD_UNIT = GMMHMMConfig(n_states=8, n_mix=2, dim=39)
+SILENCE_UNIT = GMMHMMConfig(n_states=3, n_mix=4, dim=39)
+UNIT_EXAMPLES = 3  # seeded examples of each unit
 
 
 def flagship_model(device="cuda", dtype=torch.float32) -> GMMHMM:
@@ -206,3 +224,130 @@ def streaming_serving(vocab: int, device="cuda", seed: int = 0):
     samples, then ``flush()``."""
     rec, _ = recognizer_serving(vocab, device=device, seed=seed)
     return StreamingRecognizer(rec), serving_stream(seed)
+
+
+def training_signals(batch: int = TRAIN_BATCH, seconds: float = TRAIN_SECONDS,
+                     seed: int = 0) -> np.ndarray:
+    """Seeded speech-like noise ``(batch, seconds * 16000)`` float32:
+    amplitude-modulated at 1-4 Hz, never digital silence."""
+    sr = MFCC_CONFIG.sample_rate
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(seconds * sr)) / sr
+    rate = rng.uniform(1.0, 4.0, size=(batch, 1))
+    env = 0.05 + np.clip(np.sin(2 * np.pi * rate * t[None, :]), 0.0, None) ** 2
+    return (rng.normal(scale=3000.0, size=(batch, len(t))) * env).astype(np.float32)
+
+
+class Training(NamedTuple):
+    """One training run: ``step(params) -> (params, loglik)`` is one EM
+    sweep over ``features (B, T, 39)`` / ``mask (B, T)``, from ``params``."""
+
+    step: Callable
+    params: GMMHMMParams
+    features: torch.Tensor
+    mask: torch.Tensor
+
+
+def training(device="cuda", dtype=torch.float32, batch: int = TRAIN_BATCH,
+             seconds: float = TRAIN_SECONDS, features=None) -> Training:
+    """The flagship training step on ``device`` in ``dtype``: the features
+    of :func:`training_signals` (one call of the mel frontend kernel on
+    CUDA, in float32; or ``features`` as given, cast to ``dtype``) and a
+    diagonal ``gmmhmm_em_step`` sweep at its default floors, started from
+    :func:`flagship_model`'s parameters."""
+    dev = resolve_device(device)
+    if features is None:
+        signals = torch.as_tensor(training_signals(batch, seconds), device=dev)
+        features, _ = MFCC(MFCC_CONFIG, device=dev).features_fast(signals)
+    features = torch.as_tensor(features, dtype=dtype, device=dev)
+    mask = torch.ones(features.shape[:2], dtype=torch.bool, device=dev)
+
+    def step(params: GMMHMMParams):
+        return gmmhmm_em_step(params, features, mask)
+
+    return Training(step, flagship_model(dev, dtype).params, features, mask)
+
+
+def _unit_f0(i: int) -> float:
+    """Word i's base pitch: 90 Hz x 1.13^i (up to 1.2 kHz at i = 21), so the
+    harmonics of each word fall in other mel bands than its neighbours'."""
+    return 90.0 * 1.13 ** i
+
+
+def _pcm(x: np.ndarray) -> np.ndarray:
+    return np.clip(x, -32768, 32767).astype(np.int16).astype(np.float32)
+
+
+def unit_signals(vocab: int = 22, seed: int = 0) -> Tuple[List[str], np.ndarray, List[int]]:
+    """:data:`UNIT_EXAMPLES` seeded examples of each unit, as one padded
+    batch ``(owners, signals (n, S) float32, lengths)``: word ``w{i:04d}``
+    is :func:`_voice` at its own base pitch (0.35-0.6 s), ``<sil>`` noise of
+    standard deviation 30 (0.3-0.6 s); int16 values as float32."""
+    sr = SERVING_MFCC_CONFIG.sample_rate
+    rng = np.random.default_rng(seed)
+    owners, signals = [], []
+    for i in range(vocab):
+        for _ in range(UNIT_EXAMPLES):
+            owners.append(f"w{i:04d}")
+            signals.append(_voice(int(sr * rng.uniform(0.35, 0.6)), rng, _unit_f0(i),
+                                  rng.uniform(0.0, 2 * np.pi)))
+    for _ in range(UNIT_EXAMPLES):
+        owners.append(SILENCE)
+        signals.append(rng.normal(0, 30.0, int(sr * rng.uniform(0.3, 0.6))))
+    lengths = [len(x) for x in signals]
+    padded = np.zeros((len(signals), max(lengths)), np.float32)
+    for j, x in enumerate(signals):
+        padded[j, : len(x)] = _pcm(x)
+    return owners, padded, lengths
+
+
+def unit_examples(vocab: int = 22, device="cuda", seed: int = 0) -> Dict[str, List[np.ndarray]]:
+    """The features (float32, on the host) of :func:`unit_signals`, by
+    unit: one batched ``features_fast`` call with lengths (the mel frontend
+    kernel once on CUDA)."""
+    dev = resolve_device(device)
+    owners, padded, lengths = unit_signals(vocab, seed)
+    feats, mask = MFCC(SERVING_MFCC_CONFIG, device=dev).features_fast(
+        torch.as_tensor(padded, device=dev), lengths=torch.as_tensor(lengths, device=dev))
+    feats, n_frames = feats.cpu().numpy(), mask.sum(dim=1).cpu().numpy()
+    examples: Dict[str, List[np.ndarray]] = {}
+    for name, f, k in zip(owners, feats, n_frames):
+        examples.setdefault(name, []).append(f[:k])
+    return examples
+
+
+def unit_training(vocab: int = 22, device="cuda", dtype=torch.float32, seed: int = 0,
+                  iters: int = 5, examples=None):
+    """``(AcousticModel, examples)``: ``train_unit_models`` over
+    :func:`unit_examples` (or ``examples`` as given), ``iters`` sweeps,
+    word units of :data:`WORD_UNIT` and ``<sil>`` of :data:`SILENCE_UNIT`,
+    on ``device`` in ``dtype``."""
+    dev = resolve_device(device)
+    if examples is None:
+        examples = unit_examples(vocab, dev, seed)
+    units = train_unit_models(examples, WORD_UNIT, iters=iters, seed=seed, dtype=dtype,
+                              unit_configs={SILENCE: SILENCE_UNIT}, device=dev)
+    return AcousticModel(units, SERVING_MFCC_CONFIG, dtype=dtype, device=dev), examples
+
+
+def unit_recognizer(am: AcousticModel, vocab: int = 22) -> Recognizer:
+    """A recognizer over trained units at the serving geometry:
+    :func:`recognizer_serving`'s bigram LM, decoder settings and buckets."""
+    words = sorted(am.units.keys() - {SILENCE})
+    return Recognizer(am, Lexicon.whole_word(words),
+                      LanguageModel(NGramModel(NGramCounter(2, serving_corpus(vocab)))),
+                      decoder_config=SERVING_DECODER_CONFIG, bucket_frames=SERVING_BUCKET_FRAMES)
+
+
+def unit_utterance(words: Sequence[str]) -> np.ndarray:
+    """The words ``w{i:04d}`` spoken in a row as :func:`unit_examples`
+    voices them, each 0.4 s, between near-silent gaps of 0.2 s (seeded),
+    int16 values as float32."""
+    sr = SERVING_MFCC_CONFIG.sample_rate
+    rng = np.random.default_rng(1)
+    gap = lambda: rng.normal(0, 30.0, int(0.2 * sr))  # noqa: E731
+    parts = [gap()]
+    for w in words:
+        parts += [_voice(int(0.4 * sr), rng, _unit_f0(int(w[1:])), rng.uniform(0.0, 2 * np.pi)),
+                  gap()]
+    return _pcm(np.concatenate(parts))

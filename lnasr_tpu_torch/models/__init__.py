@@ -1,10 +1,12 @@
-"""Models of the port: MFCC frontend, HMM and GMM-HMM (inference),
-lexicon, n-gram LM, the composed word-graph decoders, word lattices and
-the recognizer (1-best, N-best and streaming)."""
+"""Models of the port: MFCC frontend, HMM, GMM-HMM and GMM (inference and
+EM training), lexicon, n-gram LM, the composed word-graph decoders, word
+lattices, the recognizer (1-best, N-best and streaming) with isolated-unit
+training, and the word segmenter."""
 
 from lnasr_tpu_torch.models.mfcc import MFCC, mfcc_features
 from lnasr_tpu_torch.models.hmm import HMM
 from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+from lnasr_tpu_torch.models.gmm import GMM
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel, NGramModelARPA, Tokenizer
 from lnasr_tpu_torch.models.decoder import (
@@ -23,13 +25,16 @@ from lnasr_tpu_torch.models.recognizer import (
     StreamingRecognizer,
     StreamingStats,
     segment_speech,
+    train_unit_models,
 )
+from lnasr_tpu_torch.models.seg import Seg, SegDataSet
 
 __all__ = [
     "MFCC",
     "mfcc_features",
     "HMM",
     "GMMHMM",
+    "GMM",
     "Lexicon",
     "NGramCounter",
     "NGramModel",
@@ -50,4 +55,7 @@ __all__ = [
     "StreamingRecognizer",
     "StreamingStats",
     "segment_speech",
+    "train_unit_models",
+    "Seg",
+    "SegDataSet",
 ]

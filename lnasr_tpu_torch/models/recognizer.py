@@ -14,7 +14,10 @@ host->device copy of the samples in, one device->host copy of
 
 :class:`StreamingRecognizer` serves a live stream: chunks of audio in, a
 VAD (the native WebRTC-style detector by default) closing segments, each
-closed segment decoded as above. Not ported yet: ``train_unit_models``.
+closed segment decoded as above.
+
+:func:`train_unit_models` trains the acoustic model's units: isolated-unit
+Baum-Welch, each unit left-to-right initialized from its own examples.
 """
 
 from __future__ import annotations
@@ -22,7 +25,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Dict, List, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,7 +41,7 @@ from lnasr_tpu_torch.models.decoder import (
     records_to_host,
     to_host,
 )
-from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+from lnasr_tpu_torch.models.gmmhmm import GMMHMM, resolve_var_floor
 from lnasr_tpu_torch.models.lattice import Hypothesis
 from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.mfcc import MFCC
@@ -496,3 +499,60 @@ class StreamingRecognizer:
         self._last_speech = None
         self._trim()
         return results
+
+
+def train_unit_models(
+    examples: Mapping[str, Sequence[np.ndarray]],
+    config: GMMHMMConfig,
+    iters: int = 10,
+    seed: int = 0,
+    dtype=torch.float32,
+    verbose: bool = False,
+    train_config=None,
+    unit_configs: Optional[Mapping[str, GMMHMMConfig]] = None,
+    pad_to: Optional[int] = None,
+    device="cuda",
+) -> Dict[str, GMMHMM]:
+    """Isolated-unit training: for each unit (in sorted order, the i-th
+    seeded with ``seed + i``), a left-to-right init from its examples and
+    batched Baum-Welch over all of them, padded to the longest with masks.
+
+    - The diagonal variance floor is resolved once from the pooled frames
+      of every unit (``var_floor_scale`` x per-dim variance, never below
+      ``var_floor``), so all units share one floor.
+    - ``unit_configs`` overrides the topology per unit, e.g. a few-state,
+      many-mixture ``"<sil>"``.
+    - ``pad_to`` pads every unit's batch to a common frame count (masks
+      keep the padding out of the statistics).
+    - ``train_config`` (a :class:`~lnasr_tpu_torch.config.TrainConfig`)
+      enables checkpoints, each unit under ``checkpoint_dir/<unit>/``: a
+      killed run restarts where it stopped with the same final
+      parameters."""
+    pooled = np.concatenate([np.asarray(o, np.float64) for obs in examples.values()
+                             for o in obs], axis=0)
+    dev = resolve_device(device)
+    models: Dict[str, GMMHMM] = {}
+    for i, (unit, obs_list) in enumerate(sorted(examples.items())):
+        unit_config = resolve_var_floor((unit_configs or {}).get(unit, config), pooled)
+        model = GMMHMM(unit_config, dtype=dtype, device=dev)
+        all_frames = np.concatenate([np.asarray(o) for o in obs_list], axis=0)
+        model.init_left_to_right(all_frames, torch.Generator().manual_seed(seed + i))
+        t_max = max(o.shape[0] for o in obs_list)
+        if pad_to is not None:
+            if pad_to < t_max:
+                raise ValueError(f"pad_to={pad_to} < longest example ({t_max} frames)")
+            t_max = pad_to
+        batch = np.zeros((len(obs_list), t_max, unit_config.dim), dtype=np.float64)
+        mask = np.zeros((len(obs_list), t_max), dtype=bool)
+        for j, o in enumerate(obs_list):
+            batch[j, : o.shape[0]] = o
+            mask[j, : o.shape[0]] = True
+        unit_cfg = train_config
+        if train_config is not None and train_config.checkpoint_dir:
+            unit_cfg = dataclasses.replace(
+                train_config, checkpoint_dir=os.path.join(train_config.checkpoint_dir, unit))
+        history = model.train(batch, iters=iters, mask=mask, config=unit_cfg)
+        if verbose:
+            print(f"unit {unit!r}: loglik {history[0]:.1f} -> {history[-1]:.1f}")
+        models[unit] = model
+    return models

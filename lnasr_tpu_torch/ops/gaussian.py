@@ -1,6 +1,8 @@
-"""Gaussian-mixture emission scoring.
+"""Gaussian and Gaussian-mixture log-densities.
 
-The diagonal-covariance scorer is one fp32 GEMM:
+The six scalar pdfs of the JAX package's ``ops/gaussian.py``
+(``gaussian_logpdf`` ... ``gmm_pdf_full``), and the emission scorers of
+the GMM-HMM. The diagonal-covariance scorer is one fp32 GEMM:
 
     log N(o; mu_k, var_k) = [o^2, o, 1] @ [-ivar/2, mu*ivar, c_k]^T
 
@@ -21,6 +23,52 @@ import torch
 from lnasr_tpu_torch.ops.numerics import logsumexp
 
 _LOG_2PI = float(np.log(2.0 * np.pi))
+
+
+# -- scalar and generic pdfs ------------------------------------------------
+
+def gaussian_logpdf(x, mu, sigma2) -> torch.Tensor:
+    """Univariate normal log-density."""
+    x = torch.as_tensor(x)
+    sigma2 = torch.as_tensor(sigma2, dtype=x.dtype, device=x.device)
+    return -0.5 * (_LOG_2PI + torch.log(sigma2) + (x - mu) * (x - mu) / sigma2)
+
+
+def gaussian_pdf(x, mu, sigma2) -> torch.Tensor:
+    """Univariate normal density."""
+    return torch.exp(gaussian_logpdf(x, mu, sigma2))
+
+
+def mvn_logpdf_full(x: torch.Tensor, mu: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
+    """Full-covariance normal log-density: ``x (L, D)``, ``mu (..., D)``,
+    ``sigma (..., D, D)`` -> ``(..., L)`` (log-determinant, explicit
+    inverse, Mahalanobis form)."""
+    d = x.shape[-1]
+    _, logdet = torch.linalg.slogdet(sigma)
+    inv = torch.linalg.inv(sigma)
+    xc = x - mu[..., None, :]
+    maha = torch.einsum("...ld,...de,...le->...l", xc, inv, xc)
+    return -0.5 * (d * _LOG_2PI + logdet[..., None] + maha)
+
+
+def mvn_pdf_full(x, mu, sigma) -> torch.Tensor:
+    return torch.exp(mvn_logpdf_full(x, mu, sigma))
+
+
+def gmm_logpdf_full(log_w: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
+                    sigma: torch.Tensor) -> torch.Tensor:
+    """Log-density of a full-covariance mixture: ``log_w (M,)``, ``mu (M,
+    D)``, ``sigma (M, D, D)`` -> ``(L,)``."""
+    return logsumexp(log_w[:, None] + mvn_logpdf_full(x, mu, sigma), dim=0)
+
+
+def gmm_pdf_full(w: torch.Tensor, x: torch.Tensor, mu: torch.Tensor,
+                 sigma: torch.Tensor) -> torch.Tensor:
+    """Linear-space mixture density (weights linear)."""
+    return w @ mvn_pdf_full(x, mu, sigma)
+
+
+# -- emission scorers -------------------------------------------------------
 
 
 def diag_components_logpdf(obs: torch.Tensor, mu: torch.Tensor, var: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,13 @@
-"""Host-side utilities of the port: audio I/O, evaluation metrics, text
-constants."""
+"""Host-side utilities of the port: audio I/O, training-state checkpoints
+and the EM loop, evaluation metrics, text constants."""
 
 from lnasr_tpu_torch.utils.audio import (
     Recorder, read_audio, read_pcm, read_wave, record, resample, write_pcm,
     write_wave,
+)
+from lnasr_tpu_torch.utils.checkpoints import (
+    Checkpointer, TrainState, checkpointer_from_config, em_loop, load_train_state,
+    save_train_state,
 )
 from lnasr_tpu_torch.utils.metrics import cer, edit_distance, wer, wer_details
 from lnasr_tpu_torch.utils.text import PUNCTUATION_ASCII, PUNCTUATION_UNICODE
@@ -17,6 +21,12 @@ __all__ = [
     "write_pcm",
     "read_wave",
     "write_wave",
+    "Checkpointer",
+    "TrainState",
+    "checkpointer_from_config",
+    "em_loop",
+    "load_train_state",
+    "save_train_state",
     "cer",
     "edit_distance",
     "wer",
