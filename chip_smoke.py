@@ -42,6 +42,17 @@ kernels' launch counters reset just before and read just after:
   ``entry.unit_training(22)`` (mel frontend once) against the CPU, with a
   planted decode by the trained units (mel frontend, dense-graph
   Viterbi); the word segmenter against the CPU;
+- ``parallel/`` on one world of 4 ranks spawned on the card (gloo; the
+  kernels built here first): data-parallel EM on the flagship batch (16
+  utterances a rank, the mel frontend once on each rank's signals) and
+  mixture-sharded EM against the single-process sweep, kill and resume
+  bitwise; the time-sharded forward, backward, Viterbi and EM on the
+  stream's features against the scans; ``parallel.decode_batch_sharded``
+  at V = 1000 (8 segments, two planted; the mel frontend once, the
+  forward and backtrace kernels twice on every rank) bitwise equal to
+  ``decode_batch``; the 2- and 4-stage pipelines; then one sweep on a
+  world of one under NCCL. Several ranks on one card show correctness
+  and overhead, not scaling;
 
 checks each against the plain CPU path on the same weights and input
 (plus planted word sequences, decoded and lattice-searched), and times
@@ -1227,6 +1238,422 @@ def training_phase(torch, entry, wrappers, card, launches):
             "unit_s": unit_s}
 
 
+PARALLEL_RANKS = 4
+PIPE_CHUNK = 111  # divides the flagship utterance's T = 999
+
+
+def parallel_rank(ckdir):
+    """One rank of :func:`parallel_phase`'s world (4 ranks, gloo, one
+    card): every check's inputs and results, as NumPy, for the parent to
+    hold against the single-process paths. Runs in a spawned process, so
+    it imports what it needs and synchronizes the device itself."""
+    import torch
+    import torch.distributed as dist
+
+    from lnasr_tpu_torch import parallel as P
+    from lnasr_tpu_torch import entry
+    from lnasr_tpu_torch.config import MeshConfig, TrainConfig
+    from lnasr_tpu_torch.models import gmmhmm as tgh
+    from lnasr_tpu_torch.models.mfcc import MFCC
+    from lnasr_tpu_torch.ops import factored as F
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import viterbi as vt
+    from lnasr_tpu_torch.ops import viterbi_dense as vd
+    from lnasr_tpu_torch.parallel import distributed as D
+    from lnasr_tpu_torch.parallel.mesh import mesh_axis
+
+    dev = D.local_device()
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    f32, f64 = torch.float32, torch.float64
+    host = lambda x: x.detach().cpu().numpy()  # noqa: E731
+    counted = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
+               F.factored_backtrace, F.factored_lattice)
+
+    def counts():
+        return {w.__name__: w.launches for w in counted}
+
+    def wall_ms(fn, reps=3):
+        fn()
+        sync()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    t_start = time.perf_counter()
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "device": str(dev)}
+    dp_mesh = P.make_mesh(MeshConfig(PARALLEL_RANKS, 1, 1))
+
+    # -- data-parallel EM: this rank's 16 utterances, kernel A on its own signals
+    sync()
+    reset_counts(*counted)
+    run = entry.parallel_training(dp_mesh, device=dev, dtype=f64)
+    p1, ll1 = run.step(run.params)
+    sync()
+    out["dp_launches"] = counts()
+    out["dp64"] = (float(ll1), [host(x) for x in p1])
+    feats_all = D.all_gather(run.features.float(), mesh_axis(dp_mesh, "data")).flatten(0, 1)
+    mask_all = torch.ones(feats_all.shape[:2], dtype=torch.bool, device=dev)
+    if out["rank"] == 0:
+        out["features"] = host(feats_all)
+    step32 = P.make_dp_gmmhmm_em_step(dp_mesh, entry.MODEL_CONFIG)
+    feats32, p32 = run.features.float(), entry.flagship_model(dev).params
+    sweep = lambda: step32(p32, feats32, run.mask)  # noqa: E731
+    out["dp32_ms"] = cuda_ms(sweep, reps=3, warmup=1) if on_card else wall_ms(sweep)
+    D.STATS.reset()
+    sweep()
+    sync()
+    out["dp32_collectives"] = (D.STATS.calls, D.STATS.bytes, D.STATS.seconds * 1e3)
+
+    # -- model-parallel EM on a (data 2, model 2) mesh, the same batch
+    mp_mesh = P.make_mesh(MeshConfig(2, 1, 2))
+    mp = entry.parallel_training(mp_mesh, device=dev, dtype=f64, features=feats_all)
+    pm, llm = mp.step(mp.params)
+    out["mp64"] = (float(llm), [host(x) for x in P.mp_param_specs().gather(pm, mp_mesh)])
+    D.STATS.reset()
+    out["mp64_ms"] = wall_ms(lambda: mp.step(mp.params), reps=1)
+    out["mp64_collectives"] = (D.STATS.calls / 2, D.STATS.bytes / 2, D.STATS.seconds * 1e3 / 2)
+
+    def mp_train(iters, ck=None):
+        model = entry.flagship_model(dev, f64)
+        cfg = TrainConfig(max_iters=iters, eps=0.0, checkpoint_every=1 if ck else 0,
+                          checkpoint_dir=ck)
+        hist = P.train_model_parallel(model, feats_all, mask_all, mp_mesh, config=cfg)
+        return hist, model.params
+
+    straight = mp_train(4)
+    mp_train(2, ckdir)
+    resumed = mp_train(4, ckdir)
+    out["mp_resume"] = (straight[0], resumed[0],
+                        all(torch.equal(a, b) for a, b in zip(straight[1], resumed[1])))
+
+    # -- sequence parallel: ONE long utterance (the live stream's 62.9 s) on seq = 4
+    seq_mesh = P.make_mesh(MeshConfig(1, PARALLEL_RANKS, 1))
+    stream = torch.as_tensor(entry.serving_stream().astype(np.float32), device=dev)
+    feats_s, _ = MFCC(entry.MFCC_CONFIG, device=dev).features_fast(stream)
+    if out["rank"] == 0:
+        out["stream_features"] = host(feats_s)
+    seq, seq_ms = {}, {}
+    for dtype in (f64, f32):
+        params = entry.flagship_model(dev, dtype).params
+        log_b = tgh._emissions(params, feats_s.to(dtype), "diag")[0]
+        lp, la = params.log_pi, params.log_a
+        t0 = time.perf_counter()
+        alpha, ll = P.forward_seq_parallel(lp, la, log_b, seq_mesh)
+        beta = P.backward_seq_parallel(la, log_b, seq_mesh)
+        path, score = P.viterbi_seq_parallel(lp, la, log_b, seq_mesh)
+        sync()
+        seq_ms[str(dtype)] = (time.perf_counter() - t0) * 1e3
+        seq[str(dtype)] = dict(alpha=host(alpha), loglik=float(ll), beta=host(beta),
+                               path=host(path), score=float(score))
+    model = entry.flagship_model(dev, f64)
+    t0 = time.perf_counter()
+    hist = P.train_seq_parallel(model, feats_s.double(), seq_mesh, iters=1)
+    seq_ms["em"] = (time.perf_counter() - t0) * 1e3
+    seq["em"] = (hist, [host(x) for x in model.params])
+    out["seq"], out["seq_ms"] = seq, seq_ms
+
+    # -- the sharded V = 1000 decode: 8 bucketed segments over data = 4, two planted
+    sync()
+    reset_counts(*counted)
+    serve = entry.parallel_serving(1000, 8, device=dev)
+    graph = serve.recognizer.graph
+    feats, masks = serve.features.clone(), serve.masks.clone()
+    in_lm = [w for w in graph.words if w in set(serve.recognizer.lm.ngram.vocabulary())]
+    planted = {2: in_lm[3:9], 5: in_lm[20:26]}
+    for row, words in planted.items():
+        obs = torch.as_tensor(planted_features(torch, graph, np.random.default_rng(300 + row),
+                                               words), device=dev)
+        feats[row] = 0.0
+        feats[row, :len(obs)] = obs
+        masks[row] = torch.arange(feats.shape[1], device=dev) < len(obs)
+    res = P.decode_batch_sharded(graph, feats, masks, dp_mesh)
+    sync()
+    out["decode_launches"] = counts()
+    out["decode"] = res
+    out["planted"] = planted
+    if out["rank"] == 0:
+        out["decode_inputs"] = (host(feats), host(masks))
+    out["decode_ms"] = wall_ms(lambda: P.decode_batch_sharded(graph, feats, masks, dp_mesh))
+
+    # -- the streaming pipeline on one 10 s flagship utterance, 2 and 4 stages
+    params = entry.flagship_model(dev, f64).params
+    args = (params.log_pi, params.log_a, params.log_w, params.mu, params.cov,
+            feats_all[0].double())
+    pipe, pipe_ms = {}, {}
+    for n_stages in (2, 4):
+        mesh = P.make_stage_mesh(n_stages=n_stages)
+        t0 = time.perf_counter()
+        path, score = P.streaming_pipeline_decode(*args, mesh, chunk=PIPE_CHUNK)
+        sync()
+        pipe_ms[n_stages] = (time.perf_counter() - t0) * 1e3
+        ll = P.streaming_pipeline_scores(*args, mesh, chunk=PIPE_CHUNK, semiring="log")
+        pipe[n_stages] = dict(path=host(path), score=float(score), loglik=float(ll))
+    out["pipe"], out["pipe_ms"] = pipe, pipe_ms
+    out["elapsed_s"] = time.perf_counter() - t_start
+    return out
+
+
+def rel_dist(got, ref):
+    """max |got - ref| / max |ref| over the finite entries (equal entries,
+    -inf included, count 0)."""
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.where(got == ref, 0.0, np.abs(got - ref))
+    return float(np.nan_to_num(d, nan=np.inf).max() / np.abs(ref[np.isfinite(ref)]).max())
+
+
+def same_results(a, b) -> bool:
+    """Nested results equal, arrays bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_results(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_results(x, y) for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a.reshape(-1).view(np.uint8), b.reshape(-1).view(np.uint8)))
+    return a == b
+
+
+def check_parallel_a(torch, entry, ranks, feats_all, feats_s):
+    """Kernel A in the parallel phase: held against its plain version
+    (:func:`check_a_shape`) at each shape a rank ran it (each rank's 16
+    training rows at the training config, the serving batch of 8 padded
+    segments with lengths at the serving config, the 62.9 s stream at the
+    training config), and the features the ranks used (gathered from them)
+    against the plain path's on the same signals: masks equal, features
+    within 0.01 (the planted decode rows, which replace A's features, left
+    out)."""
+    from lnasr_tpu_torch.models.mfcc import mfcc_features
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+
+    dev = torch.device(DEVICE)
+
+    def a_at(sig, cfg, lens, got, got_mask, where, rows=None):
+        mel_err, scale, ferr = check_a_shape(torch, mf, sig, cfg, lens, where)
+        ref = mfcc_features(sig, cfg, lens)
+        rows = slice(None) if rows is None else rows
+        ref_f, ref_m = ref.features[rows], ref.mask[rows]
+        require(torch.equal(got_mask[rows], ref_m), f"the ranks' feature masks ({where})")
+        used = float(((got[rows] - ref_f).abs() * ref_m[..., None]).max())
+        require(used < 0.01, f"the ranks' features off the plain path's by {used} ({where})")
+        return (f"{where}, B={sig.shape[0]} x {sig.shape[1]} ({a_route(mf, sig, cfg)}): mel err "
+                f"{mel_err:.4g} of scale {scale:.4g}, features {ferr:.4g}; the ranks' {used:.4g}")
+
+    lines = []
+    signals = torch.as_tensor(entry.training_signals(), device=dev)
+    per = signals.shape[0] // PARALLEL_RANKS
+    ones = torch.ones(feats_all.shape[:2], dtype=torch.bool, device=dev)
+    for r in range(PARALLEL_RANKS):
+        rows = slice(r * per, (r + 1) * per)
+        lines.append(a_at(signals[rows], entry.MFCC_CONFIG, None, feats_all[rows], ones[rows],
+                          f"training rows of rank {r}"))
+    batch, lengths = entry.parallel_serving_signals(8)
+    feats, masks = (torch.as_tensor(x, device=dev) for x in ranks[0]["decode_inputs"])
+    kept = [i for i in range(len(batch)) if i not in ranks[0]["planted"]]
+    lines.append(a_at(torch.as_tensor(batch, device=dev), entry.SERVING_MFCC_CONFIG,
+                      torch.as_tensor(lengths, device=dev), feats, masks,
+                      f"serving batch (rows {kept}; every rank)", rows=kept))
+    stream = torch.as_tensor(entry.serving_stream().astype(np.float32), device=dev)[None]
+    lines.append(a_at(stream, entry.MFCC_CONFIG, None, feats_s[None],
+                      torch.ones((1, feats_s.shape[0]), dtype=torch.bool, device=dev),
+                      "seq stream (every rank)"))
+    print("parallel kernel A vs its plain version at the ranks' shapes: " + "; ".join(lines))
+
+
+def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
+    """``parallel/`` on the card: ONE world of 4 ranks spawned on one card
+    (gloo: NCCL refuses two ranks on one device), the kernels built in this
+    process first so the ranks only load them. Data-parallel EM (the
+    flagship batch, 16 utterances a rank, kernel A on each rank's own
+    signals), model-parallel EM on (data 2, model 2) with kill and resume,
+    sequence parallelism on the 62.9 s stream (forward, backward, Viterbi,
+    one EM sweep), the sharded V = 1000 decode (kernels A once, D and E
+    twice on every rank) and the pipeline (2 and 4 stages), each held
+    against the single-process path on the card, and kernel A against its
+    plain version at every shape the ranks ran it
+    (:func:`check_parallel_a`); then one data-parallel
+    sweep on a world of one under NCCL. Several ranks on one card show
+    correctness and overhead, not scaling."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lnasr_tpu_torch import parallel as P
+    from lnasr_tpu_torch.models import gmmhmm as tgh
+    from lnasr_tpu_torch.ops.trellis import backward_scan, forward_scan, viterbi_scan
+    from lnasr_tpu_torch.parallel import distributed as D
+
+    f32, f64 = torch.float32, torch.float64
+    shared = f"{PARALLEL_RANKS} ranks share one H100: correctness and overhead, not scaling"
+    sync = torch.cuda.synchronize
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ranks = D.run_ranks(parallel_rank, PARALLEL_RANKS, args=(tmp,), device=DEVICE,
+                            timeout=900)
+        world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    backends = {r["backend"] for r in ranks}
+    print(f"parallel phase: backend {sorted(backends)} (chosen by rule: "
+          f"{torch.cuda.device_count()} card(s) for {PARALLEL_RANKS} ranks), world "
+          f"{PARALLEL_RANKS} on {sorted({r['device'] for r in ranks})}; meshes (data, seq, "
+          f"model) = (4, 1, 1), (2, 1, 2), (1, 4, 1) and stage meshes of 2 and 4; spawn and run "
+          f"{world_s:.1f} s (ranks' own work {max(r['elapsed_s'] for r in ranks):.1f} s); {shared}")
+    require(backends == {D.choose_backend(DEVICE, torch.cuda.device_count(), PARALLEL_RANKS)},
+            f"the ranks chose {backends}")
+    for key in ("dp64", "mp64", "mp_resume", "seq", "decode", "pipe"):
+        require(all(same_results(r[key], r0[key]) for r in ranks[1:]),
+                f"the ranks' {key} results differ")
+    feats_all = torch.as_tensor(r0["features"], device=DEVICE)
+    feats_s = torch.as_tensor(r0["stream_features"], device=DEVICE)
+    check_parallel_a(torch, entry, ranks, feats_all, feats_s)
+
+    # -- data- and model-parallel EM against the single-process sweep ------
+    run = entry.training(device=DEVICE, dtype=f64, features=feats_all)
+    p_ref, ll_ref = run.step(run.params)
+    ll_ref = float(ll_ref)
+    errs = {}
+    for key in ("dp64", "mp64"):
+        ll, params = r0[key]
+        got = tgh.GMMHMMParams(*(torch.as_tensor(x, device=DEVICE) for x in params))
+        errs[key] = max(param_dist(torch, got, p_ref), abs(ll - ll_ref) / abs(ll_ref))
+    dp_launch = [r["dp_launches"] for r in ranks]
+    a_once = {w.__name__: int(w.__name__ == "mel_frontend") for w in wrappers}
+    require(all(c == a_once for c in dp_launch), f"parallel_training's launches per rank {dp_launch}")
+    launches["parallel training"] = {"mel_frontend": sum(c["mel_frontend"] for c in dp_launch)}
+    hist_s, hist_r, bitwise = r0["mp_resume"]
+    calls, n_bytes, coll_ms = r0["dp32_collectives"]
+    mp_calls, mp_bytes, mp_coll_ms = r0["mp64_collectives"]
+    print(f"parallel DP EM (data 4, 16 x 10 s utterances a rank, kernel A once on each rank's "
+          f"signals; B=64, 5x8x39 diag): float64 vs the single-process sweep on the card "
+          f"{errs['dp64']:.3g} (bar 1e-9; loglik {r0['dp64'][0]:.10e} vs {ll_ref:.10e}); "
+          f"MP EM (data 2, model 2): {errs['mp64']:.3g} (bar 1e-9); MP kill and resume (4 "
+          f"sweeps straight vs 2 + resume to 4): {'bitwise' if bitwise else 'DIFFER'}, logliks "
+          f"{hist_s}")
+    require(errs["dp64"] < 1e-9, f"DP EM differs from the single-process sweep by {errs['dp64']}")
+    require(errs["mp64"] < 1e-9, f"MP EM differs from the single-process sweep by {errs['mp64']}")
+    require(bitwise and hist_s == hist_r, "MP kill and resume is not bitwise")
+    print(f"timing on {card}: DP EM sweep float32, 16 utterances a rank: "
+          + ", ".join(f"rank {r['rank']} {r['dp32_ms']:.4f} ms" for r in ranks)
+          + f" (CUDA events, median of 3 after 1 warm-up; single-process B=64 sweep "
+          f"{sweep_ms:.4f} ms); per sweep {calls} collective call(s), {n_bytes} bytes, "
+          f"{coll_ms:.4f} ms of host time in collectives (rank 0); MP float64 sweep "
+          f"{r0['mp64_ms']:.4f} ms, {mp_calls:.0f} collective calls, {mp_bytes:.0f} bytes, "
+          f"{mp_coll_ms:.4f} ms in collectives; {shared}")
+
+    # -- sequence parallelism against the single-process scans ---------------
+    t_len = feats_s.shape[0]
+    seq_err = {}
+    for dtype in (f64, f32):
+        params = entry.flagship_model(DEVICE, dtype).params
+        log_b = tgh._emissions(params, feats_s.to(dtype), "diag")[0]
+        fwd = forward_scan(params.log_pi, params.log_a, log_b)
+        beta = backward_scan(params.log_a, log_b)
+        vit = viterbi_scan(params.log_pi, params.log_a, log_b)
+        got = r0["seq"][str(dtype)]
+        seq_err[dtype] = dict(
+            alpha=rel_dist(got["alpha"], fwd.alpha.cpu()),
+            loglik=abs(got["loglik"] - float(fwd.loglik)) / abs(float(fwd.loglik)),
+            beta=rel_dist(got["beta"], beta.cpu()),
+            path=float(np.mean(got["path"] == vit.path.cpu().numpy())),
+            score=abs(got["score"] - float(vit.score)) / abs(float(vit.score)))
+    e64 = seq_err[f64]
+    model = entry.flagship_model(DEVICE, f64)  # its floor resolved, as the ranks' model's
+    mask = torch.ones((1, t_len), dtype=torch.bool, device=DEVICE)
+    p_ref, ll_ref = model._em(model.params, feats_s.double()[None], mask)
+    hist, em_params = r0["seq"]["em"]
+    got = tgh.GMMHMMParams(*(torch.as_tensor(x, device=DEVICE) for x in em_params))
+    em_err = max(param_dist(torch, got, p_ref), abs(hist[0] - float(ll_ref)) / abs(float(ll_ref)))
+    print(f"parallel seq (seq 4, ONE utterance: the stream's {t_len} frames, 5x8x39): float64 "
+          f"alpha {e64['alpha']:.3g}, loglik {e64['loglik']:.3g}, beta {e64['beta']:.3g} (bar "
+          f"1e-10, max |err| / max |ref|); Viterbi path {'equal' if e64['path'] == 1.0 else 'DIFFERS'}, "
+          f"score {e64['score']:.3g} (bar 1e-12); EM sweep {em_err:.3g} (bar 1e-9); float32: "
+          f"{100 * seq_err[f32]['path']:.4f}% of frames on the single-process path's state, "
+          f"alpha {seq_err[f32]['alpha']:.3g}, score {seq_err[f32]['score']:.3g}")
+    require(e64["alpha"] < 1e-10 and e64["beta"] < 1e-10 and e64["loglik"] < 1e-10,
+            f"seq-parallel forward/backward differ from the scans: {e64}")
+    require(e64["path"] == 1.0 and e64["score"] < 1e-12, f"seq-parallel Viterbi: {e64}")
+    require(em_err < 1e-9, f"seq-parallel EM differs from the single-process sweep by {em_err}")
+    print(f"timing on {card}: seq forward + backward + Viterbi on {t_len} frames: float64 "
+          f"{r0['seq_ms'][str(f64)]:.2f} ms, float32 {r0['seq_ms'][str(f32)]:.2f} ms; "
+          f"the EM sweep {r0['seq_ms']['em']:.2f} ms (host clock, rank 0); {shared}")
+
+    # -- the sharded decode against decode_batch, bitwise --------------------
+    rec, _ = entry.recognizer_serving(1000, device=DEVICE)
+    feats, masks = (torch.as_tensor(x, device=DEVICE) for x in r0["decode_inputs"])
+    ref = rec.graph.decode_batch(feats, masks)
+    sync()
+    t0 = time.perf_counter()
+    rec.graph.decode_batch(feats, masks)
+    sync()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    got = r0["decode"]
+    equal = len(got) == len(ref) and all(
+        gw == rw and np.array_equal(gp, rp) and gp.dtype == rp.dtype and gs == rs
+        for (gw, gp, gs), (rw, rp, rs) in zip(got, ref))
+    per_rank = [r["decode_launches"] for r in ranks]
+    total = {w.__name__: sum(c[w.__name__] for c in per_rank) for w in wrappers}
+    launches["parallel"] = total
+    print(f"main path: parallel.decode_batch_sharded at V=1000 (entry.parallel_serving: 8 "
+          f"bucketed segments of the stream, rows {sorted(r0['planted'])} planted with "
+          f"{list(r0['planted'].values())}) over data 4: words {[w for w, _, _ in got]}; "
+          f"{'bitwise equal' if equal else 'NOT EQUAL'} to the single-process decode_batch "
+          f"(words, int32 paths, scores); launches per rank {per_rank}, total {total}")
+    require(equal, "the sharded decode differs from decode_batch")
+    for row, words in r0["planted"].items():
+        require(got[row][0] == words, f"planted row {row}: {words} decoded as {got[row][0]}")
+    expect = {w.__name__: 0 for w in wrappers} | {"mel_frontend": 1, "factored_forward": 2,
+                                                  "factored_backtrace": 2}
+    require(all(c == expect for c in per_rank), f"the sharded decode's launches per rank: {per_rank}")
+    print(f"timing on {card}: sharded decode of 8 segments: "
+          + ", ".join(f"rank {r['rank']} {r['decode_ms']:.3f} ms" for r in ranks)
+          + f" (host clock, median of 3); single-process decode_batch {single_ms:.3f} ms; {shared}")
+
+    # -- the pipeline against the single-process scans -----------------------
+    x0 = feats_all[0].double()
+    p = entry.flagship_model(DEVICE, f64).params
+    log_b = tgh._emissions(p, x0, "diag")[0]
+    vit = viterbi_scan(p.log_pi, p.log_a, log_b)
+    fwd = forward_scan(p.log_pi, p.log_a, log_b)
+    for n_stages, got in r0["pipe"].items():
+        same = np.array_equal(got["path"], vit.path.cpu().numpy())
+        e_score = abs(got["score"] - float(vit.score)) / abs(float(vit.score))
+        e_ll = abs(got["loglik"] - float(fwd.loglik)) / abs(float(fwd.loglik))
+        print(f"parallel pipeline, {n_stages} stages, chunk {PIPE_CHUNK} of T={x0.shape[0]}: "
+              f"path {'equal' if same else 'DIFFERS'} to viterbi_scan, score {e_score:.3g}, "
+              f"log-semiring loglik {e_ll:.3g} vs forward_scan (bars 1e-10); decode "
+              f"{r0['pipe_ms'][n_stages]:.2f} ms on {card} (host clock; {shared})")
+        require(same and e_score < 1e-10 and e_ll < 1e-10,
+                f"the {n_stages}-stage pipeline: path equal {same}, {e_score}, {e_ll}")
+
+    # -- a world of one under NCCL (the backend rule's other branch) ----------
+    with tempfile.TemporaryDirectory() as tmp:
+        backend = D.initialize("file://" + os.path.join(tmp, "rendezvous"), 1, 0, device=DEVICE)
+        try:
+            expect = D.choose_backend(DEVICE, torch.cuda.device_count(), 1)
+            run1 = entry.parallel_training(P.make_mesh(), device=DEVICE, dtype=f64,
+                                           batch=16, features=feats_all[:16])
+            p1, ll1 = run1.step(run1.params)
+            ref = entry.training(device=DEVICE, dtype=f64, features=feats_all[:16])
+            p_ref, ll_ref = ref.step(ref.params)
+            e1 = max(param_dist(torch, p1, p_ref), abs(float(ll1) - float(ll_ref))
+                     / abs(float(ll_ref)))
+            probe = torch.arange(4.0, device=DEVICE)
+            dist.all_reduce(probe)
+            sync()
+        finally:
+            dist.destroy_process_group()
+    print(f"parallel world of one: backend {backend} (rule: {expect}), mesh (1, 1, 1), one DP "
+          f"sweep of 16 utterances vs the single-process sweep {e1:.3g} (bar 1e-9); "
+          f"all_reduce on the card {probe.tolist()}")
+    require(backend == expect and e1 < 1e-9 and probe.tolist() == [0.0, 1.0, 2.0, 3.0],
+            f"the world of one: backend {backend}, sweep {e1}, all_reduce {probe.tolist()}")
+    return {"world_s": world_s, "dp32_ms": [r["dp32_ms"] for r in ranks]}
+
+
 def main():
     import torch
 
@@ -1753,7 +2180,10 @@ def main():
     vad_phase(torch, entry, card)
 
     # -- 12. training -------------------------------------------------------
-    training_phase(torch, entry, wrappers, card, launches)
+    train = training_phase(torch, entry, wrappers, card, launches)
+
+    # -- 13. parallel/: 4 ranks on the card -----------------------------------
+    parallel_phase(torch, entry, wrappers, card, launches, train["sweep_ms"])
 
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and

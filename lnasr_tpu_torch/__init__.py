@@ -9,7 +9,10 @@ them (``models/``, entry point ``entry.recognizer_serving``). Step 3
 adds live serving (VAD, the streaming recognizer, the trigram graph) and
 training: Baum-Welch EM for the GMM-HMM, the discrete HMM and the GMM,
 checkpointed EM loops, isolated-unit training and the HMM word segmenter
-(entry points ``entry.training``, ``entry.unit_training``). The CUDA
+(entry points ``entry.training``, ``entry.unit_training``), and
+``parallel/``: data-, model-, sequence- and pipeline-parallel EM and
+decoding on ``torch.distributed``, one process per rank
+(``entry.dryrun_multichip``). The CUDA
 kernels live in ``csrc/`` and are compiled with ``nvcc`` at first use
 (:mod:`lnasr_tpu_torch._build`); nothing is compiled on import. The port
 imports neither JAX nor the JAX package.

@@ -2,14 +2,14 @@
 
 Same fields, defaults and derived properties as the JAX package's
 ``MFCCConfig``, ``HMMConfig``, ``GMMHMMConfig``, ``NGramConfig``,
-``LTSDConfig`` and ``TrainConfig``;
+``LTSDConfig``, ``MeshConfig`` and ``TrainConfig``;
 this package keeps its own copy so it never imports the JAX package.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +133,28 @@ class LTSDConfig:
     @property
     def fft_size(self) -> int:
         return self.win_size // 2 + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Logical rank mesh (:mod:`lnasr_tpu_torch.parallel`). Axes:
+
+    - ``data``: utterance batch (data parallelism; EM stats are summed here)
+    - ``seq``: time-chunk axis for long-audio associative-scan parallelism
+    - ``model``: GMM component sharding when N*M*D outgrows one device
+    """
+
+    data: int = 1
+    seq: int = 1
+    model: int = 1
+
+    @property
+    def axis_names(self) -> Tuple[str, ...]:
+        return ("data", "seq", "model")
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (self.data, self.seq, self.model)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -32,6 +32,12 @@
   from one batched frontend call, through ``train_unit_models``; it
   returns an :class:`AcousticModel`. :func:`unit_recognizer` decodes with
   it, and :func:`unit_utterance` plants a word sequence in audio.
+- :func:`parallel_training`, :func:`parallel_serving`: the training step
+  and a batch of serving segments for a rank of a ``parallel/`` mesh
+  (each rank runs the mel frontend kernel on its own signals); and
+  :func:`dryrun_multichip`, every multi-rank path once at tiny shapes in a
+  spawned world, the counterpart of the JAX package's
+  ``__graft_entry__.py:dryrun_multichip``.
 """
 
 from __future__ import annotations
@@ -351,3 +357,181 @@ def unit_utterance(words: Sequence[str]) -> np.ndarray:
         parts += [_voice(int(0.4 * sr), rng, _unit_f0(int(w[1:])), rng.uniform(0.0, 2 * np.pi)),
                   gap()]
     return _pcm(np.concatenate(parts))
+
+
+# -- multi-rank paths (parallel/) -------------------------------------------------
+
+
+def parallel_training(mesh, device="cuda", dtype=torch.float32, batch: int = TRAIN_BATCH,
+                      seconds: float = TRAIN_SECONDS, features=None) -> Training:
+    """:func:`training` sharded over a rank mesh (call it on every rank):
+    this rank's rows of :func:`training_signals`' batch along the mesh's
+    ``data`` axis -> MFCCs (the mel frontend kernel once on CUDA; or this
+    rank's rows of the global ``features`` as given) -> a data-parallel
+    EM step, or a mixture-sharded one when the ``model`` axis is larger
+    than 1 (``params`` then this rank's mixture slice), from
+    :func:`flagship_model`'s parameters. ``features``/``mask`` are the
+    rank's rows."""
+    from lnasr_tpu_torch import parallel as P
+    from lnasr_tpu_torch.parallel.mesh import local_rows, mesh_axis
+
+    dev = resolve_device(device)
+    data = mesh_axis(mesh, "data")
+    if features is None:
+        signals = local_rows(torch.as_tensor(training_signals(batch, seconds)), data)
+        features, _ = MFCC(MFCC_CONFIG, device=dev).features_fast(signals.to(dev))
+    else:
+        features = local_rows(torch.as_tensor(features), data)
+    features = torch.as_tensor(features, dtype=dtype, device=dev)
+    mask = torch.ones(features.shape[:2], dtype=torch.bool, device=dev)
+    params = flagship_model(dev, dtype).params
+    if mesh_axis(mesh, "model").size > 1:
+        em = P.make_mp_gmmhmm_em_step(mesh, MODEL_CONFIG)
+        params = P.mp_param_specs().local(params, mesh)
+    else:
+        em = P.make_dp_gmmhmm_em_step(mesh, MODEL_CONFIG)
+
+    def step(p: GMMHMMParams):
+        return em(p, features, mask)
+
+    return Training(step, params, features, mask)
+
+
+class ParallelServing(NamedTuple):
+    """A batch of bucketed serving segments: the recognizer, and padded
+    ``features (B, T, 39)`` with their ``masks (B, T)``."""
+
+    recognizer: Recognizer
+    features: torch.Tensor
+    masks: torch.Tensor
+
+
+def parallel_serving_signals(segments: int = 8, seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """``(batch (segments, n_max) float32, lengths)``: ``segments`` pieces
+    of :func:`serving_stream` (seeded offsets, 1.3 to 5.1 s), each
+    zero-padded to the recognizer's largest bucket (``SERVING_BUCKETS`` x
+    ``SERVING_BUCKET_FRAMES`` frames, ``n_max`` samples)."""
+    stream = serving_stream(seed)
+    n_max = SERVING_BUCKETS * SERVING_BUCKET_FRAMES * SERVING_MFCC_CONFIG.frame_step
+    rng = np.random.default_rng(seed + 1)
+    lengths = rng.integers(n_max // 4, n_max - SERVING_TRIM, size=segments)
+    starts = rng.integers(0, len(stream) - n_max, size=segments)
+    batch = np.zeros((segments, n_max), np.float32)
+    for i, (s, n) in enumerate(zip(starts, lengths)):
+        batch[i, :n] = stream[s:s + n]
+    return batch, lengths
+
+
+def parallel_serving(vocab: int = 1000, segments: int = 8, device="cuda",
+                     seed: int = 0) -> ParallelServing:
+    """The batch a sharded decode serves (``parallel.decode_batch_sharded``):
+    :func:`recognizer_serving`'s recognizer and the padded pieces of
+    :func:`parallel_serving_signals`, with their features from one batched
+    ``features_fast`` call with lengths (the mel frontend kernel once on
+    CUDA)."""
+    dev = resolve_device(device)
+    rec, _ = recognizer_serving(vocab, device=dev, seed=seed)
+    batch, lengths = parallel_serving_signals(segments, seed)
+    feats, masks = rec.am.mfcc.features_fast(torch.as_tensor(batch, device=dev),
+                                             lengths=torch.as_tensor(lengths, device=dev))
+    return ParallelServing(rec, feats, masks)
+
+
+def _dryrun_rank(seed: int = 0) -> Dict[str, object]:
+    """One rank of :func:`dryrun_multichip`."""
+    import types
+
+    import torch.distributed as dist
+
+    from lnasr_tpu_torch import parallel as P
+    from lnasr_tpu_torch.config import MeshConfig
+    from lnasr_tpu_torch.convert import units_from_numpy
+    from lnasr_tpu_torch.models.decoder import FactoredDecodingGraph
+    from lnasr_tpu_torch.parallel.distributed import local_device
+
+    n = dist.get_world_size()
+    dev = local_device()
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    out: Dict[str, object] = {"backend": dist.get_backend(), "device": str(dev)}
+
+    def finite(name, values):
+        values = np.asarray(values, np.float64)
+        if not np.isfinite(values).all():
+            raise RuntimeError(f"{name} is not finite: {values}")
+        out[name] = values.tolist()
+
+    # data-parallel EM over the whole ('data', 'seq', 'model') mesh
+    cfg = GMMHMMConfig(n_states=3, n_mix=2, dim=8)
+    obs = rng.normal(size=(n * 2, 16, 8)).astype(np.float32)
+    mask = np.ones((n * 2, 16), bool)
+    model = GMMHMM(cfg, device=dev).init_from_data(obs.reshape(-1, 8), gen)
+    finite("dp_em", P.train_data_parallel(model, obs, mask, P.make_mesh(), iters=1))
+    even = n % 2 == 0 and n > 1
+    if even:  # model-parallel EM: the mixture axis over 'model'
+        mp = GMMHMM(cfg, device=dev).init_from_data(obs.reshape(-1, 8), gen)
+        finite("mp_em", P.train_model_parallel(mp, obs, mask,
+                                               P.make_mesh(MeshConfig(n // 2, 1, 2)), iters=1))
+        # sequence-parallel forward and EM over a ('data', 'seq') mesh
+        sp_mesh = P.make_mesh(P.mesh_shape_for(n, data=n // 2, seq=2))
+        k = cfg.n_states
+        log_a = torch.as_tensor(np.log(rng.dirichlet(np.ones(k), size=k)), dtype=torch.float32,
+                                device=dev)
+        log_pi = torch.as_tensor(np.log(rng.dirichlet(np.ones(k))), dtype=torch.float32,
+                                 device=dev)
+        log_b = torch.as_tensor(rng.normal(size=(16, k)), dtype=torch.float32, device=dev)
+        finite("seq_forward", [float(P.forward_seq_parallel(log_pi, log_a, log_b, sp_mesh)[1])])
+        long_obs = rng.normal(size=(19, cfg.dim)).astype(np.float32)  # not divisible by 2
+        sp = GMMHMM(cfg, device=dev).init_from_data(long_obs, gen)
+        finite("seq_em", P.train_seq_parallel(sp, long_obs, sp_mesh, iters=1))
+
+    # the sharded batch decode over ('data',), dense and backoff hops
+    d_cfg = GMMHMMConfig(n_states=2, n_mix=1, dim=4)
+    with np.errstate(divide="ignore"):
+        d_a = np.log(np.eye(2) * 0.5 + np.eye(2, k=1) * 0.5)
+    units = units_from_numpy({f"w{i}": types.SimpleNamespace(
+        config=d_cfg, log_a=d_a, log_pi=np.log([0.5, 0.5]), log_w=np.zeros((2, 1)),
+        mu=rng.normal(size=(2, 1, 4)), cov=np.ones((2, 1, 4))) for i in range(3)}, device=dev)
+    feats = rng.normal(size=(n, 9, 4)).astype(np.float32)
+    d_mesh = P.make_mesh(P.mesh_shape_for(n, data=n))
+    words = []
+    for hop_mode in ("dense", "backoff"):
+        graph = FactoredDecodingGraph.build(Lexicon.whole_word(sorted(units)), units, None,
+                                            DecoderConfig(loop=True), hop_mode=hop_mode,
+                                            device=dev)
+        res = P.decode_batch_sharded(graph, feats, np.ones((n, 9), bool), d_mesh)
+        finite(f"decode_{hop_mode}", [s for _, _, s in res])
+        words.append([w for w, _, _ in res])
+    if words[0] != words[1]:
+        raise RuntimeError(f"the backoff hop decoded {words[1]}, the dense hop {words[0]}")
+
+    # streaming pipelines over ('stage',): 2 stages, and a deep decode
+    if n >= 2:
+        k, m, d = cfg.n_states, cfg.n_mix, cfg.dim
+        arrays = (np.log(rng.dirichlet(np.ones(k))), np.log(rng.dirichlet(np.ones(k), size=k)),
+                  np.log(rng.dirichlet(np.ones(m), size=k)), rng.normal(size=(k, m, d)),
+                  rng.uniform(0.5, 2.0, size=(k, m, d)), rng.normal(size=(32, d)))
+        args = [torch.as_tensor(x, dtype=torch.float32, device=dev) for x in arrays]
+        finite("pipeline_scores", [float(P.streaming_pipeline_scores(
+            *args, P.make_stage_mesh(n_stages=2), chunk=8))])
+        path, score = P.streaming_pipeline_decode(*args, P.make_stage_mesh(n_stages=min(n, 4)),
+                                                  chunk=8)
+        if path.shape != (32,):
+            raise RuntimeError(f"pipeline path of shape {tuple(path.shape)}")
+        finite("pipeline_decode", [float(score)])
+    return out
+
+
+def dryrun_multichip(n_ranks: int, device="cuda") -> List[Dict[str, object]]:
+    """Spawn a world of ``n_ranks`` on ``device`` (NCCL when each rank has
+    a card of its own, else gloo) and run the multi-rank paths once at tiny
+    shapes on every rank, the counterpart of the JAX package's
+    ``__graft_entry__.py:dryrun_multichip``: data-parallel EM, and with an
+    even world mixture-sharded EM, the sequence-parallel forward and EM
+    (T not divisible by the axis), the sharded decode on dense and backoff
+    hops (the same words), the 2-stage pipeline's scores and the deep
+    pipeline's decode. Raises on a non-finite result or a failed rank;
+    returns each rank's summary (backend, device, results)."""
+    from lnasr_tpu_torch.parallel.distributed import run_ranks
+
+    return run_ranks(_dryrun_rank, n_ranks, device=device)

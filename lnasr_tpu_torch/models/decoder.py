@@ -79,6 +79,23 @@ def to_host(path: torch.Tensor, score: torch.Tensor) -> Tuple[np.ndarray, np.nda
     return path.cpu().numpy(), score.cpu().numpy()
 
 
+def _stack_decodes(outs, obs: torch.Tensor, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-utterance ``(path, score)`` decodes stacked into ``(paths (B, T),
+    scores (B,))``; empty tensors for an empty batch."""
+    if not outs:
+        return (torch.empty((0, obs.shape[1]), dtype=torch.int32, device=obs.device),
+                torch.empty((0,), dtype=dtype, device=obs.device))
+    return torch.stack([p for p, _ in outs]), torch.stack([s for _, s in outs])
+
+
+def _batch_results(graph, paths: torch.Tensor, scores: torch.Tensor
+                   ) -> List[Tuple[List[str], np.ndarray, float]]:
+    """``(words, path, score)`` per utterance, with one device->host copy."""
+    paths, scores = to_host(paths, scores)
+    return [(graph._path_to_words(paths[b]), paths[b], float(scores[b]))
+            for b in range(paths.shape[0])]
+
+
 def records_to_host(score: torch.Tensor, start: torch.Tensor, pred: torch.Tensor
                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Lattice records ``(exit_score, exit_start, exit_pred)`` of one shape
@@ -770,22 +787,21 @@ class FactoredDecodingGraph:
         path, score = to_host(*self.decode_arrays(obs, mask))
         return self._path_to_words(path), path, float(score)
 
-    def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
-        """Decode padded ``(B, T, D)`` features with ``(B, T)`` masks: one
-        emission product for the batch, one decode per utterance (on CUDA
-        the forward and backtrace kernels, one launch each per utterance),
-        one device->host copy for all. Identical to looping :meth:`decode`."""
+    def decode_batch_arrays(self, features, masks) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device decode of padded ``(B, T, D)`` features with ``(B, T)``
+        masks: one emission product for the batch, one decode per utterance
+        (on CUDA the forward and backtrace kernels, one launch each per
+        utterance) -> ``(paths (B, T) int32, scores (B,))`` on the device."""
         obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         log_b, pi_grid, final_grid = self._grid_inputs(obs)
-        outs = [self._decode_grid(log_b[b], pi_grid, final_grid, masks[b])
-                for b in range(obs.shape[0])]
-        if not outs:
-            return []
-        paths, scores = to_host(torch.stack([p for p, _ in outs]),
-                                torch.stack([s for _, s in outs]))
-        return [(self._path_to_words(paths[b]), paths[b], float(scores[b]))
-                for b in range(paths.shape[0])]
+        return _stack_decodes([self._decode_grid(log_b[b], pi_grid, final_grid, masks[b])
+                               for b in range(obs.shape[0])], obs, self.dtype)
+
+    def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
+        """:meth:`decode_batch_arrays` with one device->host copy for all
+        and each path's words. Identical to looping :meth:`decode`."""
+        return _batch_results(self, *self.decode_batch_arrays(features, masks))
 
     # -- lattices --------------------------------------------------------------
 
@@ -1087,20 +1103,20 @@ class TrigramDecodingGraph:
         path, score = to_host(*self.decode_arrays(obs, mask))
         return self._path_to_words(path), path, float(score)
 
-    def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
-        """Decode padded ``(B, T, D)`` features with ``(B, T)`` masks: one
-        emission product for the batch, one decode per utterance, one
-        device->host copy for all. Identical to looping :meth:`decode`."""
+    def decode_batch_arrays(self, features, masks) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device decode of padded ``(B, T, D)`` features with ``(B, T)``
+        masks: one emission product for the batch, one decode per utterance
+        -> ``(paths (B, T) int32, scores (B,))`` on the device."""
         obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         log_b = self._grid_log_b(obs)
-        outs = [self._decode_log_b(log_b[b], masks[b]) for b in range(obs.shape[0])]
-        if not outs:
-            return []
-        paths, scores = to_host(torch.stack([p for p, _ in outs]),
-                                torch.stack([s for _, s in outs]))
-        return [(self._path_to_words(paths[b]), paths[b], float(scores[b]))
-                for b in range(paths.shape[0])]
+        return _stack_decodes([self._decode_log_b(log_b[b], masks[b])
+                               for b in range(obs.shape[0])], obs, self.dtype)
+
+    def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
+        """:meth:`decode_batch_arrays` with one device->host copy for all
+        and each path's words. Identical to looping :meth:`decode`."""
+        return _batch_results(self, *self.decode_batch_arrays(features, masks))
 
     def path_to_alignment(self, path: np.ndarray, n_frames: Optional[int] = None
                           ) -> List[Tuple[str, int, int]]:

@@ -9,7 +9,9 @@ ways: ``__meta__`` holds JSON bytes (``iteration``, ``history``,
 ``treedef``, ``n_leaves``, ``done``) and ``leaf_i`` the i-th parameter in
 the NamedTuple's field order. ``treedef`` is a description for readers
 (this package writes its own); loading checks only ``n_leaves``, as the
-JAX package does.
+JAX package does. :class:`RankCheckpointer` is the same file for an EM
+loop that every rank of a ``torch.distributed`` world runs (one rank
+writes; mixture-sharded parameters are gathered first).
 """
 
 from __future__ import annotations
@@ -135,6 +137,48 @@ class Checkpointer:
         return False
 
 
+class RankCheckpointer(Checkpointer):
+    """A :class:`Checkpointer` for an EM loop that every rank of a
+    ``torch.distributed`` world runs in step (``parallel/``'s trainers).
+
+    A save gathers the full parameters on every rank (``gather``, a
+    collective; the identity for replicated parameters), world rank 0
+    alone writes the file, and every rank waits at a barrier, so no rank
+    reads a file being replaced. A restore waits at a barrier, reads the
+    full parameters on every rank and keeps this rank's part (``local``).
+    The file is the single-process layout, so ``GMMHMM.load``-style
+    readers and :class:`Checkpointer` read it, and kill and resume stay
+    bitwise (the gather and the slice move bits, not values)."""
+
+    def __init__(self, directory: str, every: int = 1, gather=None, local=None):
+        super().__init__(directory, every)
+        self.gather = gather
+        self.local = local
+
+    def restore_state(self, like_params) -> TrainState:
+        import torch.distributed as dist
+
+        dist.barrier()
+        if not os.path.exists(self.path):
+            return TrainState(like_params)
+        state = load_train_state(self.path, like_params)
+        if self.local is not None:
+            state.params = self.local(state.params)
+        return state
+
+    def maybe_save(self, iteration: int, params, history: List[float],
+                   done: bool = False) -> bool:
+        import torch.distributed as dist
+
+        if not (done or iteration % self.every == 0):
+            return False
+        full = self.gather(params) if self.gather is not None else params
+        if dist.get_rank() == 0:
+            save_train_state(self.path, TrainState(full, iteration, history, done))
+        dist.barrier()
+        return True
+
+
 def checkpointer_from_config(config) -> Optional[Checkpointer]:
     """A :class:`Checkpointer` when a
     :class:`~lnasr_tpu_torch.config.TrainConfig` enables one
@@ -142,6 +186,14 @@ def checkpointer_from_config(config) -> Optional[Checkpointer]:
     if config is None or not config.checkpoint_dir or config.checkpoint_every <= 0:
         return None
     return Checkpointer(config.checkpoint_dir, every=config.checkpoint_every)
+
+
+def rank_checkpointer_from_config(config, gather=None, local=None
+                                  ) -> Optional[RankCheckpointer]:
+    """:func:`checkpointer_from_config`'s checkpointer as a
+    :class:`RankCheckpointer` with ``gather`` and ``local``."""
+    ckpt = checkpointer_from_config(config)
+    return None if ckpt is None else RankCheckpointer(ckpt.directory, ckpt.every, gather, local)
 
 
 def em_loop(
