@@ -53,6 +53,20 @@ kernels' launch counters reset just before and read just after:
   ``decode_batch``; the 2- and 4-stage pipelines; then one sweep on a
   world of one under NCCL. Several ranks on one card show correctness
   and overhead, not scaling;
+- the command line (``lnasr_tpu_torch.cli``), ``cli_phase``: ``mfcc``
+  (mel frontend once) against ``--device cpu``; ``lm-train``, ``lm-ppl``
+  and ``vad`` against the port's objects; ``train-am --f64`` and
+  ``recognize`` through ``build_parser()`` and the cores with the models in
+  memory, card against CPU, ``recognize`` in four forms (default graph:
+  mel frontend and dense-graph Viterbi; ``--graph factored``: mel
+  frontend, forward and backtrace; ``--nbest 3 --confidence``: mel
+  frontend and lattice; ``--bucket-frames 16``); ``cli bench`` (the
+  headline harness: mel frontend, small-N Viterbi, forward, backtrace and
+  lattice kernels), ``bench/train`` and ``bench/decoder`` reduced; and
+  ``examples/multihost_train`` as a world of one under NCCL; every kernel
+  call these paths make through the MFCC pipeline and the decoders is
+  held, at each distinct shape, against its plain version on the path's
+  own inputs;
 
 checks each against the plain CPU path on the same weights and input
 (plus planted word sequences, decoded and lattice-searched), and times
@@ -65,7 +79,10 @@ exits non-zero before those lines are printed. Needs a CUDA device and the
 repository around it; without either it fails.
 """
 
+import contextlib
 import dataclasses
+import importlib
+import io
 import json
 import os
 import statistics
@@ -212,11 +229,12 @@ def model(rng, n, kind):
             np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32))
 
 
-def check_a_shape(torch, mf, sig, cfg, lens, where):
+def check_a_shape(torch, mf, sig, cfg, lens, where, got=None):
     """Kernel A against its plain version on ``sig`` (with ``lens``): mel
     energies and frame energy within ``2e-6 * max_energy + 1e-4 * |ref|``,
-    the feature masks equal, features within 0.01. Returns ``(mel max err,
-    energy scale, features max err)``."""
+    the feature masks equal, features within 0.01. ``got`` is the kernel's
+    ``(mel, energy)`` where a path already launched it on these inputs.
+    Returns ``(mel max err, energy scale, features max err)``."""
     from lnasr_tpu_torch.models.mfcc import mfcc_features, mfcc_features_fused
 
     def within_bars(got, ref, what, scale):
@@ -227,7 +245,7 @@ def check_a_shape(torch, mf, sig, cfg, lens, where):
                 f"scale {scale}")
         return float(err.max())
 
-    mel_k, en_k = mf.mel_frontend(sig, cfg, lengths=lens)
+    mel_k, en_k = mf.mel_frontend(sig, cfg, lengths=lens) if got is None else got
     mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(sig, cfg, lens), cfg)
     torch.cuda.synchronize()
     scale = float(en_p.max())
@@ -1654,6 +1672,471 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
     return {"world_s": world_s, "dp32_ms": [r["dp32_ms"] for r in ranks]}
 
 
+# -- the command line, harnesses and examples -------------------------------------
+
+CLI_WORD_F0 = {"low": 220.0, "mid": 560.0, "high": 1400.0}  # tests/test_cli.py's words
+CLI_CORPUS = "low mid high\nhigh mid low\nlow high\nmid mid low\n"
+CLI_TRUTH = ["high", "low", "mid"]
+CLI_SCORE = r"(#\d+ )(-?[\d.]+)"
+
+
+def cli_word_audio(word, rng, dur=0.3):
+    """A tone-burst word of ``tests/test_cli.py``: three harmonics of the
+    word's pitch under a Hann window, int16 at 16 kHz."""
+    n = int(SR * dur)
+    t = np.arange(n) / SR
+    f0 = CLI_WORD_F0[word] * (1.0 + 0.01 * rng.normal())
+    sig = sum(np.sin(2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi)) / k for k in range(1, 4))
+    x = (sig * np.hanning(n) * 0.3 + rng.normal(0, 0.01, n)) * 12000
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def cli_gap(rng, dur):
+    return rng.normal(0, 60.0, int(SR * dur)).astype(np.int16)
+
+
+# The module attributes through which the decoders and the MFCC pipeline
+# reach kernels A, C, D, E and F (each wrapper is imported by name there).
+KERNEL_SITES = (("lnasr_tpu_torch.models.mfcc", "mel_frontend"),
+                ("lnasr_tpu_torch.models.decoder", "viterbi_dense"),
+                ("lnasr_tpu_torch.models.decoder", "factored_forward"),
+                ("lnasr_tpu_torch.models.decoder", "factored_backtrace"),
+                ("lnasr_tpu_torch.models.decoder", "factored_lattice"))
+
+
+def shape_key(torch, x):
+    """What sets a kernel call's shapes: tensors by shape and dtype, a hop's
+    fields likewise, configs by value."""
+    if torch.is_tensor(x):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, tuple):
+        return (type(x).__name__,) + tuple(shape_key(torch, y) for y in x)
+    return x if x is None or isinstance(x, (int, float, str)) or dataclasses.is_dataclass(x) \
+        else type(x).__name__
+
+
+@contextlib.contextmanager
+def recorded_calls(torch, calls):
+    """Within the block, each wrapper of :data:`KERNEL_SITES` is called
+    through a recorder that keeps, in ``calls``, the first call at each
+    distinct set of input shapes: ``(name, args, kwargs, output)``. The
+    wrapper itself runs and counts its launch as before."""
+    saved = []
+    for mod_name, attr in KERNEL_SITES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr)
+
+        def recorder(*args, _fn=fn, **kw):
+            out = _fn(*args, **kw)
+            key = (_fn.__name__, shape_key(torch, args),
+                   tuple((k, shape_key(torch, v)) for k, v in sorted(kw.items())))
+            calls.setdefault(key, (_fn.__name__, args, kw, out))
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, recorder)
+    try:
+        yield calls
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def check_recorded(torch, mf, F, vd, calls, what, want):
+    """Each call kept by :func:`recorded_calls` against its kernel's plain
+    version on the same inputs: A within its bars (:func:`check_a_shape`),
+    C and E (path and score) bitwise, D's grids bitwise at feasible states,
+    F's records bitwise (``-inf`` included). ``want`` names the wrappers
+    that must have been checked at least once."""
+    checked = {}
+    for name, args, kw, out in calls.values():
+        if name == "mel_frontend":
+            sig, cfg = args
+            check_a_shape(torch, mf, sig, cfg, kw.get("lengths"), what, got=out)
+            shape = tuple(sig.shape)
+        elif name == "viterbi_dense":
+            ref = vd.viterbi_dense_plain(*args, **kw)
+            require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                    f"kernel C differs from its plain version on {what}'s inputs: "
+                    f"{int((out[0] != ref[0]).sum())} path entries, scores {out[1]} vs {ref[1]}")
+            shape = tuple(args[2].shape)
+        elif name == "factored_forward":
+            ref = F.factored_forward_plain(*args)
+            feasible = torch.isfinite(ref)
+            require(bool(feasible.any()) and torch.equal(out[feasible], ref[feasible]),
+                    f"kernel D grids differ from its plain version at feasible states on "
+                    f"{what}'s inputs")
+            shape = tuple(args[4].shape)
+        elif name == "factored_backtrace":
+            ref = F.factored_backtrace_plain(*args)
+            require(all(torch.equal(a, b) for a, b in zip(out, ref)),
+                    f"kernel E differs from its plain version on {what}'s inputs: "
+                    f"{int((out[0] != ref[0]).sum())} path entries, scores {out[1]} vs {ref[1]}")
+            shape = tuple(args[0].shape)
+        else:
+            ref = F.factored_lattice_plain(*args)
+            bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x  # noqa: E731
+            require(all(torch.equal(bits(a), bits(b)) for a, b in zip(out, ref)),
+                    f"kernel F records differ from its plain version on {what}'s inputs")
+            shape = tuple(args[4].shape)
+        checked.setdefault(name, []).append(shape)
+    torch.cuda.synchronize()
+    require(set(want) <= set(checked),
+            f"{what}: no call of {sorted(set(want) - set(checked))} was held against its plain "
+            "version")
+    print(f"{what}: each kernel call at each distinct shape held against its plain version "
+          "on the path's own inputs (A within its bars, C, E and F bitwise, D bitwise at "
+          "feasible states): " + "; ".join(f"{n} at {v}" for n, v in sorted(checked.items())))
+
+
+def captured(fn, argv):
+    """``(fn(argv), what it printed on stdout, what on stderr)``."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = fn(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def cli_phase(torch, entry, wrappers, card, launches):
+    """The command line on the card (``lnasr_tpu_torch.cli``), each path with
+    the launch counters reset just before it and read just after:
+
+    - ``mfcc`` on a seeded ``.pcm`` (kernel A once), within the feature bar
+      of a ``--device cpu`` run;
+    - ``lm-train`` -> ``lm-ppl`` and ``vad`` (webrtc, amrwb): the lines the
+      port's objects print when driven directly on the CPU;
+    - ``train-am`` and ``recognize`` through ``build_parser()`` and the
+      cores, the models in memory (the card's machine may lack h5py; the
+      file flow runs too where it has it): ``train-am --f64`` on the card
+      against the CPU (1e-8), ``recognize`` with the CPU-trained float32
+      model on the card against the CPU in four forms (default graph: A,
+      C; ``--graph factored``: A, D, E; ``--nbest 3 --confidence``: A, F;
+      ``--bucket-frames 16``: A, C);
+    - ``cli bench`` (the headline harness at its defaults: A, B, D, E, F),
+      the training harness at ``--trials 2`` and the decoder harness at
+      ``--frames 500``: valid JSON, no row with an error, kernel C's paths
+      bitwise those of the scan;
+    - ``examples/multihost_train`` with no flags: a world of one on the
+      card (NCCL by the backend rule), three sweeps.
+
+    Each kernel path runs inside :func:`recorded_calls`, and
+    :func:`check_recorded` then holds its calls against the kernels' plain
+    versions on the same inputs; ``cli bench``'s V = 22 factored graph also
+    goes through :func:`check_factored` and :func:`check_lattice`."""
+    import importlib.util
+    import re
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lnasr_tpu_torch import cli
+    from lnasr_tpu_torch.models import decoder as tdec
+    from lnasr_tpu_torch.ops import factored as F
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import viterbi_dense as vd
+    from lnasr_tpu_torch.bench import decoder as bench_decoder
+    from lnasr_tpu_torch.bench import train as bench_train
+    from lnasr_tpu_torch.examples import multihost_train
+    from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+    from lnasr_tpu_torch.models.lexicon import Lexicon
+    from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel, NGramModelARPA, Tokenizer
+    from lnasr_tpu_torch.models.recognizer import AcousticModel, LanguageModel, segment_speech
+    from lnasr_tpu_torch.utils.audio import write_pcm
+    from lnasr_tpu_torch.vad.native import AmrWbVad, WebRtcVad
+
+    names = [w.__name__ for w in wrappers]
+
+    def counted(fn, calls=None):
+        """``(fn(), launches, host seconds)`` with the counters reset just
+        before the call and read just after; with ``calls``, the kernels'
+        calls recorded into it (:func:`recorded_calls`)."""
+        torch.cuda.synchronize()
+        reset_counts(*wrappers)
+        t0 = time.perf_counter()
+        with contextlib.nullcontext() if calls is None else recorded_calls(torch, calls):
+            res = fn()
+        torch.cuda.synchronize()
+        return res, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+
+    def expect(counts, want, what):
+        full = {n: 0 for n in names} | want
+        require(counts == full, f"{what}: launches {counts}, expected {full}")
+
+    def run_cli(argv):
+        return captured(cli.main, argv)
+
+    def json_lines(text):
+        return [json.loads(x) for x in text.splitlines() if x.startswith("{")]
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = lambda name: os.path.join(tmp, name)  # noqa: E731
+
+        # -- mfcc ------------------------------------------------------------
+        speech = entry.serving_segment(seed=3)[: 2 * SR].astype(np.int16)
+        write_pcm(path("speech.pcm"), speech)
+        calls = {}
+        (rc, out, _), counts, mfcc_s = counted(
+            lambda: run_cli(["mfcc", path("speech.pcm"), path("card.npy")]), calls)
+        launches["cli mfcc"] = counts
+        rc_c, out_c, _ = run_cli(["mfcc", path("speech.pcm"), path("cpu.npy"), "--device", "cpu"])
+        got, ref = np.load(path("card.npy")), np.load(path("cpu.npy"))
+        err = float(np.abs(got - ref).max())
+        print(f"cli mfcc on {card}: {out.strip()!r} in {mfcc_s:.3f} s (host clock, the command "
+              f"whole); features {got.shape} within {err:.3g} of --device cpu (bar 0.01); "
+              f"launches {counts}")
+        require(rc == rc_c == 0 and got.shape == ref.shape == (199, 39) and err < 0.01,
+                f"cli mfcc: rc {rc}/{rc_c}, shapes {got.shape}/{ref.shape}, error {err}")
+        require(out_c == out.replace(path("card.npy"), path("cpu.npy")),
+                f"cli mfcc printed {out!r} on the card, {out_c!r} on the CPU")
+        expect(counts, {"mel_frontend": 1}, "cli mfcc")
+        check_recorded(torch, mf, F, vd, calls, "cli mfcc", ["mel_frontend"])
+
+        # -- lm-train -> lm-ppl, vad: host code, as the port's objects print ----
+        with open(path("corpus.txt"), "w", encoding="utf-8") as fp:
+            fp.write(CLI_CORPUS)
+        tokens = [Tokenizer.get_tokens(x) for x in CLI_CORPUS.splitlines()]
+        sent = "low mid high mid"
+        for order in (2, 3):
+            lm_path = path(f"words{order}.lm")
+            rc, out, _ = run_cli(["lm-train", path("corpus.txt"), lm_path, "--order", str(order)])
+            model = NGramModel(NGramCounter(order, tokens))
+            NGramModelARPA().save(model, path(f"direct{order}.lm"))
+            with open(lm_path) as a, open(path(f"direct{order}.lm")) as b:
+                same_file = a.read() == b.read()
+            rc_p, out_p, _ = run_cli(["lm-ppl", lm_path, sent])
+            toks = Tokenizer.get_tokens(sent)
+            want = f"logprob={model.calc_prob(toks):.4f} ppl={model.calc_ppl(toks):.3f}\n"
+            print(f"cli lm-train --order {order} -> lm-ppl: {out_p.strip()!r}; ARPA file "
+                  f"{'equal' if same_file else 'DIFFERENT'} to NGramModelARPA().save of the "
+                  "same counts")
+            require(rc == rc_p == 0 and same_file and out_p == want
+                    and out == f"{order}-gram LM over 4 sentences -> {lm_path}\n",
+                    f"cli lm-train/lm-ppl --order {order}: {out!r} {out_p!r}, want {want!r}")
+        stream = entry.serving_stream()[: 8 * SR]
+        write_pcm(path("stream.pcm"), stream)
+        for detector in ("webrtc", "amrwb"):
+            rc, out, _ = run_cli(["vad", path("stream.pcm"), "--detector", detector])
+            vad = WebRtcVad(mode=0) if detector == "webrtc" else AmrWbVad()
+            flags = vad.process(stream)
+            flags = flags[0] if detector == "amrwb" else flags
+            want = "".join(f"speech\t{a / SR:.2f}\t{b / SR:.2f}\n"
+                           for a, b in segment_speech(flags, vad.FRAME_LEN))
+            print(f"cli vad --detector {detector}: {out.count(chr(10))} speech spans, "
+                  f"{'equal' if out == want else 'DIFFERENT'} to the detector driven directly")
+            require(rc == 0 and out == want and want, f"cli vad {detector}: {out!r} vs {want!r}")
+
+        # -- train-am and recognize through build_parser() and the cores ----------
+        rng = np.random.default_rng(3)
+        manifest, audio_of = [], {}
+        for w in CLI_WORD_F0:
+            for k in range(4):
+                audio_of[f"{w}{k}"] = (w, cli_word_audio(w, rng))
+        for k in range(3):
+            audio_of[f"sil{k}"] = ("<sil>", cli_gap(rng, 0.4))
+        for name, (unit, audio) in audio_of.items():
+            write_pcm(path(f"{name}.pcm"), audio)
+            manifest.append(f"{unit}\t{path(name + '.pcm')}")
+        with open(path("train.manifest"), "w") as fp:
+            fp.write("\n".join(manifest) + "\n")
+        parts = [cli_gap(rng, 0.2)]
+        for w in CLI_TRUTH:
+            parts += [cli_word_audio(w, rng), cli_gap(rng, 0.2)]
+        utterance = np.concatenate(parts)
+        write_pcm(path("utt.pcm"), utterance)
+
+        def train_am(extra):
+            args = cli.build_parser().parse_args(
+                ["train-am", path("train.manifest"), path("am"), "--states", "3", "--mix", "2",
+                 "--iters", "5"] + extra)
+            am = cli.new_acoustic_model(args)
+            examples = {}
+            with contextlib.redirect_stdout(io.StringIO()):
+                for unit, audio in audio_of.values():
+                    examples.setdefault(unit, []).append(cli.unit_features(am, audio))
+                return cli.train_am_units(examples, args, am), args
+
+        (am64, args64), counts, train_s = counted(lambda: train_am(["--f64"]))
+        launches["cli train-am"] = counts
+        am64_cpu, args64_cpu = train_am(["--f64", "--device", "cpu"])
+        dist64 = max(param_dist(torch, am64.units[u].params, am64_cpu.units[u].params)
+                     for u in am64_cpu.units)
+        print(f"cli train-am --f64 (build_parser + train_am_units, 4 units, 5 sweeps) on {card}: "
+              f"{train_s:.3f} s (host clock); units {sorted(am64.units)}, parameters within "
+              f"{dist64:.3g} of --device cpu (bar 1e-8); launches {counts} (the plain MFCC "
+              "pipeline and torch EM)")
+        require(sorted(am64.units) == sorted(am64_cpu.units) == ["<sil>", "high", "low", "mid"]
+                and dist64 < 1e-8, f"cli train-am --f64: card vs CPU {dist64}")
+        require(cli.am_config(args64) == cli.am_config(args64_cpu), "am_config.json differs")
+        expect(counts, {}, "cli train-am")
+
+        am_cpu, _ = train_am(["--device", "cpu"])
+        am_card = AcousticModel(
+            {u: GMMHMM(m.config, device=DEVICE).set_params(m.params)
+             for u, m in am_cpu.units.items()}, am_cpu.mfcc.config, device=DEVICE)
+        lexicon = Lexicon.whole_word(list(CLI_WORD_F0))
+        lm = LanguageModel(path("words2.lm"))
+        base = ["recognize", path("utt.pcm"), "--am", "in-memory", "--lex", "in-memory",
+                "--lm", path("words2.lm"), "--lm-scale", "0.5", "--word-penalty", "-40.0",
+                "--ref", " ".join(CLI_TRUTH)]
+        forms = {
+            "cli recognize": ([], {"mel_frontend": 1, "viterbi_dense": 1}),
+            "cli recognize factored": (["--graph", "factored"],
+                                       {"mel_frontend": 1, "factored_forward": 1,
+                                        "factored_backtrace": 1}),
+            "cli recognize nbest": (["--nbest", "3", "--confidence"],
+                                    {"mel_frontend": 1, "factored_lattice": 1}),
+            "cli recognize bucketed": (["--bucket-frames", "16"],
+                                       {"mel_frontend": 1, "viterbi_dense": 1}),
+        }
+        for key, (extra, want) in forms.items():
+            args = cli.build_parser().parse_args(base + extra)
+            args_cpu = cli.build_parser().parse_args(base + extra + ["--device", "cpu"])
+            calls = {}
+            (hyp, lines), counts, rec_s = counted(
+                lambda: cli.recognize_with(am_card, lexicon, lm, utterance, args), calls)
+            launches[key] = counts
+            hyp_c, lines_c = cli.recognize_with(am_cpu, lexicon, lm, utterance, args_cpu)
+            text, text_c = (re.sub(CLI_SCORE, r"\1S", "\n".join(x)) for x in (lines, lines_c))
+            scores, scores_c = ([float(s) for _, s in re.findall(CLI_SCORE, "\n".join(x))]
+                                for x in (lines, lines_c))
+            s_err = max([abs(a - b) / abs(b) for a, b in zip(scores, scores_c)] or [0.0])
+            print(f"{key} ({' '.join(extra) or 'default graph'}) on {card}: {hyp!r} in "
+                  f"{rec_s:.3f} s (host clock, graph build included); {lines[-1]!r}; stderr lines "
+                  f"{'equal' if text == text_c else 'DIFFERENT'} to --device cpu, N-best scores "
+                  f"within {s_err:.3g} relative (bar 1e-6); launches {counts}")
+            require(hyp == hyp_c == " ".join(CLI_TRUTH), f"{key}: {hyp!r} vs the CPU's {hyp_c!r}")
+            # the card's and the CPU's emissions differ in float32 rounding, so
+            # the scores (sums over ~100 frames at |score| ~ 2e4, where a float32
+            # ulp is ~0.002) may differ by a few ulps; the kernels themselves are
+            # held bitwise on the card's own inputs just below
+            require(text == text_c and len(scores) == len(scores_c) and s_err < 1e-6,
+                    f"{key}: stderr {lines} vs the CPU's {lines_c}")
+            require(lines[-1].startswith("WER 0.000"), f"{key}: {lines[-1]!r}")
+            expect(counts, want, key)
+            check_recorded(torch, mf, F, vd, calls, key, list(want))
+
+        if importlib.util.find_spec("h5py") is None:
+            print("cli train-am -> recognize: ran through build_parser() and the cores with the "
+                  "models in memory; the file flow (train-am OUT/ -> recognize --am OUT/) needs "
+                  "h5py, which this machine lacks (the CPU tests run it)")
+        else:
+            rc, _, _ = run_cli(["train-am", path("train.manifest"), path("am"), "--states", "3",
+                                "--mix", "2", "--iters", "5", "--device", "cpu"])
+            with open(path("words.lex"), "w") as fp:
+                fp.write("".join(f"{w} {w}\n" for w in CLI_WORD_F0))
+            argv = base[:2] + ["--am", path("am"), "--lex", path("words.lex")] + base[6:]
+            rc2, out, err = run_cli(argv)
+            print(f"cli train-am OUT/ -> recognize --am OUT/ (h5py present, the file flow): "
+                  f"{out.strip()!r}; {err.strip().splitlines()[-1]!r}")
+            require(rc == rc2 == 0 and out.split() == CLI_TRUTH, f"the file flow: {out!r}")
+
+        # -- the bench harnesses -----------------------------------------------
+        calls = {}
+        (res, counts, bench_s) = counted(lambda: run_cli(["bench"]), calls)
+        launches["cli bench"] = counts
+        rc, out, _ = res
+        head = json_lines(out)
+        require(rc == 0 and len(head) == 1, f"cli bench: rc {rc}, output {out!r}")
+        head = head[0]
+        print(f"cli bench (bench/headline at its defaults) on {card}: {bench_s:.1f} s; flagship "
+              f"step {head['value']} audio-s/s (spread {head['spread']['min']}-"
+              f"{head['spread']['max']}), serving {head['serving']['value']}; stages "
+              + ", ".join(f"{k} {v['seconds_per_call'] * 1e3:.4f} ms "
+                          f"({v.get('pct_of_bound', np.nan):.1f}% of its "
+                          f"{v.get('bound_by', '(no peaks)')} bound)"
+                          for k, v in head["stages"].items())
+              + "; segments " + ", ".join(
+                  f"V={r['vocab']} decode {r['decode_segment']['seconds_per_call'] * 1e3:.4f} ms, "
+                  f"records {r['lattice_records']['seconds_per_call'] * 1e3:.4f} ms"
+                  for k, r in head["recognizer_serving"].items() if k != "note")
+              + f"; device {head['device']!r}; launches {counts}")
+        require(all(counts[n] > 0 for n in ("mel_frontend", "viterbi_small", "factored_forward",
+                                            "factored_backtrace", "factored_lattice"))
+                and counts["viterbi_dense"] == 0, f"cli bench: launches {counts}")
+        require(head["value"] > 0 and head["device"] == card and "error" not in out,
+                f"cli bench: {head}")
+        print(json.dumps({"cli_bench": head}))
+        # kernel B (the flagship step) is held at this shape in section 3 of
+        # main; the rest at every shape the harness gave them
+        check_recorded(torch, mf, F, vd, calls, "cli bench",
+                       ["mel_frontend", "factored_forward", "factored_backtrace",
+                        "factored_lattice"])
+        rec22, seg22 = entry.recognizer_serving(22, device=DEVICE, graph="factored")
+        padded, n_valid, _ = rec22._pad_to_bucket(seg22)
+        feats22, mask22 = rec22.am.mfcc.features_fast(
+            torch.from_numpy(padded).to(DEVICE), lengths=torch.tensor([n_valid], device=DEVICE))
+        g22 = rec22.graph
+        require(isinstance(g22, tdec.FactoredDecodingGraph),
+                "cli bench's V=22 row did not compose the factored graph")
+        lb22, pi22, fin22 = g22._grid_inputs(feats22)
+        what = "cli bench's V=22 factored graph, its serving segment"
+        check_factored(torch, F, tdec, DEVICE, g22, lb22, pi22, fin22, mask22, what)
+        check_lattice(torch, F, g22, lb22, pi22, mask22, what)
+
+        calls = {}
+        (res, counts, train_s) = counted(lambda: captured(bench_train.main, ["--trials", "2"]),
+                                         calls)
+        launches["bench/train"] = counts
+        rc, out, _ = res
+        tr = json_lines(out)
+        require(rc == 0 and len(tr) == 1 and tr[0]["loglik_finite"] and "error" not in out,
+                f"bench/train: rc {rc}, {out!r}")
+        tr = tr[0]
+        print(f"bench/train --trials 2 on {card}: {train_s:.1f} s; one EM sweep "
+              f"{tr['seconds_per_sweep'] * 1e3:.4f} ms = {tr['value']} audio-s/s; emissions "
+              f"{tr['stages']['emissions']['seconds_per_call'] * 1e3:.4f} ms "
+              f"({tr['stages']['emissions'].get('pct_of_bound', np.nan):.1f}% of its "
+              f"{tr['stages']['emissions'].get('bound_by', '(no peaks)')} bound); fwd+bwd "
+              f"{tr['stages']['fwd_bwd_scans']['us_per_step']} us a step; launches {counts}")
+        print(json.dumps({"bench_train": tr}))
+        check_recorded(torch, mf, F, vd, calls, "bench/train", ["mel_frontend"])
+        calls = {}
+        (res, counts, dec_s) = counted(
+            lambda: captured(bench_decoder.main, ["--frames", "500"]), calls)
+        launches["bench/decoder"] = counts
+        rc, out, _ = res
+        rows = json_lines(out)
+        require(rc == 0 and len(rows) == 5 and not any("error" in json.dumps(r) for r in rows),
+                f"bench/decoder: rc {rc}, {out!r}")
+        by_row = {r["row"]: r for r in rows}
+        dense = by_row["dense_kernel"]
+        require(dense["paths_bit_identical"] and by_row["factored_1k"]["paths_equal_scan"]
+                and by_row["lattice_1k"]["records_equal_scan"]
+                and all(by_row[k]["realizations"]["rank1"]["paths_equal_scan"]
+                        for k in ("large_vocab_5k", "large_vocab_10k")),
+                f"bench/decoder: a kernel route differs from its scan: {rows}")
+        # kernel C's dense_kernel row calls the wrapper directly (bitwise
+        # against the scan above); D, E and F at every shape the rows gave them
+        check_recorded(torch, mf, F, vd, calls, "bench/decoder",
+                       ["factored_forward", "factored_backtrace", "factored_lattice"])
+        print(f"bench/decoder --frames 500 on {card}: {dec_s:.1f} s; factored_1k "
+              f"{by_row['factored_1k']['decode_seconds'] * 1e3:.4f} ms (scan "
+              f"{by_row['factored_1k']['scan_decode_seconds'] * 1e3:.1f} ms), lattice_1k "
+              f"{by_row['lattice_1k']['records_seconds'] * 1e3:.4f} ms (scan "
+              f"{by_row['lattice_1k']['scan_seconds'] * 1e3:.1f} ms), dense_kernel N=512 "
+              f"{dense['kernel_seconds'] * 1e3:.4f} ms, {dense['value']}x the scan, paths "
+              f"bitwise equal; large vocabularies "
+              + ", ".join(f"{k}: " + ", ".join(f"{n} {x['seconds'] * 1e3:.1f} ms"
+                                               for n, x in by_row[k]["realizations"].items()
+                                               if "seconds" in x)
+                          for k in ("large_vocab_5k", "large_vocab_10k"))
+              + f"; launches {counts}")
+        for r in rows:
+            print(json.dumps({"bench_decoder": r}))
+
+    # -- examples/multihost_train with no flags: a world of one on the card ------
+    (res, counts, mh_s) = counted(lambda: captured(multihost_train.main, ["--iters", "3"]))
+    launches["examples/multihost_train"] = counts
+    rc, out, _ = res
+    lls = [float(x) for x in re.findall(r"iter \d+: loglik (-?[\d.]+)", out)]
+    backend = re.findall(r"process 0/1: (\w+) on (\S+)", out)
+    print(f"examples/multihost_train (no flags) on {card}: {mh_s:.1f} s; {backend}, logliks {lls}")
+    require(rc == 0 and backend == [("nccl", "cuda:0")] and len(lls) == 3 and lls == sorted(lls)
+            and not dist.is_initialized(), f"multihost_train: {out!r}")
+    print(f"cli phase: {time.perf_counter() - phase_t0:.1f} s on {card}")
+
+
 def main():
     import torch
 
@@ -2184,6 +2667,9 @@ def main():
 
     # -- 13. parallel/: 4 ranks on the card -----------------------------------
     parallel_phase(torch, entry, wrappers, card, launches, train["sweep_ms"])
+
+    # -- 14. the command line, the bench harnesses and the examples --------------
+    cli_phase(torch, entry, wrappers, card, launches)
 
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and

@@ -12,7 +12,10 @@ checkpointed EM loops, isolated-unit training and the HMM word segmenter
 (entry points ``entry.training``, ``entry.unit_training``), and
 ``parallel/``: data-, model-, sequence- and pipeline-parallel EM and
 decoding on ``torch.distributed``, one process per rank
-(``entry.dryrun_multichip``). The CUDA
+(``entry.dryrun_multichip``); and the command line
+(``python -m lnasr_tpu_torch.cli``), the bench harnesses
+(``lnasr_tpu_torch.bench``) and the examples
+(``lnasr_tpu_torch.examples``). The CUDA
 kernels live in ``csrc/`` and are compiled with ``nvcc`` at first use
 (:mod:`lnasr_tpu_torch._build`); nothing is compiled on import. The port
 imports neither JAX nor the JAX package.

@@ -132,6 +132,12 @@ PORT_MODULES = [
     "lnasr_tpu_torch.models.decoder", "lnasr_tpu_torch.models.ngram",
     "lnasr_tpu_torch.models.lexicon", "lnasr_tpu_torch.ops.factored",
     "lnasr_tpu_torch.ops.viterbi_dense", "lnasr_tpu_torch.utils.text",
+    "lnasr_tpu_torch.cli", "lnasr_tpu_torch.utils.logging", "lnasr_tpu_torch.utils.profiling",
+    "lnasr_tpu_torch.bench", "lnasr_tpu_torch.bench.headline", "lnasr_tpu_torch.bench.train",
+    "lnasr_tpu_torch.bench.corpus", "lnasr_tpu_torch.bench.decoder",
+    "lnasr_tpu_torch.bench.scaling", "lnasr_tpu_torch.examples",
+    "lnasr_tpu_torch.examples.isolated_word_demo", "lnasr_tpu_torch.examples.segmenter_demo",
+    "lnasr_tpu_torch.examples.multihost_train",
 ]
 
 
