@@ -67,6 +67,17 @@ kernels' launch counters reset just before and read just after:
   call these paths make through the MFCC pipeline and the decoders is
   held, at each distinct shape, against its plain version on the path's
   own inputs;
+- the recording harnesses, ``recording_phase``, on the seeded stand-in
+  for the reference's two speech recordings (``entry.recording_pair``,
+  written as raw PCM into a temporary directory): ``bench/stream.py`` for
+  one minute of stream (mel frontend and dense-graph Viterbi a segment;
+  RTF and buffer bounds) and the core of ``examples/real_audio_demo.py``,
+  the protocol ``bench/wer.py`` gates (20 utterances under 6 conditions:
+  mel frontend and dense-graph Viterbi a segment, the lattice kernel for
+  the N-best check; the CLI check must match), its units trained in
+  float64 on the card against the CPU, and the card's float32 model
+  decoded on the CPU to the same clean and 10 dB hypotheses; every kernel
+  call of both held, at each distinct shape, against its plain version;
 
 checks each against the plain CPU path on the same weights and input
 (plus planted word sequences, decoded and lattice-searched), and times
@@ -1789,6 +1800,19 @@ def check_recorded(torch, mf, F, vd, calls, what, want):
           "feasible states): " + "; ".join(f"{n} at {v}" for n, v in sorted(checked.items())))
 
 
+def counted_run(torch, wrappers, fn, calls=None):
+    """``(fn(), launches, host seconds)`` with the counters of ``wrappers``
+    reset just before the call and read just after; with ``calls``, the
+    kernels' calls recorded into it (:func:`recorded_calls`)."""
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if calls is None else recorded_calls(torch, calls):
+        res = fn()
+    torch.cuda.synchronize()
+    return res, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+
+
 def captured(fn, argv):
     """``(fn(argv), what it printed on stdout, what on stderr)``."""
     out, err = io.StringIO(), io.StringIO()
@@ -1847,16 +1871,7 @@ def cli_phase(torch, entry, wrappers, card, launches):
     names = [w.__name__ for w in wrappers]
 
     def counted(fn, calls=None):
-        """``(fn(), launches, host seconds)`` with the counters reset just
-        before the call and read just after; with ``calls``, the kernels'
-        calls recorded into it (:func:`recorded_calls`)."""
-        torch.cuda.synchronize()
-        reset_counts(*wrappers)
-        t0 = time.perf_counter()
-        with contextlib.nullcontext() if calls is None else recorded_calls(torch, calls):
-            res = fn()
-        torch.cuda.synchronize()
-        return res, {w.__name__: w.launches for w in wrappers}, time.perf_counter() - t0
+        return counted_run(torch, wrappers, fn, calls)
 
     def expect(counts, want, what):
         full = {n: 0 for n in names} | want
@@ -2135,6 +2150,175 @@ def cli_phase(torch, entry, wrappers, card, launches):
     require(rc == 0 and backend == [("nccl", "cuda:0")] and len(lls) == 3 and lls == sorted(lls)
             and not dist.is_initialized(), f"multihost_train: {out!r}")
     print(f"cli phase: {time.perf_counter() - phase_t0:.1f} s on {card}")
+
+
+def first_difference(got, ref):
+    """Where two hypotheses (word lists) first differ: ``(index, got word,
+    ref word)``, a missing word as ``None``."""
+    for i in range(max(len(got), len(ref))):
+        a = got[i] if i < len(got) else None
+        b = ref[i] if i < len(ref) else None
+        if a != b:
+            return i, a, b
+    return None
+
+
+def recording_phase(torch, entry, wrappers, card, launches):
+    """The recording harnesses on the card, on the seeded stand-in for the
+    reference's two speech recordings (``entry.recording_pair``: 12.6 s and
+    1.36 s) written as raw PCM into a temporary directory, each with the
+    launch counters reset just before it and read just after, and every
+    kernel call of both held against its plain version at each distinct
+    shape (:func:`recorded_calls`, :func:`check_recorded`):
+
+    - ``bench/stream.py`` (``run``) for 1 minute of stream: the training
+      batch and each segment through the mel frontend, each segment's
+      decode through the dense-graph Viterbi; ``rtf`` < 0.5 and the buffer
+      under 30 s, the harness's own exit rule;
+    - the core of ``examples/real_audio_demo.py`` (what ``bench/wer.py``
+      runs, with the acoustic model in memory) at the full protocol, 20
+      utterances under 6 conditions: mel frontend and dense-graph Viterbi
+      a segment, the lattice kernel for the trigram-rescored N-best call;
+      its CLI check must match;
+    - the demo's units trained in float64 on the card and on the CPU
+      (1e-8, the bar of ``cli_phase``'s ``train-am --f64``);
+    - the card's float32 model copied to the CPU decodes the protocol
+      there: every clean and 10 dB hypothesis must equal the card's, word
+      for word (float32 training on the card and the CPU differs by
+      rounding, so the decode is held, not the training)."""
+    import tempfile
+
+    from lnasr_tpu_torch.bench import stream as bench_stream
+    from lnasr_tpu_torch.examples import real_audio_demo as demo
+    from lnasr_tpu_torch.models.gmmhmm import GMMHMM
+    from lnasr_tpu_torch.models.recognizer import AcousticModel
+    from lnasr_tpu_torch.ops import factored as F
+    from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import viterbi_dense as vd
+    from lnasr_tpu_torch.utils.audio import read_pcm, write_pcm
+
+    def dense_path(counts, want, what):
+        require(all(counts[n] > 0 for n in want)
+                and all(counts[n] == 0 for n in counts if n not in want),
+                f"{what}: launches {counts}; expected {want} and nothing else (the synthetic "
+                "vocabulary composes the dense graph)")
+
+    phase_t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recordings_") as tmp:
+        paths = [os.path.join(tmp, name) for name in ("data-vad.raw", "data.raw")]
+        for path, audio in zip(paths, entry.recording_pair()):
+            write_pcm(path, audio)
+        recordings = [read_pcm(p) for p in paths]
+        words, gaps = demo.recording_words(recordings)
+        _, stream_words, _ = bench_stream.stream_inventory(recordings[0])
+        demo_states = demo.STATES * len(words) + 3
+        stream_states = 6 * len(stream_words) + 3
+        print(f"recordings: the stand-in pair {[len(r) / SR for r in recordings]} s written to "
+              f"{tmp}; the demo's vocabulary {len(words)} words after the hygiene filter "
+              f"({len(gaps)} noise-floor chunks), {demo_states} composed states; the stream "
+              f"harness's {len(stream_words)} words, {stream_states} composed states")
+        require(len(words) >= 15 and max(demo_states, stream_states) <= 256,
+                f"the stand-in gives {len(words)} words ({demo_states} states)")
+
+        # -- bench/stream.py, 1 minute of stream -----------------------------------
+        log, calls = io.StringIO(), {}
+        out, counts, stream_s = counted_run(
+            torch, wrappers,
+            lambda: bench_stream.run(paths[0], minutes=1.0, device=DEVICE, log=log), calls)
+        launches["stream harness"] = counts
+        lat, dec = out["latency_ms"], out["decomposition_ms"]
+        print(" | ".join(line.strip() for line in log.getvalue().splitlines()))
+        print(f"stream harness (bench/stream.py, 1 minute) on {card}: {stream_s:.1f} s; "
+              f"{out['segments']} segments of {out['audio_seconds']} s, latency p50 "
+              f"{lat['p50']} ms, p95 {lat['p95']}, p99 {lat['p99']}, max {lat['max']}, mean "
+              f"{lat['mean']} (host clock around decode_segment; the kernels' recorder sits in "
+              f"the calls); rtf {out['rtf']}, wall_rtf {out['wall_rtf']}; largest buffer "
+              f"{out['max_buffer_samples']} samples ({out['max_buffer_seconds']} s); dispatch "
+              f"p50 {dec['dispatch']['p50']} ms, host and fetch p50 "
+              f"{dec['host_and_fetch']['p50']} ms; device time by bucket count (CUDA events, "
+              f"median of {bench_stream.TIMING_TRIALS} x {bench_stream.TIMING_REPS} calls) "
+              f"{dec['device_by_bucket_count']} ms; launches {counts}")
+        print(json.dumps({"stream_harness": out}))
+        require(out["rtf"] < 0.5 and out["max_buffer_samples"] < 30 * SR,
+                f"stream harness: rtf {out['rtf']}, buffer {out['max_buffer_samples']}")
+        require(out["segments"] >= 20 and out["units"] == len(stream_words) + 1,
+                f"stream harness: {out['segments']} segments, {out['units']} units")
+        dense_path(counts, ("mel_frontend", "viterbi_dense"), "stream harness")
+        check_recorded(torch, mf, F, vd, calls, "stream harness",
+                       ["mel_frontend", "viterbi_dense"])
+
+        # -- the demo's core (bench/wer.py's protocol), units trained on the card ---
+        inputs = demo.protocol_inputs(words, gaps)
+        calls, train_s = {}, []
+
+        def wer_harness():
+            t0 = time.perf_counter()
+            am = demo.train_units(inputs, DEVICE)
+            torch.cuda.synchronize()
+            train_s.append(time.perf_counter() - t0)
+            return demo.protocol(words, gaps, device=DEVICE, fixtures=paths, am=am)
+
+        with contextlib.redirect_stdout(io.StringIO()) as demo_out:
+            run, counts, wer_s = counted_run(torch, wrappers, wer_harness, calls)
+        launches["wer harness"] = counts
+        rep = run.report
+        print(" | ".join(line.strip() for line in demo_out.getvalue().splitlines()))
+        print(f"wer harness (the demo's core, protocol v{rep['protocol_version']}) on {card}: "
+              f"{wer_s:.1f} s, of which unit training {train_s[0]:.1f} s ({len(run.am.units)} "
+              f"units, {demo.ITERS} sweeps, {len(inputs.training)} clips); WER "
+              + ", ".join(f"{c} {v['wer']}" for c, v in rep["conditions"].items())
+              + f" over {rep['n_ref_words']} reference words, {rep['n_test_utts']} utterances; "
+              f"cli_check {rep['cli_check']['match']} ({rep['cli_check']['hyp']!r}); CLI "
+              f"defaults {rep['cli_default_check']['hyp']!r} (WER "
+              f"{rep['cli_default_check']['wer']}); N-best {run.nbest_lines}; launches {counts}")
+        print(json.dumps({"wer_harness": {k: v for k, v in rep.items() if k != "per_utt"}}))
+        require(rep["cli_check"]["match"], f"wer harness: the CLI check differs: {rep['cli_check']}")
+        require(rep["n_test_utts"] == 20 and len(rep["conditions"]) == 6
+                and all(0.0 <= v["wer"] <= 1.0 for v in rep["conditions"].values())
+                and run.nbest_lines, f"wer harness: {rep}")
+        dense_path(counts, ("mel_frontend", "viterbi_dense", "factored_lattice"), "wer harness")
+        check_recorded(torch, mf, F, vd, calls, "wer harness",
+                       ["mel_frontend", "viterbi_dense", "factored_lattice"])
+
+        # -- float64 units, card against CPU -----------------------------------
+        t0 = time.perf_counter()
+        am64 = demo.train_units(inputs, DEVICE, f64=True)
+        torch.cuda.synchronize()
+        t64 = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        am64_cpu = demo.train_units(inputs, "cpu", f64=True)
+        t64_cpu = time.perf_counter() - t0
+        dist64 = max(param_dist(torch, am64.units[u].params, am64_cpu.units[u].params)
+                     for u in am64_cpu.units)
+        print(f"wer harness units in float64: card {t64:.1f} s, CPU {t64_cpu:.1f} s; parameters "
+              f"within {dist64:.3g} (bar 1e-8)")
+        require(sorted(am64.units) == sorted(am64_cpu.units) and dist64 < 1e-8,
+                f"wer harness float64 units, card vs CPU: {dist64}")
+
+        # -- the card's float32 model decoded on the CPU ---------------------------
+        am_cpu = AcousticModel({u: GMMHMM(m.config, device="cpu").set_params(m.params)
+                                for u, m in run.am.units.items()}, run.am.mfcc.config,
+                               device="cpu")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_cpu = demo.protocol(words, gaps, device="cpu", fixtures=paths, am=am_cpu)
+        cpu_s = time.perf_counter() - t0
+        agree = {}
+        for cond, hyps in run.hypotheses.items():
+            ref = run_cpu.hypotheses[cond]
+            agree[cond] = sum(a == b for a, b in zip(hyps, ref))
+            if cond in ("clean", "snr10"):
+                for u, (a, b) in enumerate(zip(hyps, ref)):
+                    require(a == b, f"wer harness, {cond} utterance {u}: the card decodes {a!r}, "
+                            f"the CPU {b!r} (first difference at word "
+                            f"{first_difference(a.split(), b.split())})")
+        print(f"wer harness: the card's float32 model on the CPU ({cpu_s:.1f} s): hypotheses equal "
+              f"to the card's in " + ", ".join(f"{c} {n}/{len(run.hypotheses[c])}"
+                                               for c, n in agree.items())
+              + f" (clean and snr10 required); CPU WER "
+              + ", ".join(f"{c} {v['wer']}" for c, v in run_cpu.report["conditions"].items())
+              + f"; CPU N-best {run_cpu.nbest_lines}")
+    print(f"recording phase: {time.perf_counter() - phase_t0:.1f} s on {card}")
 
 
 def main():
@@ -2670,6 +2854,9 @@ def main():
 
     # -- 14. the command line, the bench harnesses and the examples --------------
     cli_phase(torch, entry, wrappers, card, launches)
+
+    # -- 15. the recording harnesses: bench/stream.py, bench/wer.py's protocol --
+    recording_phase(torch, entry, wrappers, card, launches)
 
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and

@@ -30,6 +30,8 @@ keeps about three decimal digits, so both switches are set to fp32 here.
 
 import torch
 
+__version__ = "0.1.0"
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
@@ -37,6 +39,7 @@ from lnasr_tpu_torch.config import (  # noqa: E402
     GMMHMMConfig,
     HMMConfig,
     LTSDConfig,
+    MeshConfig,
     MFCCConfig,
     NGramConfig,
     TrainConfig,
@@ -49,8 +52,10 @@ __all__ = [
     "GMMHMMConfig",
     "NGramConfig",
     "LTSDConfig",
+    "MeshConfig",
     "TrainConfig",
     "GMM",
     "Seg",
     "train_unit_models",
+    "__version__",
 ]

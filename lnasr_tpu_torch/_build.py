@@ -6,6 +6,10 @@ compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 source rebuilds) and loaded with ``ctypes``. Nothing is built when the
 package is imported. :func:`build_all` starts one ``nvcc`` per source,
 all at once, and waits for them.
+
+The native VAD detectors (``native/vad/``, host C++) are built the same
+way by ``g++`` (:func:`build_native_vad`, optionally under the
+sanitizers), and so is their self-test (:func:`build_vad_selftest`).
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NATIVE_VAD = os.path.join(_HERE, "native", "vad")
 NATIVE_VAD_SOURCES = ("vad_amrwb.cpp", "vad_webrtc.cpp", "vad_api.cpp")
+NATIVE_VAD_HEADERS = ("vad_amrwb.h", "vad_webrtc.h")
 GXX_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-shared")
+SANITIZE_FLAGS = ("-fsanitize=address,undefined", "-g")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -122,30 +128,59 @@ def check(lib: ctypes.CDLL, name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
 
 
-def native_vad_path() -> str:
-    """Path of the native VAD library, keyed by its sources' hash."""
+def _native_digest(names) -> str:
     digest = hashlib.sha256()
-    for name in sorted(os.listdir(NATIVE_VAD)):
+    for name in sorted(names):
         with open(os.path.join(NATIVE_VAD, name), "rb") as f:
             digest.update(name.encode() + f.read())
-    return os.path.join(BUILD_DIR, f"native_vad-{digest.hexdigest()[:16]}.so")
+    return digest.hexdigest()[:16]
 
 
-def build_native_vad() -> str:
-    """Compile the native VAD detectors with ``g++`` (once; concurrent
-    builds race to an atomic rename) and return the library's path."""
-    out = native_vad_path()
-    if os.path.exists(out):
-        return out
+def native_vad_path(sanitize: bool = False) -> str:
+    """Path of the native VAD library, keyed by its sources' hash; the
+    sanitized build has a name of its own."""
+    stem = "native_vad_sanitized" if sanitize else "native_vad"
+    return os.path.join(BUILD_DIR, f"{stem}-{_native_digest(NATIVE_VAD_SOURCES + NATIVE_VAD_HEADERS)}.so")
+
+
+def _gxx(cmd, out: str, what: str) -> str:
+    """Run the ``g++`` command ``cmd`` writing a temporary file, then move
+    it to ``out`` (concurrent builds race to an atomic rename)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = ["g++", *GXX_FLAGS, "-I", NATIVE_VAD,
-           *(os.path.join(NATIVE_VAD, s) for s in NATIVE_VAD_SOURCES), "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
-        raise KernelBuildError(f"g++ failed for the native VAD (rc {proc.returncode}):\n"
-                               f"{proc.stderr}")
+        raise KernelBuildError(f"g++ failed for {what} (rc {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, out)
     return out
+
+
+def build_native_vad(sanitize: bool = False) -> str:
+    """Compile the native VAD detectors with ``g++`` (once) and return the
+    library's path. ``sanitize`` builds them under AddressSanitizer and
+    UBSan, into a file of its own (:func:`native_vad_path`), so the normal
+    library is never replaced; a process loads that one only with the
+    sanitizer runtime preloaded."""
+    out = native_vad_path(sanitize)
+    if os.path.exists(out):
+        return out
+    flags = GXX_FLAGS + (SANITIZE_FLAGS if sanitize else ())
+    return _gxx(["g++", *flags, "-I", NATIVE_VAD,
+                 *(os.path.join(NATIVE_VAD, s) for s in NATIVE_VAD_SOURCES)], out,
+                "the native VAD")
+
+
+def build_vad_selftest() -> str:
+    """Compile the native detectors' self-test (``vad_selftest.cpp``: both
+    detectors over resets, mode changes and full-scale audio, exit code 0
+    and "OK" on stderr when clean) under AddressSanitizer and UBSan, with
+    no recovery from a finding, and return the executable's path."""
+    sources = ("vad_selftest.cpp", "vad_webrtc.cpp", "vad_amrwb.cpp")
+    out = os.path.join(BUILD_DIR, f"vad_selftest-{_native_digest(sources + NATIVE_VAD_HEADERS)}")
+    if os.path.exists(out):
+        return out
+    return _gxx(["g++", "-std=c++17", "-g", "-O1", "-fsanitize=address,undefined",
+                 "-fno-sanitize-recover=all", *(os.path.join(NATIVE_VAD, s) for s in sources),
+                 "-I", NATIVE_VAD, "-lm"], out, "the native VAD self-test")

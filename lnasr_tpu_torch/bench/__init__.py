@@ -6,9 +6,14 @@
 - :mod:`.corpus`: corpus-scale LM estimation and a 1,000-word decode;
 - :mod:`.decoder`: the word-graph decoders and kernels against their scans;
 - :mod:`.scaling`: data- and model-parallel EM and the sharded decode over
-  ``torch.distributed`` ranks.
+  ``torch.distributed`` ranks;
+- :mod:`.stream`: per-segment latency and real-time factor of the
+  streaming recognizer on a looped speech recording (``--recording``);
+- :mod:`.wer`: the connected-word WER of protocol v2 on speech recordings
+  (``--fixtures``), gated against earlier reports (``--history``).
 
-Each prints JSON lines and writes a file only when given ``--out``. Times
+Each prints JSON lines and writes a file only when given ``--out``; the
+recordings are arguments, with no default path. Times
 are medians after a warm-up: CUDA events on the card, the host clock on
 the CPU. Speed-of-light accounting divides each stage's operations by the
 card's fp32 peak and its bytes (each input read once, each output written

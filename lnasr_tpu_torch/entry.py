@@ -78,6 +78,10 @@ TRAIN_BATCH, TRAIN_SECONDS = 64, 10  # the training batch: 64 utterances of 10 s
 WORD_UNIT = GMMHMMConfig(n_states=8, n_mix=2, dim=39)
 SILENCE_UNIT = GMMHMMConfig(n_states=3, n_mix=4, dim=39)
 UNIT_EXAMPLES = 3  # seeded examples of each unit
+# the reference's two speech recordings (test/third/data-vad.raw and
+# test/data.raw) are 12.6 s and 1.36 s long; recording_pair stands in for them
+RECORDING_SECONDS = (12.6, 1.36)
+RECORDING_WORDS = 24  # distinct words recording_pair can speak (base pitch up to 1.5 kHz)
 
 
 def flagship_model(device="cuda", dtype=torch.float32) -> GMMHMM:
@@ -357,6 +361,42 @@ def unit_utterance(words: Sequence[str]) -> np.ndarray:
         parts += [_voice(int(0.4 * sr), rng, _unit_f0(int(w[1:])), rng.uniform(0.0, 2 * np.pi)),
                   gap()]
     return _pcm(np.concatenate(parts))
+
+
+def recording_pair(seed: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """A seeded stand-in for the reference's two speech recordings, raw
+    16 kHz int16 of :data:`RECORDING_SECONDS`, for the harnesses that read
+    recordings (``bench/stream.py``, ``bench/wer.py``,
+    ``examples/real_audio_demo.py``). Each holds phrases of one to three
+    words between noise-floor gaps (standard deviation 30) of 0.4-0.6 s,
+    the first gap 0.2-0.4 s and the last one filling the rest. A word
+    lasts 0.25-0.4 s and is :func:`unit_signals`' voice at its own base
+    pitch (:func:`_unit_f0`), with its envelope's peak in the middle of the
+    word. Words come in a seeded order, each spoken once, at most
+    :data:`RECORDING_WORDS` of them (about 19 at seed 0)."""
+    sr = SERVING_MFCC_CONFIG.sample_rate
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(RECORDING_WORDS)
+    gap = lambda n: rng.normal(0, 30.0, n)  # noqa: E731
+    out, spoken = [], 0
+    for seconds in RECORDING_SECONDS:
+        n_total = int(round(seconds * sr))
+        parts = [gap(int(sr * rng.uniform(0.2, 0.4)))]
+        n = len(parts[0])
+        while True:
+            n_words = [int(sr * rng.uniform(0.25, 0.4)) for _ in range(int(rng.integers(1, 4)))]
+            n_gap = int(sr * rng.uniform(0.4, 0.6))
+            if n + sum(n_words) + n_gap > n_total or spoken + len(n_words) > RECORDING_WORDS:
+                break
+            for k in n_words:
+                phase = np.pi / 2 - 2 * np.pi * 1.7 * k / 2 / sr  # the envelope's peak mid-word
+                parts.append(_voice(k, rng, _unit_f0(int(order[spoken])), phase))
+                spoken += 1
+            parts.append(gap(n_gap))
+            n += sum(n_words) + n_gap
+        parts.append(gap(n_total - n))
+        out.append(np.clip(np.concatenate(parts), -32768, 32767).astype(np.int16))
+    return out[0], out[1]
 
 
 # -- multi-rank paths (parallel/) -------------------------------------------------

@@ -6,5 +6,9 @@
 - :mod:`.segmenter_demo`: supervised count training of the HMM word
   segmenter and Viterbi segmentation;
 - :mod:`.multihost_train`: data-parallel Baum-Welch over
-  ``torch.distributed`` ranks, one process per rank.
+  ``torch.distributed`` ranks, one process per rank;
+- :mod:`.real_audio_demo`: protocol v2 on speech recordings given as
+  ``--fixtures``: VAD-cut vocabulary, multi-condition unit training
+  through the CLI, connected-word decodes under six noise conditions ->
+  WER per condition.
 """

@@ -137,7 +137,9 @@ PORT_MODULES = [
     "lnasr_tpu_torch.bench.corpus", "lnasr_tpu_torch.bench.decoder",
     "lnasr_tpu_torch.bench.scaling", "lnasr_tpu_torch.examples",
     "lnasr_tpu_torch.examples.isolated_word_demo", "lnasr_tpu_torch.examples.segmenter_demo",
-    "lnasr_tpu_torch.examples.multihost_train",
+    "lnasr_tpu_torch.examples.multihost_train", "lnasr_tpu_torch.ops",
+    "lnasr_tpu_torch.bench.stream", "lnasr_tpu_torch.bench.wer",
+    "lnasr_tpu_torch.examples.real_audio_demo",
 ]
 
 

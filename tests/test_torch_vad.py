@@ -4,7 +4,8 @@ and IIR scans against the JAX package on the same seeded inputs.
 - The native detectors are built from the port's own copies of the C++
   sources, which must stay byte-identical to the JAX package's; flags and
   AMR-WB power sums must be equal (the JAX package's ``AmrWbVad`` is the
-  oracle of the port's).
+  oracle of the port's). A sanitized build lands in a file of its own,
+  and the port's copy of the self-test runs clean under ASan/UBSan.
 - LTSD at float64 is held to the bar of the JAX package's own LTSD test
   (``rtol=1e-8, atol=1e-10``).
 - The IIR scans at float64 within ``rtol=1e-10`` of the JAX scans and of
@@ -16,6 +17,7 @@ and IIR scans against the JAX package on the same seeded inputs.
 import functools
 import os
 import re
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
@@ -57,13 +59,43 @@ def test_native_sources_are_copies():
     toolkit by their path inside its checkout instead of an absolute
     one."""
     ref = os.path.join(ROOT, "lnasr_tpu", "native", "vad")
-    for name in _build.NATIVE_VAD_SOURCES + ("vad_amrwb.h", "vad_webrtc.h"):
+    for name in _build.NATIVE_VAD_SOURCES + _build.NATIVE_VAD_HEADERS + ("vad_selftest.cpp",):
         with open(os.path.join(ref, name), "rb") as f:
             want = re.sub(rb"/[\w/]+?/(?=third/)", b"", f.read())
         with open(os.path.join(_build.NATIVE_VAD, name), "rb") as f:
             assert f.read() == want, name
     path = _build.build_native_vad()
     assert os.path.dirname(path) == _build.BUILD_DIR and os.path.exists(path)
+    assert sorted(os.listdir(_build.NATIVE_VAD)) == sorted(os.listdir(ref))
+
+
+def test_sanitized_build_has_a_file_of_its_own():
+    """``build_native_vad(sanitize=True)`` compiles the detectors under
+    AddressSanitizer and UBSan into ``_build/`` beside the normal library,
+    which stays as it was."""
+    normal = _build.build_native_vad()
+    with open(normal, "rb") as f:
+        before = f.read()
+    sanitized = _build.build_native_vad(sanitize=True)
+    assert sanitized == _build.native_vad_path(sanitize=True) != normal
+    assert os.path.dirname(sanitized) == _build.BUILD_DIR and os.path.exists(sanitized)
+    assert os.path.basename(sanitized).startswith("native_vad_sanitized-")
+    with open(sanitized, "rb") as f:
+        assert b"__asan_" in f.read() and b"__asan_" not in before
+    with open(_build.build_native_vad(), "rb") as f:
+        assert f.read() == before
+
+
+@pytest.mark.slow
+def test_native_vad_selftest_under_sanitizers():
+    """The port's copy of the detectors under ASan/UBSan, no recovery from a
+    finding: the self-test ends clean (the JAX package's
+    ``tests/test_native_sanitize.py`` on the port's sources)."""
+    exe = _build.build_vad_selftest()
+    assert os.path.dirname(exe) == _build.BUILD_DIR
+    run = subprocess.run([exe], capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, f"sanitized self-test failed (rc={run.returncode}):\n{run.stderr}"
+    assert "OK" in run.stderr
 
 
 @pytest.mark.parametrize("rate", [8000, 16000, 32000, 48000])
