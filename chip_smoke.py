@@ -5,7 +5,10 @@
 
 Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
-PyTorch version at the serving shapes (the Viterbi kernels bitwise: the
+PyTorch version at the serving shapes (the Baum-Welch forward-backward
+kernel G at float64 within 1e-12 and at float32 within 2x the plain loops'
+distance from float64, on every route, N = 3 to 1100, two launches
+bitwise; the Viterbi kernels bitwise: the
 dense-graph kernel on sparse and dense graphs of 33 to 2000 states, ties
 across the lanes that split one source list, and batches with masks; the
 factored forward and the lattice-recording forward also over 60
@@ -35,17 +38,19 @@ kernels' launch counters reset just before and read just after:
   WebRTC-style torch VAD in modes 0-3) against their CPU runs and the
   native detector;
 - training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
-  frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (torch
-  frame loops and GEMMs, no kernel of the port), float64 against the CPU
-  and float32 against a float64 oracle, timed and split; kill and resume
-  bitwise (the GMM-HMM and a 65,536-symbol discrete HMM);
-  ``entry.unit_training(22)`` (mel frontend once) against the CPU, with a
-  planted decode by the trained units (mel frontend, dense-graph
-  Viterbi); the word segmenter against the CPU;
+  frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (kernel G
+  once a sweep for the forward-backward recursion, torch GEMMs for the
+  rest), float64 against the CPU and float32 against a float64 oracle,
+  timed and split, G against its plain loops at the sweep's inputs; kill
+  and resume bitwise (the GMM-HMM and a 65,536-symbol discrete HMM);
+  ``entry.unit_training(22)`` (mel frontend once, G once a sweep) against
+  the CPU, with a planted decode by the trained units (mel frontend,
+  dense-graph Viterbi); the word segmenter against the CPU;
 - ``parallel/`` on one world of 4 ranks spawned on the card (gloo; the
   kernels built here first): data-parallel EM on the flagship batch (16
-  utterances a rank, the mel frontend once on each rank's signals) and
-  mixture-sharded EM against the single-process sweep, kill and resume
+  utterances a rank, the mel frontend once on each rank's signals, G once
+  a sweep on every rank) and mixture-sharded EM (G once a sweep on every
+  rank) against the single-process sweep, kill and resume
   bitwise; the time-sharded forward, backward, Viterbi and EM on the
   stream's features against the scans; ``parallel.decode_batch_sharded``
   at V = 1000 (8 segments, two planted; the mel frontend once, the
@@ -161,6 +166,33 @@ def device_ms(torch, fn, calls=10):
         torch.cuda.synchronize()
     return sum(e.self_device_time_total for e in prof.key_averages()
                if on_device(torch, e)) / 1e3 / calls
+
+
+def kernel_device_ms(torch, fn, name, calls=10):
+    """``(ms, count)``: the device time per call of ``fn`` of the kernels
+    whose name contains ``name`` (torch.profiler over ``calls`` calls after
+    one warm-up), and how many of their launches the profiler recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if on_device(torch, e) and name in e.key]
+    return (sum(e.self_device_time_total for e in hits) / 1e3 / calls,
+            sum(e.count for e in hits))
+
+
+def burst_ms(fn, launches=20, reps=5):
+    """Milliseconds per call of ``fn`` over ``launches`` back-to-back calls
+    between two CUDA events (median of ``reps``): the kernel's own time
+    where it outlasts the host's time to launch it."""
+    def burst():
+        for _ in range(launches):
+            fn()
+    return cuda_ms(burst, reps=reps) / launches
 
 
 def device_breakdown(torch, fn, step_ms, card, steps=5):
@@ -382,6 +414,121 @@ def check_viterbi_small(torch, vt, vd, dev, t_frames):
             "viterbi_batched N=33 on CUDA differs from the plain scan")
     print(f"viterbi_batched (B=16, T={t_frames}, N=33) on CUDA: kernel C, bitwise equal to the "
           "plain scan")
+
+
+# kernel G's checks: (N, kind, B, T, forced route or None); N = 5, 8, 3, 4
+# as the EM paths run them, 13 and 32 on the warp route's 16- and 32-lane
+# steps, 64 and 179 on the block routes (179 x 179 float64 goes through
+# L2), 1100 past a block's 1024 threads, and N = 5 and 64 forced onto
+# every block route
+FB_CASES = [(5, "random", 8, 300, None), (8, "random", 8, 300, None),
+            (3, "left_to_right", 8, 300, None), (4, "inf", 8, 300, None),
+            (13, "random", 4, 200, None), (32, "inf", 4, 200, None),
+            (64, "random", 4, 200, None), (179, "left_to_right", 4, 200, None),
+            (179, "inf", 4, 200, None), (1100, "random", 2, 12, None),
+            (5, "inf", 4, 120, "smem"), (5, "random", 4, 120, "global"),
+            (64, "inf", 4, 120, "l2"), (64, "left_to_right", 4, 120, "global")]
+
+
+def fb_inputs(rng, n, t_len, b, kind):
+    """Kernel G's check inputs, float64 NumPy ``(log_pi, log_a, log_b,
+    mask)``: random, left-to-right (-inf off the band), or ``"inf"``: an
+    unreachable state (an all--inf column of ``log_a``, -inf in
+    ``log_pi``), a state with no way out (an all--inf row) and one frame
+    of one utterance with every emission -inf. Ragged masks, one utterance
+    of a single frame."""
+    if kind == "left_to_right":
+        with np.errstate(divide="ignore"):
+            a = np.log(np.eye(n) * 0.6 + np.eye(n, k=1) * 0.4)
+        a[-1, -1] = 0.0
+        pi = np.full(n, -np.inf)
+        pi[0] = 0.0
+    else:
+        a = np.log(rng.dirichlet(np.ones(n), size=n))
+        pi = np.log(rng.dirichlet(np.ones(n)))
+    log_b = rng.normal(scale=2.0, size=(b, t_len, n)) - 3.0
+    if kind == "inf":
+        a[:, n // 2] = -np.inf
+        pi[n // 2] = -np.inf
+        a[n - 1, :] = -np.inf
+        log_b[-1, t_len // 3, :] = -np.inf
+    lengths = rng.integers(t_len // 2, t_len + 1, size=b)
+    lengths[0], lengths[1] = t_len, 1
+    return pi, a, log_b, np.arange(t_len)[None, :] < lengths[:, None]
+
+
+def fb_rel(torch, got, ref):
+    """``(max, rms)`` of ``|got - ref| / max(|ref|, 1)`` over the finite
+    entries of ``ref``; ``inf`` where the ``-inf`` patterns differ or a NaN
+    appears."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    if not torch.equal(torch.isneginf(got), torch.isneginf(ref)) or bool(torch.isnan(got).any()):
+        return np.inf, np.inf
+    fin = torch.isfinite(ref)
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    e = (got[fin] - ref[fin]).abs() / ref[fin].abs().clamp(min=1.0)
+    return float(e.max()), float(e.square().mean().sqrt())
+
+
+def same_bits(torch, xs, ys):
+    """Float tensors equal bit for bit (``-inf`` and signed zeros too)."""
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    return all(torch.equal(x.view(ints[x.dtype]), y.view(ints[y.dtype])) for x, y in zip(xs, ys))
+
+
+def check_fb_at(torch, tr, args, route=None):
+    """Kernel G on ``args = (log_pi, log_a, log_b, mask)`` (CUDA tensors of
+    one dtype; on ``route``, else the wrapper's own) against its plain loops
+    on the same tensors: float64 within 1e-12 (max relative), the ``-inf``
+    pattern identical; two launches bitwise equal, and so are
+    ``forward_backward``, ``forward_scan`` and ``backward_scan``. Returns
+    ``(G's outputs, the plain outputs, max rel err)``."""
+    got = tr._launch(*args, 3, route=route)
+    again = tr._launch(*args, 3, route=route)
+    ref = (*tr.forward_scan_plain(*args), tr.backward_scan_plain(*args[1:]))
+    if route is None:
+        fwd, beta = tr.forward_backward(*args)
+        one = tr.forward_scan(*args)
+        same = (fwd.alpha, fwd.loglik, beta), (one.alpha, one.loglik, tr.backward_scan(*args[1:]))
+    torch.cuda.synchronize()
+    require(same_bits(torch, got, again), "kernel G: two launches on the same input differ")
+    require(route is not None or all(same_bits(torch, got, x) for x in same),
+            "kernel G: forward_backward, forward_scan and backward_scan differ")
+    err = max(fb_rel(torch, g, r)[0] for g, r in zip(got, ref))
+    if args[2].dtype == torch.float64:
+        require(err <= 1e-12, f"kernel G differs from its plain loops by {err} at float64")
+    return got, ref, err
+
+
+def check_forward_backward(torch, tr, dev):
+    """Kernel G against its plain loops over :data:`FB_CASES`: float64
+    within 1e-12 with identical ``-inf`` patterns; float32 no farther from
+    the float64 plain result than 2x the float32 plain loops are (RMS
+    relative error over the finite entries: the largest single error is a
+    few ulps in both, and its ratio swings by chance); two launches bitwise
+    equal. Returns the largest float64 error."""
+    worst, lines = 0.0, []
+    for k, (n, kind, b, t_len, route) in enumerate(FB_CASES):
+        pi, a, log_b, mask = fb_inputs(np.random.default_rng(70 + k), n, t_len, b, kind)
+        m = torch.as_tensor(mask, device=dev)
+        on = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
+        got64, ref64, e64 = check_fb_at(torch, tr, tuple(on(x, torch.float64)
+                                                         for x in (pi, a, log_b)) + (m,), route)
+        got32, ref32, _ = check_fb_at(torch, tr, tuple(on(x, torch.float32)
+                                                       for x in (pi, a, log_b)) + (m,), route)
+        d_g = max(fb_rel(torch, g, r)[1] for g, r in zip(got32, ref64))
+        d_p = max(fb_rel(torch, p, r)[1] for p, r in zip(ref32, ref64))
+        require(d_g <= 2 * d_p, f"kernel G at float32 (N={n}, {kind}): {d_g} from the float64 "
+                f"plain result, the float32 plain loops {d_p}")
+        worst = max(worst, e64)
+        where = route or "/".join(dict.fromkeys((tr.fb_route(n, 8), tr.fb_route(n, 4))))
+        lines.append(f"N={n} {kind} B={b} T={t_len} {where}: f64 {e64:.3g}, "
+                     f"f32 rms {d_g:.3g} (plain {d_p:.3g})")
+    print("kernel G vs its plain loops (float64 bar 1e-12 max rel, -inf identical; float32 within "
+          "2x the plain float32 loops' RMS distance from the float64 result; two launches and "
+          "the one-direction wrappers bitwise): " + "; ".join(lines))
+    return worst
 
 
 def dense_cases(rng, n, t_len):
@@ -1003,10 +1150,62 @@ def host_launches(prof):
     return sum(e.count for e in prof.key_averages() if "LaunchKernel" in e.key)
 
 
+@contextlib.contextmanager
+def counted_sweeps():
+    """Counts E-step sweeps in the block: calls of the GMM-HMM's and the
+    discrete HMM's ``_sequence_stats`` (each launches kernel G once on the
+    card), wrapped where every trainer reaches them, as module
+    attributes."""
+    from lnasr_tpu_torch.models import gmmhmm as tgh
+    from lnasr_tpu_torch.models import hmm as thmm
+
+    count = [0]
+    saved = [(mod, mod._sequence_stats) for mod in (tgh, thmm)]
+
+    def counting(fn):
+        def stats(*args, **kw):
+            count[0] += 1
+            return fn(*args, **kw)
+        return stats
+
+    for mod, fn in saved:
+        mod._sequence_stats = counting(fn)
+    try:
+        yield count
+    finally:
+        for mod, fn in saved:
+            mod._sequence_stats = fn
+
+
+def require_a_and_g(counts, sweeps, what):
+    """``counts``: the mel frontend once, kernel G once per sweep (at least
+    one), nothing else."""
+    require(sweeps > 0 and counts["mel_frontend"] == 1 and counts["forward_backward"] == sweeps
+            and all(c == 0 for n, c in counts.items()
+                    if n not in ("mel_frontend", "forward_backward")),
+            f"{what} did not launch the mel frontend once and kernel G once for each of its "
+            f"{sweeps} sweeps, and nothing else: {counts}")
+
+
+def launches_under(prof, name):
+    """Kernel launches the host made inside the profiler range ``name``."""
+    found = 0
+    for e in prof.events():
+        if e.name == name:
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                found += "LaunchKernel" in c.name
+                stack.extend(c.cpu_children)
+    return found
+
+
 def training_phase(torch, entry, wrappers, card, launches):
     """Training: the flagship EM sweep at full width (B = 64 x 10 s, 5 x 8 x
-    39 diagonal), its float64 sweeps against the CPU's and its float32
-    sweeps against a float64 oracle, its time and split; kill and resume
+    39 diagonal; the mel frontend once, kernel G once a sweep), its float64
+    sweeps against the CPU's and its float32 sweeps against a float64
+    oracle, its time and split; kernel G against its plain loops at the
+    sweep's own inputs, timed beside its bound and chain floor; kill and resume
     bitwise for the GMM-HMM and a 65,536-symbol discrete HMM; a small
     full-covariance sweep; isolated-unit training of the V = 22 inventory
     against the CPU's, a planted decode with the trained units; the
@@ -1022,24 +1221,22 @@ def training_phase(torch, entry, wrappers, card, launches):
     from lnasr_tpu_torch.models.recognizer import AcousticModel
     from lnasr_tpu_torch.models.seg import Seg, SegDataSet
     from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import trellis
     from lnasr_tpu_torch.utils.checkpoints import Checkpointer, em_loop
 
     f32, f64 = torch.float32, torch.float64
 
-    def only_a(counts, what):
-        require(counts["mel_frontend"] == 1 and all(c == 0 for n, c in counts.items()
-                                                    if n != "mel_frontend"),
-                f"{what} did not launch the mel frontend once and nothing else: {counts}")
-
-    # -- the training path: features (kernel A once) and one sweep ----------
+    # -- the training path: features (kernel A once) and one sweep (G once) --
     torch.cuda.synchronize()
     reset_counts(*wrappers)
-    run = entry.training(device=DEVICE)
-    params1, loglik1 = run.step(run.params)
+    with counted_sweeps() as sweeps:
+        run = entry.training(device=DEVICE)
+        params1, loglik1 = run.step(run.params)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
-    only_a(counts, "the training path")
-    launches["training"] = {"mel_frontend": counts["mel_frontend"]}
+    require(sweeps[0] == 1, f"the training path ran {sweeps[0]} E-steps, not one")
+    require_a_and_g(counts, sweeps[0], "the training path")
+    launches["training"] = counts
     b, t_frames, _ = run.features.shape
     audio_s = b * entry.TRAIN_SECONDS
     require(np.isfinite(float(loglik1)) and all(bool(torch.isfinite(x[x != -np.inf]).all())
@@ -1102,13 +1299,20 @@ def training_phase(torch, entry, wrappers, card, launches):
     # -- one sweep's time, device share, launches and split ---------------
     step_ms = cuda_ms(lambda: run.step(run.params), reps=5, warmup=1)
     torch.cuda.synchronize()
+    reset_counts(*wrappers)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run.step(run.params)
         torch.cuda.synchronize()
         prof_ms = (time.perf_counter() - t0) * 1e3
+    g_per_sweep = trellis.forward_backward.launches
     busy = sum(e.self_device_time_total for e in prof.key_averages() if on_device(torch, e)) / 1e3
     n_launch = host_launches(prof)
+    fb_launch = launches_under(prof, "gmmhmm.forward_backward")
+    require(g_per_sweep == 1, f"the profiled sweep launched kernel G {g_per_sweep} times")
+    # no frame loop left under the range: G, the transposed log_a, and no
+    # more (the loops made some 24,000 launches a sweep there)
+    require(fb_launch <= 8, f"{fb_launch} kernel launches under gmmhmm.forward_backward")
     # the sweep's stages: the profiler ranges of models/gmmhmm.py, their host
     # side (wall time of the range, and the device time of the kernels
     # launched inside it)
@@ -1125,8 +1329,54 @@ def training_phase(torch, entry, wrappers, card, launches):
           f"unprofiled events time {100 * busy / step_ms:.1f}%), {n_launch} kernel launches by "
           f"the host; stages (host ms / device ms under the profiler): "
           + ", ".join(f"{k} {h:.4f} / {d:.4f}" for k, (h, d) in stages.items())
-          + f"; emissions alone {em_ms:.4f} ms by events")
+          + f"; emissions alone {em_ms:.4f} ms by events; kernel G {g_per_sweep}x, "
+          f"{fb_launch} host launches under gmmhmm.forward_backward")
     device_breakdown(torch, lambda: run.step(run.params), step_ms, f"{card}, EM sweep", steps=1)
+
+    # -- kernel G at the sweep's own inputs ---------------------------------
+    lb_sweep = tgh._emissions(p0, obs, "diag")[0]
+    g32 = (p0.log_pi, p0.log_a, lb_sweep, run.mask)
+    g64 = tuple(x.double() for x in g32[:3]) + (run.mask,)
+    got32, ref32, _ = check_fb_at(torch, trellis, g32)
+    _, ref64, g_err64 = check_fb_at(torch, trellis, g64)
+    d_g = max(fb_rel(torch, g, r)[1] for g, r in zip(got32, ref64))
+    d_p = max(fb_rel(torch, p, r)[1] for p, r in zip(ref32, ref64))
+    require(d_g <= 2 * d_p, f"kernel G at the sweep's float32 inputs: {d_g} from the float64 "
+            f"plain result, the float32 plain loops {d_p}")
+    g_abs = max(float(torch.where(torch.isfinite(r), (g - r).abs(), 0.0).max())
+                for g, r in zip(got32, ref32))
+    nb, nt, nn = lb_sweep.shape
+    g_wrapper_ms = cuda_ms(lambda: trellis.forward_backward(*g32), reps=50)
+    # G's time: CUDA events over 20 back-to-back launches (the kernel outlasts
+    # the host's ~0.1 ms to launch it); the profiler's figure beside it,
+    # with the number of G's launches it recorded
+    g_ms = burst_ms(lambda: trellis._launch(*g32, 3))
+    g64_ms = burst_ms(lambda: trellis._launch(*g64, 3))
+    g_prof = kernel_device_ms(torch, lambda: trellis._launch(*g32, 3), "fb_warp")
+    g_plain_ms = cuda_ms(lambda: (trellis.forward_scan_plain(*g32),
+                                  trellis.backward_scan_plain(*g32[1:])), reps=3, warmup=1)
+    # the chain floor: the same launch at N = 1 (a step of one shuffle, one
+    # exp and one log), the least a step of the recursion costs
+    one = (torch.zeros(1, device=DEVICE), torch.zeros((1, 1), device=DEVICE),
+           lb_sweep[..., :1].contiguous(), run.mask)
+    floor_ms = burst_ms(lambda: trellis._launch(*one, 3))
+    steps = int(run.mask[:, 1:].sum())  # valid steps a direction, summed over the batch
+    g_bytes = 4 * (nn + nn * nn + 3 * nb * nt * nn + nb) + nb * nt
+    g_bound = bound(g_bytes, 2 * steps * (5 * nn * nn + 2 * nn))
+    print(f"kernel G at the sweep's inputs (B={nb}, T={nt}, N={nn}, {trellis.fb_route(nn, 4)} "
+          f"route): float64 {g_err64:.3g} from its plain loops (bar 1e-12); float32 RMS "
+          f"{d_g:.3g} from the float64 plain result (plain float32 {d_p:.3g}, bar 2x), max abs "
+          f"{g_abs:.3g} from the float32 plain loops; two launches bitwise")
+    print(f"timing on {card}: kernel G {g_ms:.4f} ms a launch at float32 by CUDA events over 20 "
+          f"back-to-back launches (torch.profiler: {g_prof[0]:.4f} ms, {g_prof[1]} of 10 "
+          f"launches recorded; {g64_ms:.4f} ms at float64; the wrapper call {g_wrapper_ms:.4f} "
+          f"ms by events; plain loops {g_plain_ms:.2f} ms), {1e3 * g_ms / (nt - 1):.4f} us a "
+          f"step of the {nt - 1}-step chain a direction; chain floor (N=1) {floor_ms:.4f} ms; "
+          f"bound {g_bound[0]:.5f} ms by {g_bound[1]} ({g_bytes} bytes); {g_per_sweep} launch "
+          f"a sweep")
+    g = {"err": g_abs, "ms": g_ms, "wrapper_ms": g_wrapper_ms, "plain_ms": g_plain_ms,
+         "bound": g_bound, "chain_steps": nt - 1, "floor_ms": floor_ms,
+         "per_sweep": g_per_sweep, "f64_ms": g64_ms, "profiler_ms": g_prof[0]}
 
     # -- kill and resume, bitwise ------------------------------------------
     def kill_and_resume(step, start, what):
@@ -1185,11 +1435,12 @@ def training_phase(torch, entry, wrappers, card, launches):
     # -- isolated-unit training of the V = 22 inventory ---------------------
     torch.cuda.synchronize()
     reset_counts(*wrappers)
-    am64, examples = entry.unit_training(22, device=DEVICE, dtype=f64)
+    with counted_sweeps() as sweeps:
+        am64, examples = entry.unit_training(22, device=DEVICE, dtype=f64)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
-    only_a(counts, "unit training")
-    launches["unit training"] = {"mel_frontend": counts["mel_frontend"]}
+    require_a_and_g(counts, sweeps[0], "unit training")
+    launches["unit training"] = counts
     # kernel A at the examples' padded batch (its own frames a block at this
     # shape), held against its plain version: the CPU's units below train on
     # the card's features, so only this check covers A's output here
@@ -1254,7 +1505,16 @@ def training_phase(torch, entry, wrappers, card, launches):
 
     # -- the segmenter ------------------------------------------------------
     t0 = time.perf_counter()
-    seg = Seg(device=DEVICE).train(SegDataSet.mark(line) for line in SEG_CORPUS)
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    with counted_sweeps() as sweeps:
+        seg = Seg(device=DEVICE).train(SegDataSet.mark(line) for line in SEG_CORPUS)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["segmenter"] = counts
+    # the segmenter trains by counting (HMM.from_counts): no E-step, no kernel
+    require(sweeps[0] == 0 and not any(counts.values()),
+            f"the segmenter's training ran {sweeps[0]} E-steps, launches {counts}")
     got = [seg.segment(text) for text in SEG_SENTENCES]
     seg_s = time.perf_counter() - t0
     seg_cpu = Seg(device="cpu").train(SegDataSet.mark(line) for line in SEG_CORPUS)
@@ -1262,9 +1522,9 @@ def training_phase(torch, entry, wrappers, card, launches):
     require(got == ref, f"segmenter: card {got} vs CPU {ref}")
     require(got[0] == ["我们", "喜欢", "学习", "中文"], f"segmenter: {got[0]}")
     print(f"segmenter on the card: {got} (equal to the CPU's); training and {len(got)} "
-          f"segmentations {seg_s:.3f} s")
+          f"segmentations {seg_s:.3f} s; training launches {counts}")
     return {"sweep_ms": step_ms, "busy": busy / prof_ms, "launches": n_launch, "stages": stages,
-            "unit_s": unit_s}
+            "unit_s": unit_s, "g": g}
 
 
 PARALLEL_RANKS = 4
@@ -1286,6 +1546,7 @@ def parallel_rank(ckdir):
     from lnasr_tpu_torch.models.mfcc import MFCC
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import trellis
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.parallel import distributed as D
@@ -1297,7 +1558,7 @@ def parallel_rank(ckdir):
     f32, f64 = torch.float32, torch.float64
     host = lambda x: x.detach().cpu().numpy()  # noqa: E731
     counted = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
-               F.factored_backtrace, F.factored_lattice)
+               F.factored_backtrace, F.factored_lattice, trellis.forward_backward)
 
     def counts():
         return {w.__name__: w.launches for w in counted}
@@ -1341,7 +1602,11 @@ def parallel_rank(ckdir):
     # -- model-parallel EM on a (data 2, model 2) mesh, the same batch
     mp_mesh = P.make_mesh(MeshConfig(2, 1, 2))
     mp = entry.parallel_training(mp_mesh, device=dev, dtype=f64, features=feats_all)
+    sync()
+    reset_counts(*counted)
     pm, llm = mp.step(mp.params)
+    sync()
+    out["mp_launches"] = counts()
     out["mp64"] = (float(llm), [host(x) for x in P.mp_param_specs().gather(pm, mp_mesh)])
     D.STATS.reset()
     out["mp64_ms"] = wall_ms(lambda: mp.step(mp.params), reps=1)
@@ -1550,14 +1815,20 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
         got = tgh.GMMHMMParams(*(torch.as_tensor(x, device=DEVICE) for x in params))
         errs[key] = max(param_dist(torch, got, p_ref), abs(ll - ll_ref) / abs(ll_ref))
     dp_launch = [r["dp_launches"] for r in ranks]
-    a_once = {w.__name__: int(w.__name__ == "mel_frontend") for w in wrappers}
-    require(all(c == a_once for c in dp_launch), f"parallel_training's launches per rank {dp_launch}")
-    launches["parallel training"] = {"mel_frontend": sum(c["mel_frontend"] for c in dp_launch)}
+    mp_launch = [r["mp_launches"] for r in ranks]
+    none = {w.__name__: 0 for w in wrappers}
+    require(all(c == none | {"mel_frontend": 1, "forward_backward": 1} for c in dp_launch),
+            f"parallel_training's launches per rank (features and one DP sweep) {dp_launch}")
+    require(all(c == none | {"forward_backward": 1} for c in mp_launch),
+            f"one MP sweep's launches per rank {mp_launch}")
+    launches["parallel training"] = {n: sum(c[n] for c in dp_launch) for n in none}
+    launches["parallel MP sweep"] = {n: sum(c[n] for c in mp_launch) for n in none}
     hist_s, hist_r, bitwise = r0["mp_resume"]
     calls, n_bytes, coll_ms = r0["dp32_collectives"]
     mp_calls, mp_bytes, mp_coll_ms = r0["mp64_collectives"]
     print(f"parallel DP EM (data 4, 16 x 10 s utterances a rank, kernel A once on each rank's "
-          f"signals; B=64, 5x8x39 diag): float64 vs the single-process sweep on the card "
+          f"signals, kernel G once a sweep on every DP and MP rank: {dp_launch[0]}, "
+          f"{mp_launch[0]}; B=64, 5x8x39 diag): float64 vs the single-process sweep on the card "
           f"{errs['dp64']:.3g} (bar 1e-9; loglik {r0['dp64'][0]:.10e} vs {ll_ref:.10e}); "
           f"MP EM (data 2, model 2): {errs['mp64']:.3g} (bar 1e-9); MP kill and resume (4 "
           f"sweeps straight vs 2 + resume to 4): {'bitwise' if bitwise else 'DIFFER'}, logliks "
@@ -1971,7 +2242,8 @@ def cli_phase(torch, entry, wrappers, card, launches):
                     examples.setdefault(unit, []).append(cli.unit_features(am, audio))
                 return cli.train_am_units(examples, args, am), args
 
-        (am64, args64), counts, train_s = counted(lambda: train_am(["--f64"]))
+        with counted_sweeps() as sweeps:
+            (am64, args64), counts, train_s = counted(lambda: train_am(["--f64"]))
         launches["cli train-am"] = counts
         am64_cpu, args64_cpu = train_am(["--f64", "--device", "cpu"])
         dist64 = max(param_dist(torch, am64.units[u].params, am64_cpu.units[u].params)
@@ -1979,11 +2251,12 @@ def cli_phase(torch, entry, wrappers, card, launches):
         print(f"cli train-am --f64 (build_parser + train_am_units, 4 units, 5 sweeps) on {card}: "
               f"{train_s:.3f} s (host clock); units {sorted(am64.units)}, parameters within "
               f"{dist64:.3g} of --device cpu (bar 1e-8); launches {counts} (the plain MFCC "
-              "pipeline and torch EM)")
+              f"pipeline; kernel G once in each of {sweeps[0]} sweeps)")
         require(sorted(am64.units) == sorted(am64_cpu.units) == ["<sil>", "high", "low", "mid"]
                 and dist64 < 1e-8, f"cli train-am --f64: card vs CPU {dist64}")
         require(cli.am_config(args64) == cli.am_config(args64_cpu), "am_config.json differs")
-        expect(counts, {}, "cli train-am")
+        require(sweeps[0] > 0, "cli train-am ran no EM sweep")
+        expect(counts, {"forward_backward": sweeps[0]}, "cli train-am")
 
         am_cpu, _ = train_am(["--device", "cpu"])
         am_card = AcousticModel(
@@ -2197,11 +2470,13 @@ def recording_phase(torch, entry, wrappers, card, launches):
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.utils.audio import read_pcm, write_pcm
 
-    def dense_path(counts, want, what):
+    def dense_path(counts, want, what, sweeps):
         require(all(counts[n] > 0 for n in want)
                 and all(counts[n] == 0 for n in counts if n not in want),
                 f"{what}: launches {counts}; expected {want} and nothing else (the synthetic "
-                "vocabulary composes the dense graph)")
+                "vocabulary composes the dense graph; its units train on the card)")
+        require(counts["forward_backward"] == sweeps,
+                f"{what}: kernel G launched {counts['forward_backward']} times in {sweeps} sweeps")
 
     phase_t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_recordings_") as tmp:
@@ -2222,9 +2497,10 @@ def recording_phase(torch, entry, wrappers, card, launches):
 
         # -- bench/stream.py, 1 minute of stream -----------------------------------
         log, calls = io.StringIO(), {}
-        out, counts, stream_s = counted_run(
-            torch, wrappers,
-            lambda: bench_stream.run(paths[0], minutes=1.0, device=DEVICE, log=log), calls)
+        with counted_sweeps() as sweeps:
+            out, counts, stream_s = counted_run(
+                torch, wrappers,
+                lambda: bench_stream.run(paths[0], minutes=1.0, device=DEVICE, log=log), calls)
         launches["stream harness"] = counts
         lat, dec = out["latency_ms"], out["decomposition_ms"]
         print(" | ".join(line.strip() for line in log.getvalue().splitlines()))
@@ -2243,7 +2519,8 @@ def recording_phase(torch, entry, wrappers, card, launches):
                 f"stream harness: rtf {out['rtf']}, buffer {out['max_buffer_samples']}")
         require(out["segments"] >= 20 and out["units"] == len(stream_words) + 1,
                 f"stream harness: {out['segments']} segments, {out['units']} units")
-        dense_path(counts, ("mel_frontend", "viterbi_dense"), "stream harness")
+        dense_path(counts, ("mel_frontend", "viterbi_dense", "forward_backward"), "stream harness",
+                   sweeps[0])
         check_recorded(torch, mf, F, vd, calls, "stream harness",
                        ["mel_frontend", "viterbi_dense"])
 
@@ -2258,7 +2535,7 @@ def recording_phase(torch, entry, wrappers, card, launches):
             train_s.append(time.perf_counter() - t0)
             return demo.protocol(words, gaps, device=DEVICE, fixtures=paths, am=am)
 
-        with contextlib.redirect_stdout(io.StringIO()) as demo_out:
+        with contextlib.redirect_stdout(io.StringIO()) as demo_out, counted_sweeps() as sweeps:
             run, counts, wer_s = counted_run(torch, wrappers, wer_harness, calls)
         launches["wer harness"] = counts
         rep = run.report
@@ -2276,7 +2553,8 @@ def recording_phase(torch, entry, wrappers, card, launches):
         require(rep["n_test_utts"] == 20 and len(rep["conditions"]) == 6
                 and all(0.0 <= v["wer"] <= 1.0 for v in rep["conditions"].values())
                 and run.nbest_lines, f"wer harness: {rep}")
-        dense_path(counts, ("mel_frontend", "viterbi_dense", "factored_lattice"), "wer harness")
+        dense_path(counts, ("mel_frontend", "viterbi_dense", "factored_lattice",
+                            "forward_backward"), "wer harness", sweeps[0])
         check_recorded(torch, mf, F, vd, calls, "wer harness",
                        ["mel_frontend", "viterbi_dense", "factored_lattice"])
 
@@ -2336,6 +2614,7 @@ def main():
     from lnasr_tpu_torch.models.mfcc import mfcc_features_fused
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import trellis
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.ops.framing import hamming_window, num_frames, split_frames
@@ -2365,6 +2644,8 @@ def main():
     # -- 2, 3. kernels A and B vs their plain versions ------------------------
     mel_err = check_mel_frontend(torch, mf, cfg, x, dev)
     check_viterbi_small(torch, vt, vd, dev, t_frames)
+    # -- 3b. kernel G vs its plain loops (the flagship sweep's own shape in 12)
+    check_forward_backward(torch, trellis, dev)
 
     # -- 4. the recognizers of the slice, on the card and on the CPU ----------
     recs = {v: entry.recognizer_serving(v, device=dev) for v in (1000, 22)}
@@ -2543,7 +2824,7 @@ def main():
     step = entry.flagship(device=dev, params=flag_model.params)
     torch.cuda.synchronize()
     wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
-                F.factored_backtrace, F.factored_lattice)
+                F.factored_backtrace, F.factored_lattice, trellis.forward_backward)
     reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
@@ -2860,14 +3141,16 @@ def main():
 
     def kernel_row(name, counter, own_path, replaces, err, wrapper_ms, plain_ms, bnd):
         """One kernel's entry: ``launches`` on its own slice's main path and
-        ``launches_by_path`` on every main path run here that counted it
-        (the training paths count the mel frontend only); ``ms`` its device
-        time per call, ``wrapper_ms`` the CUDA-event time of the call. No
-        single PyTorch call computes any of these kernels' functions."""
+        ``launches_by_path`` on every main path run here that counted it;
+        ``ms`` its device time per call, ``wrapper_ms`` the CUDA-event time
+        of the call. No single PyTorch call computes any of these kernels'
+        functions. Kernel G's row takes its ``ms`` from CUDA events over
+        back-to-back launches (``profiler_ms`` beside it) and adds its chain
+        floor (the same launch at N = 1) and its launches per EM sweep."""
         return {"name": name, "route": "cuda", "source": f"lnasr_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches[own_path][counter],
                 "launches_by_path": {p: c[counter] for p, c in launches.items() if counter in c},
-                "max_abs_err": err, "ms": dev_ms[name], "wrapper_ms": wrapper_ms,
+                "max_abs_err": err, "ms": dev_ms.get(name), "wrapper_ms": wrapper_ms,
                 "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     kernels = [
@@ -2886,6 +3169,14 @@ def main():
                    "lnasr_tpu/ops/factored_pallas.py:661", f_err, f_ms, f_plain_ms,
                    (f_bound, f_by)),
     ]
+    g = train["g"]
+    g_row = kernel_row("forward_backward", "forward_backward", "training",
+                       "lnasr_tpu/ops/trellis.py:37 forward_scan + :58 backward_scan (lax.scan "
+                       "under jax.jit, no Pallas)", g["err"], g["wrapper_ms"], g["plain_ms"],
+                       g["bound"])
+    g_row |= {"ms": g["ms"], "profiler_ms": g["profiler_ms"], "chain_steps": g["chain_steps"],
+              "chain_floor_ms": g["floor_ms"], "launches_per_sweep": g["per_sweep"]}
+    kernels.append(g_row)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,16 +4,18 @@ per second on the flagship topology, the port of the JAX package's
 
     python -m lnasr_tpu_torch.bench.train [--device cuda] [--trials 5] [--out FILE]
 
-Times one full ``gmmhmm_em_step`` sweep (emissions, forward/backward
-frame loops, posterior statistics, M-step) at ``entry.training()``'s
+Times one full ``gmmhmm_em_step`` sweep (emissions, the forward-backward
+recursion, posterior statistics, M-step) at ``entry.training()``'s
 geometry: B = 64 utterances of 10 s, 5 states x 8 mixtures x 39 dims,
 diagonal covariance, float32, the parameters carried from sweep to sweep
 as a training loop carries them. Beside it:
 
 - the emission stage alone, with its GEMM's operations and bytes against
   the card's peaks;
-- the forward + backward recursions at T and T/2 frames, whose
-  difference gives the cost of one step (the frame loops' latency);
+- the forward + backward recursions at T and T/2 frames, through
+  ``forward_backward`` as the sweep runs them (on the card one launch of
+  kernel G for both directions), whose difference gives the cost of one
+  step (the recursion's latency);
 - the E-step statistics (emissions + recursions + posterior moments), so
   the posterior reductions are the statistics less the recursions and the
   emissions, and the M-step the sweep less the statistics.
@@ -52,7 +54,7 @@ EMISSION_REPS = 20  # the emission GEMM alone is short: calls a trial times
 def measurements(device, trials: int) -> dict:
     from lnasr_tpu_torch import entry
     from lnasr_tpu_torch.models import gmmhmm as G
-    from lnasr_tpu_torch.ops.trellis import backward_scan, forward_scan
+    from lnasr_tpu_torch.ops.trellis import forward_backward
 
     run = entry.training(device=device, batch=BATCH, seconds=UTT_SECONDS)
     feats, mask = run.features, run.mask
@@ -74,11 +76,7 @@ def measurements(device, trials: int) -> dict:
     def scans_at(t_sub):
         lb, mk = log_b[:, :t_sub], mask[:, :t_sub]
 
-        def scans():
-            forward_scan(p0.log_pi, p0.log_a, lb, mk)
-            backward_scan(p0.log_a, lb, mk)
-
-        return scans
+        return lambda: forward_backward(p0.log_pi, p0.log_a, lb, mk)
 
     scans_full = time_calls(scans_at(t_frames), device, trials)
     scans_half = time_calls(scans_at(t_frames // 2), device, trials)
@@ -165,8 +163,9 @@ def main(argv=None) -> int:
         "seconds_per_sweep": round(median(meas["sweep_trials_s"]), 7),
         "loglik_finite": meas["loglik_finite"],
         "stages": {"emissions": rounded(meas["emissions"], 7), **meas["stages_extra"]},
-        "note": "the fwd/bwd recursions are frame loops of torch ops: their per-step cost "
-                "(the T-slope) is the launches' latency, not the card's arithmetic",
+        "note": "the fwd/bwd recursions are one chain of dependent steps a direction (one "
+                "kernel launch on the card, frame loops of torch ops on the CPU): their "
+                "per-step cost (the T-slope) is the chain's latency, not the card's arithmetic",
         "device": meas["device"],
         "timing": (f"{'CUDA events' if device.type == 'cuda' else 'host clock'}, median of "
                    f"{args.trials} trials after a warm-up"),

@@ -29,7 +29,7 @@ from lnasr_tpu_torch.config import GMMHMMConfig
 from lnasr_tpu_torch.models.hmm import HMM
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
 from lnasr_tpu_torch.ops.numerics import logsumexp
-from lnasr_tpu_torch.ops.trellis import backward_scan, forward_scan, posteriors, viterbi_scan
+from lnasr_tpu_torch.ops.trellis import forward_backward, posteriors, viterbi_scan
 
 
 class GMMHMMParams(NamedTuple):
@@ -79,8 +79,7 @@ def _sequence_stats(params: GMMHMMParams, obs: torch.Tensor, mask: torch.Tensor,
     with record_function("gmmhmm.emissions"):
         log_b, log_bm = (emissions_fn or _emissions)(params, obs, cov_type)
     with record_function("gmmhmm.forward_backward"):
-        alpha, loglik = forward_scan(params.log_pi, params.log_a, log_b, mask)
-        beta = backward_scan(params.log_a, log_b, mask)
+        (alpha, loglik), beta = forward_backward(params.log_pi, params.log_a, log_b, mask)
     with record_function("gmmhmm.posteriors_stats"):
         return _posterior_stats(params, obs, mask, cov_type, log_b, log_bm, alpha, beta, loglik)
 

@@ -1,8 +1,9 @@
 """Discrete-emission hidden Markov model.
 
 Log-space parameters as in the JAX package's ``models/hmm.py``. The
-trellis recursions are the frame loops of
-:mod:`lnasr_tpu_torch.ops.trellis`, each op covering the whole batch. The
+trellis recursions are those of :mod:`lnasr_tpu_torch.ops.trellis`: on the
+card the E-step's forward and backward are one launch of kernel G, on the
+CPU frame loops whose every op covers the whole batch. The
 Baum-Welch M-step takes statistics of a padded batch of sequences in one
 shot; its emission numerator is an order-fixed segment sum over the
 observed symbols (:func:`lnasr_tpu_torch.ops.numerics.segment_sum`), so an
@@ -24,6 +25,7 @@ from lnasr_tpu_torch.ops.trellis import (
     ForwardResult,
     ViterbiResult,
     backward_scan,
+    forward_backward,
     forward_scan,
     posteriors,
     viterbi_scan,
@@ -67,8 +69,7 @@ def _sequence_stats(params: HMMParams, obs: torch.Tensor, mask: torch.Tensor) ->
     ``mask (B, T)``; every field keeps the leading batch axis."""
     n, m = params.log_b.shape
     log_b = _emission_lookup(params.log_b, obs)
-    alpha, loglik = forward_scan(params.log_pi, params.log_a, log_b, mask)
-    beta = backward_scan(params.log_a, log_b, mask)
+    (alpha, loglik), beta = forward_backward(params.log_pi, params.log_a, log_b, mask)
     xi, gamma = posteriors(alpha, beta, params.log_a, log_b, mask)
     gamma_masked = torch.where(mask[..., None], gamma, -torch.inf)
     # the emission numerator as a probability-space sum over each

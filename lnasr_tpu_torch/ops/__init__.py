@@ -1,10 +1,11 @@
 """Tensor ops of the port: framing, spectra, Gaussians, trellis, kernels.
 
 The package re-exports the JAX package's ``lnasr_tpu.ops`` surface, the
-same 18 functions from the port's own modules. The kernel wrappers
+same 18 functions from the port's own modules (``forward_scan`` and
+``backward_scan`` launch kernel G on CUDA tensors). The kernel wrappers
 (``ops.mel_frontend``, ``ops.viterbi``, ``ops.viterbi_dense``,
-``ops.factored``) are imported from their modules; nothing is compiled on
-import.
+``ops.factored``, ``ops.trellis.forward_backward``) are imported from
+their modules; nothing is compiled on import.
 """
 
 from lnasr_tpu_torch.ops.numerics import logsumexp, log_matvec, log_matmul

@@ -1,16 +1,23 @@
-"""HMM trellis recursions in plain PyTorch.
+"""HMM trellis recursions: the Baum-Welch kernel and plain PyTorch loops.
 
 Counterparts of the JAX package's ``ops/trellis.py``:
 
+- :func:`forward_backward`, :func:`forward_scan`, :func:`backward_scan`:
+  the Baum-Welch recursions, one (+, logsumexp) matrix-vector product a
+  step. For CUDA tensors they launch the hand-written kernel of
+  ``csrc/forward_backward.cu`` (kernel G: both directions of a batch in
+  one launch, one warp an utterance and direction, lane = state), which
+  does on the card what XLA does for the JAX package's jitted
+  ``lax.scan``: the whole recursion is one device loop. For CPU tensors
+  they run the frame loops :func:`forward_scan_plain` and
+  :func:`backward_scan_plain`, which the kernel is held to;
+  :func:`forward_assoc`, the forward pass as a log-depth Hillis-Steele
+  scan over (N, N) operators; :func:`posteriors`, the E-step's ``xi`` and
+  ``gamma``.
 - :func:`viterbi_scan`: a T-step loop whose step is one batched (+, max)
   matrix-vector product with first-index argmax backpointers. It is the
   plain version of the batched Viterbi kernel (``ops/viterbi.py``) and
   serves masked decodes.
-- :func:`forward_scan`, :func:`backward_scan`: the Baum-Welch recursions,
-  one (+, logsumexp) matrix-vector product a step;
-  :func:`forward_assoc`, the forward pass as a log-depth Hillis-Steele
-  scan over (N, N) operators; :func:`posteriors`, the E-step's ``xi`` and
-  ``gamma``.
 
 Conventions: natural-log inputs; time-major emissions ``log_b[..., t, j]``;
 an optional boolean ``mask[..., t]`` marks real frames, and masked steps
@@ -22,11 +29,38 @@ value back to the host.
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from lnasr_tpu_torch import _build
 from lnasr_tpu_torch.ops.numerics import log_matmul, logsumexp
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# log_pi, log_a, log_at, log_b, mask, B, T, N, dirs, route, is_double,
+# alpha, loglik, beta, stream
+_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+_FORWARD, _BACKWARD = 1, 2  # the kernel's ``dirs`` bits
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
+FB_ROUTES = ("warp", "smem", "l2", "global")  # the kernel's ``route`` codes, in order
+
+
+def fb_route(n: int, itemsize: int) -> str:
+    """Kernel G's route for ``n`` states of ``itemsize`` bytes: ``"warp"``
+    (N <= 32: one warp, lane = state), else a block of ceil(N/32) warps with
+    the step's vector double-buffered and ``log_a`` in shared memory
+    (``"smem"``), the vector there and ``log_a`` through L2 (``"l2"``), or
+    both in device memory (``"global"``, past 2 N values of shared
+    memory). Every N has a route."""
+    if n <= 32:
+        return "warp"
+    vec, mat = 2 * n * itemsize, n * n * itemsize
+    if vec + mat <= SMEM_LIMIT:
+        return "smem"
+    return "l2" if vec <= SMEM_LIMIT else "global"
 
 
 class ForwardResult(NamedTuple):
@@ -34,13 +68,13 @@ class ForwardResult(NamedTuple):
     loglik: torch.Tensor  # (...) log P(O | model), from the last valid frame
 
 
-def forward_scan(
+def forward_scan_plain(
     log_pi: torch.Tensor,
     log_a: torch.Tensor,
     log_b: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> ForwardResult:
-    """Forward algorithm over ``log_b (..., T, N)``:
+    """Kernel G's plain forward, a frame loop over ``log_b (..., T, N)``:
     ``alpha[t, j] = lse_i(alpha[t-1, i] + A[i, j]) + b[t, j]``; a masked
     frame keeps ``alpha`` unchanged, so ``alpha[..., -1, :]`` is the last
     valid frame's."""
@@ -55,13 +89,13 @@ def forward_scan(
     return ForwardResult(alpha=torch.stack(alphas, dim=-2), loglik=logsumexp(alpha, dim=-1))
 
 
-def backward_scan(
+def backward_scan_plain(
     log_a: torch.Tensor,
     log_b: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Backward algorithm: ``beta[t, i] = lse_j(A[i, j] + b[t+1, j] +
-    beta[t+1, j])``, ``beta[T-1] = 0``. A masked frame t+1 propagates
+    """Kernel G's plain backward, a frame loop: ``beta[t, i] =
+    lse_j(A[i, j] + b[t+1, j] + beta[t+1, j])``, ``beta[T-1] = 0``. A masked frame t+1 propagates
     ``beta`` unchanged, so for a sequence of true length L, ``beta[:L]``
     equals the unpadded result and ``beta[L-1:]`` is zero."""
     t_len = log_b.shape[-2]
@@ -74,6 +108,121 @@ def backward_scan(
         beta = new
         betas.append(beta)
     return torch.stack(betas[::-1], dim=-2)
+
+
+def _launch(log_pi, log_a, log_b, mask, dirs, route=None):
+    """Kernel G on the card: ``(alpha, loglik, beta)``, each ``None`` for a
+    direction not in ``dirs``. Leading batch dimensions of ``log_b`` (and
+    ``mask``) are flattened; ``log_pi``/``log_a`` are shared by the batch.
+    ``route`` overrides :func:`fb_route` (any block route runs any N; the
+    warp route needs N <= 32). Every check reads shapes, dtypes and devices
+    only: nothing waits on the card."""
+    dev = log_b.device
+    if log_b.dim() < 2:
+        raise ValueError(f"log_b must be (..., T, N), got shape {tuple(log_b.shape)}")
+    lead, (t, n) = tuple(log_b.shape[:-2]), tuple(log_b.shape[-2:])
+    if log_a.shape != (n, n) or (log_pi is not None and log_pi.shape != (n,)):
+        raise ValueError(f"the forward-backward kernel takes log_a (N, N) and log_pi (N,) shared "
+                         f"by the batch; got N={n}, log_a {tuple(log_a.shape)}"
+                         + ("" if log_pi is None else f", log_pi {tuple(log_pi.shape)}"))
+    if t < 1:
+        raise ValueError("the forward-backward kernel needs at least one frame")
+    dtype = log_b.dtype if log_pi is None else torch.promote_types(log_pi.dtype, log_b.dtype)
+    dtype = torch.promote_types(dtype, log_a.dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the forward-backward kernel takes float32 or float64, got {dtype}")
+    for name, x in (("log_pi", log_pi), ("log_a", log_a), ("mask", mask)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, log_b on {dev}")
+    route = fb_route(n, dtype.itemsize) if route is None else route
+    if route not in FB_ROUTES or (route == "warp" and n > 32):
+        raise ValueError(f"no route {route!r} of the forward-backward kernel at N={n}")
+    b = math.prod(lead)
+    lb = log_b.to(dtype).reshape(b, t, n).contiguous()
+    fwd, bwd = bool(dirs & _FORWARD), bool(dirs & _BACKWARD)
+    alpha = torch.empty_like(lb) if fwd else None
+    loglik = torch.empty((b,), dtype=dtype, device=dev) if fwd else None
+    beta = torch.empty_like(lb) if bwd else None
+    if b > 0:
+        m = None
+        if mask is not None:
+            m = torch.broadcast_to(mask, lead + (t,)).reshape(b, t).to(torch.bool).contiguous()
+        a = log_a.to(dtype).contiguous()
+        pi = log_pi.to(dtype).contiguous() if fwd else None
+        at = a.t().contiguous() if bwd else None
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        lib = _build.load("forward_backward", _ARGTYPES)
+        with torch.cuda.device(dev):  # launch on the tensors' card
+            rc = lib.forward_backward_launch(
+                ptr(pi), a.data_ptr(), ptr(at), lb.data_ptr(), ptr(m), b, t, n, dirs,
+                FB_ROUTES.index(route), int(dtype == torch.float64), ptr(alpha), ptr(loglik),
+                ptr(beta), torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, "forward_backward", rc)
+        forward_backward.launches += 1
+    shape = lead + (t, n)
+    return (None if alpha is None else alpha.reshape(shape),
+            None if loglik is None else loglik.reshape(lead),
+            None if beta is None else beta.reshape(shape))
+
+
+def _on_cuda(log_b: torch.Tensor) -> bool:
+    if log_b.device.type == "cpu":
+        return False
+    if log_b.device.type != "cuda":
+        raise ValueError(f"the trellis recursions run on cpu or cuda tensors, got {log_b.device}")
+    return True
+
+
+def forward_backward(
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[ForwardResult, torch.Tensor]:
+    """``(ForwardResult(alpha, loglik), beta)`` of ``log_b (..., T, N)``:
+    the E-step's two recursions. CUDA tensors launch kernel G once for both
+    (float32 or float64; ``log_pi (N,)``/``log_a (N, N)`` shared by the
+    batch, anything else raises); CPU tensors run the plain loops."""
+    if not _on_cuda(log_b):
+        return (forward_scan_plain(log_pi, log_a, log_b, mask),
+                backward_scan_plain(log_a, log_b, mask))
+    alpha, loglik, beta = _launch(log_pi, log_a, log_b, mask, _FORWARD | _BACKWARD)
+    return ForwardResult(alpha=alpha, loglik=loglik), beta
+
+
+forward_backward.launches = 0  # kernel G launches; plain CPU calls do not count
+
+
+def forward_scan(
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> ForwardResult:
+    """Forward algorithm over ``log_b (..., T, N)``:
+    ``alpha[t, j] = lse_i(alpha[t-1, i] + A[i, j]) + b[t, j]``; a masked
+    frame keeps ``alpha`` unchanged, so ``alpha[..., -1, :]`` is the last
+    valid frame's. Kernel G's forward alone on CUDA tensors, the plain loop
+    on CPU ones."""
+    if not _on_cuda(log_b):
+        return forward_scan_plain(log_pi, log_a, log_b, mask)
+    alpha, loglik, _ = _launch(log_pi, log_a, log_b, mask, _FORWARD)
+    return ForwardResult(alpha=alpha, loglik=loglik)
+
+
+def backward_scan(
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward algorithm: ``beta[t, i] = lse_j(A[i, j] + b[t+1, j] +
+    beta[t+1, j])``, ``beta[T-1] = 0``. A masked frame t+1 propagates
+    ``beta`` unchanged, so for a sequence of true length L, ``beta[:L]``
+    equals the unpadded result and ``beta[L-1:]`` is zero. Kernel G's
+    backward alone on CUDA tensors, the plain loop on CPU ones."""
+    if not _on_cuda(log_b):
+        return backward_scan_plain(log_a, log_b, mask)
+    return _launch(None, log_a, log_b, mask, _BACKWARD)[2]
 
 
 def forward_assoc(
