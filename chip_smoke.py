@@ -151,48 +151,77 @@ def cuda_ms(fn, reps, warmup=3):
     return statistics.median(times)
 
 
-def device_ms(torch, fn, calls=10):
-    """Device milliseconds per call of ``fn``: the device time of the
-    kernels and memsets it launches (torch.profiler over ``calls`` calls
-    after one warm-up), without the host time between them that CUDA events
-    around a short wrapper call also catch."""
+PROFILE_WINDOWS = 5  # torch.profiler windows tried before a reading is taken as it is
+
+
+def profiled_device(torch, fn, calls=10, name=None):
+    """``(ms, count, window)``: the device time per call of ``fn``, of the
+    kernels whose name contains ``name`` or else of every kernel and memset
+    it launches (torch.profiler over ``calls`` calls after one warm-up), how
+    many such launches the profiler recorded, and in which window. On the
+    H100 the profiler drops every device record of some sessions (PERF.md
+    §7), so a window that recorded fewer than ``calls`` launches is
+    profiled again, up to ``PROFILE_WINDOWS`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if on_device(torch, e)) / 1e3 / calls
+    for window in range(1, PROFILE_WINDOWS + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if on_device(torch, e) and (name is None or name in e.key)]
+        count = sum(e.count for e in hits)
+        if count >= calls:
+            break
+    return sum(e.self_device_time_total for e in hits) / 1e3 / calls, count, window
+
+
+def device_ms(torch, fn, calls=10):
+    """Device milliseconds per call of ``fn``: the device time of the
+    kernels and memsets it launches (:func:`profiled_device`), without the
+    host time between them that CUDA events around a short wrapper call
+    also catch."""
+    return profiled_device(torch, fn, calls)[0]
 
 
 def kernel_device_ms(torch, fn, name, calls=10):
-    """``(ms, count)``: the device time per call of ``fn`` of the kernels
-    whose name contains ``name`` (torch.profiler over ``calls`` calls after
-    one warm-up), and how many of their launches the profiler recorded."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if on_device(torch, e) and name in e.key]
-    return (sum(e.self_device_time_total for e in hits) / 1e3 / calls,
-            sum(e.count for e in hits))
+    """``(ms, count, window)`` of :func:`profiled_device` for the kernels
+    whose name contains ``name``."""
+    return profiled_device(torch, fn, calls, name)
 
 
-def burst_ms(fn, launches=20, reps=5):
+QUEUE_CYCLES = 20_000_000  # ~10 ms of a spinning kernel ahead of a burst
+
+
+def burst_ms(fn, launches=20, reps=5, queued=True):
     """Milliseconds per call of ``fn`` over ``launches`` back-to-back calls
-    between two CUDA events (median of ``reps``): the kernel's own time
-    where it outlasts the host's time to launch it."""
+    between two CUDA events (median of ``reps``). ``queued``: a spinning
+    kernel (``torch.cuda._sleep``) holds the card while the host queues the
+    burst, so the events time the kernels back to back, the device's time;
+    else the events also catch the host's time to launch a kernel shorter
+    than that."""
+    import torch
+
     def burst():
         for _ in range(launches):
             fn()
-    return cuda_ms(burst, reps=reps) / launches
+    burst()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(QUEUE_CYCLES)
+        start.record()
+        burst()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times) / launches
 
 
 def device_breakdown(torch, fn, step_ms, card, steps=5):
@@ -417,17 +446,26 @@ def check_viterbi_small(torch, vt, vd, dev, t_frames):
 
 
 # kernel G's checks: (N, kind, B, T, forced route or None); N = 5, 8, 3, 4
-# as the EM paths run them, 13 and 32 on the warp route's 16- and 32-lane
+# as the EM paths run them on the warp route (forced: at T = 300 the
+# chunked route is chosen), 13 and 32 on the warp route's 16- and 32-lane
 # steps, 64 and 179 on the block routes (179 x 179 float64 goes through
 # L2), 1100 past a block's 1024 threads, and N = 5 and 64 forced onto
-# every block route
-FB_CASES = [(5, "random", 8, 300, None), (8, "random", 8, 300, None),
-            (3, "left_to_right", 8, 300, None), (4, "inf", 8, 300, None),
+# every block route; then the chunked route at N = 2, 5 and 8 (one lane an
+# entry, two rows a lane), chosen at T = 300 and 2100 (chunks past two
+# tiles, streamed twice), forced at T = 1, 31 and 33
+FB_CASES = [(5, "random", 8, 300, "warp"), (8, "random", 8, 300, "warp"),
+            (3, "left_to_right", 8, 300, "warp"), (4, "inf", 8, 300, "warp"),
             (13, "random", 4, 200, None), (32, "inf", 4, 200, None),
             (64, "random", 4, 200, None), (179, "left_to_right", 4, 200, None),
             (179, "inf", 4, 200, None), (1100, "random", 2, 12, None),
             (5, "inf", 4, 120, "smem"), (5, "random", 4, 120, "global"),
-            (64, "inf", 4, 120, "l2"), (64, "left_to_right", 4, 120, "global")]
+            (64, "inf", 4, 120, "l2"), (64, "left_to_right", 4, 120, "global"),
+            (2, "inf", 4, 300, None), (5, "left_to_right", 8, 300, None),
+            (8, "inf", 4, 300, None), (5, "inf", 4, 2100, None),
+            (8, "left_to_right", 2, 2100, None), (2, "left_to_right", 4, 1, "chunked"),
+            (5, "inf", 4, 1, "chunked"), (8, "inf", 4, 31, "chunked"),
+            (2, "inf", 4, 33, "chunked"), (5, "left_to_right", 4, 31, "chunked"),
+            (8, "left_to_right", 4, 33, "chunked")]
 
 
 def fb_inputs(rng, n, t_len, b, kind):
@@ -507,14 +545,16 @@ def check_forward_backward(torch, tr, dev):
     the float64 plain result than 2x the float32 plain loops are (RMS
     relative error over the finite entries: the largest single error is a
     few ulps in both, and its ratio swings by chance); two launches bitwise
-    equal. Returns the largest float64 error."""
+    equal. On the chunked route also against its plain mirror
+    (``forward_backward_chunked_plain``: the same chunks, products and
+    replay) at float64 within 1e-12. Returns the largest float64 error."""
     worst, lines = 0.0, []
     for k, (n, kind, b, t_len, route) in enumerate(FB_CASES):
         pi, a, log_b, mask = fb_inputs(np.random.default_rng(70 + k), n, t_len, b, kind)
         m = torch.as_tensor(mask, device=dev)
         on = lambda x, dt: torch.as_tensor(x, dtype=dt, device=dev)  # noqa: E731
-        got64, ref64, e64 = check_fb_at(torch, tr, tuple(on(x, torch.float64)
-                                                         for x in (pi, a, log_b)) + (m,), route)
+        args64 = tuple(on(x, torch.float64) for x in (pi, a, log_b)) + (m,)
+        got64, ref64, e64 = check_fb_at(torch, tr, args64, route)
         got32, ref32, _ = check_fb_at(torch, tr, tuple(on(x, torch.float32)
                                                        for x in (pi, a, log_b)) + (m,), route)
         d_g = max(fb_rel(torch, g, r)[1] for g, r in zip(got32, ref64))
@@ -523,11 +563,19 @@ def check_forward_backward(torch, tr, dev):
                 f"plain result, the float32 plain loops {d_p}")
         worst = max(worst, e64)
         where = route or "/".join(dict.fromkeys((tr.fb_route(n, 8), tr.fb_route(n, 4))))
-        lines.append(f"N={n} {kind} B={b} T={t_len} {where}: f64 {e64:.3g}, "
+        mirror = ""
+        if where == "chunked":
+            fwd, beta = tr.forward_backward_chunked_plain(*args64)
+            e_m = max(fb_rel(torch, g, r)[0] for g, r in zip(got64, (fwd.alpha, fwd.loglik, beta)))
+            require(e_m <= 1e-12, f"kernel G's chunked route (N={n}, {kind}, T={t_len}) differs "
+                    f"from its plain mirror by {e_m} at float64")
+            mirror = f", mirror {e_m:.3g}"
+        lines.append(f"N={n} {kind} B={b} T={t_len} {where}: f64 {e64:.3g}{mirror}, "
                      f"f32 rms {d_g:.3g} (plain {d_p:.3g})")
     print("kernel G vs its plain loops (float64 bar 1e-12 max rel, -inf identical; float32 within "
           "2x the plain float32 loops' RMS distance from the float64 result; two launches and "
-          "the one-direction wrappers bitwise): " + "; ".join(lines))
+          "the one-direction wrappers bitwise; the chunked route also vs its plain mirror at "
+          "float64, 1e-12): " + "; ".join(lines))
     return worst
 
 
@@ -1204,8 +1252,10 @@ def training_phase(torch, entry, wrappers, card, launches):
     """Training: the flagship EM sweep at full width (B = 64 x 10 s, 5 x 8 x
     39 diagonal; the mel frontend once, kernel G once a sweep), its float64
     sweeps against the CPU's and its float32 sweeps against a float64
-    oracle, its time and split; kernel G against its plain loops at the
-    sweep's own inputs, timed beside its bound and chain floor; kill and resume
+    oracle, its time and split; kernel G against its plain loops and its
+    chunked mirror at the sweep's own inputs on the chunked route, timed
+    beside the sequential warp route, its bound, depth floor and the warp
+    route's chain floor; kill and resume
     bitwise for the GMM-HMM and a 65,536-symbol discrete HMM; a small
     full-covariance sweep; isolated-unit training of the V = 22 inventory
     against the CPU's, a planted decode with the trained units; the
@@ -1310,8 +1360,9 @@ def training_phase(torch, entry, wrappers, card, launches):
     n_launch = host_launches(prof)
     fb_launch = launches_under(prof, "gmmhmm.forward_backward")
     require(g_per_sweep == 1, f"the profiled sweep launched kernel G {g_per_sweep} times")
-    # no frame loop left under the range: G, the transposed log_a, and no
-    # more (the loops made some 24,000 launches a sweep there)
+    # no frame loop left under the range: G and no more (the loops made some
+    # 24,000 launches a sweep there; until the chunked route, a transposed
+    # copy of log_a too)
     require(fb_launch <= 8, f"{fb_launch} kernel launches under gmmhmm.forward_backward")
     # the sweep's stages: the profiler ranges of models/gmmhmm.py, their host
     # side (wall time of the range, and the device time of the kernels
@@ -1337,46 +1388,82 @@ def training_phase(torch, entry, wrappers, card, launches):
     lb_sweep = tgh._emissions(p0, obs, "diag")[0]
     g32 = (p0.log_pi, p0.log_a, lb_sweep, run.mask)
     g64 = tuple(x.double() for x in g32[:3]) + (run.mask,)
+    nb, nt, nn = lb_sweep.shape
+    g_route = trellis.fb_route(nn, 4)
+    require(g_route == "chunked", f"the sweep's G takes the {g_route} route, not the chunked one")
     got32, ref32, _ = check_fb_at(torch, trellis, g32)
-    _, ref64, g_err64 = check_fb_at(torch, trellis, g64)
+    got64, ref64, g_err64 = check_fb_at(torch, trellis, g64)
+    fwd_m, beta_m = trellis.forward_backward_chunked_plain(*g64)
+    g_err_m = max(fb_rel(torch, g, r)[0] for g, r in zip(got64, (fwd_m.alpha, fwd_m.loglik,
+                                                                  beta_m)))
+    require(g_err_m <= 1e-12, f"kernel G at the sweep's inputs is {g_err_m} from its chunked "
+            f"plain mirror at float64")
+    seq32, _, seq_err64 = check_fb_at(torch, trellis, g32, "warp")
+    _, _, seq_err64 = check_fb_at(torch, trellis, g64, "warp")
     d_g = max(fb_rel(torch, g, r)[1] for g, r in zip(got32, ref64))
+    d_s = max(fb_rel(torch, g, r)[1] for g, r in zip(seq32, ref64))
     d_p = max(fb_rel(torch, p, r)[1] for p, r in zip(ref32, ref64))
-    require(d_g <= 2 * d_p, f"kernel G at the sweep's float32 inputs: {d_g} from the float64 "
-            f"plain result, the float32 plain loops {d_p}")
+    require(d_g <= 2 * d_p and d_s <= 2 * d_p, f"kernel G at the sweep's float32 inputs: "
+            f"chunked {d_g}, sequential {d_s} from the float64 plain result, the float32 plain "
+            f"loops {d_p}")
     g_abs = max(float(torch.where(torch.isfinite(r), (g - r).abs(), 0.0).max())
                 for g, r in zip(got32, ref32))
-    nb, nt, nn = lb_sweep.shape
     g_wrapper_ms = cuda_ms(lambda: trellis.forward_backward(*g32), reps=50)
-    # G's time: CUDA events over 20 back-to-back launches (the kernel outlasts
-    # the host's ~0.1 ms to launch it); the profiler's figure beside it,
-    # with the number of G's launches it recorded
-    g_ms = burst_ms(lambda: trellis._launch(*g32, 3))
+    # G's time: CUDA events over 20 back-to-back launches queued behind a
+    # spinning kernel (the chunked route is shorter than the host's time to
+    # launch it), the chunked route (chosen) and the sequential warp route
+    # (forced) in turns; the profiler's figure beside it, with the number of
+    # G's launches it recorded
+    g_ms, seq_ms, g_ms2, seq_ms2 = (burst_ms(lambda r=r: trellis._launch(*g32, 3, route=r))
+                                    for r in ("chunked", "warp", "chunked", "warp"))
     g64_ms = burst_ms(lambda: trellis._launch(*g64, 3))
-    g_prof = kernel_device_ms(torch, lambda: trellis._launch(*g32, 3), "fb_warp")
+    g_unqueued_ms = burst_ms(lambda: trellis._launch(*g32, 3), queued=False)
+    g_prof = kernel_device_ms(torch, lambda: trellis._launch(*g32, 3), "fb_chunk")
+    g_prof_ms = 10 * g_prof[0] / g_prof[1] if g_prof[1] else None  # a launch it recorded
+    g_prof_txt = "no" if g_prof_ms is None else f"{g_prof_ms:.4f}"
     g_plain_ms = cuda_ms(lambda: (trellis.forward_scan_plain(*g32),
                                   trellis.backward_scan_plain(*g32[1:])), reps=3, warmup=1)
-    # the chain floor: the same launch at N = 1 (a step of one shuffle, one
-    # exp and one log), the least a step of the recursion costs
+    # the floors: the same launch at N = 1 (a step of one shuffle, one exp and
+    # one log): on the warp route the 998-step chain's, on the chunked route
+    # the depth L + C + L's
     one = (torch.zeros(1, device=DEVICE), torch.zeros((1, 1), device=DEVICE),
            lb_sweep[..., :1].contiguous(), run.mask)
-    floor_ms = burst_ms(lambda: trellis._launch(*one, 3))
+    floor_ms = burst_ms(lambda: trellis._launch(*one, 3, route="warp"))
+    depth_floor_ms = burst_ms(lambda: trellis._launch(*one, 3, route="chunked"))
+    n_chunks, chunk = trellis.fb_chunks(nt)
+    depth = 2 * chunk + n_chunks
     steps = int(run.mask[:, 1:].sum())  # valid steps a direction, summed over the batch
     g_bytes = 4 * (nn + nn * nn + 3 * nb * nt * nn + nb) + nb * nt
-    g_bound = bound(g_bytes, 2 * steps * (5 * nn * nn + 2 * nn))
-    print(f"kernel G at the sweep's inputs (B={nb}, T={nt}, N={nn}, {trellis.fb_route(nn, 4)} "
-          f"route): float64 {g_err64:.3g} from its plain loops (bar 1e-12); float32 RMS "
-          f"{d_g:.3g} from the float64 plain result (plain float32 {d_p:.3g}, bar 2x), max abs "
-          f"{g_abs:.3g} from the float32 plain loops; two launches bitwise")
-    print(f"timing on {card}: kernel G {g_ms:.4f} ms a launch at float32 by CUDA events over 20 "
-          f"back-to-back launches (torch.profiler: {g_prof[0]:.4f} ms, {g_prof[1]} of 10 "
-          f"launches recorded; {g64_ms:.4f} ms at float64; the wrapper call {g_wrapper_ms:.4f} "
-          f"ms by events; plain loops {g_plain_ms:.2f} ms), {1e3 * g_ms / (nt - 1):.4f} us a "
-          f"step of the {nt - 1}-step chain a direction; chain floor (N=1) {floor_ms:.4f} ms; "
-          f"bound {g_bound[0]:.5f} ms by {g_bound[1]} ({g_bytes} bytes); {g_per_sweep} launch "
-          f"a sweep")
+    # operations: the recursion's own, ~5 N^2 + 2 N a step and direction; the
+    # chunked design does N + 1 times that (its chunk products apply the step
+    # to N rows), printed beside and not counted in the bound
+    g_ops = 2 * steps * (5 * nn * nn + 2 * nn)
+    g_bound = bound(g_bytes, g_ops)
+    print(f"kernel G at the sweep's inputs (B={nb}, T={nt}, N={nn}, {g_route} route, {n_chunks} "
+          f"chunks of {chunk} steps): float64 {g_err64:.3g} from its plain loops (bar 1e-12), "
+          f"{g_err_m:.3g} from its chunked plain mirror; float32 RMS {d_g:.3g} from the float64 "
+          f"plain result (plain float32 {d_p:.3g}, bar 2x), max abs {g_abs:.3g} from the "
+          f"float32 plain loops; two launches bitwise; the sequential warp route (forced) "
+          f"float64 {seq_err64:.3g}, float32 RMS {d_s:.3g}")
+    print(f"timing on {card}: kernel G {g_ms:.4f} / {g_ms2:.4f} ms a launch on the chunked route "
+          f"at float32, the sequential warp route {seq_ms:.4f} / {seq_ms2:.4f} ms (CUDA events "
+          f"over 20 back-to-back launches queued behind a spinning kernel, in turns chunked, "
+          f"warp, chunked, warp; torch.profiler on the chunked route: {g_prof_txt} ms a "
+          f"launch, {g_prof[1]} of 10 launches recorded in window {g_prof[2]}; "
+          f"{g64_ms:.4f} ms at float64; {g_unqueued_ms:.4f} ms a launch with nothing queued "
+          f"ahead, the host launching as the card runs; the wrapper call {g_wrapper_ms:.4f} ms "
+          f"by events; plain "
+          f"loops {g_plain_ms:.2f} ms); depth {depth} steps ({chunk} + {n_chunks} + {chunk}), "
+          f"depth floor (chunked, N=1) {depth_floor_ms:.4f} ms; the warp route's {nt - 1}-step "
+          f"chain floor (N=1) {floor_ms:.4f} ms; bound {g_bound[0]:.5f} ms by {g_bound[1]} "
+          f"({g_bytes} bytes, {g_ops} operations; the chunked design's "
+          f"{(nn + 1) * g_ops} operations would take {(nn + 1) * g_ops / FP32_FLOPS * 1e3:.5f} "
+          f"ms); {g_per_sweep} launch a sweep")
     g = {"err": g_abs, "ms": g_ms, "wrapper_ms": g_wrapper_ms, "plain_ms": g_plain_ms,
-         "bound": g_bound, "chain_steps": nt - 1, "floor_ms": floor_ms,
-         "per_sweep": g_per_sweep, "f64_ms": g64_ms, "profiler_ms": g_prof[0]}
+         "bound": g_bound, "chain_steps": nt - 1, "floor_ms": floor_ms, "depth": depth,
+         "depth_floor_ms": depth_floor_ms, "sequential_ms": seq_ms, "unqueued_ms": g_unqueued_ms,
+         "per_sweep": g_per_sweep, "f64_ms": g64_ms, "profiler_ms": g_prof_ms,
+         "profiler_launches": g_prof[1], "profiler_window": g_prof[2]}
 
     # -- kill and resume, bitwise ------------------------------------------
     def kill_and_resume(step, start, what):
@@ -3145,8 +3232,13 @@ def main():
         ``ms`` its device time per call, ``wrapper_ms`` the CUDA-event time
         of the call. No single PyTorch call computes any of these kernels'
         functions. Kernel G's row takes its ``ms`` from CUDA events over
-        back-to-back launches (``profiler_ms`` beside it) and adds its chain
-        floor (the same launch at N = 1) and its launches per EM sweep."""
+        back-to-back launches on the chunked route (``profiler_ms`` beside
+        it: the device time of a launch torch.profiler recorded, and
+        ``profiler_launches`` how many of 10 it recorded, ``profiler_window``
+        in which profiled window) and adds the
+        sequential warp route's time, the chunked route's depth and depth
+        floor, the warp route's chain floor (each floor the same launch at
+        N = 1) and its launches per EM sweep."""
         return {"name": name, "route": "cuda", "source": f"lnasr_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces, "launches": launches[own_path][counter],
                 "launches_by_path": {p: c[counter] for p, c in launches.items() if counter in c},
@@ -3174,7 +3266,11 @@ def main():
                        "lnasr_tpu/ops/trellis.py:37 forward_scan + :58 backward_scan (lax.scan "
                        "under jax.jit, no Pallas)", g["err"], g["wrapper_ms"], g["plain_ms"],
                        g["bound"])
-    g_row |= {"ms": g["ms"], "profiler_ms": g["profiler_ms"], "chain_steps": g["chain_steps"],
+    g_row |= {"ms": g["ms"], "profiler_ms": g["profiler_ms"],
+              "profiler_launches": g["profiler_launches"],
+              "profiler_window": g["profiler_window"], "route_taken": "chunked",
+              "sequential_ms": g["sequential_ms"], "depth": g["depth"],
+              "depth_floor_ms": g["depth_floor_ms"], "chain_steps": g["chain_steps"],
               "chain_floor_ms": g["floor_ms"], "launches_per_sweep": g["per_sweep"]}
     kernels.append(g_row)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Split kernels A (mel frontend) and B (small-N Viterbi) of a checkout
-into phases on one NVIDIA GPU, with ``clock64()`` stamps.
+"""Split kernels A (mel frontend), B (small-N Viterbi) and G
+(forward-backward, chunked route) of a checkout into phases on one NVIDIA
+GPU, with ``clock64()`` stamps.
 
-    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR]
+    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G]
 
 The kernel sources under ``DIR/lnasr_tpu_torch/csrc`` are copied, a
 ``clock64()`` stamp is inserted at each phase boundary (text patches keyed
@@ -19,7 +20,11 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
   warp-per-frame FFT in span + constants load, window/pack, FFT passes,
   split/power + energy, mel + stores (each warp's first frame);
 - B at the flagship shape (B = 64, T = 999, N = 5): forward and backtrace,
-  the backtrace of the chunk-map version split into its three phases.
+  the backtrace of the chunk-map version split into its three phases;
+- G's chunked route at the EM sweep's shape (B = 64, T = 999, float32,
+  N = 5 and 8): the chunk's staging and product (phase 1), the boundary
+  chain (phase 2), the replay and stores (phase 3), each up to the
+  block's barrier after it (per block), and the cycles a step of each.
 
 Each launch goes through the checkout's own wrapper (``ops.*._launch``)
 pointed at the stamped library, and its output is checked against the
@@ -125,7 +130,21 @@ PATCH_SETS = {
              "    __syncwarp();\n    if (lane == 0) STAMP(b * 5 + 4);\n"),
         ]),
     ],
+    "forward_backward": [
+        ("chunked route", 4, ["stage + products", "boundary chain", "replay + stores"], [
+            ("    ch.raw0 = ch.raw1 = 0;\n",
+             "    if (threadIdx.x == 0) STAMP(blockIdx.x * 4 + 0);\n"),
+            ("    // -- phase 2: the boundary chain, v_{c+1}[l] = lse_k(v_c[k] + prod_c[k, l]) --\n",
+             "    if (threadIdx.x == 0) STAMP(blockIdx.x * 4 + 1);\n"),
+            ("    // -- phase 3: replay the chunk from its boundary, lane = state -------------\n",
+             "    if (threadIdx.x == 0) STAMP(blockIdx.x * 4 + 2);\n"),
+            ("        const S ll = lse<S, NN>(x);\n        if (lane == 0) ((S*)p.loglik)[b] = ll;\n"
+             "    }\n",
+             "    __syncthreads();\n    if (threadIdx.x == 0) STAMP(blockIdx.x * 4 + 3);\n"),
+        ]),
+    ],
 }
+KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "G": "forward_backward"}
 
 
 def stamped_source(src, name):
@@ -166,7 +185,9 @@ def main():
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", default="")
     ap.add_argument("--sass", default="")
+    ap.add_argument("--kernels", default="A,B,G", help="the kernels to split: A, B, G")
     args = ap.parse_args()
+    names = [KERNEL_NAMES[k] for k in args.kernels.split(",")]
     import torch
 
     if not torch.cuda.is_available():
@@ -177,6 +198,7 @@ def main():
     from lnasr_tpu_torch import _build
     from lnasr_tpu_torch.config import MFCCConfig
     from lnasr_tpu_torch.ops import mel_frontend as mf
+    from lnasr_tpu_torch.ops import trellis as tr
     from lnasr_tpu_torch.ops import viterbi as vt
 
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
@@ -187,7 +209,7 @@ def main():
     os.makedirs(work, exist_ok=True)
     nvcc = _build._nvcc()
     procs, versions = {}, {}
-    for name in PATCH_SETS:
+    for name in names:
         with open(os.path.join(_build.CSRC, f"{name}.cu")) as f:
             src, versions[name] = stamped_source(f.read(), name)
         path = os.path.join(work, f"{name}_stamped.cu")
@@ -195,7 +217,7 @@ def main():
             f.write(src)
         procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"))
     _build.build_all()  # the unstamped kernels: the stamps' cost, and the SASS
-    wrappers = {"mel_frontend": mf, "viterbi": vt}
+    wrappers = {"mel_frontend": mf, "viterbi": vt, "forward_backward": tr}
     stamped, plain = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -210,7 +232,7 @@ def main():
         plain[name] = _build.load(name, wrappers[name]._ARGTYPES)
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
-        for name in PATCH_SETS:
+        for name in names:
             sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
                                    _build.library_path(name)], capture_output=True, text=True)
             with open(os.path.join(args.sass, f"{tag}_{name}.sass"), "w") as f:
@@ -261,7 +283,8 @@ def main():
     dev = torch.device("cuda")
     cfg = MFCCConfig()
     rng = np.random.default_rng(0)
-    for what, b, s in (("flagship B=64 x 10 s", 64, 160000), ("segment B=1, T=511", 1, 82000)):
+    for what, b, s in (("flagship B=64 x 10 s", 64, 160000), ("segment B=1, T=511", 1, 82000)
+                       ) if "mel_frontend" in names else ():
         y = torch.as_tensor(rng.normal(scale=3000.0, size=(b, s)).astype(np.float32), device=dev)
         call = lambda: mf._launch(y, cfg)  # noqa: E731
         res = split("mel_frontend", call)
@@ -273,23 +296,47 @@ def main():
             raise SystemExit(f"kernel A off its bar at {what}")
         emit(kernel="A", what=what, **res, **times("mel_frontend", call))
 
-    b, t, n = 64, 999, 5
-    log_pi = torch.as_tensor(np.log(rng.dirichlet(np.ones(n))).astype(np.float32), device=dev)
-    log_a = torch.as_tensor(np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32),
-                            device=dev)
-    log_b = torch.as_tensor(rng.normal(scale=3.0, size=(b, t, n)).astype(np.float32), device=dev)
-    call = lambda: vt._launch(log_pi, log_a, log_b)  # noqa: E731
-    res = split("viterbi", call)
-    use("viterbi", stamped["viterbi"])
-    path, score = call()
-    ref = vt.viterbi_plain(log_pi, log_a, log_b)
-    if not (torch.equal(path, ref[0]) and torch.equal(score, ref[1])):
-        raise SystemExit("the stamped kernel B differs from the plain scan")
-    emit(kernel="B", what=f"flagship B={b}, T={t}, N={n}", **res,
-         cycles_per_forward_step=res["cycles"]["forward"] / (t - 1), **times("viterbi", call),
-         sm_clock_mhz=subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
-                                      "--format=csv,noheader,nounits"], capture_output=True,
-                                     text=True, timeout=60).stdout.strip())
+    def sm_clock():
+        return subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                               "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+
+    def trellis_inputs(b, t, n):
+        log_pi = torch.as_tensor(np.log(rng.dirichlet(np.ones(n))).astype(np.float32), device=dev)
+        log_a = torch.as_tensor(np.log(rng.dirichlet(np.ones(n), size=n)).astype(np.float32),
+                                device=dev)
+        log_b = torch.as_tensor(rng.normal(scale=3.0, size=(b, t, n)).astype(np.float32),
+                                device=dev)
+        return log_pi, log_a, log_b
+
+    if "viterbi" in names:
+        b, t, n = 64, 999, 5
+        log_pi, log_a, log_b = trellis_inputs(b, t, n)
+        call = lambda: vt._launch(log_pi, log_a, log_b)  # noqa: E731
+        res = split("viterbi", call)
+        use("viterbi", stamped["viterbi"])
+        path, score = call()
+        ref = vt.viterbi_plain(log_pi, log_a, log_b)
+        if not (torch.equal(path, ref[0]) and torch.equal(score, ref[1])):
+            raise SystemExit("the stamped kernel B differs from the plain scan")
+        emit(kernel="B", what=f"flagship B={b}, T={t}, N={n}", **res,
+             cycles_per_forward_step=res["cycles"]["forward"] / (t - 1),
+             **times("viterbi", call), sm_clock_mhz=sm_clock())
+    for n in (5, 8) if "forward_backward" in names else ():
+        b, t = 64, 999
+        args_g = trellis_inputs(b, t, n) + (torch.ones((b, t), dtype=torch.bool, device=dev),)
+        call = lambda: tr._launch(*args_g, 3, route="chunked")  # noqa: E731
+        res = split("forward_backward", call)
+        got = call()
+        use("forward_backward", plain["forward_backward"])
+        ref = call()
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise SystemExit("the stamped kernel G differs from the unstamped one")
+        c, chunk = tr.fb_chunks(t)
+        steps = dict(zip(res["cycles"], (chunk, c, chunk)))
+        emit(kernel="G", what=f"chunked route B={b}, T={t}, N={n}, {c} chunks of {chunk}", **res,
+             cycles_per_step={p: res["cycles"][p] / k for p, k in steps.items()},
+             **times("forward_backward", call), sm_clock_mhz=sm_clock())
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

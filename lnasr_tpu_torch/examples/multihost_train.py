@@ -45,6 +45,15 @@ def _rows(lo: int, hi: int, frames: int, dim: int) -> np.ndarray:
                      for i in range(lo, hi)]).astype(np.float32)
 
 
+def _say(line: str) -> None:
+    """Print ``line`` in one write: the ranks share the launcher's output,
+    and ``print`` writes the text and the newline separately (two writes
+    where the stream is unbuffered, as under ``PYTHONUNBUFFERED``), so
+    another rank's line could land between them."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
 def train(global_batch: int, frames: int, iters: int) -> List[float]:
     """The data-parallel EM loop on the world this process joined; returns
     the log-likelihood history (equal on every rank)."""
@@ -57,7 +66,7 @@ def train(global_batch: int, frames: int, iters: int) -> List[float]:
 
     world, rank = dist.get_world_size(), dist.get_rank()
     dev = local_device()
-    print(f"process {rank}/{world}: {dist.get_backend()} on {dev}", flush=True)
+    _say(f"process {rank}/{world}: {dist.get_backend()} on {dev}")
     cfg = GMMHMMConfig(n_states=5, n_mix=4, dim=13)
     mesh = make_mesh(mesh_shape_for(world, data=world))
     lo, hi = process_local_slice(global_batch)
@@ -75,7 +84,7 @@ def train(global_batch: int, frames: int, iters: int) -> List[float]:
         params, loglik = step(params, local, mask)
         loglik = float(loglik)
         if rank == 0:
-            print(f"iter {it}: loglik {loglik:.2f}", flush=True)
+            _say(f"iter {it}: loglik {loglik:.2f}")
         if not np.isfinite(loglik):
             raise RuntimeError(f"iteration {it}: loglik {loglik} is not finite")
         if history and loglik < history[-1] - max(1e-3, 1e-6 * abs(history[-1])):
@@ -83,7 +92,7 @@ def train(global_batch: int, frames: int, iters: int) -> List[float]:
         history.append(loglik)
     model.set_params(params)
     if rank == 0:
-        print("done: multi-process DP EM converging", flush=True)
+        _say("done: multi-process DP EM converging")
     return history
 
 

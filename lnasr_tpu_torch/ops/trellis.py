@@ -6,11 +6,15 @@ Counterparts of the JAX package's ``ops/trellis.py``:
   the Baum-Welch recursions, one (+, logsumexp) matrix-vector product a
   step. For CUDA tensors they launch the hand-written kernel of
   ``csrc/forward_backward.cu`` (kernel G: both directions of a batch in
-  one launch, one warp an utterance and direction, lane = state), which
-  does on the card what XLA does for the JAX package's jitted
-  ``lax.scan``: the whole recursion is one device loop. For CPU tensors
-  they run the frame loops :func:`forward_scan_plain` and
-  :func:`backward_scan_plain`, which the kernel is held to;
+  one launch; for N <= 8 a block of warps an utterance and direction,
+  time cut into chunks whose (N, N) operator products are chained and
+  then replayed, else one warp or block an utterance and direction,
+  lane = state: :func:`fb_route`), which does on the card what XLA does
+  for the JAX package's jitted ``lax.scan``: the whole recursion in one
+  launch. For CPU tensors they run the frame loops
+  :func:`forward_scan_plain` and :func:`backward_scan_plain`, which the
+  kernel is held to; :func:`forward_backward_chunked_plain` mirrors the
+  chunked route;
   :func:`forward_assoc`, the forward pass as a log-depth Hillis-Steele
   scan over (N, N) operators; :func:`posteriors`, the E-step's ``xi`` and
   ``gamma``.
@@ -40,21 +44,42 @@ from lnasr_tpu_torch.ops.numerics import log_matmul, logsumexp
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# log_pi, log_a, log_at, log_b, mask, B, T, N, dirs, route, is_double,
-# alpha, loglik, beta, stream
-_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
+# log_pi, log_a, log_b, mask, B, T, N, dirs, route, chunk, is_double, alpha,
+# loglik, beta, stream
+_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P]
 _FORWARD, _BACKWARD = 1, 2  # the kernel's ``dirs`` bits
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
-FB_ROUTES = ("warp", "smem", "l2", "global")  # the kernel's ``route`` codes, in order
+# the kernel's ``route`` codes, in order
+FB_ROUTES = ("warp", "smem", "l2", "global", "chunked")
+CHUNK_MAX_N = 8  # the chunked route's states: N <= 8 (every EM model and unit)
+CHUNK_WARPS = 32  # the chunked route's chunks (warps of a block), at most
+
+
+def fb_chunks(t: int) -> Tuple[int, int]:
+    """``(C, L)``: the chunked route cuts the ``t - 1`` steps of a
+    direction into ``C`` chunks of ``L`` (the last may be shorter), one
+    warp each. Its chain is ``L + C + L`` steps deep (the chunk products,
+    the boundary chain, the replay), least near ``C = sqrt(2 (t - 1))``;
+    at most :data:`CHUNK_WARPS` chunks, so ``L`` grows past that."""
+    steps = t - 1
+    if steps < 1:
+        return 1, 1
+    c = min(CHUNK_WARPS, max(1, round(math.sqrt(2 * steps))))
+    chunk = -(-steps // c)
+    return -(-steps // chunk), chunk
 
 
 def fb_route(n: int, itemsize: int) -> str:
-    """Kernel G's route for ``n`` states of ``itemsize`` bytes: ``"warp"``
-    (N <= 32: one warp, lane = state), else a block of ceil(N/32) warps with
-    the step's vector double-buffered and ``log_a`` in shared memory
+    """Kernel G's route for ``n`` states of ``itemsize`` bytes:
+    ``"chunked"`` (N <= 8, every EM model and unit: a block of warps an
+    utterance and direction, time cut into chunks), ``"warp"`` (N <= 32:
+    one warp, lane = state), else a block of ceil(N/32) warps with the
+    step's vector double-buffered and ``log_a`` in shared memory
     (``"smem"``), the vector there and ``log_a`` through L2 (``"l2"``), or
-    both in device memory (``"global"``, past 2 N values of shared
-    memory). Every N has a route."""
+    both in device memory (``"global"``, past 2 N values of shared memory).
+    Every N and T has a route."""
+    if n <= CHUNK_MAX_N:
+        return "chunked"
     if n <= 32:
         return "warp"
     vec, mat = 2 * n * itemsize, n * n * itemsize
@@ -110,13 +135,91 @@ def backward_scan_plain(
     return torch.stack(betas[::-1], dim=-2)
 
 
+def _chunked_direction(v0, log_a, log_b, valid, fwd):
+    """One direction of the chunked route over ``log_b (..., T, N)`` and
+    ``valid (..., T)``: the rows it writes, in step order (step k reads
+    frame k forward, T - k backward)."""
+    t, n = log_b.shape[-2:]
+    lead = log_b.shape[:-2]
+    steps = t - 1
+    c, chunk = fb_chunks(t)
+    frames = (torch.arange(1, t, device=log_b.device) if fwd
+              else torch.arange(t - 1, 0, -1, device=log_b.device))
+    pad = c * chunk - steps
+    b_st = torch.cat([log_b[..., frames, :], log_b.new_zeros(lead + (pad, n))], dim=-2)
+    v_st = torch.cat([valid[..., frames], valid.new_zeros(lead + (pad,))], dim=-1)
+    b_st, v_st = b_st.reshape(lead + (c, chunk, n)), v_st.reshape(lead + (c, chunk))
+    # phase 1: each chunk's product from the identity; row r of R is the
+    # forward's P[r, :] and the backward's Q[:, r]
+    eye = torch.eye(n, dtype=torch.bool, device=log_b.device)
+    r = torch.where(eye, 0.0, -torch.inf).to(log_b.dtype).expand(lead + (c, n, n))
+    for q in range(chunk):
+        bq = b_st[..., q, None, :]  # (..., c, 1, n): column col's emission
+        if fwd:
+            new = logsumexp(r[..., :, :, None] + log_a, dim=-2) + bq
+        else:
+            new = logsumexp((r + bq)[..., :, None, :] + log_a, dim=-1)
+        r = torch.where(v_st[..., q, None, None], new, r)
+    # phase 2: the boundary chain, v_{c+1}[l] = lse_k(v_c[k] + R_c[k, l])
+    v, bounds = v0, []
+    for ci in range(c):
+        bounds.append(v)
+        v = logsumexp(v[..., :, None] + r[..., ci, :, :], dim=-2)
+    state = torch.stack(bounds, dim=-2)  # (..., c, n): entering each chunk
+    # phase 3: each chunk replayed from its boundary, the plain loops' step
+    rows = []
+    for q in range(chunk):
+        bq = b_st[..., q, :]
+        if fwd:
+            new = logsumexp(state[..., :, None] + log_a, dim=-2) + bq
+        else:
+            new = logsumexp(log_a + (bq + state)[..., None, :], dim=-1)
+        state = torch.where(v_st[..., q, None], new, state)
+        rows.append(state)
+    return torch.stack(rows, dim=-2).reshape(lead + (c * chunk, n))[..., :steps, :]
+
+
+def forward_backward_chunked_plain(
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> Tuple[ForwardResult, torch.Tensor]:
+    """Kernel G's chunked route in plain PyTorch (tests and
+    ``chip_smoke.py`` hold the kernel and the loops to it; no caller on the
+    main path): each direction's ``T - 1`` steps cut into the chunks of
+    :func:`fb_chunks`, each chunk's (N, N) operator product in the
+    (logsumexp, +) semiring from the identity (a masked step is the
+    identity, skipped), the boundary vector carried through the products
+    chunk by chunk, then each chunk replayed from its boundary with the
+    plain loops' step. The same function as :func:`forward_scan_plain` and
+    :func:`backward_scan_plain`, rounded in other places."""
+    t = log_b.shape[-2]
+    lead = log_b.shape[:-2]
+    valid = (torch.ones(lead + (t,), dtype=torch.bool, device=log_b.device) if mask is None
+             else torch.broadcast_to(mask, lead + (t,)))
+    alpha0 = log_pi + log_b[..., 0, :]
+    alpha = torch.cat([alpha0[..., None, :],
+                       _chunked_direction(alpha0, log_a, log_b, valid, True)], dim=-2)
+    zero = torch.zeros_like(alpha0)
+    beta = torch.cat([_chunked_direction(zero, log_a, log_b, valid, False).flip(-2),
+                      zero[..., None, :]], dim=-2)
+    return ForwardResult(alpha=alpha, loglik=logsumexp(alpha[..., -1, :], dim=-1)), beta
+
+
+def _dense(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` and contiguous, copied only where it is not."""
+    return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
+
+
 def _launch(log_pi, log_a, log_b, mask, dirs, route=None):
     """Kernel G on the card: ``(alpha, loglik, beta)``, each ``None`` for a
     direction not in ``dirs``. Leading batch dimensions of ``log_b`` (and
     ``mask``) are flattened; ``log_pi``/``log_a`` are shared by the batch.
-    ``route`` overrides :func:`fb_route` (any block route runs any N; the
-    warp route needs N <= 32). Every check reads shapes, dtypes and devices
-    only: nothing waits on the card."""
+    ``route`` overrides :func:`fb_route` (any block route runs any N, the
+    chunked route N <= 8 at any T; the warp route needs N <= 32). Every
+    check reads shapes, dtypes and devices only: nothing waits on the card,
+    and an input already in its dtype and contiguous is passed as it is."""
     dev = log_b.device
     if log_b.dim() < 2:
         raise ValueError(f"log_b must be (..., T, N), got shape {tuple(log_b.shape)}")
@@ -135,34 +238,30 @@ def _launch(log_pi, log_a, log_b, mask, dirs, route=None):
         if x is not None and x.device != dev:
             raise ValueError(f"{name} is on {x.device}, log_b on {dev}")
     route = fb_route(n, dtype.itemsize) if route is None else route
-    if route not in FB_ROUTES or (route == "warp" and n > 32):
+    if (route not in FB_ROUTES or (route == "warp" and n > 32)
+            or (route == "chunked" and n > CHUNK_MAX_N)):
         raise ValueError(f"no route {route!r} of the forward-backward kernel at N={n}")
     b = math.prod(lead)
-    lb = log_b.to(dtype).reshape(b, t, n).contiguous()
+    shape = lead + (t, n)
     fwd, bwd = bool(dirs & _FORWARD), bool(dirs & _BACKWARD)
-    alpha = torch.empty_like(lb) if fwd else None
-    loglik = torch.empty((b,), dtype=dtype, device=dev) if fwd else None
-    beta = torch.empty_like(lb) if bwd else None
+    alpha = torch.empty(shape, dtype=dtype, device=dev) if fwd else None
+    loglik = torch.empty(lead, dtype=dtype, device=dev) if fwd else None
+    beta = torch.empty(shape, dtype=dtype, device=dev) if bwd else None
     if b > 0:
-        m = None
-        if mask is not None:
-            m = torch.broadcast_to(mask, lead + (t,)).reshape(b, t).to(torch.bool).contiguous()
-        a = log_a.to(dtype).contiguous()
-        pi = log_pi.to(dtype).contiguous() if fwd else None
-        at = a.t().contiguous() if bwd else None
+        m = None if mask is None else _dense(torch.broadcast_to(mask, lead + (t,)), torch.bool)
+        lb, a = _dense(log_b, dtype), _dense(log_a, dtype)
+        pi = _dense(log_pi, dtype) if fwd else None
         ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        chunk = fb_chunks(t)[1] if route == "chunked" else 0
         lib = _build.load("forward_backward", _ARGTYPES)
         with torch.cuda.device(dev):  # launch on the tensors' card
             rc = lib.forward_backward_launch(
-                ptr(pi), a.data_ptr(), ptr(at), lb.data_ptr(), ptr(m), b, t, n, dirs,
-                FB_ROUTES.index(route), int(dtype == torch.float64), ptr(alpha), ptr(loglik),
-                ptr(beta), torch.cuda.current_stream(dev).cuda_stream)
+                ptr(pi), a.data_ptr(), lb.data_ptr(), ptr(m), b, t, n, dirs,
+                FB_ROUTES.index(route), chunk, int(dtype == torch.float64), ptr(alpha),
+                ptr(loglik), ptr(beta), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(lib, "forward_backward", rc)
         forward_backward.launches += 1
-    shape = lead + (t, n)
-    return (None if alpha is None else alpha.reshape(shape),
-            None if loglik is None else loglik.reshape(lead),
-            None if beta is None else beta.reshape(shape))
+    return alpha, loglik, beta
 
 
 def _on_cuda(log_b: torch.Tensor) -> bool:

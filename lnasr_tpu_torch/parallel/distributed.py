@@ -132,8 +132,9 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), device="cuda",
     ``device="cuda"`` without a card raises here, before any rank starts.
     ``fn`` and ``args`` are pickled, so ``fn`` must be importable (a
     module-level function of a package or of the ``__main__`` script), and
-    so must each result. A rank that raises or dies makes this raise
-    :class:`RankError` with its rank and traceback, after the other ranks
+    so must each result. A rank that raises or dies, or that gave its
+    result and then exited with a nonzero code, makes this raise
+    :class:`RankError` with its rank (and traceback), after the other ranks
     are stopped."""
     resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
@@ -152,18 +153,28 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), device="cuda",
                 try:
                     rank, ok, payload = results.get(timeout=0.5)
                 except queue.Empty:
-                    for r, p in enumerate(procs):
-                        if r not in done and p.exitcode is not None:
-                            raise RankError(r, f"exited with code {p.exitcode} and no result")
-                    if time.monotonic() > deadline:
+                    gone = [r for r, p in enumerate(procs) if r not in done and p.exitcode is not None]
+                    if gone:
+                        # a rank puts its result and then exits: the result may
+                        # have reached the queue after the wait above gave up
+                        try:
+                            rank, ok, payload = results.get(timeout=1.0)
+                        except queue.Empty:
+                            raise RankError(gone[0], f"exited with code "
+                                            f"{procs[gone[0]].exitcode} and no result") from None
+                    elif time.monotonic() > deadline:
                         raise RankError(min(set(range(world_size)) - set(done)),
                                         f"no result within {timeout} s")
-                    continue
+                    else:
+                        continue
                 if not ok:
                     raise RankError(rank, "raised\n" + payload)
                 done[rank] = payload
             for p in procs:
                 p.join(timeout=60)
+            for r, p in enumerate(procs):
+                if p.exitcode not in (0, None):  # None: still running, stopped below
+                    raise RankError(r, f"exited with code {p.exitcode} after its result")
         finally:
             for p in procs:
                 if p.is_alive():

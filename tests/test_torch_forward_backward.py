@@ -12,12 +12,18 @@ model of the kernel, the E-step callers, and the source's C interface.
   distance is the root mean square of the entries' relative errors
   (:func:`_rms_rel`): the largest single error is a few ulps in both, and
   over four utterances' logliks its ratio swings past 2 by chance.
+- ``forward_backward_chunked_plain``, the chunked route's mirror (chunk
+  products, boundary chain, replay), against the same JAX scans and
+  ``forward_assoc`` at the same bars, at every N = 2-8 and lengths from
+  one frame to several chunks.
 - ``_launch`` (what a CUDA call runs) with its library replaced by a NumPy
   model of the kernel's arithmetic (per step ``x = v[src] + M[src, dst]``,
   ``m = max`` or 0 where infinite, ``log(sum_src exp(x - m)) + m`` with
-  ascending sources), fed the real pointers of CPU tensors: the
-  flattening, dtype promotion, mask broadcast, the transposed matrix and
-  the argument order of the C call, within 1e-12 of the plain versions at
+  ascending sources; on the chunked route that step on every row of each
+  chunk's product, then the boundary chain and the replay), fed the real
+  pointers of CPU tensors: the flattening, dtype promotion, mask
+  broadcast, inputs passed uncopied, the route and chunk length and the
+  argument order of the C call, within 1e-12 of the plain versions at
   float64, the same ``-inf`` pattern, no NaN.
 """
 
@@ -139,6 +145,89 @@ def test_plain_float32_within_twice_jax(n, kind):
         assert d_port <= 2 * d_jax, (d_port, d_jax)
 
 
+# -- the chunked route's plain mirror against the JAX scans -------------------
+
+J_ASSOC = jax.jit(jax.vmap(jtr.forward_assoc, in_axes=(None, None, 0)))
+
+
+def _chunked(pi, a, log_b, mask, dtype):
+    t = [torch.as_tensor(x, dtype=dtype) for x in (pi, a, log_b)]
+    fwd, beta = ttr.forward_backward_chunked_plain(*t, torch.as_tensor(mask))
+    return fwd, beta
+
+
+@pytest.mark.parametrize("n,kind", CASES)
+def test_chunked_plain_matches_jax_float64(n, kind):
+    """The chunked route's mirror (chunk products, boundary chain, replay)
+    against the JAX scans on the inputs of the plain loops' float64 test:
+    1e-12, ``-inf`` patterns identical."""
+    rng = np.random.default_rng(100 * n + len(kind))
+    pi, a, log_b, mask = _model(rng, n, 29, 4, kind)
+    fwd, beta, _ = _jax(pi, a, log_b, mask, jnp.float64)
+    got, got_beta = _chunked(pi, a, log_b, mask, torch.float64)
+    _close64(got.alpha, fwd.alpha)
+    _close64(got.loglik, fwd.loglik)
+    _close64(got_beta, beta)
+
+
+@pytest.mark.parametrize("n,kind", CASES)
+def test_chunked_plain_float32_within_twice_jax(n, kind):
+    rng = np.random.default_rng(200 * n + len(kind))
+    pi, a, log_b, mask = _model(rng, n, 61, 4, kind)
+    f64, b64, _ = _jax(pi, a, log_b, mask, jnp.float64)
+    f32, b32, _ = _jax(pi, a, log_b, mask, jnp.float32)
+    got, got_beta = _chunked(pi, a, log_b, mask, torch.float32)
+    assert got.alpha.dtype == got_beta.dtype == torch.float32
+    for port, jx, ref in ((got.alpha, f32.alpha, f64.alpha), (got.loglik, f32.loglik, f64.loglik),
+                          (got_beta, b32, b64)):
+        d_port, d_jax = _rms_rel(port.numpy(), ref), _rms_rel(jx, ref)
+        assert d_port <= 2 * d_jax, (d_port, d_jax)
+
+
+# every N of the chunked route, each at three lengths: one frame, one step,
+# fewer frames than the flagship's 32-step chunks, a last chunk shorter than
+# the rest (T = 100: 13 chunks of 8 steps, the last of 3), and past 2 tiles
+LENGTHS = [(n, t) for n, ts in zip(range(2, 9), ((1, 33, 100), (2, 5, 130), (1, 31, 100),
+                                                  (3, 64, 300), (2, 29, 100), (1, 5, 33),
+                                                  (2, 100, 200)))
+           for t in ts]
+
+
+@pytest.mark.parametrize("n,t", LENGTHS)
+def test_chunked_plain_lengths_against_jax(n, t):
+    """At every N = 2-8 and lengths from one frame to several chunks, with
+    an unreachable state, a state with no way out, a frame of -inf
+    emissions and ragged masks (one utterance of a single frame): float64
+    within 1e-12 of the JAX scans, ``-inf`` patterns identical; float32
+    within 2x the JAX float32 RMS distance from the float64 result."""
+    rng = np.random.default_rng(500 + 10 * n + t)
+    pi, a, log_b, mask = _model(rng, n, t, 4, "inf")
+    log_b[-1, t // 3] = -np.inf
+    f64, b64, _ = _jax(pi, a, log_b, mask, jnp.float64)
+    got, got_beta = _chunked(pi, a, log_b, mask, torch.float64)
+    _close64(got.alpha, f64.alpha)
+    _close64(got.loglik, f64.loglik)
+    _close64(got_beta, b64)
+    f32, b32, _ = _jax(pi, a, log_b, mask, jnp.float32)
+    got, got_beta = _chunked(pi, a, log_b, mask, torch.float32)
+    for port, jx, ref in ((got.alpha, f32.alpha, f64.alpha), (got_beta, b32, b64)):
+        d_port, d_jax = _rms_rel(port.numpy(), ref), _rms_rel(jx, ref)
+        assert d_port <= 2 * d_jax, (d_port, d_jax)
+
+
+@pytest.mark.parametrize("n,kind", [(2, "random"), (5, "left_to_right"), (8, "inf")])
+def test_chunked_plain_matches_forward_assoc(n, kind):
+    """Unmasked, the mirror's alpha and loglik equal the JAX
+    ``forward_assoc`` (a log-depth scan over the same (N, N) operators)
+    within 1e-12."""
+    rng = np.random.default_rng(600 + n)
+    pi, a, log_b, _ = _model(rng, n, 47, 4, kind)
+    ref = J_ASSOC(*(jnp.asarray(x, jnp.float64) for x in (pi, a, log_b)))
+    got, _ = _chunked(pi, a, log_b, np.ones(log_b.shape[:2], bool), torch.float64)
+    _close64(got.alpha, ref.alpha)
+    _close64(got.loglik, ref.loglik)
+
+
 # -- the wrapper's host side, with the kernel replaced by a NumPy model -----------
 
 
@@ -157,32 +246,72 @@ def _lse_steps(v, m):
         return np.log(s).astype(x.dtype) + mx
 
 
-def kernel_model(pi, a, at, log_b, mask, fwd, bwd):
+def _steps(t_n, fwd):
+    """Step k = 1 .. T-1 reads frame k (forward) or T - k (backward) and
+    writes row k or T - 1 - k."""
+    return [(k, k if fwd else t_n - k, k if fwd else t_n - 1 - k) for k in range(1, t_n)]
+
+
+def _chunk_rows(v0, m, log_b, valid, fwd, chunk):
+    """The chunked route's rows of one direction (step order) as the kernel
+    forms them: each chunk's product from the identity, row by row (lane
+    (row, col) a step of the lane-per-state recursion), masked steps
+    skipped; the boundary chain through the products; each chunk replayed
+    from its boundary."""
+    t_n, n = log_b.shape
+    steps = _steps(t_n, fwd)
+    chunks = [steps[i:i + chunk] for i in range(0, len(steps), chunk)] or [[]]
+    with np.errstate(divide="ignore"):
+        eye = np.log(np.eye(n)).astype(log_b.dtype)
+    prods = []
+    for ch in chunks:
+        r = eye.copy()
+        for _, f, _ in ch:
+            if valid[f]:
+                r = np.stack([_lse_steps(row, m) + log_b[f] if fwd
+                              else _lse_steps(row + log_b[f], m) for row in r])
+        prods.append(r)
+    v, out = v0, {}
+    for ch, r in zip(chunks, prods):
+        state = v
+        for _, f, row in ch:
+            if valid[f]:
+                state = (_lse_steps(state, m) + log_b[f] if fwd
+                         else _lse_steps(log_b[f] + state, m))
+            out[row] = state
+        v = _lse_steps(v, r)
+    return out, state
+
+
+def kernel_model(pi, a, log_b, mask, fwd, bwd, chunk=0):
     """What the kernel writes for ``log_b (B, T, N)``: each direction as
-    one recursion over ``M`` (``a`` for the forward, ``at`` for the
-    backward)."""
+    one recursion over ``M[src, dst]`` (``a`` for the forward, ``a`` read
+    transposed for the backward), step by step, or on the chunked route
+    (``chunk`` > 0 steps a chunk) by :func:`_chunk_rows`."""
     b_n, t_n, n = log_b.shape
     alpha = np.empty_like(log_b)
     loglik = np.empty(b_n, log_b.dtype)
     beta = np.empty_like(log_b)
     valid = np.ones((b_n, t_n), bool) if mask is None else mask
     for b in range(b_n):
-        if fwd:
-            state = pi + log_b[b, 0]
-            alpha[b, 0] = state
-            for k in range(1, t_n):
-                if valid[b, k]:
-                    state = _lse_steps(state, a) + log_b[b, k]
-                alpha[b, k] = state
-            loglik[b] = _lse_steps(state, np.zeros((n, 1), log_b.dtype))[0]
-        if bwd:
-            state = np.zeros(n, log_b.dtype)
-            beta[b, t_n - 1] = state
-            for k in range(1, t_n):
-                f = t_n - k
-                if valid[b, f]:
-                    state = _lse_steps(log_b[b, f] + state, at)
-                beta[b, f - 1] = state
+        for on, d_fwd, out in ((fwd, True, alpha), (bwd, False, beta)):
+            if not on:
+                continue
+            m = a if d_fwd else a.T
+            state = pi + log_b[b, 0] if d_fwd else np.zeros(n, log_b.dtype)
+            out[b, 0 if d_fwd else t_n - 1] = state
+            if chunk:
+                rows, state = _chunk_rows(state, m, log_b[b], valid[b], d_fwd, chunk)
+                for r, x in rows.items():
+                    out[b, r] = x
+            else:
+                for _, f, r in _steps(t_n, d_fwd):
+                    if valid[b, f]:
+                        state = (_lse_steps(state, m) + log_b[b, f] if d_fwd
+                                 else _lse_steps(log_b[b, f] + state, m))
+                    out[b, r] = state
+            if d_fwd:
+                loglik[b] = _lse_steps(state, np.zeros((n, 1), log_b.dtype))[0]
     return alpha, loglik, beta
 
 
@@ -200,17 +329,18 @@ class _ModelLibrary:
         buf = (ctypes.c_char * (count * np.dtype(dtype).itemsize)).from_address(ptr)
         return np.frombuffer(buf, dtype=dtype).reshape(shape)
 
-    def forward_backward_launch(self, pi, a, at, lb, mask, b, t, n, dirs, route, is_double,
+    def forward_backward_launch(self, pi, a, lb, mask, b, t, n, dirs, route, chunk, is_double,
                                 alpha, loglik, beta, stream):
         self.calls.append(dict(b=b, t=t, n=n, dirs=dirs, route=ttr.FB_ROUTES[route],
-                               is_double=is_double, mask=mask))
+                               chunk=chunk, is_double=is_double, mask=mask, ptrs=(pi, a, lb)))
         dt = np.float64 if is_double else np.float32
         fwd, bwd = bool(dirs & 1), bool(dirs & 2)
+        chunked = ttr.FB_ROUTES[route] == "chunked"
         out = kernel_model(
             self._view(pi, dt, (n,)).copy() if fwd else None, self._view(a, dt, (n, n)).copy(),
-            self._view(at, dt, (n, n)).copy() if bwd else None,
             self._view(lb, dt, (b, t, n)).copy(),
-            None if mask is None else self._view(mask, np.bool_, (b, t)).copy(), fwd, bwd)
+            None if mask is None else self._view(mask, np.bool_, (b, t)).copy(), fwd, bwd,
+            chunk if chunked else 0)
         if fwd:
             self._view(alpha, dt, (b, t, n))[...] = out[0]
             self._view(loglik, dt, (b,))[...] = out[1]
@@ -303,29 +433,99 @@ def test_launch_float32_model_within_twice_plain(model_library):
 
 
 def test_routes_cover_every_n():
-    """The warp route up to 32 states; past that the block routes by what
-    fits in a block's shared memory: the step's vector and ``log_a``, the
-    vector alone (``log_a`` through L2), or neither. No N is refused."""
+    """The chunked route up to 8 states (every EM model and unit), the
+    warp route up to 32; past that the block routes by what fits in a
+    block's shared memory: the step's vector and ``log_a``, the vector
+    alone (``log_a`` through L2), or neither. No N is refused."""
     route = ttr.fb_route
-    assert [route(n, 4) for n in (1, 5, 32)] == ["warp"] * 3
+    assert [route(n, itemsize) for n in (1, 2, 5, 8) for itemsize in (4, 8)] == ["chunked"] * 8
+    assert [route(n, 4) for n in (9, 16, 32)] == ["warp"] * 3
     assert route(33, 8) == route(64, 8) == route(179, 4) == "smem"
     assert route(179, 8) == "l2"  # 179 x 179 float64 is 256 KB
     assert route(14_000, 4) == "l2" and route(14_600, 8) == "global"
     assert route(10 ** 6, 4) == "global"
 
 
+@pytest.mark.parametrize("t", [1, 2, 3, 5, 31, 33, 64, 100, 300, 999, 1000, 2049, 10 ** 5])
+def test_chunks_cover_the_steps(t):
+    """``fb_chunks``: at most 32 chunks, every step in one, none empty
+    (only T = 1, with no steps, has one chunk of none), ``C`` near
+    ``sqrt(2 (T - 1))`` while that fits; the flagship's T = 999 is 32 x 32."""
+    c, chunk = ttr.fb_chunks(t)
+    steps = t - 1
+    assert 1 <= c <= ttr.CHUNK_WARPS and chunk >= 1
+    if steps:
+        assert (c - 1) * chunk < steps <= c * chunk
+        assert c == ttr.CHUNK_WARPS or abs(c - np.sqrt(2 * steps)) <= chunk
+    assert ttr.fb_chunks(999) == (32, 32)
+
+
 def test_launch_forced_routes(model_library):
-    """A forced block route reaches the C call at any N; the warp route past
-    32 states is refused."""
+    """A forced block route reaches the C call at any N, and the chunked
+    route at N <= 8 with its chunk length; the warp route past 32 states
+    and the chunked route past 8 are refused."""
     rng = np.random.default_rng(9)
     pi, a, log_b, mask = _model(rng, 5, 11, 2, "random")
     t = [torch.as_tensor(x) for x in (pi, a, log_b)]
-    for route in ("smem", "l2", "global"):
+    for route in ("smem", "l2", "global", "chunked"):
         ttr._launch(*t, torch.as_tensor(mask), 3, route=route)
         assert model_library.calls[-1]["route"] == route
+    assert model_library.calls[-1]["chunk"] == ttr.fb_chunks(11)[1]
     t40 = [torch.zeros(40), torch.zeros(40, 40), torch.zeros(1, 3, 40)]
     with pytest.raises(ValueError, match="no route 'warp'"):
         ttr._launch(*t40, None, 3, route="warp")
+    t9 = [torch.zeros(9), torch.zeros(9, 9), torch.zeros(1, 70, 9)]
+    with pytest.raises(ValueError, match="no route 'chunked'"):
+        ttr._launch(*t9, None, 3, route="chunked")
+
+
+CHUNKED_LAUNCHES = [(n, t, route) for n, t in zip(range(2, 9), (64, 100, 130, 70, 200, 65, 99))
+                    for route in (None, "warp")] + [(5, 1, "chunked"), (3, 5, "chunked"),
+                                                   (8, 31, "chunked"), (6, 2, "chunked")]
+
+
+@pytest.mark.parametrize("n,t,route", CHUNKED_LAUNCHES)
+def test_launch_chunked_against_model(model_library, n, t, route):
+    """The chunked route as the wrapper calls it (chosen, or forced; the
+    warp route forced at the same shapes): the
+    C call gets the route and ``fb_chunks``' chunk length, and the model of
+    the kernel on that route (chunk products, boundary chain, replay) is
+    within 1e-12 of the plain loops at float64, the ``-inf`` patterns
+    identical, the -inf rows, columns and frames and ragged masks
+    included."""
+    rng = np.random.default_rng(400 + 10 * n + t)
+    pi, a, log_b, mask = _model(rng, n, t, 4, "inf")
+    log_b[-1, t // 3] = -np.inf
+    ts = [torch.as_tensor(x) for x in (pi, a, log_b)]
+    m = torch.as_tensor(mask)
+    alpha, loglik, beta = ttr._launch(*ts, m, 3, route=route)
+    call = model_library.calls[-1]
+    assert call["route"] == (route or "chunked")
+    assert call["chunk"] == (ttr.fb_chunks(t)[1] if call["route"] == "chunked" else 0)
+    ref, ref_beta = ttr.forward_backward(*ts, m)
+    _close64(alpha, ref.alpha)
+    _close64(loglik, ref.loglik)
+    _close64(beta, ref_beta)
+
+
+def test_launch_passes_dense_inputs_as_they_are(model_library):
+    """An input already in the call's dtype and contiguous reaches the C
+    call as it is (no copy, no launch); one that is not is copied once; no
+    transposed ``log_a`` is made (the kernel reads it by index)."""
+    rng = np.random.default_rng(14)
+    pi, a, log_b, mask = _model(rng, 5, 80, 3, "random")
+    ts = [torch.as_tensor(x) for x in (pi, a, log_b)]
+    m = torch.as_tensor(mask)
+    ttr._launch(*ts, m, 3)
+    call = model_library.calls[-1]
+    assert call["ptrs"] == tuple(x.data_ptr() for x in ts)
+    assert call["mask"] == m.data_ptr()
+    a_t = ts[1].t().contiguous().t()  # the same values, not contiguous
+    ttr._launch(ts[0], a_t, ts[2].float(), m[0], 3)  # float32 log_b promotes; a (T,) mask broadcasts
+    call = model_library.calls[-1]
+    assert call["ptrs"][0] == ts[0].data_ptr()
+    assert call["ptrs"][1] != a_t.data_ptr() and call["ptrs"][2] != ts[2].data_ptr()
+    assert call["b"] == 3 and call["mask"] != m.data_ptr()
 
 
 # -- the CPU path, the refusals, the callers --------------------------------------
@@ -430,14 +630,19 @@ def test_hmm_sequence_stats_calls_forward_backward_once(spied):
 def test_source_exports_what_the_wrapper_binds():
     """``forward_backward_launch`` takes as many arguments as the wrapper's
     ``argtypes`` name (ctypes passes a pointer cut to 32 bits where an
-    argument is missing), returns int, and an error-string entry exists; the
-    source uses the exact ``exp``/``log`` and no atomics."""
+    argument is missing), in their order of pointers and ints, with no
+    transposed matrix (the backward reads ``log_a`` by index) and the
+    chunked route's chunk length; returns int, and an error-string entry
+    exists; the source uses the exact ``exp``/``log`` and no atomics."""
     src = SOURCE.read_text()
     sig = re.search(r'extern "C" int forward_backward_launch\(([^)]*)\)', src)
     assert sig is not None
     params = [p.strip() for p in sig.group(1).split(",")]
     assert len(params) == len(ttr._ARGTYPES) == 15
     pointer = ["*" in p for p in params]
+    names = [p.split()[-1].lstrip("*") for p in params]
+    assert names[:4] == ["log_pi", "log_a", "log_b", "mask"] and "log_at" not in names
+    assert names[8:10] == ["route", "chunk"]
     assert pointer == [t is ctypes.c_void_p for t in ttr._ARGTYPES]
     assert 'extern "C" const char* forward_backward_error_string(int err)' in src
     code = re.sub(r"//[^\n]*", "", src)

@@ -312,6 +312,72 @@ def test_rank_failure_reaches_the_parent(tmp_path):
         distributed.run_ranks(os._exit, 2, args=(3,), device="cpu")
 
 
+def test_result_put_just_before_exit_is_taken(monkeypatch):
+    """A rank puts its result and then exits. Where the parent's wait for a
+    result gives up just before the result arrives, and the rank has
+    exited by the time the parent looks, the result is taken, not reported
+    as a rank that died without one."""
+    import queue
+
+    class LateQueue:  # empty at the first wait, then the rank's result
+        def __init__(self):
+            self.waits = 0
+
+        def get(self, timeout):
+            self.waits += 1
+            if self.waits == 1:
+                raise queue.Empty
+            return 0, True, "result"
+
+    class ExitedRank:
+        exitcode = 0
+
+        def __init__(self, **kw):
+            pass
+
+        def start(self):
+            pass
+
+        def join(self, timeout=None):
+            pass
+
+        def is_alive(self):
+            return False
+
+    ctx = types.SimpleNamespace(Queue=LateQueue, Process=ExitedRank)
+    monkeypatch.setattr(torch.multiprocessing, "get_context", lambda method: ctx)
+    assert distributed.run_ranks(os.getpid, 1, device="cpu") == ["result"]
+
+
+def test_rank_that_fails_after_its_result_raises(monkeypatch):
+    """A rank that put its result and then exited with a nonzero code (a
+    crash in its teardown) is reported, not taken as a success."""
+
+    class Results:
+        def get(self, timeout):
+            return 0, True, "result"
+
+    class FailedRank:
+        exitcode = 1
+
+        def __init__(self, **kw):
+            pass
+
+        def start(self):
+            pass
+
+        def join(self, timeout=None):
+            pass
+
+        def is_alive(self):
+            return False
+
+    ctx = types.SimpleNamespace(Queue=Results, Process=FailedRank)
+    monkeypatch.setattr(torch.multiprocessing, "get_context", lambda method: ctx)
+    with pytest.raises(distributed.RankError, match="rank 0: exited with code 1 after its result"):
+        distributed.run_ranks(os.getpid, 1, device="cpu")
+
+
 def test_process_local_slice_and_world_of_one():
     """Each rank's rows of a global batch; and the sharded trainer on a
     world of one, a (1, 1, 1) mesh (the JAX ``test_mesh_degrades_to_single

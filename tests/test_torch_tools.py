@@ -135,6 +135,27 @@ def test_multihost_train_world_of_one(capfd):
         multihost_train.main(["--iters", "1"])  # the card by default
 
 
+def test_multihost_train_writes_each_line_at_once(monkeypatch):
+    """Every line the trainer prints goes out in one write, so the lines of
+    ranks that share one output cannot interleave (``print`` writes the
+    text and the newline apart, and under ``PYTHONUNBUFFERED`` each write
+    is a system call: two ranks' lines came out as one)."""
+    from lnasr_tpu_torch.examples import multihost_train
+
+    writes = []
+
+    class Recorder(io.StringIO):
+        def write(self, s):
+            writes.append(s)
+            return super().write(s)
+
+    monkeypatch.setattr(sys, "stdout", Recorder())
+    assert multihost_train.main(["--device", "cpu", "--global-batch", "4", "--frames", "40",
+                                 "--iters", "2"]) == 0
+    assert len(writes) == 4 and writes[0] == "process 0/1: gloo on cpu\n"
+    assert all(w.endswith("\n") and w.count("\n") == 1 for w in writes), writes
+
+
 def test_multihost_train_matches_jax_data_parallel():
     """The 2-rank run's per-sweep logliks against the JAX package's
     ``make_dp_gmmhmm_em_step`` on a 2-device mesh in this process, on the
