@@ -5,10 +5,11 @@
 
 Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
-PyTorch version at the serving shapes (the Baum-Welch forward-backward
-kernel G at float64 within 1e-12 and at float32 within 2x the plain loops'
-distance from float64, on every route, N = 3 to 1100, two launches
-bitwise; the Viterbi kernels bitwise: the
+PyTorch version at the serving shapes (the trigram decode's forward and
+backtrace and the WebRTC VAD's GMM in their phases below; the Baum-Welch
+forward-backward kernel G at float64 within 1e-12 and at float32 within
+2x the plain loops' distance from float64, on every route, N = 3 to 1100,
+two launches bitwise; the Viterbi kernels bitwise: the
 dense-graph kernel on sparse and dense graphs of 33 to 2000 states, ties
 across the lanes that split one source list, and batches with masks; the
 factored forward and the lattice-recording forward also over 60
@@ -32,11 +33,15 @@ kernels' launch counters reset just before and read just after:
   frontend, forward and backtrace kernels once), against the CPU stream,
   with a ``reset()`` replay and ``Recognizer.recognize_segments``;
 - the exact trigram graph at V = 200, ``entry.recognizer_serving(200,
-  graph="trigram", lm_order=3)``: its segment decode launches the mel
-  frontend once (the decode itself is a frame loop of torch ops);
+  graph="trigram", lm_order=3)``: the trigram kernel's forward and
+  backtrace held bitwise against their plain frame loops (the segment's
+  inputs at float32 and float64, planted ties, masks, T = 1 and 2, both
+  routes), then its segment decode launches the mel frontend, the
+  trigram forward and the trigram backtrace once each;
 - the device VADs on the stream's audio (LTSD fixed and adaptive, the
-  WebRTC-style torch VAD in modes 0-3) against their CPU runs and the
-  native detector;
+  WebRTC-style torch VAD in modes 0-3, whose GMM recursion is one launch
+  of its kernel a call) against their CPU runs, the plain GMM loop on the
+  card and the native detector;
 - training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
   frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (kernel G
   once a sweep for the forward-backward recursion, torch GEMMs for the
@@ -62,10 +67,11 @@ kernels' launch counters reset just before and read just after:
   (mel frontend once) against ``--device cpu``; ``lm-train``, ``lm-ppl``
   and ``vad`` against the port's objects; ``train-am --f64`` and
   ``recognize`` through ``build_parser()`` and the cores with the models in
-  memory, card against CPU, ``recognize`` in four forms (default graph:
+  memory, card against CPU, ``recognize`` in five forms (default graph:
   mel frontend and dense-graph Viterbi; ``--graph factored``: mel
   frontend, forward and backtrace; ``--nbest 3 --confidence``: mel
-  frontend and lattice; ``--bucket-frames 16``); ``cli bench`` (the
+  frontend and lattice; ``--bucket-frames 16``; ``--graph trigram`` over
+  an order-3 LM: mel frontend and the trigram kernels); ``cli bench`` (the
   headline harness: mel frontend, small-N Viterbi, forward, backtrace and
   lattice kernels), ``bench/train`` and ``bench/decoder`` reduced; and
   ``examples/multihost_train`` as a world of one under NCCL; every kernel
@@ -1050,28 +1056,167 @@ def stream_phase(torch, entry, wrappers, card, launches):
             "busy": busy / replay_wall}
 
 
+def trigram_ties(torch, log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx):
+    """The ties the trigram recursion meets on these inputs (its plain
+    forward replayed): within-word maxima that two sources or more reach,
+    hop maxima that two histories or more reach, and hops equal to
+    ``within`` at state 0, at finite values on valid frames."""
+    h, v, s = hop3.shape[0], hop3.shape[1], inner_a.shape[1]
+    ex = exit_idx.long()[None, :, None].expand(h, v, 1)
+    grid = torch.full((h, v, s), -np.inf, dtype=log_b.dtype, device=log_b.device)
+    grid[h - 1, :, 0] = log_pi_w
+    grid = grid + log_b[0]
+    counts = np.zeros(3, np.int64)
+    for t in range(1, log_b.shape[0]):
+        if mask is not None and not bool(mask[t]):
+            continue
+        cand = grid[:, :, :, None] + inner_a[None]
+        within = cand.max(dim=2).values
+        hop = torch.gather(grid, 2, ex) + hop3
+        entry = hop.max(dim=0).values
+        fin_w, fin_h = torch.isfinite(within), torch.isfinite(entry)
+        counts += [int(((cand == within[:, :, None]).sum(2) > 1)[fin_w].sum()),
+                   int(((hop == entry[None]).sum(0) > 1)[fin_h].sum()),
+                   int(((entry == within[:v, :, 0]) & fin_h).sum())]
+        within[:v, :, 0] = torch.maximum(within[:v, :, 0], entry)
+        grid = within + log_b[t]
+    return counts
+
+
+def check_trigram_case(torch, tri, args, what, route=None, ties=False):
+    """Kernel H (forward on ``route``, else the wrapper's own; then the
+    backtrace) against its plain versions on ``args``: backpointers, score,
+    final state and path bitwise, and a second launch of each bitwise the
+    first. With ``ties``, prints the ties the inputs hold. Returns the
+    score's absolute difference from the plain version's (0.0: the check
+    requires its bits)."""
+    bts, score, last = tri._forward(*args, route=route)
+    path = tri.trigram_backtrace(bts, last)
+    bts2, score2, last2 = tri._forward(*args, route=route)
+    path2 = tri.trigram_backtrace(bts2, last2)
+    rb, rs, rl = tri.trigram_forward_plain(*args)
+    rp = tri.trigram_backtrace_plain(rb, rl)
+    torch.cuda.synchronize()
+    require(torch.equal(bts, rb) and same_bits(torch, [score], [rs]) and torch.equal(last, rl),
+            f"kernel H's forward differs from its plain version on {what}: "
+            f"{int((bts != rb).sum())} backpointers, score {float(score)} vs {float(rs)}, "
+            f"final state {int(last)} vs {int(rl)}")
+    require(torch.equal(path, rp), f"kernel H's backtrace differs from its plain version on "
+            f"{what}: {int((path != rp).sum())} path entries")
+    require(torch.equal(bts, bts2) and same_bits(torch, [score], [score2])
+            and torch.equal(path, path2), f"kernel H: two launches differ on {what}")
+    note = ""
+    if ties:
+        c = trigram_ties(torch, *args)
+        note = (f"; ties met: {c[0]} within-word, {c[1]} across histories, {c[2]} hops equal to "
+                f"the within-word score at state 0")
+    t, v, s = args[0].shape
+    route = route or tri.trigram_route(v + 1, v, s, args[0].dtype.itemsize,
+                                       tri.sm_count(args[0].device))
+    print(f"kernel H vs plain ({what}: T={t}, V={v}, S={s}, {args[0].dtype}, route {route}): "
+          f"backpointers, score, final state and path bitwise, two launches bitwise{note}")
+    return 0.0 if same_bits(torch, [score], [rs]) else abs(float(score) - float(rs))
+
+
+def tie_graph(torch, rng, v, s, t_len, dev, dtype):
+    """A small trigram graph's tables and emissions on coarse integer grids
+    (many ``-inf``s, hop rows of two histories alike, every within-word
+    source equal): ties of every kind. ``(log_b, inner_a, hop3, log_pi_w,
+    final3, exit_idx)``."""
+    h = v + 1
+    sizes = rng.integers(1, s + 1, size=v)
+    inner = np.full((v, s, s), -np.inf)
+    for w, n in enumerate(sizes):
+        for j in range(n):
+            inner[w, j, j] = 0.0
+            if j + 1 < n:
+                inner[w, j, j + 1] = 0.0
+    hop3 = rng.integers(-2, 1, size=(h, v, v)).astype(np.float64)
+    hop3[rng.random((h, v, v)) < 0.2] = -np.inf
+    hop3[1] = hop3[0]
+    log_b = rng.integers(-2, 1, size=(t_len, v, s)).astype(np.float64)
+    log_b[:, np.arange(s)[None, :] >= sizes[:, None]] = -np.inf
+    pi = rng.integers(-1, 1, size=v).astype(np.float64)
+    fin = rng.integers(-1, 1, size=(h, v)).astype(np.float64)
+    on = lambda x: torch.as_tensor(x, dtype=dtype, device=dev)  # noqa: E731
+    return (on(log_b), on(inner), on(hop3), on(pi), on(fin),
+            torch.as_tensor(sizes - 1, dtype=torch.int32, device=dev))
+
+
+def check_trigram(torch, tri, dev, g, log_b, mask):
+    """Kernel H against its plain versions, bitwise (:func:`check_trigram_case`):
+    the V = 200 segment's own inputs at float32 and float64, each on both
+    routes; its scores rounded to integers (ties across histories and
+    within sources, hops equal to ``within``); small graphs of planted ties
+    with masks at the start, inside and at the end, and T = 1 and 2; each
+    route forced at small V, from one word (two history rows) on. Returns
+    the segment's largest score difference (0.0)."""
+    tabs = (g.inner_a, g.hop3, g.log_pi_w, g.final3, g._exit_idx32)
+    seg = (log_b, mask) + tabs
+    seg64 = tuple(x.double() if x.is_floating_point() else x for x in seg)
+    err = max(check_trigram_case(torch, tri, a, f"the V=200 segment, {what}", route)
+              for what, a in (("float32", seg), ("float64", seg64)) for route in tri.ROUTES)
+    rounded = (log_b.round(), mask, g.inner_a.round(), g.hop3.round(), g.log_pi_w.round(),
+               g.final3.round(), g._exit_idx32)
+    check_trigram_case(torch, tri, rounded, "the V=200 segment rounded to integers", ties=True)
+    rng = np.random.default_rng(14)
+    t_len = 40
+    masks = {"no mask": None,
+             "masked at the start": torch.arange(t_len, device=dev) >= 3,
+             "masked inside": (torch.arange(t_len, device=dev) < 12)
+             | (torch.arange(t_len, device=dev) >= 17),
+             "masked at the end": torch.arange(t_len, device=dev) < 33}
+    for dtype in (torch.float32, torch.float64):
+        lb, *tab = tie_graph(torch, rng, 12, 4, t_len, dev, dtype)
+        for what, m in masks.items():
+            for route in tri.ROUTES:
+                check_trigram_case(torch, tri, (lb, m, *tab), f"planted ties, {what}", route,
+                                   ties=route == "smem")
+        for t in (1, 2):
+            check_trigram_case(torch, tri, (lb[:t], None, *tab), f"planted ties, T={t}")
+            check_trigram_case(torch, tri, (lb[:t], torch.zeros(t, dtype=torch.bool, device=dev),
+                                            *tab), f"planted ties, T={t}, every frame masked")
+    for v in (1, 5, 40):  # one word to a few: from H = 2 rows on up
+        lb, *tab = tie_graph(torch, rng, v, 3, 25, dev, torch.float32)
+        for route in tri.ROUTES:
+            check_trigram_case(torch, tri, (lb.float() * 0.37, None, *tab), f"V={v}", route)
+    return err
+
+
 def trigram_phase(torch, entry, wrappers, card, launches):
     """The exact trigram graph at V = 200 (an order-3 LM counted from
-    ``serving_corpus(200)``): the bucketed segment decode launches the mel
-    frontend once and no other kernel, and equals the CPU recognizer; a
-    planted 6-word sequence decodes to itself."""
+    ``serving_corpus(200)``): kernel H held against its plain versions
+    (:func:`check_trigram`); the bucketed segment decode launches the mel
+    frontend, H's forward and H's backtrace once each and nothing else,
+    and equals the CPU recognizer; a planted 6-word sequence decodes to
+    itself. Times the segment, H's two kernels (CUDA events over
+    back-to-back launches queued behind a spinning kernel, and
+    torch.profiler) and the plain frame loop on the card."""
     from lnasr_tpu_torch.models.decoder import TrigramDecodingGraph
+    from lnasr_tpu_torch.ops import trigram as tri
 
     rec, seg = entry.recognizer_serving(200, device=DEVICE, graph="trigram", lm_order=3)
     rec_cpu, _ = entry.recognizer_serving(200, device="cpu", graph="trigram", lm_order=3)
     g = rec.graph
     require(isinstance(g, TrigramDecodingGraph) and rec.lm.ngram.order == 3,
             "V=200 did not compose the trigram graph over an order-3 LM")
+    padded, n, _ = rec._pad_to_bucket(seg)
+    feats, mask = rec.am.mfcc.features_fast(torch.from_numpy(padded).to(DEVICE),
+                                            lengths=torch.tensor([n], device=DEVICE))
+    log_b = g._grid_log_b(feats)
+    h_err = check_trigram(torch, tri, torch.device(DEVICE), g, log_b, mask)
     rec.decode_segment(seg)  # first calls out of the count and the timing
     torch.cuda.synchronize()
     reset_counts(*wrappers)
     words, score = rec.decode_segment(seg)
+    torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
     launches["V=200 trigram"] = counts
-    require(counts["mel_frontend"] == 1 and all(c == 0 for n, c in counts.items()
-                                                if n != "mel_frontend"),
-            f"the trigram segment decode did not launch the mel frontend once and nothing "
-            f"else: {counts}")
+    on_path = ("mel_frontend", "trigram_forward", "trigram_backtrace")
+    require(all(counts[n] == 1 for n in on_path)
+            and all(c == 0 for n, c in counts.items() if n not in on_path),
+            f"the trigram segment decode did not launch the mel frontend, H's forward and H's "
+            f"backtrace once each and nothing else: {counts}")
     words_c, score_c = rec_cpu.decode_segment(seg)
     rel = abs(score - score_c) / abs(score_c)
     require(words == words_c and rel < 1e-4,
@@ -1098,16 +1243,76 @@ def trigram_phase(torch, entry, wrappers, card, launches):
           f"{dev:.4f} ms per call (torch.profiler)")
     device_breakdown(torch, lambda: rec.decode_segment(seg), ms, f"{card}, trigram segment V=200",
                      steps=2)
-    return {"ms": ms, "device_ms": dev}
+
+    # kernel H at the segment's own inputs
+    args = (log_b, mask, g.inner_a, g.hop3, g.log_pi_w, g.final3, g._exit_idx32)
+    bts, _, last = tri.trigram_forward(*args)
+    fwd_ms = burst_ms(lambda: tri.trigram_forward(*args), launches=10)
+    bt_ms = burst_ms(lambda: tri.trigram_backtrace(bts, last))
+    fwd_prof = kernel_device_ms(torch, lambda: tri.trigram_forward(*args), "trigram_forward",
+                                calls=5)
+    bt_prof = kernel_device_ms(torch, lambda: tri.trigram_backtrace(bts, last),
+                               "trigram_backtrace", calls=5)
+    wrapper_ms = cuda_ms(lambda: tri.trigram_viterbi(*args), reps=10)
+    fwd_wrapper_ms = cuda_ms(lambda: tri.trigram_forward(*args), reps=10)
+    bt_wrapper_ms = cuda_ms(lambda: tri.trigram_backtrace(bts, last), reps=10)
+    plain_fwd_ms = cuda_ms(lambda: tri.trigram_forward_plain(*args), reps=3, warmup=1)
+    rb, _, rl = tri.trigram_forward_plain(*args)
+    plain_bt_ms = cuda_ms(lambda: tri.trigram_backtrace_plain(rb, rl), reps=3, warmup=1)
+    t, v, s = log_b.shape
+    h = v + 1
+    steps = int(mask[1:].sum())
+    isz = log_b.dtype.itemsize
+    # bytes: hop3, emissions and the small tables in once, T-1 backpointer
+    # frames out; operations: each valid step's within-word (H V S^2) and
+    # hop (H V^2) adds and maxes
+    f_bytes = (isz * (h * v * v + t * v * s + v * s * s + v + h * v) + 4 * v
+               + 4 * (t - 1) * h * v * s)
+    f_bound = bound(f_bytes, steps * 2 * (h * v * s * s + h * v * v))
+    b_bound = bound(4 * (2 * t + 1), 0)
+    reread_ms = steps * isz * h * v * v / HBM_BYTES_PER_S * 1e3
+    print(f"timing on {card}: kernel H forward {fwd_ms:.4f} ms (CUDA events over 10 launches "
+          f"queued behind a spinning kernel; torch.profiler {fwd_prof[0]:.4f} ms, {fwd_prof[1]} "
+          f"of 5 launches recorded in window {fwd_prof[2]}), the wrapper call {fwd_wrapper_ms:.4f}"
+          f" ms, plain frame loop {plain_fwd_ms:.4f} ms; bound {f_bound[0]:.5f} ms by "
+          f"{f_bound[1]} ({f_bytes} bytes, {steps} steps), hop3 re-read from device memory each "
+          f"step {reread_ms:.4f} ms; kernel H backtrace {bt_ms:.4f} ms (profiler "
+          f"{bt_prof[0]:.4f} ms, {bt_prof[1]} of 5), the wrapper call {bt_wrapper_ms:.4f} ms, "
+          f"plain gathers {plain_bt_ms:.4f} ms, bound {b_bound[0]:.6f} ms; trigram_viterbi "
+          f"{wrapper_ms:.4f} ms (T={t}, H={h}, V={v}, S={s}, route "
+          f"{tri.trigram_route(h, v, s, isz, tri.sm_count(log_b.device))})")
+    return {"ms": ms, "device_ms": dev, "err": h_err,
+            "forward": {"ms": fwd_ms, "profiler_ms": fwd_prof[0], "profiler_launches": fwd_prof[1],
+                        "wrapper_ms": fwd_wrapper_ms, "plain_ms": plain_fwd_ms, "bound": f_bound,
+                        "hop3_reread_ms": reread_ms},
+            "backtrace": {"ms": bt_ms, "profiler_ms": bt_prof[0],
+                          "profiler_launches": bt_prof[1], "wrapper_ms": bt_wrapper_ms,
+                          "plain_ms": plain_bt_ms, "bound": b_bound}}
 
 
-def vad_phase(torch, entry, card):
-    """The device VADs on the stream's audio: LTSD (fixed and adaptive) and
-    the WebRTC-style torch VAD in modes 0-3, each on the card against the
-    same module on CPU tensors; WebRTC's flags against the native
-    detector's."""
+# csrc/webrtc_gmm.cu's operations a frame, counted from its source (adds,
+# subtractions, products, divisions, min/max, compares, expf/log2f; moves
+# and selects not counted). Per channel: the decision 67 (four Gaussians of
+# 10 each, their weights 4, the two log2 shifts 8, the posteriors 9, the
+# two sums, the ratio and its local test 6), the minimum tracker 57 (the
+# walk's 16 compares and at most 16 increments, the insertion's 16
+# compares, the smoothed minimum 9) and the adaptation 102; once a frame,
+# the 6-channel sum, the two tests and the hangover, 11
+GMM_OPS_PER_FRAME = 6 * (67 + 57 + 102) + 11
+
+
+def vad_phase(torch, entry, wrappers, card, launches):
+    """The device VADs on the stream's audio: LTSD (fixed and adaptive) on
+    the card against the CPU; the WebRTC-style torch VAD in modes 0-3, each
+    ``process`` call launching kernel I once (its counters reset just
+    before), its flags equal to the plain frame loop on the card's own
+    features, to the same module on CPU tensors and to the native
+    detector; kernel I's final state bitwise the plain loop's, and in mode
+    0 the same at float64. Times I by CUDA events and the plain loop on
+    the card."""
     from lnasr_tpu_torch.config import LTSDConfig
     from lnasr_tpu_torch.vad import VadLtsd, WebRtcVad, WebRtcVadTorch
+    from lnasr_tpu_torch.vad import webrtc as tweb
 
     audio = entry.serving_stream(0)
     audio_s = len(audio) / 16000
@@ -1131,25 +1336,98 @@ def vad_phase(torch, entry, card):
               f"on the card {np.abs(got32 - ref).max():.3g} dB from the float64 scores, "
               f"{int((got32 > cfg.threshold).sum())} vs {int((ref > cfg.threshold).sum())} speech "
               f"frames; {ms:.4f} ms = {ms / audio_s:.4f} ms per second of audio on {card}")
+
+    sig = torch.as_tensor(audio, device=DEVICE)
+    n_frames = len(audio) // tweb.FRAME_LEN_16K
+    feats, total, _ = tweb.extract_features(
+        sig[: n_frames * tweb.FRAME_LEN_16K].to(torch.float32),
+        tweb.initial_filter_state(torch.float32, DEVICE))
+
+    def same_state(got, ref, what):
+        """Kernel I's final GMM state bit for bit the plain loop's; returns
+        the largest absolute difference of its values (0.0)."""
+        worst = 0.0
+        for name in tweb.GmmState._fields:
+            a, b = getattr(got, name), getattr(ref, name)
+            err = float((a.double() - b.double()).abs().max())
+            require(a.dtype == b.dtype and torch.equal(a, b)
+                    and (not a.is_floating_point() or same_bits(torch, [a], [b])),
+                    f"kernel I {what}: final {name} differs from the plain loop's (max err {err})")
+            worst = max(worst, err)
+        return worst
+
+    total_launches = {w.__name__: 0 for w in wrappers}
     for mode in range(4):
+        det = WebRtcVadTorch(mode=mode, device=DEVICE)
+        det.process(audio)  # the first call out of the count and the timing
+        torch.cuda.synchronize()
+        reset_counts(*wrappers)
+        flags = det.process(audio)
+        counts = {w.__name__: w.launches for w in wrappers}
+        require(counts["gmm_flags"] == 1 and all(c == 0 for n, c in counts.items()
+                                                 if n != "gmm_flags"),
+                f"WebRtcVadTorch mode {mode}: process launched {counts}, not kernel I once")
+        total_launches = {n: total_launches[n] + c for n, c in counts.items()}
+        ms = host_ms(lambda: det.process(audio), reps=5, warmup=0)
+        thr = tweb.MODE_TABLE[mode]
+        k_flags, k_state = tweb.gmm_flags(feats, total, thr, final_state=True)
         t0 = time.perf_counter()
-        flags = WebRtcVadTorch(mode=mode, device=DEVICE).process(audio)
-        ms = (time.perf_counter() - t0) * 1e3
+        p_flags, p_state = tweb.gmm_flags_plain(feats, total, thr, final_state=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
         torch.set_num_threads(1)  # the frame loop's tiny ops run faster on one thread
         try:
             flags_cpu = WebRtcVadTorch(mode=mode, device="cpu").process(audio)
         finally:
             torch.set_num_threads(threads)
         native = WebRtcVad(mode=mode).process(audio)
+        require(np.array_equal(flags, k_flags.cpu().numpy()),
+                f"WebRtcVadTorch mode {mode}: process and gmm_flags on its features differ")
+        require(torch.equal(k_flags, p_flags), f"kernel I mode {mode}: flags differ from the "
+                f"plain loop on the card on {int((k_flags != p_flags).sum())} frames")
         require(np.array_equal(flags, flags_cpu), f"WebRtcVadTorch mode {mode}: card != CPU "
                 f"on {int((flags != flags_cpu).sum())} frames")
         require(np.array_equal(flags, native), f"WebRtcVadTorch mode {mode}: card != native "
                 f"on {int((flags != native).sum())} frames")
+        state_err = same_state(k_state, p_state, f"mode {mode}")
+        k_ms = cuda_ms(lambda: tweb.gmm_flags(feats, total, thr), reps=5, warmup=1)
         out[f"webrtc mode {mode}"] = ms / audio_s
+        out[f"gmm mode {mode}"] = {"ms": k_ms, "plain_ms": plain_ms, "state_err": state_err}
         print(f"WebRtcVadTorch mode {mode} on the stream ({len(flags)} frames, "
-              f"{int((flags > 0).sum())} flagged): equal to the CPU run and to the native "
-              f"detector frame for frame; {ms:.1f} ms = {ms / audio_s:.3f} ms per second of "
-              f"audio on {card} (host clock; the GMM's frame loop)")
+              f"{int((flags > 0).sum())} flagged): kernel I once a call; flags equal to the plain "
+              f"loop on the card, the CPU run and the native detector frame for frame; final "
+              f"state bitwise the plain loop's; process {ms:.3f} ms = "
+              f"{ms / audio_s:.4f} ms per second of audio on {card} (host clock); kernel I "
+              f"{k_ms:.4f} ms ({1e3 * k_ms / n_frames:.3f} us a frame, CUDA events), plain loop "
+              f"on the card {plain_ms:.1f} ms")
+    launches["webrtc vad"] = total_launches
+    thr = tweb.MODE_TABLE[0]
+    # the float64 instantiation (webrtc_vad_flags(dtype=torch.float64)) on the
+    # float64 filterbank's features
+    feats64, total64, _ = tweb.extract_features(
+        sig[: n_frames * tweb.FRAME_LEN_16K].to(torch.float64),
+        tweb.initial_filter_state(torch.float64, DEVICE))
+    k_flags, k_state = tweb.gmm_flags(feats64, total64, thr, final_state=True)
+    p_flags, p_state = tweb.gmm_flags_plain(feats64, total64, thr, final_state=True)
+    require(k_flags.dtype == torch.int32 and torch.equal(k_flags, p_flags),
+            f"kernel I mode 0 float64: flags differ from the plain loop on the card on "
+            f"{int((k_flags != p_flags).sum())} frames")
+    same_state(k_state, p_state, "mode 0 float64")
+    print(f"kernel I mode 0 at float64 on the stream's float64 features ({n_frames} frames, "
+          f"{int((k_flags > 0).sum())} flagged): flags equal to the plain loop on the card and "
+          f"the final state bitwise its own")
+    prof = kernel_device_ms(torch, lambda: tweb.gmm_flags(feats, total, thr), "webrtc_gmm",
+                            calls=3)
+    wrapper_ms = cuda_ms(lambda: tweb.gmm_flags(feats, total, thr), reps=5)
+    i_bound = bound(4 * n_frames * (6 + 1 + 1), n_frames * GMM_OPS_PER_FRAME)
+    print(f"timing on {card}: kernel I at the stream's {n_frames} frames: profiler "
+          f"{prof[0]:.4f} ms ({prof[1]} of 3 launches recorded in window {prof[2]}), the wrapper "
+          f"call {wrapper_ms:.4f} ms; bound {i_bound[0]:.6f} ms by {i_bound[1]} (the frames' "
+          f"dependency chain is what sets its time)")
+    out["gmm"] = {"ms": out["gmm mode 0"]["ms"], "plain_ms": out["gmm mode 0"]["plain_ms"],
+                  "profiler_ms": prof[0], "profiler_launches": prof[1], "wrapper_ms": wrapper_ms,
+                  "bound": i_bound, "frames": n_frames,
+                  "state_err": max(out[f"gmm mode {m}"]["state_err"] for m in range(4))}
     return out
 
 
@@ -1634,10 +1912,12 @@ def parallel_rank(ckdir):
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
     from lnasr_tpu_torch.ops import trellis
+    from lnasr_tpu_torch.ops import trigram as tri
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.parallel import distributed as D
     from lnasr_tpu_torch.parallel.mesh import mesh_axis
+    from lnasr_tpu_torch.vad import webrtc as tweb
 
     dev = D.local_device()
     on_card = dev.type == "cuda"
@@ -1645,7 +1925,8 @@ def parallel_rank(ckdir):
     f32, f64 = torch.float32, torch.float64
     host = lambda x: x.detach().cpu().numpy()  # noqa: E731
     counted = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
-               F.factored_backtrace, F.factored_lattice, trellis.forward_backward)
+               F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
+               tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags)
 
     def counts():
         return {w.__name__: w.launches for w in counted}
@@ -2065,12 +2346,15 @@ def cli_gap(rng, dur):
 
 
 # The module attributes through which the decoders and the MFCC pipeline
-# reach kernels A, C, D, E and F (each wrapper is imported by name there).
+# reach kernels A, C, D, E, F and H (each wrapper is imported by name there).
 KERNEL_SITES = (("lnasr_tpu_torch.models.mfcc", "mel_frontend"),
                 ("lnasr_tpu_torch.models.decoder", "viterbi_dense"),
                 ("lnasr_tpu_torch.models.decoder", "factored_forward"),
                 ("lnasr_tpu_torch.models.decoder", "factored_backtrace"),
-                ("lnasr_tpu_torch.models.decoder", "factored_lattice"))
+                ("lnasr_tpu_torch.models.decoder", "factored_lattice"),
+                ("lnasr_tpu_torch.models.decoder", "trigram_viterbi"))
+# the wrappers whose launches a recorded site makes, by counter name
+SITE_OF = {"trigram_forward": "trigram_viterbi", "trigram_backtrace": "trigram_viterbi"}
 
 
 def shape_key(torch, x):
@@ -2114,9 +2398,10 @@ def recorded_calls(torch, calls):
 def check_recorded(torch, mf, F, vd, calls, what, want):
     """Each call kept by :func:`recorded_calls` against its kernel's plain
     version on the same inputs: A within its bars (:func:`check_a_shape`),
-    C and E (path and score) bitwise, D's grids bitwise at feasible states,
-    F's records bitwise (``-inf`` included). ``want`` names the wrappers
-    that must have been checked at least once."""
+    C, E and H (path and score) bitwise, D's grids bitwise at feasible
+    states, F's records bitwise (``-inf`` included). ``want`` names the
+    wrappers that must have been checked at least once (H's two by their
+    site, :data:`SITE_OF`)."""
     checked = {}
     for name, args, kw, out in calls.values():
         if name == "mel_frontend":
@@ -2142,6 +2427,14 @@ def check_recorded(torch, mf, F, vd, calls, what, want):
                     f"kernel E differs from its plain version on {what}'s inputs: "
                     f"{int((out[0] != ref[0]).sum())} path entries, scores {out[1]} vs {ref[1]}")
             shape = tuple(args[0].shape)
+        elif name == "trigram_viterbi":
+            from lnasr_tpu_torch.ops.trigram import trigram_viterbi_plain
+
+            ref = trigram_viterbi_plain(*args)
+            require(torch.equal(out[0], ref[0]) and same_bits(torch, [out[1]], [ref[1]]),
+                    f"kernel H differs from its plain version on {what}'s inputs: "
+                    f"{int((out[0] != ref[0]).sum())} path entries, scores {out[1]} vs {ref[1]}")
+            shape = tuple(args[0].shape)
         else:
             ref = F.factored_lattice_plain(*args)
             bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x  # noqa: E731
@@ -2150,11 +2443,12 @@ def check_recorded(torch, mf, F, vd, calls, what, want):
             shape = tuple(args[4].shape)
         checked.setdefault(name, []).append(shape)
     torch.cuda.synchronize()
-    require(set(want) <= set(checked),
-            f"{what}: no call of {sorted(set(want) - set(checked))} was held against its plain "
+    want = {SITE_OF.get(n, n) for n in want}
+    require(want <= set(checked),
+            f"{what}: no call of {sorted(want - set(checked))} was held against its plain "
             "version")
     print(f"{what}: each kernel call at each distinct shape held against its plain version "
-          "on the path's own inputs (A within its bars, C, E and F bitwise, D bitwise at "
+          "on the path's own inputs (A within its bars, C, E, F and H bitwise, D bitwise at "
           "feasible states): " + "; ".join(f"{n} at {v}" for n, v in sorted(checked.items())))
 
 
@@ -2191,9 +2485,10 @@ def cli_phase(torch, entry, wrappers, card, launches):
       cores, the models in memory (the card's machine may lack h5py; the
       file flow runs too where it has it): ``train-am --f64`` on the card
       against the CPU (1e-8), ``recognize`` with the CPU-trained float32
-      model on the card against the CPU in four forms (default graph: A,
+      model on the card against the CPU in five forms (default graph: A,
       C; ``--graph factored``: A, D, E; ``--nbest 3 --confidence``: A, F;
-      ``--bucket-frames 16``: A, C);
+      ``--bucket-frames 16``: A, C; ``--graph trigram`` with an order-3
+      LM: A, H's forward and backtrace);
     - ``cli bench`` (the headline harness at its defaults: A, B, D, E, F),
       the training harness at ``--trials 2`` and the decoder harness at
       ``--frames 500``: valid JSON, no row with an error, kernel C's paths
@@ -2363,15 +2658,22 @@ def cli_phase(torch, entry, wrappers, card, launches):
                                     {"mel_frontend": 1, "factored_lattice": 1}),
             "cli recognize bucketed": (["--bucket-frames", "16"],
                                        {"mel_frontend": 1, "viterbi_dense": 1}),
+            # the exact trigram graph over the order-3 LM
+            "cli recognize trigram": (["--graph", "trigram", "--lm", path("words3.lm")],
+                                      {"mel_frontend": 1, "trigram_forward": 1,
+                                       "trigram_backtrace": 1}),
         }
+        lm3 = LanguageModel(path("words3.lm"))
+        require(lm3.ngram.order == 3, f"words3.lm is of order {lm3.ngram.order}")
         for key, (extra, want) in forms.items():
             args = cli.build_parser().parse_args(base + extra)
             args_cpu = cli.build_parser().parse_args(base + extra + ["--device", "cpu"])
+            lm_form = lm3 if "trigram" in extra else lm
             calls = {}
             (hyp, lines), counts, rec_s = counted(
-                lambda: cli.recognize_with(am_card, lexicon, lm, utterance, args), calls)
+                lambda: cli.recognize_with(am_card, lexicon, lm_form, utterance, args), calls)
             launches[key] = counts
-            hyp_c, lines_c = cli.recognize_with(am_cpu, lexicon, lm, utterance, args_cpu)
+            hyp_c, lines_c = cli.recognize_with(am_cpu, lexicon, lm_form, utterance, args_cpu)
             text, text_c = (re.sub(CLI_SCORE, r"\1S", "\n".join(x)) for x in (lines, lines_c))
             scores, scores_c = ([float(s) for _, s in re.findall(CLI_SCORE, "\n".join(x))]
                                 for x in (lines, lines_c))
@@ -2702,9 +3004,11 @@ def main():
     from lnasr_tpu_torch.ops import factored as F
     from lnasr_tpu_torch.ops import mel_frontend as mf
     from lnasr_tpu_torch.ops import trellis
+    from lnasr_tpu_torch.ops import trigram as tri
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.ops.framing import hamming_window, num_frames, split_frames
+    from lnasr_tpu_torch.vad import webrtc as tweb
     from lnasr_tpu_torch.ops.spectral import mel_filterbank
 
     dev = torch.device(DEVICE)
@@ -2911,7 +3215,8 @@ def main():
     step = entry.flagship(device=dev, params=flag_model.params)
     torch.cuda.synchronize()
     wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
-                F.factored_backtrace, F.factored_lattice, trellis.forward_backward)
+                F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
+                tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags)
     reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
@@ -3211,8 +3516,8 @@ def main():
 
     # -- 9, 10, 11. live serving: the stream, the trigram graph, device VADs --
     stream_phase(torch, entry, wrappers, card, launches)
-    trigram_phase(torch, entry, wrappers, card, launches)
-    vad_phase(torch, entry, card)
+    trig = trigram_phase(torch, entry, wrappers, card, launches)
+    vads = vad_phase(torch, entry, wrappers, card, launches)
 
     # -- 12. training -------------------------------------------------------
     train = training_phase(torch, entry, wrappers, card, launches)
@@ -3273,6 +3578,29 @@ def main():
               "depth_floor_ms": g["depth_floor_ms"], "chain_steps": g["chain_steps"],
               "chain_floor_ms": g["floor_ms"], "launches_per_sweep": g["per_sweep"]}
     kernels.append(g_row)
+    # kernel H's rows: ``ms`` by CUDA events over back-to-back launches
+    # queued behind a spinning kernel (the profiler's figure beside)
+    for part, bnd_key in (("forward", "trigram_forward"), ("backtrace", "trigram_backtrace")):
+        r = trig[part]
+        row = kernel_row(bnd_key, bnd_key, "V=200 trigram",
+                         "lnasr_tpu/models/decoder.py:1554 (step :1510-1545, lax.scan under "
+                         "jax.jit :1579, final argmax :1556-1563)" if part == "forward" else
+                         "lnasr_tpu/models/decoder.py:1571 (the reverse lax.scan :1567-1571, "
+                         "under jax.jit :1579)", trig["err"], r["wrapper_ms"], r["plain_ms"],
+                         r["bound"])
+        row |= {"ms": r["ms"], "profiler_ms": r["profiler_ms"],
+                "profiler_launches": r["profiler_launches"]}
+        if part == "forward":
+            row["hop3_reread_ms"] = r["hop3_reread_ms"]
+        kernels.append(row)
+    gm = vads["gmm"]
+    i_row = kernel_row("webrtc_gmm", "gmm_flags", "webrtc vad",
+                       "lnasr_tpu/vad/webrtc.py:393 (lax.scan of gmm_step :274 under jax.jit "
+                       ":407; aging walk fori_loop :226-243)", gm["state_err"], gm["wrapper_ms"],
+                       gm["plain_ms"], gm["bound"])
+    i_row |= {"ms": gm["ms"], "profiler_ms": gm["profiler_ms"],
+              "profiler_launches": gm["profiler_launches"], "frames": gm["frames"]}
+    kernels.append(i_row)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

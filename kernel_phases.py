@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Split kernels A (mel frontend), B (small-N Viterbi) and G
-(forward-backward, chunked route) of a checkout into phases on one NVIDIA
-GPU, with ``clock64()`` stamps.
+"""Split kernels A (mel frontend), B (small-N Viterbi), G
+(forward-backward, chunked route), H (the trigram decode's forward) and I
+(the WebRTC VAD's GMM) of a checkout into phases on one NVIDIA GPU, with
+``clock64()`` stamps.
 
-    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G]
+    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G,H,I]
 
 The kernel sources under ``DIR/lnasr_tpu_torch/csrc`` are copied, a
 ``clock64()`` stamp is inserted at each phase boundary (text patches keyed
@@ -24,7 +25,16 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
 - G's chunked route at the EM sweep's shape (B = 64, T = 999, float32,
   N = 5 and 8): the chunk's staging and product (phase 1), the boundary
   chain (phase 2), the replay and stores (phase 3), each up to the
-  block's barrier after it (per block), and the cycles a step of each.
+  block's barrier after it (per block), and the cycles a step of each;
+- H's forward at the V = 200 trigram segment (T = 511, H = 202, float32):
+  its frame loop's within-word pass, the wait for the other blocks'
+  exits, the hop pass and the publication of its own, each summed over
+  the frames from the block's first thread, then the final argmax (per
+  block), and the cycles a valid step of each;
+- I on the stream's features (6,292 frames, mode 0): each frame's
+  decision (likelihoods, ratio, flag), minimum tracker (aging walk,
+  insertion, smoothed minimum) and adaptation, summed over the frames by
+  the warp's first lane, and the cycles a frame of each.
 
 Each launch goes through the checkout's own wrapper (``ops.*._launch``)
 pointed at the stamped library, and its output is checked against the
@@ -63,6 +73,13 @@ extern "C" int clear_stamps() {
     return (int)(err != cudaSuccess ? err : cudaMemset(p, 0, sizeof(g_stamps)));
 }
 """
+
+def _acc(q, indent):
+    """Source text that adds the cycles since the last mark to phase ``q``
+    (kernels whose phases sit inside a frame loop)."""
+    return (" " * indent + "{ unsigned long long n_ = clock64(); "
+            + f"ph_acc[{q}] += n_ - ph_t; ph_t = n_; }}\n")
+
 
 # (anchor, text inserted after it) per kernel and version; the first set
 # whose anchors all occur once in the source is applied (the warp route's
@@ -143,8 +160,53 @@ PATCH_SETS = {
              "    __syncthreads();\n    if (threadIdx.x == 0) STAMP(blockIdx.x * 4 + 3);\n"),
         ]),
     ],
+    # phases inside a frame loop: cycles summed over the frames, written at
+    # the end as running totals from 1 (a stamp of 0 means "not stamped")
+    "trigram_forward": [
+        ("rows owned by history", 6,
+         ["within-word pass", "exchange wait", "hop pass", "publish", "final argmax"], [
+             ("    for (int k = tid; k < V; k += nth) eidx[k] = p.exit_idx[k];\n",
+              "    unsigned long long ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"),
+             ("        const T* lb = log_b + (size_t)t * VS;\n", "        ph_t = clock64();\n"),
+             ("                __stcs(bt + k, base_id + k - s + src);\n            }\n        }\n",
+              _acc(0, 8)),
+             ("                   max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));\n"
+              "        __syncthreads();\n",
+              _acc(1, 8)),
+             ("            gn[cell] = m + lb[w * S];\n            __stcs(bt + cell, b);\n        }\n"
+              "        __syncthreads();\n",
+              _acc(2, 8)),
+             ("        gc = gn;\n        gn = tmp;\n",
+              _acc(3, 8)),
+             ("    // the final argmax: grid + final3 at each word's exit state, -inf\n",
+              "    const unsigned long long fin_t = clock64();\n"),
+             ("        *static_cast<T*>(p.score) = v;\n        *p.last = i;\n    }\n",
+              "    if (tid == 0) {\n        unsigned long long c_ = 1;\n"
+              "        g_stamps[blockIdx.x * 6] = c_;\n"
+              "        for (int q = 0; q < 4; ++q)\n"
+              "            g_stamps[blockIdx.x * 6 + 1 + q] = c_ += ph_acc[q];\n"
+              "        g_stamps[blockIdx.x * 6 + 5] = c_ + (clock64() - fin_t);\n    }\n"),
+         ]),
+    ],
+    "webrtc_gmm": [
+        ("one warp, lane = channel", 4, ["decision", "minimum tracker", "adaptation"], [
+            ("    int fc = 0, oh = 0, sr = 0;\n",
+             "    unsigned long long ph_acc[3] = {0, 0, 0}, ph_t = 0;\n"),
+            ("            const bool active = st[i] > T(10);\n", "            ph_t = clock64();\n"),
+            ("            const T sgpr[2] = {sgpr0, h1 > T(0) ? O::sub(T(1), sgpr0) : T(0)};\n",
+             _acc(0, 12)),
+            ("                                    T(16384.0 / 524288.0));\n",
+             _acc(1, 12)),
+            ("                mv = mv_new;\n                ++fc;\n            }\n",
+             _acc(2, 12)),
+            ("        p.state_i[2] = sr;\n",
+             "        unsigned long long c_ = 1;\n        g_stamps[0] = c_;\n"
+             "        for (int q = 0; q < 3; ++q) g_stamps[1 + q] = c_ += ph_acc[q];\n"),
+        ]),
+    ],
 }
-KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "G": "forward_backward"}
+KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "G": "forward_backward",
+                "H": "trigram_forward", "I": "webrtc_gmm"}
 
 
 def stamped_source(src, name):
@@ -185,7 +247,7 @@ def main():
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", default="")
     ap.add_argument("--sass", default="")
-    ap.add_argument("--kernels", default="A,B,G", help="the kernels to split: A, B, G")
+    ap.add_argument("--kernels", default="A,B,G,H,I", help="the kernels to split: A, B, G, H, I")
     args = ap.parse_args()
     names = [KERNEL_NAMES[k] for k in args.kernels.split(",")]
     import torch
@@ -195,11 +257,12 @@ def main():
         return 2
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
-    from lnasr_tpu_torch import _build
+    from lnasr_tpu_torch import _build, entry
     from lnasr_tpu_torch.config import MFCCConfig
     from lnasr_tpu_torch.ops import mel_frontend as mf
     from lnasr_tpu_torch.ops import trellis as tr
     from lnasr_tpu_torch.ops import viterbi as vt
+    from lnasr_tpu_torch.vad import webrtc as tweb
 
     card = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -217,7 +280,12 @@ def main():
             f.write(src)
         procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"))
     _build.build_all()  # the unstamped kernels: the stamps' cost, and the SASS
-    wrappers = {"mel_frontend": mf, "viterbi": vt, "forward_backward": tr}
+    argtypes = {"mel_frontend": mf._ARGTYPES, "viterbi": vt._ARGTYPES,
+                "forward_backward": tr._ARGTYPES, "webrtc_gmm": tweb._GMM_ARGTYPES}
+    if "trigram_forward" in names:
+        from lnasr_tpu_torch.ops import trigram as tri
+
+        argtypes["trigram_forward"] = tri._FWD_ARGTYPES
     stamped, plain = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -225,11 +293,11 @@ def main():
             raise SystemExit(f"nvcc failed on the stamped {name}.cu:\n{log}")
         lib = ctypes.CDLL(os.path.join(work, f"{name}_stamped.so"))
         launch = getattr(lib, f"{name}_launch")
-        launch.argtypes, launch.restype = wrappers[name]._ARGTYPES, ctypes.c_int
+        launch.argtypes, launch.restype = argtypes[name], ctypes.c_int
         getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
         lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
         stamped[name] = lib
-        plain[name] = _build.load(name, wrappers[name]._ARGTYPES)
+        plain[name] = _build.load(name, argtypes[name])
     if args.sass:
         os.makedirs(args.sass, exist_ok=True)
         for name in names:
@@ -337,6 +405,41 @@ def main():
         emit(kernel="G", what=f"chunked route B={b}, T={t}, N={n}, {c} chunks of {chunk}", **res,
              cycles_per_step={p: res["cycles"][p] / k for p, k in steps.items()},
              **times("forward_backward", call), sm_clock_mhz=sm_clock())
+    if "trigram_forward" in names:
+        rec, seg = entry.recognizer_serving(200, device=dev, graph="trigram", lm_order=3)
+        g = rec.graph
+        padded, n, _ = rec._pad_to_bucket(seg)
+        feats, mask = rec.am.mfcc.features_fast(torch.from_numpy(padded).to(dev),
+                                                lengths=torch.tensor([n], device=dev))
+        args_h = (g._grid_log_b(feats), mask, g.inner_a, g.hop3, g.log_pi_w, g.final3,
+                  g._exit_idx32)
+        call = lambda: tri.trigram_forward(*args_h)  # noqa: E731
+        res = split("trigram_forward", call)
+        got = call()
+        use("trigram_forward", plain["trigram_forward"])
+        ref = call()
+        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+            raise SystemExit("the stamped kernel H differs from the unstamped one")
+        steps = int(mask[1:].sum())
+        emit(kernel="H", what=f"forward V=200, T={mask.shape[0]}, {steps} valid steps", **res,
+             cycles_per_step={p: c / steps for p, c in res["cycles"].items()
+                              if p != "final argmax"},
+             **times("trigram_forward", call), sm_clock_mhz=sm_clock())
+    if "webrtc_gmm" in names:
+        audio = entry.serving_stream(0)
+        n = len(audio) // tweb.FRAME_LEN_16K
+        sig = torch.as_tensor(audio, device=dev)
+        feats, total, _ = tweb.extract_features(sig[: n * tweb.FRAME_LEN_16K].to(torch.float32),
+                                                tweb.initial_filter_state(torch.float32, dev))
+        call = lambda: tweb.gmm_flags(feats, total, tweb.MODE_TABLE[0])  # noqa: E731
+        res = split("webrtc_gmm", call)
+        got = call()
+        use("webrtc_gmm", plain["webrtc_gmm"])
+        if not torch.equal(got, call()):
+            raise SystemExit("the stamped kernel I differs from the unstamped one")
+        emit(kernel="I", what=f"mode 0, {n} frames", **res,
+             cycles_per_frame={p: c / n for p, c in res["cycles"].items()},
+             **times("webrtc_gmm", call), sm_clock_mhz=sm_clock())
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

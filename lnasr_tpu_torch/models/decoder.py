@@ -27,8 +27,10 @@ for factors with sparse edges. The host turns them into a
 LM rescoring).
 
 :class:`TrigramDecodingGraph` decodes with an exact trigram LM by
-expanding the factored grid with one word of LM history, a frame loop of
-torch ops on the graph's device (no kernel: the JAX package has none).
+expanding the factored grid with one word of LM history: kernel H of
+``ops/trigram.py`` on CUDA (forward and backtrace, one launch each, the
+port of the JAX package's jitted scans) and its plain frame loop on the
+CPU.
 
 Graphs are built once on the host (NumPy, float64) and held on one device;
 ``decode`` reads ``(path, score)`` back with one device->host copy, and the
@@ -56,6 +58,7 @@ from lnasr_tpu_torch.ops.factored import (
     hop_entry as _hop_entry,
 )
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
+from lnasr_tpu_torch.ops.trigram import trigram_viterbi
 from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 
@@ -923,10 +926,11 @@ class TrigramDecodingGraph:
     pre-silence word as its history slot, so a hop across silence scores
     with the bigram of the pre-silence word.
 
-    The decode is a frame loop of torch ops on the graph's device (the
-    JAX package's ``lax.scan``; it has no Pallas kernel) that stores
-    ``(T-1, H*V*S)`` int32 backpointers and walks them back on the device,
-    so ``(path, score)`` come to the host in one copy.
+    The decode is kernel H (``ops/trigram.py``), the port of the JAX
+    package's jitted ``lax.scan`` (it has no Pallas kernel): on CUDA one
+    launch for the forward, which stores ``(T-1, H*V*S)`` int32
+    backpointers, and one for the walk back, so ``(path, score)`` come to
+    the host in one copy; on CPU the plain frame loop.
     """
 
     SILENCE = SILENCE
@@ -940,6 +944,7 @@ class TrigramDecodingGraph:
         tensor = lambda x: torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)  # noqa: E731
         self.inner_a = tensor(inner_a)
         self.exit_idx = torch.as_tensor(np.asarray(exit_idx), dtype=torch.int64, device=dev)
+        self._exit_idx32 = self.exit_idx.to(torch.int32)  # what kernel H reads
         self._exit_idx_np = np.asarray(exit_idx)
         self.state_map = torch.as_tensor(np.asarray(state_map), dtype=torch.long, device=dev)
         self.pad_mask = torch.as_tensor(np.asarray(pad_mask), dtype=torch.bool, device=dev)
@@ -1028,59 +1033,12 @@ class TrigramDecodingGraph:
 
     def _decode_log_b(self, log_b: torch.Tensor, mask: Optional[torch.Tensor]):
         """The decode core on grid emissions ``(T, V, S)``: ``(path (T,)
-        int32 in (h*V + w)*S + s ids, score ())`` on the graph's device.
-        Ties go as in the JAX package's scan: the first within-word source,
-        the first history on a hop, a hop only when strictly better at local
-        state 0; the <s> history row is never re-entered; masked frames keep
-        the grid and point to themselves; the final argmax takes the first
-        of the flattened (H, V, S) states."""
-        h_hist, v_words, s_max = self.grid_shape
-        t_len = log_b.shape[0]
-        dev = log_b.device
-        n_states = h_hist * v_words * s_max
-        copy_self = torch.arange(n_states, device=dev).reshape(h_hist, v_words, s_max)
-        copy_base = copy_self[:, :, :1]  # (H, V, 1) id of each copy's state 0
-        # the hop into copy (u, w) comes from copy (hsrc, u) at u's exit state
-        hop_src_base = (torch.arange(v_words, device=dev) * s_max + self.exit_idx)[:, None]
-        exit_sel = self.exit_idx[None, :, None].expand(h_hist, v_words, 1)
-        inner_a = self.inner_a[None]
-
-        vgrid = torch.full((h_hist, v_words, s_max), -math.inf, dtype=log_b.dtype, device=dev)
-        vgrid[h_hist - 1, :, 0] = self.log_pi_w.to(log_b.dtype)
-        vgrid = vgrid + log_b[0][None]
-        bts = torch.empty((max(t_len - 1, 0), h_hist, v_words, s_max), dtype=torch.int32,
-                          device=dev)
-        for t in range(1, t_len):
-            within, wsrc = torch.max(vgrid[:, :, :, None] + inner_a, dim=2)
-            bt = wsrc + copy_base
-            exit_v = torch.gather(vgrid, 2, exit_sel)  # (H, V, 1)
-            entry, hsrc = torch.max(exit_v + self.hop3, dim=0)  # (V, V): [u, w]
-            w0 = within[:v_words, :, 0]
-            hop_wins = entry > w0
-            within[:v_words, :, 0] = torch.maximum(w0, entry)
-            bt[:v_words, :, 0] = torch.where(
-                hop_wins, torch.add(hop_src_base, hsrc, alpha=v_words * s_max),
-                bt[:v_words, :, 0])
-            new_v = within + log_b[t][None]
-            if mask is None:
-                vgrid = new_v
-                bts[t - 1] = bt
-            else:
-                vgrid = torch.where(mask[t], new_v, vgrid)
-                bts[t - 1] = torch.where(mask[t], bt, copy_self)
-
-        final_grid = torch.where(
-            torch.arange(s_max, device=dev)[None, None, :] == self.exit_idx[None, :, None],
-            self.final3[:, :, None].to(vgrid.dtype),
-            torch.tensor(-math.inf, dtype=vgrid.dtype, device=dev))
-        score, last = torch.max((vgrid + final_grid).reshape(-1), dim=0)
-        bts_flat = bts.reshape(bts.shape[0], -1)
-        # a gather a step, so that the walk never waits on the host
-        states = [last.reshape(1).to(torch.int32)]
-        for t in range(t_len - 2, -1, -1):
-            states.append(torch.gather(bts_flat[t], 0, states[-1].long()))
-        path = torch.cat(states[::-1])
-        return path, score
+        int32 in (h*V + w)*S + s ids, score ())`` on the graph's device, by
+        :func:`ops.trigram.trigram_viterbi` (kernel H's forward and
+        backtrace on CUDA, one launch each; the plain frame loop on CPU),
+        with the JAX package's tie rules."""
+        return trigram_viterbi(log_b, mask, self.inner_a, self.hop3, self.log_pi_w,
+                               self.final3, self._exit_idx32)
 
     def _grid_log_b(self, obs: torch.Tensor) -> torch.Tensor:
         """Grid emissions ``(..., T, V, S)``, -inf at padded states."""

@@ -1,0 +1,287 @@
+"""The exact trigram decode's Viterbi recursion: kernel H and its plain version.
+
+The history-expanded word graph of ``models/decoder.py:
+TrigramDecodingGraph`` has states ``(h, w, s)``: history word h (V words,
+then the sentence-begin row h = V), current word w, local state s. Its
+decode is a max-plus recursion over the ``(H, V, S)`` grid with
+first-index argmax backpointers, then a walk back along them. The JAX
+package runs both as one jitted ``lax.scan`` each (one device program,
+no Pallas kernel); here:
+
+- :func:`trigram_forward`: for CUDA tensors one launch of the
+  hand-written kernel of ``csrc/trigram_forward.cu`` (kernel H's forward:
+  every frame on the whole card, blocks owning history rows and
+  exchanging exit scores through tagged words, the final argmax at its
+  end); for CPU tensors :func:`trigram_forward_plain`, the frame loop it
+  is held to bitwise.
+- :func:`trigram_backtrace`: for CUDA tensors one launch of
+  ``csrc/trigram_backtrace.cu`` (one thread walks the backpointers); for
+  CPU tensors :func:`trigram_backtrace_plain`, a gather a frame.
+- :func:`trigram_viterbi`: both, ``(path, score)``.
+
+On a CUDA tensor a wrapper launches its kernel or raises; there is no
+path back to the frame loop. Each counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from lnasr_tpu_torch import _build
+from lnasr_tpu_torch.ops.factored import sm_count
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx, T, H, V, S,
+# is_double, route, n_sm, bts, score, last, xch, rows, part_v, part_i, done,
+# stream
+_FWD_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P] * 9
+# bts, last, T, n_states, path, stream
+_BT_ARGTYPES = [_P, _P, _I, ctypes.c_longlong, _P, _P]
+ROUTES = ("smem", "global")  # the forward kernel's ``route`` codes, in order
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
+SMEM_STATIC = 1024  # the forward kernel's static shared arrays, at most
+
+
+def rows_per_block(h: int, n_sm: int) -> int:
+    """History rows a block of the forward kernel owns: ``ceil(H / SMs)``."""
+    return -(-h // n_sm)
+
+
+def forward_smem_bytes(h: int, v: int, s: int, itemsize: int, n_sm: int, route: str) -> int:
+    """Dynamic shared memory of a forward block (``csrc/trigram_forward.cu:
+    smem_bytes``): the exit columns of its rows and state 0's sources, and
+    on the ``"smem"`` route its rows of two frames."""
+    rpb = rows_per_block(h, n_sm)
+    head = rpb * h * itemsize + (rpb + 1) * v * 4
+    if route == "global":
+        return head
+    return -(-head // 16) * 16 + 2 * rpb * v * s * itemsize
+
+
+def trigram_route(h: int, v: int, s: int, itemsize: int, n_sm: int) -> str:
+    """The forward kernel's route for an ``(H, V, S)`` grid: at float64
+    ``"smem"`` (a block's rows of two frames in shared memory) while they
+    fit, else ``"global"`` (the rows in a device-memory scratch, through
+    L2). On an H100 at the V = 200 segment (``kernel_timing.py --kernels
+    H``) the rows in shared memory took 18.32-18.38 ms at float64 against
+    19.24-19.27 on the global route, and 11.87-11.90 ms at float32 against
+    11.57-11.69: each dtype takes its faster route. Raises, with the
+    numbers, past what even the global route holds: ``ceil(H / SMs)``
+    exit columns of H values in one block's shared memory."""
+    for route in ROUTES[itemsize != 8:]:
+        if forward_smem_bytes(h, v, s, itemsize, n_sm, route) + SMEM_STATIC <= SMEM_LIMIT:
+            return route
+    need = forward_smem_bytes(h, v, s, itemsize, n_sm, "global") + SMEM_STATIC
+    raise ValueError(
+        f"the trigram forward kernel holds each block's {rows_per_block(h, n_sm)} exit columns "
+        f"of H={h} values in shared memory: {need} bytes > {SMEM_LIMIT} at {n_sm} SMs")
+
+
+# -- the plain versions ---------------------------------------------------------
+
+
+def trigram_forward_plain(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx):
+    """Kernel H's forward as a frame loop over grid emissions ``log_b (T,
+    V, S)``: ``(bts (T-1, H, V, S) int32 backpointers in (h*V + w)*S + s
+    ids, score (), last () int32)``. Ties go as in the JAX package's scan:
+    the first within-word source, the first history on a hop, a hop only
+    when strictly better at local state 0; the <s> history row is never
+    re-entered; masked frames keep the grid and point to themselves; the
+    final argmax takes the first of the flattened (H, V, S) states."""
+    h_hist, v_words, s_max = hop3.shape[0], hop3.shape[1], inner_a.shape[1]
+    exit_idx = exit_idx.long()
+    t_len = log_b.shape[0]
+    dev = log_b.device
+    n_states = h_hist * v_words * s_max
+    copy_self = torch.arange(n_states, device=dev).reshape(h_hist, v_words, s_max)
+    copy_base = copy_self[:, :, :1]  # (H, V, 1) id of each copy's state 0
+    # the hop into copy (u, w) comes from copy (hsrc, u) at u's exit state
+    hop_src_base = (torch.arange(v_words, device=dev) * s_max + exit_idx)[:, None]
+    exit_sel = exit_idx[None, :, None].expand(h_hist, v_words, 1)
+    inner_a = inner_a[None]
+
+    vgrid = torch.full((h_hist, v_words, s_max), -math.inf, dtype=log_b.dtype, device=dev)
+    vgrid[h_hist - 1, :, 0] = log_pi_w.to(log_b.dtype)
+    vgrid = vgrid + log_b[0][None]
+    bts = torch.empty((max(t_len - 1, 0), h_hist, v_words, s_max), dtype=torch.int32,
+                      device=dev)
+    for t in range(1, t_len):
+        within, wsrc = torch.max(vgrid[:, :, :, None] + inner_a, dim=2)
+        bt = wsrc + copy_base
+        exit_v = torch.gather(vgrid, 2, exit_sel)  # (H, V, 1)
+        entry, hsrc = torch.max(exit_v + hop3, dim=0)  # (V, V): [u, w]
+        w0 = within[:v_words, :, 0]
+        hop_wins = entry > w0
+        within[:v_words, :, 0] = torch.maximum(w0, entry)
+        bt[:v_words, :, 0] = torch.where(
+            hop_wins, torch.add(hop_src_base, hsrc, alpha=v_words * s_max),
+            bt[:v_words, :, 0])
+        new_v = within + log_b[t][None]
+        if mask is None:
+            vgrid = new_v
+            bts[t - 1] = bt
+        else:
+            vgrid = torch.where(mask[t], new_v, vgrid)
+            bts[t - 1] = torch.where(mask[t], bt, copy_self)
+
+    final_grid = torch.where(
+        torch.arange(s_max, device=dev)[None, None, :] == exit_idx[None, :, None],
+        final3[:, :, None].to(vgrid.dtype),
+        torch.tensor(-math.inf, dtype=vgrid.dtype, device=dev))
+    score, last = torch.max((vgrid + final_grid).reshape(-1), dim=0)
+    return bts, score, last.to(torch.int32)
+
+
+def trigram_backtrace_plain(bts: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """Kernel H's backtrace as a frame loop: the ``(T,)`` int32 state path
+    from ``last`` back through ``bts (T-1, H, V, S)``, a gather a step, so
+    that the walk never waits on the host."""
+    t_len = bts.shape[0] + 1
+    bts_flat = bts.flatten(1)  # (T-1, H*V*S); reshape(0, -1) is refused at T = 1
+    states = [last.reshape(1).to(torch.int32)]
+    for t in range(t_len - 2, -1, -1):
+        states.append(torch.gather(bts_flat[t], 0, states[-1].long()))
+    return torch.cat(states[::-1])
+
+
+def trigram_viterbi_plain(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx):
+    """:func:`trigram_forward_plain` then :func:`trigram_backtrace_plain`:
+    ``(path (T,) int32 in (h*V + w)*S + s ids, score ())``."""
+    bts, score, last = trigram_forward_plain(log_b, mask, inner_a, hop3, log_pi_w, final3,
+                                             exit_idx)
+    return trigram_backtrace_plain(bts, last), score
+
+
+# -- the kernels -----------------------------------------------------------------
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the trigram decode runs on cpu or cuda tensors, got {x.device}")
+    return True
+
+
+def _dense(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` in ``dtype`` and contiguous, copied only where it is not."""
+    return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
+
+
+def trigram_forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx):
+    """``(bts (T-1, H, V, S) int32, score (), last () int32)`` of
+    :func:`trigram_forward_plain`. CUDA tensors launch kernel H's forward
+    once (float32 or float64, the graph's tensors cast to ``log_b``'s
+    dtype, on :func:`trigram_route`'s route), anything it does not take
+    raises; CPU tensors run the plain frame loop. Every check reads
+    shapes, dtypes and devices only: nothing waits on the card."""
+    return _forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx)
+
+
+def _forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx,
+             route: Optional[str] = None):
+    """:func:`trigram_forward`, with ``route`` overriding
+    :func:`trigram_route` (``chip_smoke.py`` and ``kernel_timing.py`` hold
+    and time each route on the card)."""
+    if not _on_cuda(log_b):
+        return trigram_forward_plain(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx)
+    dev = log_b.device
+    if log_b.dim() != 3:
+        raise ValueError(f"log_b must be (T, V, S), got shape {tuple(log_b.shape)}")
+    t, v, s = log_b.shape
+    h = v + 1
+    want = {"inner_a": (inner_a, (v, s, s)), "hop3": (hop3, (h, v, v)),
+            "log_pi_w": (log_pi_w, (v,)), "final3": (final3, (h, v)),
+            "exit_idx": (exit_idx, (v,))}
+    if mask is not None:
+        want["mask"] = (mask, (t,))
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"the trigram forward kernel takes {name} {shape} for log_b "
+                             f"{(t, v, s)}, got {tuple(x.shape)}")
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, log_b on {dev}")
+    dtype = log_b.dtype
+    if dtype not in (torch.float32, torch.float64) or t < 1:
+        raise ValueError(f"the trigram forward kernel takes float32 or float64 and T >= 1, got "
+                         f"{dtype}, T={t}")
+    n_sm = sm_count(dev)
+    route = trigram_route(h, v, s, dtype.itemsize, n_sm) if route is None else route
+    if route not in ROUTES or (forward_smem_bytes(h, v, s, dtype.itemsize, n_sm, route)
+                               + SMEM_STATIC > SMEM_LIMIT):
+        raise ValueError(f"no route {route!r} of the trigram forward kernel at H={h}, V={v}, "
+                         f"S={s}, {dtype}")
+    rpb = rows_per_block(h, n_sm)
+    blocks = -(-h // rpb)
+    bts = torch.empty((t - 1, h, v, s), dtype=torch.int32, device=dev)
+    score = torch.empty((), dtype=dtype, device=dev)
+    last = torch.empty((), dtype=torch.int32, device=dev)
+    xch = torch.empty((2, v, h, 2 if dtype == torch.float64 else 1), dtype=torch.int64,
+                      device=dev)
+    rows = torch.empty((2, h, v, s), dtype=dtype, device=dev) if route == "global" else None
+    part_v = torch.empty(blocks, dtype=dtype, device=dev)
+    part_i = torch.empty(blocks, dtype=torch.int32, device=dev)
+    done = torch.empty(1, dtype=torch.int32, device=dev)
+    ins = [_dense(log_b, dtype), None if mask is None else _dense(mask, torch.bool),
+           _dense(inner_a, dtype), _dense(hop3, dtype), _dense(log_pi_w, dtype),
+           _dense(final3, dtype), _dense(exit_idx, torch.int32)]
+    ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+    lib = _build.load("trigram_forward", _FWD_ARGTYPES)
+    with torch.cuda.device(dev):  # launch on the tensors' card
+        rc = lib.trigram_forward_launch(
+            *(ptr(x) for x in ins), t, h, v, s, int(dtype == torch.float64),
+            ROUTES.index(route), n_sm, bts.data_ptr(), score.data_ptr(), last.data_ptr(),
+            xch.data_ptr(), ptr(rows), part_v.data_ptr(), part_i.data_ptr(), done.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "trigram_forward", rc)
+    trigram_forward.launches += 1
+    return bts, score, last
+
+
+trigram_forward.launches = 0  # kernel H forward launches; plain CPU calls do not count
+
+
+def trigram_backtrace(bts: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """The ``(T,)`` int32 state path of :func:`trigram_backtrace_plain`.
+    CUDA tensors launch kernel H's backtrace once (one thread walks), CPU
+    tensors run the plain gathers."""
+    if not _on_cuda(bts):
+        return trigram_backtrace_plain(bts, last)
+    dev = bts.device
+    if bts.dim() != 4 or bts.dtype != torch.int32 or last.dtype != torch.int32 \
+            or last.numel() != 1 or last.device != dev:
+        raise ValueError(f"the trigram backtrace kernel takes int32 bts (T-1, H, V, S) and an "
+                         f"int32 last state on its device, got {bts.dtype} "
+                         f"{tuple(bts.shape)}, {last.dtype} {tuple(last.shape)} on {last.device}")
+    t = bts.shape[0] + 1
+    n_states = math.prod(bts.shape[1:])
+    path = torch.empty((t,), dtype=torch.int32, device=dev)
+    bts = bts.contiguous()
+    lib = _build.load("trigram_backtrace", _BT_ARGTYPES)
+    with torch.cuda.device(dev):
+        rc = lib.trigram_backtrace_launch(bts.data_ptr(), last.contiguous().data_ptr(), t,
+                                          n_states, path.data_ptr(),
+                                          torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "trigram_backtrace", rc)
+    trigram_backtrace.launches += 1
+    return path
+
+
+trigram_backtrace.launches = 0  # kernel H backtrace launches; plain CPU calls do not count
+
+
+def trigram_viterbi(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The trigram decode of grid emissions ``log_b (T, V, S)`` with
+    ``mask (T,)`` or None, ``inner_a (V, S, S)``, ``hop3 (H, V, V)``,
+    ``log_pi_w (V,)``, ``final3 (H, V)`` and ``exit_idx (V,)``: ``(path
+    (T,) int32 in (h*V + w)*S + s ids, score ())``. On CUDA tensors kernel
+    H's forward and backtrace, one launch each; on CPU tensors
+    :func:`trigram_viterbi_plain`."""
+    bts, score, last = trigram_forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx)
+    return trigram_backtrace(bts, last), score

@@ -10,21 +10,24 @@ as the native detector (``native/vad/vad_webrtc.cpp``).
 - Per-frame band energies are one reshape and reduction, accumulated in
   ``acc_dtype`` (float64 by default, as the JAX package under x64 and
   the native detector's double accumulator).
-- The 2-Gaussian noise/speech model adaptation is sequential: a loop over
-  10 ms frames of small tensor ops on the signal's device (the JAX
-  package's ``lax.scan``), with the state in tensors so that no frame
-  waits on the host.
+- The 2-Gaussian noise/speech model adaptation is sequential (the JAX
+  package's ``lax.scan``): :func:`gmm_flags` runs all frames in one launch
+  of the hand-written kernel of ``csrc/webrtc_gmm.cu`` (kernel I) on CUDA
+  tensors, and :func:`gmm_flags_plain`, a loop over 10 ms frames of small
+  tensor ops with the state in tensors, on CPU tensors.
 
 Decisions match the native detector's frame for frame on the test audio.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
+from lnasr_tpu_torch import _build
 from lnasr_tpu_torch._device import resolve_device
 from lnasr_tpu_torch.ops.lfilter import allpass2, biquad, first_order_recurrence
 
@@ -233,9 +236,10 @@ def _age(lows: torch.Tensor, ages: torch.Tensor, c: _Constants
     frame; any other slot it reaches ages by one. So within a run of
     consecutive slots aged 100 every other one is evicted, starting with
     the run's first. Here that is one stable compaction of the kept slots.
-    The empty slots that enter get age 101; slots past 100 never expire,
-    so their exact age (101 or 102 in the sequential walk) decides
-    nothing."""
+    Each eviction appends an empty slot of age 101, which the walk then
+    reaches and ages to 102, unless it shifted in right after an eviction:
+    only the first, and only when slot 15 itself was evicted. So the ages
+    are the walk's, past 100 too (no slot past 100 ever expires)."""
     expired = ages == _LOW_MAX_AGE
     # the last slot before each slot's run of expired slots
     run_start = torch.cummax(torch.where(expired, c.minus_one, c.slots), dim=1).values
@@ -245,9 +249,30 @@ def _age(lows: torch.Tensor, ages: torch.Tensor, c: _Constants
     passed[:, 1:] = evicted[:, :-1]
     aged = ages + (~passed).to(torch.int32)
     order = torch.sort(evicted.to(torch.int32), dim=1, stable=True).indices
-    empty = c.slots >= _LOW_SLOTS - evicted.sum(dim=1, keepdim=True)
+    first_empty = _LOW_SLOTS - evicted.sum(dim=1, keepdim=True)
+    empty = c.slots >= first_empty
+    empty_age = c.age_fill + ((c.slots != first_empty) | ~evicted[:, -1:]).to(torch.int32)
     return (torch.where(empty, c.low_fill, torch.gather(lows, 1, order)),
-            torch.where(empty, c.age_fill, torch.gather(aged, 1, order)))
+            torch.where(empty, empty_age, torch.gather(aged, 1, order)))
+
+
+def _age_walk(lows: torch.Tensor, ages: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The sequential aging walk of the JAX package's tracker, which kernel
+    I runs (tests hold it against :func:`_age`; no caller on the main
+    path): slot k = 0..15 in turn, each channel on its own, either evicted
+    at age 100 (the slots after it shift left, an empty slot of age 101
+    enters at the end, and the slot that shifted into k is not visited) or
+    aged by one."""
+    lows, ages = lows.clone(), ages.clone()
+    for k in range(_LOW_SLOTS):
+        expired = ages[:, k] == _LOW_MAX_AGE
+        shifted_lows = torch.cat([lows[:, k + 1:], torch.full_like(lows[:, :1], _LOW_FILL)], dim=1)
+        shifted_ages = torch.cat([ages[:, k + 1:], torch.full_like(ages[:, :1], _LOW_MAX_AGE + 1)],
+                                 dim=1)
+        lows[:, k:] = torch.where(expired[:, None], shifted_lows, lows[:, k:])
+        ages[:, k:] = torch.where(expired[:, None], shifted_ages, ages[:, k:])
+        ages[:, k] = torch.where(expired, ages[:, k], ages[:, k] + 1)
+    return lows, ages
 
 
 def _find_minimum(state: GmmState, features: torch.Tensor, c: _Constants):
@@ -366,26 +391,94 @@ def gmm_step(state: GmmState, features: torch.Tensor, total_power: torch.Tensor,
     return new_state, out_flag
 
 
+def gmm_flags_plain(features: torch.Tensor, total: torch.Tensor, thresholds,
+                    final_state: bool = False):
+    """Kernel I's plain version, a loop of :func:`gmm_step` over the frames
+    of ``features (F, 6)`` and ``total (F,)`` from the initial state with
+    the mode's ``thresholds`` (a row of :data:`MODE_TABLE`): the flags
+    ``(F,)`` int32, and with ``final_state`` ``(flags, GmmState)``."""
+    dtype, dev = features.dtype, features.device
+    consts = _constants(dtype, dev)
+    state = initial_gmm_state(dtype, dev)
+    flags = []
+    for t in range(features.shape[0]):
+        state, flag = gmm_step(state, features[t], total[t], thresholds, consts)
+        flags.append(flag)
+    flags = torch.stack(flags) if flags else torch.zeros(0, dtype=torch.int32, device=dev)
+    return (flags, state) if final_state else flags
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# features, total, F, is_double, oh1, oh2, local_thr, global_thr, flags,
+# state_f, state_i, stream
+_GMM_ARGTYPES = [_P, _P, _I, _I, _I, _I, ctypes.c_double, ctypes.c_double, _P, _P, _P, _P]
+GMM_STATE_VALUES = 4 * 12 + 6 * _LOW_SLOTS + 6  # the kernel's packed float state
+GMM_STATE_INTS = 3 + 6 * _LOW_SLOTS
+
+
+def _unpack_state(f: torch.Tensor, i: torch.Tensor) -> GmmState:
+    """The kernel's packed final state as a :class:`GmmState`."""
+    means = f[:48].reshape(4, 2, 6)
+    return GmmState(noise_means=means[0], speech_means=means[1], noise_stds=means[2],
+                    speech_stds=means[3], frame_count=i[0], over_hang=i[1], speech_run=i[2],
+                    low_values=f[48:48 + 6 * _LOW_SLOTS].reshape(6, _LOW_SLOTS),
+                    value_ages=i[3:].reshape(6, _LOW_SLOTS), mean_values=f[48 + 6 * _LOW_SLOTS:])
+
+
+def gmm_flags(features: torch.Tensor, total: torch.Tensor, thresholds,
+              final_state: bool = False):
+    """The GMM decision and adaptation over all frames of ``features (F,
+    6)`` and ``total (F,)``: flags ``(F,)`` int32 (0 noise, 1 speech, >= 2
+    hangover), and with ``final_state`` ``(flags, GmmState)``. CUDA tensors
+    launch kernel I once (float32 or float64; anything else raises), CPU
+    tensors run :func:`gmm_flags_plain`."""
+    dev = features.device
+    if dev.type == "cpu":
+        return gmm_flags_plain(features, total, thresholds, final_state)
+    if dev.type != "cuda":
+        raise ValueError(f"the WebRTC GMM runs on cpu or cuda tensors, got {dev}")
+    dtype = features.dtype
+    n = features.shape[0] if features.dim() == 2 else -1
+    if (features.dim() != 2 or features.shape[1] != 6 or tuple(total.shape) != (n,)
+            or total.dtype != dtype or total.device != dev
+            or dtype not in (torch.float32, torch.float64)):
+        raise ValueError(f"the WebRTC GMM kernel takes float32 or float64 features (F, 6) and "
+                         f"total (F,) of one dtype on one device, got {dtype} "
+                         f"{tuple(features.shape)} and {total.dtype} {tuple(total.shape)} on "
+                         f"{total.device}")
+    oh1, oh2, local_thr, global_thr = thresholds
+    flags = torch.empty((n,), dtype=torch.int32, device=dev)
+    state_f = torch.empty((GMM_STATE_VALUES,), dtype=dtype, device=dev)
+    state_i = torch.empty((GMM_STATE_INTS,), dtype=torch.int32, device=dev)
+    feats, tot = features.contiguous(), total.contiguous()
+    lib = _build.load("webrtc_gmm", _GMM_ARGTYPES)
+    with torch.cuda.device(dev):  # launch on the tensors' card
+        rc = lib.webrtc_gmm_launch(feats.data_ptr(), tot.data_ptr(), n,
+                                   int(dtype == torch.float64), int(oh1), int(oh2),
+                                   float(local_thr), float(global_thr), flags.data_ptr(),
+                                   state_f.data_ptr(), state_i.data_ptr(),
+                                   torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "webrtc_gmm", rc)
+    gmm_flags.launches += 1
+    return (flags, _unpack_state(state_f, state_i)) if final_state else flags
+
+
+gmm_flags.launches = 0  # kernel I launches; plain CPU calls do not count
+
+
 def webrtc_vad_flags(signal: torch.Tensor, mode: int = 0, dtype=torch.float32,
                      acc_dtype=torch.float64) -> torch.Tensor:
     """Offline VAD: int16 samples ``(S,)`` -> per-10 ms flags ``(F,)`` int32
     on the signal's device. The filterbank runs over the whole signal, the
-    GMM as a frame loop; trailing samples short of a frame are dropped, as
-    in the streaming detector."""
-    thresholds = MODE_TABLE[mode]
+    GMM through :func:`gmm_flags` (kernel I on CUDA, one launch); trailing
+    samples short of a frame are dropped, as in the streaming detector."""
     n_frames = signal.shape[0] // FRAME_LEN_16K
     dev = signal.device
     if n_frames == 0:
         return torch.zeros(0, dtype=torch.int32, device=dev)
     x = signal[: n_frames * FRAME_LEN_16K].to(dtype)
     features, total, _ = extract_features(x, initial_filter_state(dtype, dev), acc_dtype)
-    consts = _constants(dtype, dev)
-    state = initial_gmm_state(dtype, dev)
-    flags = []
-    for t in range(n_frames):
-        state, flag = gmm_step(state, features[t], total[t], thresholds, consts)
-        flags.append(flag)
-    return torch.stack(flags)
+    return gmm_flags(features, total, MODE_TABLE[mode])
 
 
 class WebRtcVadTorch:

@@ -101,7 +101,8 @@ def test_flagship_model_and_entry_on_cpu():
 
 
 def _port_sources():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, f) for f in ("chip_smoke.py", "kernel_timing.py",
+                                             "kernel_phases.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -139,7 +140,8 @@ PORT_MODULES = [
     "lnasr_tpu_torch.examples.isolated_word_demo", "lnasr_tpu_torch.examples.segmenter_demo",
     "lnasr_tpu_torch.examples.multihost_train", "lnasr_tpu_torch.ops",
     "lnasr_tpu_torch.bench.stream", "lnasr_tpu_torch.bench.wer",
-    "lnasr_tpu_torch.examples.real_audio_demo",
+    "lnasr_tpu_torch.examples.real_audio_demo", "lnasr_tpu_torch.ops.trigram",
+    "lnasr_tpu_torch.vad.webrtc",
 ]
 
 
