@@ -35,9 +35,10 @@ kernels' launch counters reset just before and read just after:
 - the exact trigram graph at V = 200, ``entry.recognizer_serving(200,
   graph="trigram", lm_order=3)``: the trigram kernel's forward and
   backtrace held bitwise against their plain frame loops (the segment's
-  inputs at float32 and float64, planted ties, masks, T = 1 and 2, both
-  routes), then its segment decode launches the mel frontend, the
-  trigram forward and the trigram backtrace once each;
+  inputs at float32 and float64, planted ties, masks, T = 1 and 2, every
+  route that takes each), then its segment decode launches the mel
+  frontend, the trigram forward (on its resident route, by the route's own
+  counter) and the trigram backtrace once each;
 - the device VADs on the stream's audio (LTSD fixed and adaptive, the
   WebRTC-style torch VAD in modes 0-3, whose GMM recursion is one launch
   of its kernel a call) against their CPU runs, the plain GMM loop on the
@@ -1143,22 +1144,37 @@ def tie_graph(torch, rng, v, s, t_len, dev, dtype):
             torch.as_tensor(sizes - 1, dtype=torch.int32, device=dev))
 
 
+def trigram_routes(tri, args):
+    """The routes of kernel H's forward that take ``args`` (the resident
+    route only float32 and within its capacity), in ``tri.ROUTES`` order."""
+    t, v, s = args[0].shape
+    return [r for r in tri.ROUTES if tri.route_fits(r, v + 1, v, s, args[0].dtype.itemsize,
+                                                    tri.sm_count(args[0].device))]
+
+
 def check_trigram(torch, tri, dev, g, log_b, mask):
     """Kernel H against its plain versions, bitwise (:func:`check_trigram_case`):
-    the V = 200 segment's own inputs at float32 and float64, each on both
-    routes; its scores rounded to integers (ties across histories and
-    within sources, hops equal to ``within``); small graphs of planted ties
-    with masks at the start, inside and at the end, and T = 1 and 2; each
-    route forced at small V, from one word (two history rows) on. Returns
-    the segment's largest score difference (0.0)."""
+    the V = 200 segment's own inputs at float32 and float64, each on every
+    route that takes it (:func:`trigram_routes`: float32 the resident,
+    ``smem`` and global routes, float64 the last two); its scores rounded
+    to integers (ties across histories and within sources, hops equal to
+    ``within``) on each route; small graphs of planted ties with masks at
+    the start, inside and at the end, and T = 1 and 2; each route forced at
+    small V, from one word (two history rows) on. Returns the segment's
+    largest score difference (0.0)."""
     tabs = (g.inner_a, g.hop3, g.log_pi_w, g.final3, g._exit_idx32)
     seg = (log_b, mask) + tabs
     seg64 = tuple(x.double() if x.is_floating_point() else x for x in seg)
+    require("resident" in trigram_routes(tri, seg), "kernel H's resident route does not take "
+            "the V=200 segment at float32")
     err = max(check_trigram_case(torch, tri, a, f"the V=200 segment, {what}", route)
-              for what, a in (("float32", seg), ("float64", seg64)) for route in tri.ROUTES)
+              for what, a in (("float32", seg), ("float64", seg64))
+              for route in trigram_routes(tri, a))
     rounded = (log_b.round(), mask, g.inner_a.round(), g.hop3.round(), g.log_pi_w.round(),
                g.final3.round(), g._exit_idx32)
-    check_trigram_case(torch, tri, rounded, "the V=200 segment rounded to integers", ties=True)
+    for route in trigram_routes(tri, rounded):
+        check_trigram_case(torch, tri, rounded, "the V=200 segment rounded to integers", route,
+                           ties=route == "resident")
     rng = np.random.default_rng(14)
     t_len = 40
     masks = {"no mask": None,
@@ -1169,17 +1185,19 @@ def check_trigram(torch, tri, dev, g, log_b, mask):
     for dtype in (torch.float32, torch.float64):
         lb, *tab = tie_graph(torch, rng, 12, 4, t_len, dev, dtype)
         for what, m in masks.items():
-            for route in tri.ROUTES:
+            for route in trigram_routes(tri, (lb, m, *tab)):
                 check_trigram_case(torch, tri, (lb, m, *tab), f"planted ties, {what}", route,
                                    ties=route == "smem")
         for t in (1, 2):
-            check_trigram_case(torch, tri, (lb[:t], None, *tab), f"planted ties, T={t}")
-            check_trigram_case(torch, tri, (lb[:t], torch.zeros(t, dtype=torch.bool, device=dev),
-                                            *tab), f"planted ties, T={t}, every frame masked")
+            for m in (None, torch.zeros(t, dtype=torch.bool, device=dev)):
+                for route in trigram_routes(tri, (lb[:t], m, *tab)):
+                    check_trigram_case(torch, tri, (lb[:t], m, *tab), f"planted ties, T={t}"
+                                       + (", every frame masked" if m is not None else ""), route)
     for v in (1, 5, 40):  # one word to a few: from H = 2 rows on up
         lb, *tab = tie_graph(torch, rng, v, 3, 25, dev, torch.float32)
-        for route in tri.ROUTES:
-            check_trigram_case(torch, tri, (lb.float() * 0.37, None, *tab), f"V={v}", route)
+        args = (lb.float() * 0.37, None, *tab)
+        for route in trigram_routes(tri, args):
+            check_trigram_case(torch, tri, args, f"V={v}", route)
     return err
 
 
@@ -1208,15 +1226,23 @@ def trigram_phase(torch, entry, wrappers, card, launches):
     rec.decode_segment(seg)  # first calls out of the count and the timing
     torch.cuda.synchronize()
     reset_counts(*wrappers)
+    by_route = tri.trigram_forward.route_launches
+    by_route.update(dict.fromkeys(by_route, 0))
     words, score = rec.decode_segment(seg)
     torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
+    route_counts = dict(by_route)
     launches["V=200 trigram"] = counts
     on_path = ("mel_frontend", "trigram_forward", "trigram_backtrace")
     require(all(counts[n] == 1 for n in on_path)
             and all(c == 0 for n, c in counts.items() if n not in on_path),
             f"the trigram segment decode did not launch the mel frontend, H's forward and H's "
             f"backtrace once each and nothing else: {counts}")
+    t, v, s = log_b.shape
+    route = tri.trigram_route(v + 1, v, s, log_b.dtype.itemsize, tri.sm_count(log_b.device))
+    require(route == "resident" and route_counts == {r: int(r == route) for r in tri.ROUTES},
+            f"the trigram segment decode did not take H's resident route once: route {route}, "
+            f"launches by route {route_counts}")
     words_c, score_c = rec_cpu.decode_segment(seg)
     rel = abs(score - score_c) / abs(score_c)
     require(words == words_c and rel < 1e-4,
@@ -1235,7 +1261,8 @@ def trigram_phase(torch, entry, wrappers, card, launches):
     dev = device_ms(torch, lambda: rec.decode_segment(seg), calls=3)
     print(f"main path: Recognizer(graph='trigram').decode_segment at V=200 (grid {g.grid_shape}, "
           f"hop {tuple(g.hop3.shape)}) on {seg_s} s -> {len(words)} words {words[:8]}, score "
-          f"{score}; launches {counts}; equal to the CPU recognizer (score rel err {rel:.3g}); "
+          f"{score}; launches {counts}, H's forward by route {route_counts}; equal to the CPU "
+          f"recognizer (score rel err {rel:.3g}); "
           f"planted {planted} -> {got} (paths "
           f"{'equal' if np.array_equal(path_g, path_c) else 'differ'} to the CPU's)")
     print(f"timing on {card}: trigram segment V=200: {ms:.4f} ms per {seg_s} s segment = "
@@ -1259,7 +1286,6 @@ def trigram_phase(torch, entry, wrappers, card, launches):
     plain_fwd_ms = cuda_ms(lambda: tri.trigram_forward_plain(*args), reps=3, warmup=1)
     rb, _, rl = tri.trigram_forward_plain(*args)
     plain_bt_ms = cuda_ms(lambda: tri.trigram_backtrace_plain(rb, rl), reps=3, warmup=1)
-    t, v, s = log_b.shape
     h = v + 1
     steps = int(mask[1:].sum())
     isz = log_b.dtype.itemsize
@@ -1275,13 +1301,12 @@ def trigram_phase(torch, entry, wrappers, card, launches):
           f"queued behind a spinning kernel; torch.profiler {fwd_prof[0]:.4f} ms, {fwd_prof[1]} "
           f"of 5 launches recorded in window {fwd_prof[2]}), the wrapper call {fwd_wrapper_ms:.4f}"
           f" ms, plain frame loop {plain_fwd_ms:.4f} ms; bound {f_bound[0]:.5f} ms by "
-          f"{f_bound[1]} ({f_bytes} bytes, {steps} steps), hop3 re-read from device memory each "
-          f"step {reread_ms:.4f} ms; kernel H backtrace {bt_ms:.4f} ms (profiler "
+          f"{f_bound[1]} ({f_bytes} bytes, {steps} steps), the row routes' hop3 re-read from "
+          f"device memory each step {reread_ms:.4f} ms; kernel H backtrace {bt_ms:.4f} ms (profiler "
           f"{bt_prof[0]:.4f} ms, {bt_prof[1]} of 5), the wrapper call {bt_wrapper_ms:.4f} ms, "
           f"plain gathers {plain_bt_ms:.4f} ms, bound {b_bound[0]:.6f} ms; trigram_viterbi "
-          f"{wrapper_ms:.4f} ms (T={t}, H={h}, V={v}, S={s}, route "
-          f"{tri.trigram_route(h, v, s, isz, tri.sm_count(log_b.device))})")
-    return {"ms": ms, "device_ms": dev, "err": h_err,
+          f"{wrapper_ms:.4f} ms (T={t}, H={h}, V={v}, S={s}, route {route})")
+    return {"ms": ms, "device_ms": dev, "err": h_err, "route": route,
             "forward": {"ms": fwd_ms, "profiler_ms": fwd_prof[0], "profiler_launches": fwd_prof[1],
                         "wrapper_ms": fwd_wrapper_ms, "plain_ms": plain_fwd_ms, "bound": f_bound,
                         "hop3_reread_ms": reread_ms},
@@ -3591,7 +3616,7 @@ def main():
         row |= {"ms": r["ms"], "profiler_ms": r["profiler_ms"],
                 "profiler_launches": r["profiler_launches"]}
         if part == "forward":
-            row["hop3_reread_ms"] = r["hop3_reread_ms"]
+            row |= {"route_taken": trig["route"], "hop3_reread_ms": r["hop3_reread_ms"]}
         kernels.append(row)
     gm = vads["gmm"]
     i_row = kernel_row("webrtc_gmm", "gmm_flags", "webrtc vad",

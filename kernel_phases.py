@@ -26,11 +26,14 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
   N = 5 and 8): the chunk's staging and product (phase 1), the boundary
   chain (phase 2), the replay and stores (phase 3), each up to the
   block's barrier after it (per block), and the cycles a step of each;
-- H's forward at the V = 200 trigram segment (T = 511, H = 202, float32):
-  its frame loop's within-word pass, the wait for the other blocks'
-  exits, the hop pass and the publication of its own, each summed over
-  the frames from the block's first thread, then the final argmax (per
-  block), and the cycles a valid step of each;
+- H's forward at the V = 200 trigram segment (T = 511, H = 202), at
+  float32 and float64 on every route of ``ops.trigram.ROUTES`` that takes
+  each: the load before the frame loop (on the resident route the
+  block's ``hop3`` columns into registers and shared memory), the frame
+  loop's within-word pass, the wait for the other blocks' exits, the hop
+  pass and the publication of its own, each summed over the frames from
+  the block's first thread, then the final argmax (per block), and the
+  cycles a valid step of each frame-loop phase;
 - I on the stream's features (6,292 frames, mode 0): each frame's
   decision (likelihoods, ratio, flag), minimum tracker (aging walk,
   insertion, smoothed minimum) and adaptation, summed over the frames by
@@ -80,6 +83,67 @@ def _acc(q, indent):
     return (" " * indent + "{ unsigned long long n_ = clock64(); "
             + f"ph_acc[{q}] += n_ - ph_t; ph_t = n_; }}\n")
 
+
+def _acc32(q, indent):
+    """:func:`_acc` in 32 bits (kernel H: a phase's cycles over a launch)."""
+    return (" " * indent + "{ const unsigned n_ = (unsigned)clock64(); "
+            + f"ph_acc[{q}] += n_ - ph_t; ph_t = n_; }}\n")
+
+
+def _h_final(stride):
+    """Kernel H's stamps at its end, from the block's first thread: 1, then
+    the running totals of the load, the four frame-loop phases and the
+    final argmax."""
+    return ("    if (threadIdx.x == 0) {\n        unsigned long long c_ = 1;\n"
+            f"        g_stamps[blockIdx.x * {stride}] = c_;\n"
+            f"        g_stamps[blockIdx.x * {stride} + 1] = c_ += ph_load;\n"
+            "        for (int q = 0; q < 4; ++q)\n"
+            f"            g_stamps[blockIdx.x * {stride} + 2 + q] = c_ += ph_acc[q];\n"
+            f"        g_stamps[blockIdx.x * {stride} + 6] = c_ + ((unsigned)clock64() - fin_t);\n"
+            "    }\n")
+
+
+H_PHASES = ["load", "within-word pass", "exchange wait", "hop pass", "publish", "final argmax"]
+# kernel H's sums are 32-bit (a phase's cycles over a launch fit), which
+# keeps the stamps' registers few
+H_ROW_PATCHES = [  # the row routes' kernel
+    ("    for (int k = tid; k < V; k += nth) eidx[k] = p.exit_idx[k];\n",
+     "    unsigned ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"
+     "    const unsigned ph_t0 = (unsigned)clock64();\n"),
+    ("    publish(gc, p.xch, 0, 0u, h0, nr, H, V, S, eidx);\n",
+     "    const unsigned ph_load = (unsigned)clock64() - ph_t0;\n"),
+    ("        const T* lb = log_b + (size_t)t * VS;\n", "        ph_t = (unsigned)clock64();\n"),
+    ("                __stcs(bt + k, base_id + k - s + src);\n            }\n        }\n",
+     _acc32(0, 8)),
+    ("                   max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));\n"
+     "        __syncthreads();\n", _acc32(1, 8)),
+    ("            gn[cell] = m + lb[w * S];\n            __stcs(bt + cell, b);\n"
+     "        }\n        __syncthreads();\n", _acc32(2, 8)),
+    ("        gc = gn;\n        gn = tmp;\n", _acc32(3, 8)),
+    ("    T bv = ninf;\n    int bi = INT_MAX;\n",
+     "    const unsigned fin_t = (unsigned)clock64();\n"),
+    ("        *static_cast<T*>(p.score) = v;\n        *p.last = i;\n    }\n", _h_final(7)),
+]
+H_RESIDENT_PATCHES = [  # no barrier follows its hop pass: thread 0's own hop copy
+    ("    for (int k = tid; k < V; k += R_THREADS) eidx[k] = p.exit_idx[k];\n",
+     "    unsigned ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"
+     "    const unsigned ph_t0 = (unsigned)clock64();\n"),
+    ("        st_relaxed(p.xch + xo, (unsigned long long)__float_as_uint(g[e_st]));\n"
+     "    }\n", "    const unsigned ph_load = (unsigned)clock64() - ph_t0;\n"),
+    ("        const float* lw = log_b + (size_t)t * VS + w * S;  // this copy's emissions\n",
+     "        ph_t = (unsigned)clock64();\n"),
+    ("            store_pointers(bt, bp, S);\n        }\n", _acc32(0, 8)),
+    ("        read_columns(src, last_pub, 2 * R_THREADS, n_words, H, ht, ex_b);\n"
+     "        __syncthreads();\n", _acc32(1, 8)),
+    ("        if (own && (!hopper || e_st != 0)) st_relaxed(out + xo, tag | "
+     "__float_as_uint(g[e_st]));\n", _acc32(3, 8)),  # exits published before the hop
+    ("            g[0] = m + emit0;\n", _acc32(2, 12)),
+    ("            if (e_st == 0) st_relaxed(out + xo, tag | __float_as_uint(g[0]));\n",
+     _acc32(3, 12)),  # and after it
+    ("    // elsewhere; the first flattened state of the maximum\n",
+     "    const unsigned fin_t = (unsigned)clock64();\n"),
+    ("        *static_cast<float*>(p.score) = v;\n        *p.last = i;\n    }\n", _h_final(7)),
+]
 
 # (anchor, text inserted after it) per kernel and version; the first set
 # whose anchors all occur once in the source is applied (the warp route's
@@ -162,31 +226,11 @@ PATCH_SETS = {
     ],
     # phases inside a frame loop: cycles summed over the frames, written at
     # the end as running totals from 1 (a stamp of 0 means "not stamped")
+    # kernel H: both kernels of the file, the row routes' (smem, global) and
+    # the resident route's; a file from before the resident route has the first alone
     "trigram_forward": [
-        ("rows owned by history", 6,
-         ["within-word pass", "exchange wait", "hop pass", "publish", "final argmax"], [
-             ("    for (int k = tid; k < V; k += nth) eidx[k] = p.exit_idx[k];\n",
-              "    unsigned long long ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"),
-             ("        const T* lb = log_b + (size_t)t * VS;\n", "        ph_t = clock64();\n"),
-             ("                __stcs(bt + k, base_id + k - s + src);\n            }\n        }\n",
-              _acc(0, 8)),
-             ("                   max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));\n"
-              "        __syncthreads();\n",
-              _acc(1, 8)),
-             ("            gn[cell] = m + lb[w * S];\n            __stcs(bt + cell, b);\n        }\n"
-              "        __syncthreads();\n",
-              _acc(2, 8)),
-             ("        gc = gn;\n        gn = tmp;\n",
-              _acc(3, 8)),
-             ("    // the final argmax: grid + final3 at each word's exit state, -inf\n",
-              "    const unsigned long long fin_t = clock64();\n"),
-             ("        *static_cast<T*>(p.score) = v;\n        *p.last = i;\n    }\n",
-              "    if (tid == 0) {\n        unsigned long long c_ = 1;\n"
-              "        g_stamps[blockIdx.x * 6] = c_;\n"
-              "        for (int q = 0; q < 4; ++q)\n"
-              "            g_stamps[blockIdx.x * 6 + 1 + q] = c_ += ph_acc[q];\n"
-              "        g_stamps[blockIdx.x * 6 + 5] = c_ + (clock64() - fin_t);\n    }\n"),
-         ]),
+        ("row routes and resident route", 7, H_PHASES, H_ROW_PATCHES + H_RESIDENT_PATCHES),
+        ("rows owned by history", 7, H_PHASES, H_ROW_PATCHES),
     ],
     "webrtc_gmm": [
         ("one warp, lane = channel", 4, ["decision", "minimum tracker", "adaptation"], [
@@ -411,20 +455,31 @@ def main():
         padded, n, _ = rec._pad_to_bucket(seg)
         feats, mask = rec.am.mfcc.features_fast(torch.from_numpy(padded).to(dev),
                                                 lengths=torch.tensor([n], device=dev))
-        args_h = (g._grid_log_b(feats), mask, g.inner_a, g.hop3, g.log_pi_w, g.final3,
+        args32 = (g._grid_log_b(feats), mask, g.inner_a, g.hop3, g.log_pi_w, g.final3,
                   g._exit_idx32)
-        call = lambda: tri.trigram_forward(*args_h)  # noqa: E731
-        res = split("trigram_forward", call)
-        got = call()
-        use("trigram_forward", plain["trigram_forward"])
-        ref = call()
-        if not all(torch.equal(x, y) for x, y in zip(got, ref)):
-            raise SystemExit("the stamped kernel H differs from the unstamped one")
+        args64 = tuple(x.double() if x.is_floating_point() else x for x in args32)
+        t, v, s = args32[0].shape
         steps = int(mask[1:].sum())
-        emit(kernel="H", what=f"forward V=200, T={mask.shape[0]}, {steps} valid steps", **res,
-             cycles_per_step={p: c / steps for p, c in res["cycles"].items()
-                              if p != "final argmax"},
-             **times("trigram_forward", call), sm_clock_mhz=sm_clock())
+        n_sm = tri.sm_count(dev)
+        fits = getattr(tri, "route_fits", None)
+        for what, args_h in (("float32", args32), ("float64", args64)):
+            isz = args_h[0].dtype.itemsize
+            for route in tri.ROUTES:
+                if fits is not None and not fits(route, v + 1, v, s, isz, n_sm):
+                    continue
+                call = lambda: tri._forward(*args_h, route=route)  # noqa: E731
+                res = split("trigram_forward", call)
+                got = call()
+                use("trigram_forward", plain["trigram_forward"])
+                ref = call()
+                if not all(torch.equal(x, y) for x, y in zip(got, ref)):
+                    raise SystemExit(f"the stamped kernel H differs from the unstamped one "
+                                     f"({what}, {route})")
+                emit(kernel="H", what=f"forward V=200, T={t}, {steps} valid steps, {what}",
+                     route=route, chosen=route == tri.trigram_route(v + 1, v, s, isz, n_sm),
+                     **res, cycles_per_step={p: c / steps for p, c in res["cycles"].items()
+                                             if p not in ("load", "final argmax")},
+                     **times("trigram_forward", call), sm_clock_mhz=sm_clock())
     if "webrtc_gmm" in names:
         audio = entry.serving_stream(0)
         n = len(audio) // tweb.FRAME_LEN_16K

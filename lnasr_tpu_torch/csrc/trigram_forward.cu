@@ -22,13 +22,21 @@
 // What bounds it on an H100. At V = 200 (H = 202, S = 8, 324,816 states),
 // T = 512, float32: 32.6 MB of hop3 and 3.3 MB of emissions in, 511
 // backpointer frames of 1.3 MB out: 0.209 ms at 3.35 TB/s; 10.95 G adds
-// and maxes, 0.163 ms at 67 TFLOP/s. A frame's hop reads all of hop3,
-// which no SM's 227 KB of shared memory holds (247 KB an SM at V = 200),
-// so every frame streams it again, from L2 where it stays there (32.6 MB
-// could, at float32; float64's 65 MB cannot) or from device memory:
-// 16.6 GB over 509 frames, 4.96 ms at HBM's rate. Frames depend on each
-// other, so the work of a frame is spread over the card and the
-// frame-to-frame exchange is kept small.
+// and maxes, 0.163 ms at 67 TFLOP/s. A frame's hop reads all of hop3.
+// Frames depend on each other, so the work of a frame is spread over the
+// card and the frame-to-frame exchange is kept small. Three routes,
+// chosen in Python (ops/trigram.py:trigram_route) by capacity:
+//
+// - "resident" (float32; the serving graph's route): blocks own ranges of
+//   copies, and each keeps the hop3 columns of its copies on chip for the
+//   whole launch, part in registers and the rest in shared memory, so that
+//   hop3 is read from device memory once a launch. See the note above
+//   trigram_resident_kernel below.
+// - "smem" and "global" (float64, and float32 past the resident route's
+//   capacity): blocks own history rows and stream the (H, V) slabs of
+//   hop3 their rows need every frame, from L2 or device memory: 16.6 GB
+//   over 509 frames at V = 200, 4.96 ms at HBM's rate. The rest of this
+//   note is theirs.
 //
 // Ownership by history row. Block k owns rows h in [k*rpb, (k+1)*rpb)
 // (rpb = ceil(H / SMs), 2 at V = 200), keeps them in shared memory (or,
@@ -70,7 +78,7 @@ constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int SMEM_STATIC = 1024;   // the static arrays' share (mirrored in ops/trigram.py)
 constexpr int POLL = 4;             // exchange words a thread loads at once
 constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
-constexpr int ROUTE_SMEM = 0, ROUTE_GLOBAL = 1;
+constexpr int ROUTE_SMEM = 0, ROUTE_GLOBAL = 1, ROUTE_RESIDENT = 2;
 
 struct Args {
     const void* log_b;        // (T, V, S)
@@ -374,6 +382,390 @@ size_t smem_bytes(int H, int V, int S, int rpb, int itemsize, int route) {
     return ((head + 15) & ~(size_t)15) + 2 * (size_t)rpb * V * S * itemsize;
 }
 
+// -- the resident route --------------------------------------------------------
+//
+// hop3 is constant for the whole launch, and the hop into copy (u, w) reads
+// only its column hop3[:, u, w]. So the H*V copies (h, w), numbered h*V + w,
+// are cut into B = min(SMs, H) contiguous ranges of equal length (the last
+// block's range holds the <s> row, whose copies no hop enters, with fewer
+// hop copies: a range's cost is its copies' within-word pass, done by one
+// thread each, and its hop columns, all walked at once), a thread owns one
+// copy, and each block loads the hop columns of its copies once, before
+// frame 1: the first R_KR sources of each into registers of the copy's
+// thread (statically indexed, fully unrolled), the rest into shared memory
+// by cp.async. At V = 200 (H = 202), float32, 132 blocks of at most 308
+// copies: 80 sources a column in registers (98.6 KB an SM of its 256 KB),
+// 122 and two of -inf padding in shared memory (152.8 KB). hop3 is read
+// from device memory once a launch; every frame reads its hop sources on
+// chip, four at a time (take4).
+//
+// B <= H keeps every range at least V copies long: then every exit column
+// exit[:, u] (copies h*V + u, one a row) holds a word of every block, and a
+// block that has read one column of a publication has read a word of every
+// block. That is the invariant that lets the exchange keep two buffers
+// (the note on the exchange above; with shorter ranges a block could run
+// two publications ahead of one whose words it never reads, and overwrite
+// them: tests/test_torch_trigram_kernel.py models both). A block reads one
+// column for each hop row in its range (at most 3 at V = 200), and column
+// 0 when it owns no hop copy.
+//
+// A frame, in each block: the first exit words each thread reads of the last
+// publication are loaded, so that they fly during the within-word pass; the
+// within-word pass (a thread its copy's S states, in shared memory, in
+// place: all S read before any is written); the rest of the exit columns;
+// a barrier; then the
+// exits the hop cannot change (all but state 0 of a hop copy) are published
+// at once, so that they travel during the hop pass: the block has read all
+// of the last publication, so two buffers still suffice; the hop pass; and
+// last the exits at state 0 of hop copies. The exit columns alternate
+// between two buffers, so no barrier follows the hop pass. The within-word
+// pass writes every backpointer of the frame, state 0's from its within
+// source; the hop pass overwrites it where the hop wins. Inner transitions
+// and states sit at strides R_ASTRIDE and R_GSTRIDE, odd, so that a warp's
+// copies read distinct banks at offsets known to the compiler.
+//
+// Registers: ptxas allocates warps four at a time, so a block of 10 to 12
+// warps gets 168 registers a thread; R_KR = 80 is the most that built with
+// no spill (88 and 96 spilled), and a block has 12 warps.
+constexpr int R_THREADS = 384;  // a block: one thread for each of its copies
+constexpr int R_KR = 80;        // hop sources a thread keeps in registers
+constexpr int R_SMAX = 8;       // local states a word has at most on this route
+constexpr int R_ASTRIDE = R_SMAX * R_SMAX + 1;  // inner_a[w] at a_s + w * R_ASTRIDE
+constexpr int R_GSTRIDE = R_SMAX + 1;           // own copy k's states at grid + k * R_GSTRIDE
+
+// One launch's partition: the same shared-memory carve in every block.
+struct Layout {
+    int blocks;  // min(SMs, H)
+    int nhp;     // most hop copies a block owns
+    int ncp;     // most copies a block owns
+    int ncol;    // most exit columns a block reads
+    int hsp;     // a hop column's sources in shared memory (from R_KR on), 4 mod 8 or 0
+};
+
+__host__ __device__ __forceinline__ int pad4(int x) { return (x + 3) & ~3; }
+
+// The first copy of block b: block b owns copies [lo(b), lo(b + 1)) of H*V.
+__host__ __device__ __forceinline__ int copy_lo(int b, int blocks, int H, int V) {
+    return (int)((long long)H * V * b / blocks);
+}
+
+// Mirrored by lnasr_tpu_torch/ops/trigram.py:resident_layout.
+Layout resident_layout(int H, int V, int n_sm) {
+    Layout l{n_sm < H ? n_sm : H, 0, 0, 0, 0};
+    for (int b = 0; b < l.blocks; ++b) {
+        const int lo = copy_lo(b, l.blocks, H, V), hi = copy_lo(b + 1, l.blocks, H, V);
+        const int n_hop = (hi < V * V ? hi : V * V) - lo;  // its copies of rows h < V
+        const int ncol = n_hop > 0 ? (lo + n_hop - 1) / V - lo / V + 1 : 1;
+        l.nhp = l.nhp > n_hop ? l.nhp : n_hop;
+        l.ncp = l.ncp > hi - lo ? l.ncp : hi - lo;
+        l.ncol = l.ncol > ncol ? l.ncol : ncol;
+    }
+    // rows of 4 mod 8 floats: a quarter warp's float4 loads of its copies'
+    // rows fall in 8 distinct 16-byte bank groups
+    const int rest = pad4(H - R_KR);
+    l.hsp = H <= R_KR ? 0 : rest + (rest % 8 == 0 ? 4 : 0);
+    return l;
+}
+
+// Mirrored by lnasr_tpu_torch/ops/trigram.py:resident_bytes.
+size_t resident_smem_bytes(int V, const Layout& l) {
+    return 4 * ((size_t)pad4(V) + pad4(V * R_ASTRIDE) + pad4(l.ncp * R_GSTRIDE)
+                + (size_t)2 * l.ncol * (R_KR + l.hsp) + (size_t)l.nhp * l.hsp);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+// out[(j / H) * ht + j % H] = the float of src[j] once its tag is `tag`,
+// for j0 + threadIdx.x, j0 + threadIdx.x + blockDim.x, ... < n: exit columns
+// of H words into rows of ht floats. Polled as read_exits polls.
+__device__ void read_columns(const unsigned long long* src, unsigned tag, int j0, int n, int H,
+                             int ht, float* out) {
+    const int nth = blockDim.x;
+    for (int base = j0 + threadIdx.x; base < n; base += nth * POLL) {
+        unsigned long long x[POLL];
+        unsigned pending = 0;
+#pragma unroll
+        for (int q = 0; q < POLL; ++q) {
+            const int j = base + q * nth;
+            if (j < n) {
+                x[q] = ld_relaxed(src + j);
+                pending |= 1u << q;
+            }
+        }
+        for (long long round = 0; pending; ++round) {
+            if (round > SPIN_LIMIT) __trap();
+#pragma unroll
+            for (int q = 0; q < POLL; ++q) {
+                if ((pending >> q & 1) && (unsigned)(x[q] >> 32) == tag) {
+                    const int j = base + q * nth, col = j / H;
+                    out[col * ht + j - col * H] = __uint_as_float((unsigned)x[q]);
+                    pending &= ~(1u << q);
+                }
+            }
+#pragma unroll
+            for (int q = 0; q < POLL; ++q)
+                if (pending >> q & 1) x[q] = ld_relaxed(src + base + q * nth);
+        }
+    }
+}
+
+// Word j of read_columns, its first load `x` issued earlier: polled again
+// until its tag is `tag`.
+__device__ __forceinline__ void finish_word(const unsigned long long* src, unsigned long long x,
+                                            unsigned tag, int j, int H, int ht, float* out) {
+    for (long long round = 0; (unsigned)(x >> 32) != tag; ++round) {
+        if (round > SPIN_LIMIT) __trap();
+        x = ld_relaxed(src + j);
+    }
+    const int col = j / H;
+    out[col * ht + j - col * H] = __uint_as_float((unsigned)x);
+}
+
+// Sources h .. h + 3 (values c0 .. c3) into the running first maximum
+// (best, arg) of the sources before h: the first maximum of each pair, of the
+// two pairs, then against the earlier sources, each taken only when strictly
+// larger. One compare a step of four waits on the one before.
+__device__ __forceinline__ void take4(float& best, int& arg, float c0, float c1, float c2,
+                                      float c3, int h) {
+    const bool p1 = c1 > c0, p3 = c3 > c2;
+    const float v01 = p1 ? c1 : c0, v23 = p3 ? c3 : c2;
+    const int i01 = h + p1, i23 = h + 2 + p3;
+    const bool p23 = v23 > v01;
+    const float v = p23 ? v23 : v01;
+    if (v > best) {
+        best = v;
+        arg = p23 ? i23 : i01;
+    }
+}
+
+// S backpointers of one copy from `bp`, as int4 streaming stores where S is
+// a multiple of 4 (then `dst` is 16-byte aligned), else one by one.
+__device__ __forceinline__ void store_pointers(int* dst, const int (&bp)[R_SMAX], int S) {
+    if ((S & 3) == 0) {
+#pragma unroll
+        for (int j = 0; j < R_SMAX; j += 4)
+            if (j < S)
+                __stcs(reinterpret_cast<int4*>(dst + j), make_int4(bp[j], bp[j + 1], bp[j + 2],
+                                                                   bp[j + 3]));
+    } else {
+#pragma unroll
+        for (int j = 0; j < R_SMAX; ++j)
+            if (j < S) __stcs(dst + j, bp[j]);
+    }
+}
+
+__global__ void __launch_bounds__(R_THREADS, 1) trigram_resident_kernel(Args p, Layout l) {
+    extern __shared__ __align__(16) unsigned char smem[];
+    __shared__ float rv[R_THREADS / 32];
+    __shared__ int ri[R_THREADS / 32];
+    __shared__ bool last_block;
+    const int H = p.H, V = p.V, S = p.S, VS = V * S;
+    const int tid = threadIdx.x, blk = blockIdx.x;
+    const int c0 = copy_lo(blk, l.blocks, H, V);
+    const int n_c = copy_lo(blk + 1, l.blocks, H, V) - c0;  // copies: c0 .. c0 + n_c - 1
+    const int n_hop = max(0, min(n_c, V * V - c0));         // hop copies: the first n_hop
+    const int u0 = n_hop > 0 ? c0 / V : 0;                  // the first exit column read
+    const int n_words = (n_hop > 0 ? (c0 + n_hop - 1) / V - u0 + 1 : 1) * H;  // read a frame
+    const int ht = R_KR + l.hsp;                            // a column's padded length
+    const size_t VV = (size_t)V * V, frame = (size_t)H * VS;
+    const float ninf = -INFINITY;
+    const float* log_b = static_cast<const float*>(p.log_b);
+    const float* hop3 = static_cast<const float*>(p.hop3);
+
+    int* eidx = reinterpret_cast<int*>(smem);               // [V]
+    float* a_s = reinterpret_cast<float*>(eidx + pad4(V));  // inner_a[w, q, j] at w*R_ASTRIDE + q*R_SMAX + j
+    float* grid = a_s + pad4(V * R_ASTRIDE);                // copy c0 + k's state j at k*R_GSTRIDE + j
+    float* ex = grid + pad4(l.ncp * R_GSTRIDE);             // [2][ncol][ht] exit columns, -inf past H
+    float* hs = ex + (size_t)2 * l.ncol * ht;               // [nhp][hsp] hop sources R_KR.. of copy i
+
+    // -- the load: tables, then this block's hop3 columns, once a launch --
+    for (int k = tid; k < V; k += R_THREADS) eidx[k] = p.exit_idx[k];
+    const float* inner_a = static_cast<const float*>(p.inner_a);
+    for (int k = tid; k < V * S * S; k += R_THREADS) {  // divisions here run once a launch
+        const int w = k / (S * S), qj = k - w * S * S, q = qj / S;
+        a_s[w * R_ASTRIDE + q * R_SMAX + qj - q * S] = inner_a[k];
+    }
+    for (int k = tid; k < 2 * l.ncol * ht; k += R_THREADS) ex[k] = ninf;
+    // this thread's copy c = (hh, w) (when tid < n_c), a hop copy when tid < n_hop
+    const bool own = tid < n_c, hopper = tid < n_hop;
+    const int c = c0 + min(tid, max(n_c - 1, 0));
+    const int hh = c / V, w = c - hh * V;
+    float hr[R_KR];  // hop3[h, hh, w], h < R_KR (-inf past H)
+#pragma unroll
+    for (int h = 0; h < R_KR; ++h) hr[h] = hopper && h < H ? __ldg(hop3 + h * VV + c) : ninf;
+    if (hopper) {
+        float* col = hs + (size_t)tid * l.hsp;
+        for (int q = 0; q < l.hsp; ++q) {
+            if (R_KR + q < H) cp_async4(col + q, hop3 + (R_KR + q) * VV + c);
+            else col[q] = ninf;
+        }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    __syncthreads();
+    const int e_st = eidx[w];                          // its exit state
+    const int h_src = hopper ? hh * S + eidx[hh] : 0;  // a hop from history g: g*V*S + h_src
+    const int h_ex = (hh - u0) * ht;                   // its exit column's row in ex
+    const int xo = w * H + hh;                         // its exit's word in a buffer
+    const int self = c * S;
+    float* g = grid + tid * R_GSTRIDE;
+    const float* a = a_s + w * R_ASTRIDE;
+
+    // frame 0, published with tag 0 (own values: no barrier before it)
+    if (own) {
+        const float pi = c >= V * V ? static_cast<const float*>(p.log_pi_w)[w] : ninf;
+#pragma unroll
+        for (int j = 0; j < R_SMAX; ++j)
+            if (j < S) g[j] = (j == 0 ? pi : ninf) + log_b[w * S + j];
+        st_relaxed(p.xch + xo, (unsigned long long)__float_as_uint(g[e_st]));
+    }
+    int n_pub = 0;
+    unsigned last_pub = 0;  // publications so far - 1, the frame of the last
+
+    for (int t = 1; t < p.n_t; ++t) {
+        int* bt = p.bts + (size_t)(t - 1) * frame + (size_t)self;  // this copy's pointers
+        if (p.mask != nullptr && !p.mask[t]) {  // identity step: self pointers, nothing published
+            if (own) {
+                int bp[R_SMAX];
+#pragma unroll
+                for (int j = 0; j < R_SMAX; ++j) bp[j] = self + j;
+                store_pointers(bt, bp, S);
+            }
+            continue;
+        }
+        const float* lw = log_b + (size_t)t * VS + w * S;  // this copy's emissions
+        // the first two exit words this thread reads of the last publication:
+        // loaded now, so that they fly during the within-word pass
+        const unsigned long long* src = p.xch + ((size_t)(n_pub & 1) * V + u0) * H;
+        float* ex_b = ex + (size_t)(n_pub & 1) * l.ncol * ht;
+        unsigned long long x0 = 0, x1 = 0;
+        if (tid < n_words) x0 = ld_relaxed(src + tid);
+        if (tid + R_THREADS < n_words) x1 = ld_relaxed(src + tid + R_THREADS);
+        // -- the within-word pass: state 0 of a hop copy keeps its within
+        // value (no emission yet)
+        if (own) {
+            float gv[R_SMAX];
+            int bp[R_SMAX];
+#pragma unroll
+            for (int q = 0; q < R_SMAX; ++q)
+                if (q < S) gv[q] = g[q];
+#pragma unroll
+            for (int j = 0; j < R_SMAX; ++j) {
+                if (j < S) {
+                    float m = gv[0] + a[j];
+                    int src_q = 0;
+#pragma unroll
+                    for (int q = 1; q < R_SMAX; ++q) {
+                        if (q < S) {
+                            const float cand = gv[q] + a[q * R_SMAX + j];
+                            if (cand > m) {
+                                m = cand;
+                                src_q = q;
+                            }
+                        }
+                    }
+                    bp[j] = self + src_q;
+                    g[j] = j == 0 && hopper ? m : m + __ldg(lw + j);
+                }
+            }
+            store_pointers(bt, bp, S);
+        }
+        // -- the exit columns of the last publication (buffers of ex
+        // alternate, so that no barrier is needed after the hop pass)
+        if (tid < n_words) finish_word(src, x0, last_pub, tid, H, ht, ex_b);
+        if (tid + R_THREADS < n_words) finish_word(src, x1, last_pub, tid + R_THREADS, H, ht, ex_b);
+        read_columns(src, last_pub, 2 * R_THREADS, n_words, H, ht, ex_b);
+        __syncthreads();
+        // -- publish the exits the hop cannot change (not at state 0 of a hop
+        // copy), so that they travel while the hop pass runs: the block has
+        // read all of the last publication, so two buffers still suffice
+        unsigned long long* out = p.xch + (size_t)((n_pub + 1) & 1) * V * H;
+        const unsigned long long tag = (unsigned long long)t << 32;
+        if (own && (!hopper || e_st != 0)) st_relaxed(out + xo, tag | __float_as_uint(g[e_st]));
+        // -- the hop pass: the H sources of this thread's copy, on chip
+        if (hopper) {
+            const float emit0 = __ldg(lw);
+            const float* e = ex_b + h_ex;
+            float bv = ninf;  // the first maximum over the sources so far
+            int ba = 0;
+#pragma unroll
+            for (int h = 0; h < R_KR; h += 4) {
+                const float4 ev = *reinterpret_cast<const float4*>(e + h);
+                take4(bv, ba, ev.x + hr[h], ev.y + hr[h + 1], ev.z + hr[h + 2], ev.w + hr[h + 3],
+                      h);
+            }
+            const float* col = hs + (size_t)tid * l.hsp;
+#pragma unroll 2
+            for (int q = 0; q < l.hsp; q += 4) {
+                const float4 xv = *reinterpret_cast<const float4*>(col + q);
+                const float4 ev = *reinterpret_cast<const float4*>(e + R_KR + q);
+                take4(bv, ba, ev.x + xv.x, ev.y + xv.y, ev.z + xv.z, ev.w + xv.w, R_KR + q);
+            }
+            float m = g[0];
+            if (bv > m) {  // the hop, only when strictly better than within
+                m = bv;
+                __stcs(bt, ba * VS + h_src);
+            }
+            g[0] = m + emit0;
+            // -- and publish the exit at state 0 of a hop copy
+            if (e_st == 0) st_relaxed(out + xo, tag | __float_as_uint(g[0]));
+        }
+        ++n_pub;
+        last_pub = (unsigned)t;
+    }
+
+    // the final argmax: grid + final3 at each word's exit state, -inf
+    // elsewhere; the first flattened state of the maximum
+    float bv = ninf;
+    int bi = INT_MAX;
+    if (own) {
+        const float f = static_cast<const float*>(p.final3)[c];
+#pragma unroll
+        for (int j = 0; j < R_SMAX; ++j)
+            if (j < S) take_first_max(bv, bi, g[j] + (j == e_st ? f : ninf), self + j);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        take_first_max(bv, bi, ov, oi);
+    }
+    if ((tid & 31) == 0) {
+        rv[tid >> 5] = bv;
+        ri[tid >> 5] = bi;
+    }
+    __syncthreads();
+    if (tid == 0) {
+        for (int k = 1; k < R_THREADS / 32; ++k) take_first_max(bv, bi, rv[k], ri[k]);
+        static_cast<float*>(p.part_v)[blk] = bv;
+        p.part_i[blk] = bi;
+        __threadfence();
+        last_block = atomicAdd(p.done, 1u) == gridDim.x - 1;
+    }
+    __syncthreads();
+    if (last_block && tid == 0) {
+        __threadfence();
+        const volatile float* pv = static_cast<volatile float*>(p.part_v);
+        const volatile int* pi = p.part_i;
+        float v = pv[0];
+        int i = pi[0];
+        for (int k = 1; k < (int)gridDim.x; ++k) take_first_max(v, i, (float)pv[k], (int)pi[k]);
+        *static_cast<float*>(p.score) = v;
+        *p.last = i;
+    }
+}
+
+cudaError_t launch_resident(const Args& a, const Layout& l, size_t smem, cudaStream_t stream) {
+    cudaError_t err = cudaFuncSetAttribute(trigram_resident_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    void* params[] = {const_cast<Args*>(&a), const_cast<Layout*>(&l)};
+    return cudaLaunchCooperativeKernel((const void*)trigram_resident_kernel, dim3(l.blocks),
+                                       dim3(R_THREADS), params, smem, stream);
+}
+
 template <typename T, int ROUTE>
 cudaError_t launch(const Args& a, int blocks, size_t smem, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(trigram_forward_kernel<T, ROUTE>,
@@ -393,12 +785,23 @@ extern "C" int trigram_forward_launch(const void* log_b, const uint8_t* mask, co
                                       int* last, unsigned long long* xch, void* rows, void* part_v,
                                       int* part_i, unsigned* done, void* stream) {
     if (T < 1 || V < 1 || S < 1 || H != V + 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
-    if (route != ROUTE_SMEM && (route != ROUTE_GLOBAL || rows == nullptr))
+    if (route != ROUTE_SMEM && route != ROUTE_RESIDENT && (route != ROUTE_GLOBAL || rows == nullptr))
         return (int)cudaErrorInvalidValue;
     const int rpb = (H + n_sm - 1) / n_sm;
-    const int blocks = (H + rpb - 1) / rpb;
     const int itemsize = is_double ? 8 : 4;
-    const size_t smem = smem_bytes(H, V, S, rpb, itemsize, route);
+    Layout l{};
+    int blocks;
+    size_t smem;
+    if (route == ROUTE_RESIDENT) {  // float32, S <= R_SMAX, within its thread counts
+        l = resident_layout(H, V, n_sm);
+        if (is_double || S > R_SMAX || l.ncp > R_THREADS)
+            return (int)cudaErrorInvalidValue;
+        blocks = l.blocks;
+        smem = resident_smem_bytes(V, l);
+    } else {
+        blocks = (H + rpb - 1) / rpb;
+        smem = smem_bytes(H, V, S, rpb, itemsize, route);
+    }
     if (smem + SMEM_STATIC > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     // tag 0xffffffff in every word: no frame's (see the note on the exchange)
@@ -408,7 +811,9 @@ extern "C" int trigram_forward_launch(const void* log_b, const uint8_t* mask, co
     if (err != cudaSuccess) return (int)err;
     Args a{log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx, bts, score, last, xch, rows,
            part_v, part_i, done, T, H, V, S, rpb};
-    if (is_double)
+    if (route == ROUTE_RESIDENT)
+        err = launch_resident(a, l, smem, st);
+    else if (is_double)
         err = route == ROUTE_SMEM ? launch<double, ROUTE_SMEM>(a, blocks, smem, st)
                                   : launch<double, ROUTE_GLOBAL>(a, blocks, smem, st);
     else

@@ -10,10 +10,13 @@ no Pallas kernel); here:
 
 - :func:`trigram_forward`: for CUDA tensors one launch of the
   hand-written kernel of ``csrc/trigram_forward.cu`` (kernel H's forward:
-  every frame on the whole card, blocks owning history rows and
-  exchanging exit scores through tagged words, the final argmax at its
-  end); for CPU tensors :func:`trigram_forward_plain`, the frame loop it
-  is held to bitwise.
+  every frame on the whole card, blocks exchanging exit scores through
+  tagged words, the final argmax at its end), on one of three routes
+  (:func:`trigram_route`): ``"resident"`` (float32: blocks own ranges of
+  copies and keep their ``hop3`` columns on chip for the whole launch),
+  ``"smem"`` and ``"global"`` (blocks own history rows and stream
+  ``hop3`` every frame); for CPU tensors :func:`trigram_forward_plain`,
+  the frame loop it is held to bitwise.
 - :func:`trigram_backtrace`: for CUDA tensors one launch of
   ``csrc/trigram_backtrace.cu`` (one thread walks the backpointers); for
   CPU tensors :func:`trigram_backtrace_plain`, a gather a frame.
@@ -26,8 +29,9 @@ path back to the frame loop. Each counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,20 +46,86 @@ _I = ctypes.c_int
 _FWD_ARGTYPES = [_P] * 7 + [_I] * 7 + [_P] * 9
 # bts, last, T, n_states, path, stream
 _BT_ARGTYPES = [_P, _P, _I, ctypes.c_longlong, _P, _P]
-ROUTES = ("smem", "global")  # the forward kernel's ``route`` codes, in order
+ROUTES = ("smem", "global", "resident")  # the forward kernel's ``route`` codes, in order
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 SMEM_STATIC = 1024  # the forward kernel's static shared arrays, at most
+# the resident route (csrc/trigram_forward.cu: R_THREADS, R_KR, R_SMAX,
+# R_ASTRIDE, R_GSTRIDE)
+RESIDENT_THREADS = 384  # a block: one thread for each of its copies
+RESIDENT_KR = 80  # hop sources a thread keeps in registers
+RESIDENT_SMAX = 8  # local states a word has at most on this route
+RESIDENT_ASTRIDE = RESIDENT_SMAX * RESIDENT_SMAX + 1  # floats of a word's inner transitions
+RESIDENT_GSTRIDE = RESIDENT_SMAX + 1  # floats of a copy's states
+
+
+class ResidentLayout(NamedTuple):
+    """The resident route's partition of the H*V copies ``h*V + w`` (the
+    same shared-memory carve in every block): ``blocks`` = min(SMs, H),
+    block b owning copies ``[copy_lo(b), copy_lo(b + 1))``, those of rows h
+    < V its hop copies; the most hop copies (``nhp``), copies (``ncp``)
+    and exit columns read (``ncol``) of a block; ``hsp``: a column's
+    sources in shared memory (those from ``RESIDENT_KR`` on, padded to 4
+    mod 8 floats, or 0)."""
+    blocks: int
+    nhp: int
+    ncp: int
+    ncol: int
+    hsp: int
+
+
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def copy_lo(b: int, blocks: int, h: int, v: int) -> int:
+    """The first copy of block ``b`` of the resident route."""
+    return h * v * b // blocks
+
+
+@functools.lru_cache(maxsize=None)
+def resident_layout(h: int, v: int, n_sm: int) -> ResidentLayout:
+    """The resident route's partition (``csrc/trigram_forward.cu:
+    resident_layout``). ``blocks`` <= H keeps every block's range at least
+    V copies long, so that every exit column holds a word of every block.
+    Cached: the route rule asks for it several times a launch, and its loop
+    over the blocks took ~0.2 ms of the host's time each."""
+    blocks = min(n_sm, h)
+    nhp = ncp = ncol = 0
+    for b in range(blocks):
+        lo, hi = copy_lo(b, blocks, h, v), copy_lo(b + 1, blocks, h, v)
+        n_hop = min(hi, v * v) - lo
+        nhp = max(nhp, n_hop)
+        ncp = max(ncp, hi - lo)
+        ncol = max(ncol, (lo + n_hop - 1) // v - lo // v + 1 if n_hop > 0 else 1)
+    rest = _pad4(h - RESIDENT_KR)
+    hsp = 0 if h <= RESIDENT_KR else rest + (4 if rest % 8 == 0 else 0)
+    return ResidentLayout(blocks, nhp, ncp, ncol, hsp)
+
+
+def resident_bytes(h: int, v: int, n_sm: int) -> int:
+    """Dynamic shared memory of a resident-route block (``csrc/
+    trigram_forward.cu:resident_smem_bytes``): the exit states, the inner
+    transitions, its copies' states, the exit columns it reads (two
+    buffers) and the part of its hop columns past the registers'
+    ``RESIDENT_KR`` sources."""
+    lay = resident_layout(h, v, n_sm)
+    return 4 * (_pad4(v) + _pad4(v * RESIDENT_ASTRIDE) + _pad4(lay.ncp * RESIDENT_GSTRIDE)
+                + 2 * lay.ncol * (RESIDENT_KR + lay.hsp) + lay.nhp * lay.hsp)
 
 
 def rows_per_block(h: int, n_sm: int) -> int:
-    """History rows a block of the forward kernel owns: ``ceil(H / SMs)``."""
+    """History rows a block of the ``smem`` and ``global`` routes owns:
+    ``ceil(H / SMs)``."""
     return -(-h // n_sm)
 
 
 def forward_smem_bytes(h: int, v: int, s: int, itemsize: int, n_sm: int, route: str) -> int:
     """Dynamic shared memory of a forward block (``csrc/trigram_forward.cu:
-    smem_bytes``): the exit columns of its rows and state 0's sources, and
+    smem_bytes``, and :func:`resident_bytes` on the resident route): on
+    the row routes the exit columns of its rows and state 0's sources, and
     on the ``"smem"`` route its rows of two frames."""
+    if route == "resident":
+        return resident_bytes(h, v, n_sm)
     rpb = rows_per_block(h, n_sm)
     head = rpb * h * itemsize + (rpb + 1) * v * 4
     if route == "global":
@@ -63,18 +133,35 @@ def forward_smem_bytes(h: int, v: int, s: int, itemsize: int, n_sm: int, route: 
     return -(-head // 16) * 16 + 2 * rpb * v * s * itemsize
 
 
+def route_fits(route: str, h: int, v: int, s: int, itemsize: int, n_sm: int) -> bool:
+    """Whether the forward kernel takes ``route`` for an ``(H, V, S)`` grid
+    at ``itemsize`` on ``n_sm`` SMs: its shared memory fits a block, and on
+    the resident route besides float32, S <= ``RESIDENT_SMAX`` and at most
+    ``RESIDENT_THREADS`` copies a block (one a thread)."""
+    if route == "resident":
+        if itemsize != 4 or s > RESIDENT_SMAX:
+            return False
+        if resident_layout(h, v, n_sm).ncp > RESIDENT_THREADS:
+            return False
+    return forward_smem_bytes(h, v, s, itemsize, n_sm, route) + SMEM_STATIC <= SMEM_LIMIT
+
+
 def trigram_route(h: int, v: int, s: int, itemsize: int, n_sm: int) -> str:
-    """The forward kernel's route for an ``(H, V, S)`` grid: at float64
+    """The forward kernel's route for an ``(H, V, S)`` grid, by capacity:
+    at float32 ``"resident"`` (``hop3`` on chip for the whole launch) where
+    it fits (:func:`route_fits`: V <= 203 at S <= 8 on 132 SMs), else
+    ``"global"``; at float64, whose ``hop3`` no card holds on chip,
     ``"smem"`` (a block's rows of two frames in shared memory) while they
     fit, else ``"global"`` (the rows in a device-memory scratch, through
     L2). On an H100 at the V = 200 segment (``kernel_timing.py --kernels
-    H``) the rows in shared memory took 18.32-18.38 ms at float64 against
-    19.24-19.27 on the global route, and 11.87-11.90 ms at float32 against
-    11.57-11.69: each dtype takes its faster route. Raises, with the
+    H``) the resident route took 2.39 ms at float32 against 11.68-11.74 on
+    the global route and 11.86-11.87 with the rows in shared memory, which
+    took 18.39-18.45 ms at float64 against 19.27 on the global route:
+    each dtype takes its fastest route that fits. Raises, with the
     numbers, past what even the global route holds: ``ceil(H / SMs)``
     exit columns of H values in one block's shared memory."""
-    for route in ROUTES[itemsize != 8:]:
-        if forward_smem_bytes(h, v, s, itemsize, n_sm, route) + SMEM_STATIC <= SMEM_LIMIT:
+    for route in ("resident", "global") if itemsize == 4 else ("smem", "global"):
+        if route_fits(route, h, v, s, itemsize, n_sm):
             return route
     need = forward_smem_bytes(h, v, s, itemsize, n_sm, "global") + SMEM_STATIC
     raise ValueError(
@@ -212,12 +299,11 @@ def _forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx,
                          f"{dtype}, T={t}")
     n_sm = sm_count(dev)
     route = trigram_route(h, v, s, dtype.itemsize, n_sm) if route is None else route
-    if route not in ROUTES or (forward_smem_bytes(h, v, s, dtype.itemsize, n_sm, route)
-                               + SMEM_STATIC > SMEM_LIMIT):
+    if route not in ROUTES or not route_fits(route, h, v, s, dtype.itemsize, n_sm):
         raise ValueError(f"no route {route!r} of the trigram forward kernel at H={h}, V={v}, "
                          f"S={s}, {dtype}")
-    rpb = rows_per_block(h, n_sm)
-    blocks = -(-h // rpb)
+    blocks = (resident_layout(h, v, n_sm).blocks if route == "resident"
+              else -(-h // rows_per_block(h, n_sm)))
     bts = torch.empty((t - 1, h, v, s), dtype=torch.int32, device=dev)
     score = torch.empty((), dtype=dtype, device=dev)
     last = torch.empty((), dtype=torch.int32, device=dev)
@@ -240,10 +326,12 @@ def _forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "trigram_forward", rc)
     trigram_forward.launches += 1
+    trigram_forward.route_launches[route] += 1
     return bts, score, last
 
 
 trigram_forward.launches = 0  # kernel H forward launches; plain CPU calls do not count
+trigram_forward.route_launches = dict.fromkeys(ROUTES, 0)  # the same, by route
 
 
 def trigram_backtrace(bts: torch.Tensor, last: torch.Tensor) -> torch.Tensor:

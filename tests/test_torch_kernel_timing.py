@@ -21,3 +21,27 @@ def test_dry_run_of_the_flagship_groups(monkeypatch, tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["kernel"] for r in rows if "kernel" in r] == ["A", "A", "B"]
     assert all(r["ms"] > 0 for r in rows if "kernel" in r)
+
+
+def test_dry_run_of_the_trigram_group(monkeypatch, tmp_path):
+    """Group H at a cut vocabulary: the forward on every route of
+    ``ops.trigram.ROUTES`` that takes each dtype at an H100's 132 SMs (the
+    resident route at float32 only), in turns, and the backtrace, each
+    first held to its plain version."""
+    from lnasr_tpu_torch.ops import trigram as tri
+
+    monkeypatch.setattr(kernel_timing, "H_VOCAB", 6)
+    out = tmp_path / "rows.jsonl"
+    monkeypatch.setattr(sys, "argv", ["kernel_timing.py", "--device", "cpu", "--kernels", "H",
+                                      "--reps", "1", "--out", str(out)])
+    assert kernel_timing.main() == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines() if '"kernel"' in line]
+    fwd = [(r["what"].split()[3], r["route"], r["turn"], r["chosen"]) for r in rows
+           if "forward" in r["what"]]
+    want = [("float32", "smem"), ("float32", "global"), ("float32", "resident"),
+            ("float64", "smem"), ("float64", "global")]
+    assert [f[:2] for f in fwd] == want * 2 and [f[2] for f in fwd] == [1] * 5 + [2] * 5
+    assert {f[:2] for f in fwd if f[3]} == {("float32", "resident"), ("float64", "smem")}
+    assert tri.ROUTES == ("smem", "global", "resident")
+    assert [r["what"] for r in rows][0].startswith("H decode core V=6")
+    assert rows[-1]["what"] == "H V=6 backtrace" and all(r["ms"] > 0 for r in rows)

@@ -285,6 +285,91 @@ def _model_forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx, n_sm)
     return bts, score, last
 
 
+def _take4(best, arg, c, h):
+    """The resident route's step of four hop sources h .. h + 3 (values
+    ``c``): the first maximum of each pair, of the pairs, then against the
+    sources before, each taken only when strictly larger."""
+    i01, i23 = h + int(c[1] > c[0]), h + 2 + int(c[3] > c[2])
+    v01, v23 = c[i01 - h], c[i23 - h]
+    v, i = (v23, i23) if v23 > v01 else (v01, i01)
+    return (v, i) if v > best else (best, arg)
+
+
+def _resident_model_forward(log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx, n_sm,
+                            kr=tri.RESIDENT_KR):
+    """What ``csrc/trigram_forward.cu``'s resident route computes, block by
+    block (``ops.trigram.resident_layout``: contiguous ranges of the H*V
+    copies ``h*V + w``, a thread a copy), in the working dtype: ``(bts,
+    score, last)``. A hop copy's column is split as the kernel splits it,
+    sources ``h < kr``
+    (registers) and the rest padded with -inf to 4 mod 8 (shared memory),
+    walked four at a time (:func:`_take4`) with the running maximum carried
+    across the split. The exchange is modelled by its effect: a block reads
+    the exit columns of the last valid frame (:func:`_run_resident_exchange`
+    models the tagged words)."""
+    t_len, v, s = log_b.shape
+    h = v + 1
+    lay = tri.resident_layout(h, v, n_sm)
+    rest = -(-(h - kr) // 4) * 4
+    hsp = 0 if h <= kr else rest + (4 if rest % 8 == 0 else 0)
+    ninf = log_b.dtype.type(-np.inf)
+    flat = grid = np.empty((h * v, s), log_b.dtype)  # copy c = hh*v + w, its s states
+    for c in range(h * v):  # frame 0
+        w = c % v
+        for j in range(s):
+            grid[c, j] = (log_pi_w[w] if c >= v * v and j == 0 else ninf) + log_b[0, w, j]
+    bts = np.empty((max(t_len - 1, 0), h * v, s), np.int32)
+    for t in range(1, t_len):
+        if mask is not None and not mask[t]:
+            bts[t - 1] = np.arange(h * v * s).reshape(h * v, s)
+            continue
+        exits = grid[np.arange(h * v), exit_idx[np.arange(h * v) % v]].reshape(h, v)
+        new = np.empty_like(grid)
+        for b in range(lay.blocks):
+            c0, c1 = tri.copy_lo(b, lay.blocks, h, v), tri.copy_lo(b + 1, lay.blocks, h, v)
+            for c in range(c0, c1):  # the within-word pass: every state's pointer
+                w = c % v
+                for j in range(s):
+                    m, src = grid[c, 0] + inner_a[w, 0, j], 0
+                    for q in range(1, s):
+                        cand = grid[c, q] + inner_a[w, q, j]
+                        if cand > m:
+                            m, src = cand, q
+                    bts[t - 1, c, j] = c * s + src
+                    new[c, j] = m if j == 0 and c < v * v else m + log_b[t, w, j]
+            for c in range(c0, min(c1, v * v)):  # the hop pass: column (u, w)
+                u, w = divmod(c, v)
+                col = np.full(kr + hsp, ninf, log_b.dtype)
+                col[:h] = hop3[:, u, w]
+                e = np.full(kr + hsp, ninf, log_b.dtype)
+                e[:h] = exits[:, u]
+                best, arg = ninf, 0
+                for part in (range(0, kr, 4), range(kr, kr + hsp, 4)):  # registers, then smem
+                    for hh in part:
+                        best, arg = _take4(best, arg, e[hh:hh + 4] + col[hh:hh + 4], hh)
+                m = new[c, 0]
+                if best > m:
+                    m = best
+                    bts[t - 1, c, 0] = (arg * v + u) * s + exit_idx[u]
+                new[c, 0] = m + log_b[t, w, 0]
+        grid = flat = new
+    parts = []
+    for b in range(lay.blocks):  # each block's first maximum, then block order
+        c0, c1 = tri.copy_lo(b, lay.blocks, h, v), tri.copy_lo(b + 1, lay.blocks, h, v)
+        bv, bi = ninf, np.iinfo(np.int32).max
+        for c in range(c0, c1):
+            for j in range(s):
+                val = flat[c, j] + (final3.reshape(-1)[c] if j == exit_idx[c % v] else ninf)
+                if val > bv or (val == bv and c * s + j < bi):
+                    bv, bi = val, c * s + j
+        parts.append((bv, bi))
+    score, last = parts[0]
+    for pv, pi in parts[1:]:
+        if pv > score or (pv == score and pi < last):
+            score, last = pv, pi
+    return bts.reshape(-1, h, v, s), score, last
+
+
 def _model(log_b, mask, tt, exit_idx, n_sm):
     """``(path, score)`` of the kernels' model as tensors."""
     args = [x.numpy() for x in (log_b, tt["inner_a"], tt["hop3"], tt["log_pi_w"], tt["final3"])]
@@ -299,28 +384,55 @@ def _model(log_b, mask, tt, exit_idx, n_sm):
     return torch.as_tensor(path), torch.as_tensor(score)
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("n_sm", [1, 2, 3, 132])
-def test_kernel_model_matches_plain(identity_emissions, dtype, n_sm):
-    """The model of the kernels, at 1 to 132 SMs (1 to 7 rows a block),
-    bitwise equal to the plain version in backpointers, score, the final
-    state and the path, with masks and quantized ties."""
+def _model_case(dtype, n_sm, ties=False):
+    """The graph's tables (with ``ties``, :func:`_tie_tables`) and three
+    segments of the model tests (random, integer and half-integer scores
+    with masks), each with its plain forward."""
     _, tg = _graphs(3, True, dtype)
     rng = np.random.default_rng(n_sm)
     n_real = tg.state_map.max().item() + 1
     tt = {"inner_a": tg.inner_a, "hop3": tg.hop3, "log_pi_w": tg.log_pi_w, "final3": tg.final3}
+    if ties:
+        tt = {k: torch.as_tensor(x, dtype=dtype) for k, x in _tie_tables(tg, rng).items()}
     for quantum, mask in ((None, None), (1.0, np.r_[[True] * 9, [False] * 4, [True] * 9]),
                           (0.5, np.r_[[False] * 3, [True] * 19])):
         log_b = tg._grid_log_b(torch.as_tensor(_scores(rng, 22, n_real, quantum), dtype=dtype))
         m = None if mask is None else torch.as_tensor(mask)
         args = (log_b, m, tt["inner_a"], tt["hop3"], tt["log_pi_w"], tt["final3"], tg.exit_idx)
-        bts, score, last = tri.trigram_forward_plain(*args)
-        mb, ms, ml = _model_forward(*(x if x is None or isinstance(x, np.ndarray) else x.numpy()
-                                      for x in args), n_sm)
+        np_args = [x if x is None or isinstance(x, np.ndarray) else x.numpy() for x in args]
+        yield tg, tt, args, np_args, tri.trigram_forward_plain(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n_sm", [1, 2, 3, 132])
+def test_kernel_model_matches_plain(identity_emissions, dtype, n_sm):
+    """The model of the row routes' kernel, at 1 to 132 SMs (1 to 7 rows a
+    block), bitwise equal to the plain version in backpointers, score, the
+    final state and the path, with masks and quantized ties."""
+    for tg, tt, args, np_args, (bts, score, last) in _model_case(dtype, n_sm):
+        mb, ms, ml = _model_forward(*np_args, n_sm)
         np.testing.assert_array_equal(mb, bts.numpy())
         assert ms.tobytes() == score.numpy().tobytes() and ml == int(last)
-        _same(_model(log_b, m, tt, tg.exit_idx, n_sm), tuple(
+        _same(_model(args[0], args[1], tt, tg.exit_idx, n_sm), tuple(
             x.numpy() for x in tri.trigram_viterbi_plain(*args)))
+
+
+@pytest.mark.parametrize("n_sm,kr,ties", [(1, 4, False), (2, 4, False), (3, 4, False),
+                                         (132, 4, False), (3, tri.RESIDENT_KR, False),
+                                         (2, 4, True), (132, 4, True)])
+def test_resident_model_matches_plain(identity_emissions, n_sm, kr, ties):
+    """The model of the resident route (float32) at 1 to 132 SMs (1 to 7
+    blocks over the 7 x 6 copies; at 7 the last block holds the <s> row
+    alone, no hop copy), its hop columns split after 4 sources (registers,
+    then shared memory, the maximum carried across) and after the kernel's
+    own ``RESIDENT_KR``: bitwise equal to the plain version in
+    backpointers, score and the final state, with masks and quantized
+    scores, and on the tie tables (ties across histories, within-word
+    sources and hops equal to ``within``)."""
+    for _, _, _, np_args, (bts, score, last) in _model_case(torch.float32, n_sm, ties):
+        mb, ms, ml = _resident_model_forward(*np_args, n_sm, kr)
+        np.testing.assert_array_equal(mb, bts.numpy())
+        assert ms.tobytes() == score.numpy().tobytes() and ml == int(last)
 
 
 # -- the wrappers ---------------------------------------------------------------
@@ -371,6 +483,10 @@ def test_wrappers_dispatch(monkeypatch):
         fwd(_CudaStandIn((t, v, s)), final3=torch.zeros(v + 1, v))
     with pytest.raises((RuntimeError, AssertionError)):  # the kernel's launch needs a card
         fwd(_CudaStandIn((t, v, s)))
+    for route in tri.ROUTES:  # each route, forced, goes to the launch too
+        with pytest.raises((RuntimeError, AssertionError)):
+            tri._forward(_CudaStandIn((t, v, s)), None, **cuda, route=route)
+    assert tri.trigram_forward.route_launches == dict.fromkeys(tri.ROUTES, 0)
     with pytest.raises(ValueError, match="takes int32 bts"):
         tri.trigram_backtrace(_CudaStandIn((t - 1, v + 1, v, s), torch.int64),
                               _CudaStandIn((), torch.int32))
@@ -383,13 +499,31 @@ def test_wrappers_dispatch(monkeypatch):
 
 
 def test_route_rule(monkeypatch):
-    """At float64 ``smem`` while a block's rows of two frames fit its shared
-    memory, then ``global``; at float32 ``global`` (each the faster route
-    at the serving graph's V = 200 on an H100); past the exit columns'
-    capacity a ValueError with the numbers, raised by the wrapper before
-    any launch."""
-    assert tri.trigram_route(202, 201, 8, 4, 132) == "global"
+    """At float32 ``resident`` (``hop3`` on chip) where it fits, the serving
+    graph's V = 200 on an H100's 132 SMs included, then ``global``; never
+    ``resident`` at float64, which takes ``smem`` while a block's rows of
+    two frames fit its shared memory, then ``global`` (each the faster row
+    route at V = 200 on an H100); past the exit columns' capacity a
+    ValueError with the numbers, raised by the wrapper before any launch,
+    as for a route forced where it does not fit."""
+    assert tri.trigram_route(202, 201, 8, 4, 132) == "resident"
+    lay = tri.resident_layout(202, 201, 132)
+    # 132 blocks of 307-308 copies (all hop copies but the last block's 106),
+    # three exit columns at most; columns of 80 sources in registers, then
+    # 122 and two of -inf padding in shared memory
+    assert lay == tri.ResidentLayout(132, 308, 308, 3, 124)
+    assert tri.resident_bytes(202, 201, 132) == 4 * (204 + 13068 + 2772 + 2 * 3 * 204
+                                                     + 308 * 124)
+    assert tri.route_fits("resident", 202, 201, 8, 4, 132)
+    assert not tri.route_fits("resident", 202, 201, 8, 8, 132)  # float64: never
+    assert not tri.route_fits("resident", 202, 201, 9, 4, 132)  # S past RESIDENT_SMAX
+    assert tri.trigram_route(202, 201, 9, 4, 132) == "global"
     assert tri.trigram_route(202, 201, 8, 8, 132) == "smem"
+    assert tri.trigram_route(204, 203, 8, 4, 132) == "resident"
+    assert tri.trigram_route(205, 204, 8, 4, 132) == "global"  # past the resident capacity
+    for v in (1, 5, 12, 40):  # the small graphs chip_smoke.py forces it on
+        assert tri.trigram_route(v + 1, v, 4, 4, 132) == "resident"
+        assert tri.resident_layout(v + 1, v, 132).blocks == v + 1
     # 2 rows of 202 exits, 3 x 201 ints; 2 frames of 2 rows of 201 x 8
     assert tri.forward_smem_bytes(202, 201, 8, 4, 132, "smem") == 4032 + 25728
     assert tri.forward_smem_bytes(202, 201, 8, 4, 132, "global") == 4 * 2 * 202 + 4 * 3 * 201
@@ -412,6 +546,14 @@ def test_route_rule(monkeypatch):
                 exit_idx=_CudaStandIn((v,), torch.int64))
     with pytest.raises(ValueError, match="exit columns"):
         tri.trigram_forward(_CudaStandIn((t, v, s)), None, **cuda)
+    t, v, s = 4, 201, 8
+    cuda = dict(inner_a=_CudaStandIn((v, s, s), torch.float64),
+                hop3=_CudaStandIn((v + 1, v, v), torch.float64),
+                log_pi_w=_CudaStandIn((v,), torch.float64),
+                final3=_CudaStandIn((v + 1, v), torch.float64),
+                exit_idx=_CudaStandIn((v,), torch.int64))
+    with pytest.raises(ValueError, match="no route 'resident'"):
+        tri._forward(_CudaStandIn((t, v, s), torch.float64), None, **cuda, route="resident")
 
 
 # -- a model of kernel H's exit exchange -------------------------------------------
@@ -448,22 +590,29 @@ def _exchange_block(b, rpb, h, v, w_words, mask, slots, taken, rule):
         if not mask[t]:
             continue
         cols = range(h0, h0 + nhop) if nhop else ([0] if rule == "column" else [])
-        for u in cols:
-            for hs in range(h):
-                for q in range(w_words):
-                    while True:
-                        tag, val = slots[n_pub & 1][u][hs][q]
-                        yield
-                        if tag == last:
-                            if val != (last, hs, u):
-                                raise ProtocolError(f"block {b} took {val} for {(last, hs, u)}")
-                            taken.append((b, t, u, hs))
-                            break
-                        if tag != STALE and tag > last:
-                            raise ProtocolError(f"block {b} waits for frame {last}'s exit "
-                                                f"({hs}, {u}), overwritten by frame {tag}")
+        yield from _poll_columns(b, t, cols, h, w_words, slots[n_pub & 1], last, taken)
         yield from publish((n_pub + 1) & 1, t)
         n_pub, last = n_pub + 1, t
+
+
+def _poll_columns(b, t, cols, h, w_words, buf, last, taken):
+    """Block ``b`` at frame ``t`` polls the exit columns ``cols`` of
+    publication buffer ``buf``, one word a step, until each word's tag is
+    ``last``; an exit's value is ``(frame, h, u)``."""
+    for u in cols:
+        for hs in range(h):
+            for q in range(w_words):
+                while True:
+                    tag, val = buf[u][hs][q]
+                    yield
+                    if tag == last:
+                        if val != (last, hs, u):
+                            raise ProtocolError(f"block {b} took {val} for {(last, hs, u)}")
+                        taken.append((b, t, u, hs))
+                        break
+                    if tag != STALE and tag > last:
+                        raise ProtocolError(f"block {b} waits for frame {last}'s exit "
+                                            f"({hs}, {u}), overwritten by frame {tag}")
 
 
 def _run_exchange(h, v, n_sm, mask, seed, w_words=1, rule="column", max_steps=2_000_000):
@@ -510,3 +659,98 @@ def test_exchange_model_needs_the_column_rule():
     with pytest.raises(ProtocolError, match="overwritten|did not finish"):
         for seed in range(20):
             _run_exchange(5, 4, 132, np.ones(12, bool), seed, rule="hop rows only")
+
+
+# -- the resident route's exchange --------------------------------------------
+
+
+def _resident_exchange_block(b, lo, hi, h, v, exit_idx, mask, slots, taken):
+    """One block of the resident route's frame loop as a generator: it owns
+    copies ``[lo, hi)`` of the H*V (``h*V + w``) and publishes their exits
+    at frame 0 and every valid frame (copy (hh, w)'s into column w, row
+    hh). Each valid step it polls the columns of its hop copies' rows
+    (column 0 when it has none) until every tag is the last publication's,
+    then publishes the exits the hop cannot change, runs its hop pass, and
+    publishes the rest: the exits at state 0 (``exit_idx``) of its hop
+    copies."""
+    n_hop = max(0, min(hi, v * v) - lo)
+    cols = range(lo // v, (lo + n_hop - 1) // v + 1) if n_hop else [0]
+
+    def publish(buf, t, late):
+        for c in range(lo, hi):
+            hh, w = divmod(c, v)
+            if late is None or late == (c < v * v and exit_idx[w] == 0):
+                slots[buf][w][hh][0] = (t, (t, hh, w))
+                yield
+
+    yield from publish(0, 0, None)
+    n_pub, last = 0, 0
+    for t in range(1, len(mask)):
+        if not mask[t]:
+            continue
+        yield from _poll_columns(b, t, cols, h, 1, slots[n_pub & 1], last, taken)
+        yield from publish((n_pub + 1) & 1, t, False)
+        yield  # the hop pass
+        yield from publish((n_pub + 1) & 1, t, True)
+        n_pub, last = n_pub + 1, t
+
+
+def _run_resident_exchange(h, v, blocks, exit_idx, mask, seed, max_steps=2_000_000):
+    """``blocks`` blocks (``ops.trigram.copy_lo``'s ranges) stepped in a
+    seeded random interleaving, block 0 lagging; returns the ``(block,
+    frame, column, history)`` reads in order."""
+    slots = [[[[(STALE, None)] for _ in range(h)] for _ in range(v)] for _ in range(2)]
+    taken = []
+    live = [_resident_exchange_block(b, tri.copy_lo(b, blocks, h, v),
+                                     tri.copy_lo(b + 1, blocks, h, v), h, v, exit_idx, mask,
+                                     slots, taken)
+            for b in range(blocks)]
+    rng = np.random.default_rng(seed)
+    for _ in range(max_steps):
+        if not live:
+            return taken
+        k = int(rng.integers(len(live))) if rng.random() < 0.9 else 0
+        try:
+            next(live[k])
+        except StopIteration:
+            live.pop(k)
+    raise ProtocolError("the exchange did not finish: a block waits for a frame never published")
+
+
+@pytest.mark.parametrize("v,n_sm", [(4, 132), (5, 3), (6, 2), (12, 132), (13, 5)])
+def test_resident_exchange_model(v, n_sm):
+    """The resident route's partition (min(SMs, H) blocks, every range at
+    least V copies long) and its publication in two parts (before the hop
+    pass the exits it cannot change, after it those at state 0 of a hop
+    copy): whatever the interleaving, with masks, every block reads each
+    exit it needs at the last valid frame from every row,
+    one column for each hop row it owns (column 0 for the <s> row's block
+    when it owns no hop copy); at the V = 200 segment no block reads more
+    than 3 columns."""
+    h = v + 1
+    lay = tri.resident_layout(h, v, n_sm)
+    exit_idx = np.arange(v) % 3  # every third word exits from state 0: published after its hop
+    for seed, mask in enumerate((np.ones(9, bool), np.r_[True, True, False, True, False, False,
+                                                         True, True])):
+        taken = _run_resident_exchange(h, v, lay.blocks, exit_idx, mask, seed)
+        cols = {(b, t): {u for bb, tt, u, _ in taken if (bb, tt) == (b, t)} for b, t, _, _ in taken}
+        assert max(len(c) for c in cols.values()) == lay.ncol
+        for b in range(lay.blocks):
+            lo, hi = tri.copy_lo(b, lay.blocks, h, v), tri.copy_lo(b + 1, lay.blocks, h, v)
+            n_hop = max(0, min(hi, v * v) - lo)
+            want = ({u for u in range(lo // v, (lo + n_hop - 1) // v + 1)} if n_hop else {0})
+            assert all(c == want for (bb, _), c in cols.items() if bb == b)
+        assert len(taken) == sum(len(c) for c in cols.values()) * h
+    assert tri.resident_layout(202, 201, 132).ncol == 3
+
+
+def test_resident_exchange_needs_long_ranges():
+    """With more blocks than history rows (ranges shorter than V), a column
+    lacks a word of some block: a block that never reads the lagging
+    block's words runs two publications ahead of it and overwrites words
+    it still waits for. ``resident_layout`` keeps blocks <= H."""
+    h, v = 5, 4
+    assert tri.resident_layout(h, v, 132).blocks == h
+    with pytest.raises(ProtocolError, match="overwritten|did not finish"):
+        for seed in range(20):
+            _run_resident_exchange(h, v, 2 * h, np.arange(v) % 3, np.ones(12, bool), seed)
