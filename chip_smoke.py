@@ -5,8 +5,10 @@
 
 Builds the hand-written CUDA kernels from ``lnasr_tpu_torch/csrc`` (one
 ``nvcc`` per source, all at once) and holds each kernel against its plain
-PyTorch version at the serving shapes (the trigram decode's forward and
-backtrace and the WebRTC VAD's GMM in their phases below; the Baum-Welch
+PyTorch version at the serving shapes (the mel frontend also on a signal
+too short for one frame: empty outputs and no launch; the trigram
+decode's forward and backtrace and the WebRTC VAD's GMM in their phases
+below; the Baum-Welch
 forward-backward kernel G at float64 within 1e-12 and at float32 within
 2x the plain loops' distance from float64, on every route, N = 3 to 1100,
 two launches bitwise; the Viterbi kernels bitwise: the
@@ -42,7 +44,8 @@ kernels' launch counters reset just before and read just after:
 - the device VADs on the stream's audio (LTSD fixed and adaptive, the
   WebRTC-style torch VAD in modes 0-3, whose GMM recursion is one launch
   of its kernel a call) against their CPU runs, the plain GMM loop on the
-  card and the native detector;
+  card and the native detector, the GMM kernel also at the edges of its
+  ring of stages and on runs of frames without power;
 - training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
   frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (kernel G
   once a sweep for the forward-backward recursion, torch GEMMs for the
@@ -103,6 +106,7 @@ repository around it; without either it fails.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import importlib
 import io
@@ -396,7 +400,30 @@ def check_mel_frontend(torch, mf, cfg, x, dev):
         err, scale, ferr = check_a_shape(torch, mf, sig, other, None, where)
         print(f"kernel A vs plain ({where}): within the mel bar (max err {err:.6g} of scale "
               f"{scale:.6g}), features max err {ferr:.3g}")
+    check_a_no_frame(torch, mf, cfg, x, dev)
     return mel_err
+
+
+def check_a_no_frame(torch, mf, cfg, x, dev):
+    """A signal of frame_len - frame_step samples has no frame: kernel A's
+    wrapper and ``MFCC.features_fast`` (the serving path) return the plain
+    version's empty shapes and launch nothing (no grid of zero blocks)."""
+    from lnasr_tpu_torch.models.mfcc import MFCC
+
+    short = x[:3, : cfg.frame_len - cfg.frame_step].contiguous()
+    before = mf.mel_frontend.launches
+    mel_k, en_k = mf.mel_frontend(short, cfg)
+    mel_p, en_p = mf.mel_frontend_plain(mf.preemphasize(short, cfg), cfg)
+    feats, mask = MFCC(cfg, device=dev).features_fast(short, lengths=[short.shape[1]] * 3)
+    one, _ = MFCC(cfg, device=dev).features_fast(short[0])
+    torch.cuda.synchronize()
+    shapes = [tuple(t.shape) for t in (mel_k, en_k, mel_p, en_p, feats, mask, one)]
+    require(shapes == [(3, 0, cfg.n_mels), (3, 0)] * 2 + [(3, 0, 39), (3, 0), (0, 39)]
+            and mel_k.is_cuda and feats.is_cuda and mf.mel_frontend.launches == before,
+            f"kernel A at {short.shape[1]} samples (no frame): shapes {shapes}, "
+            f"{mf.mel_frontend.launches - before} launches")
+    print(f"kernel A at {short.shape[1]} samples (no frame): the wrapper and features_fast give "
+          f"the plain version's empty shapes {shapes[:2]}, {shapes[4:]}; no launch")
 
 
 def check_viterbi_small(torch, vt, vd, dev, t_frames):
@@ -1315,9 +1342,11 @@ def trigram_phase(torch, entry, wrappers, card, launches):
                           "plain_ms": plain_bt_ms, "bound": b_bound}}
 
 
-# csrc/webrtc_gmm.cu's operations a frame, counted from its source (adds,
-# subtractions, products, divisions, min/max, compares, expf/log2f; moves
-# and selects not counted). Per channel: the decision 67 (four Gaussians of
+# The GMM recursion's operations a frame, each once, as one frame of the
+# sequential algorithm does them (adds, subtractions, products, divisions,
+# min/max, compares, expf/log2f; moves and selects not counted; the
+# kernel's second outcome and its lanes' repeats are not the function's
+# work). Per channel: the decision 67 (four Gaussians of
 # 10 each, their weights 4, the two log2 shifts 8, the posteriors 9, the
 # two sums, the ratio and its local test 6), the minimum tracker 57 (the
 # walk's 16 compares and at most 16 increments, the insertion's 16
@@ -1333,8 +1362,10 @@ def vad_phase(torch, entry, wrappers, card, launches):
     before), its flags equal to the plain frame loop on the card's own
     features, to the same module on CPU tensors and to the native
     detector; kernel I's final state bitwise the plain loop's, and in mode
-    0 the same at float64. Times I by CUDA events and the plain loop on
-    the card."""
+    0 the same at float64; then I alone, flags and state bitwise, at the
+    edges of its ring (F = 0, 1, a stage of 128 frames and the ring of
+    three +-1, and past them) and on runs of frames without power. Times I
+    by CUDA events and the plain loop on the card."""
     from lnasr_tpu_torch.config import LTSDConfig
     from lnasr_tpu_torch.vad import VadLtsd, WebRtcVad, WebRtcVadTorch
     from lnasr_tpu_torch.vad import webrtc as tweb
@@ -1441,6 +1472,43 @@ def vad_phase(torch, entry, wrappers, card, launches):
     print(f"kernel I mode 0 at float64 on the stream's float64 features ({n_frames} frames, "
           f"{int((k_flags > 0).sum())} flagged): flags equal to the plain loop on the card and "
           f"the final state bitwise its own")
+    # the ring's edges (stages of 128 frames, three in the ring): no frame,
+    # one, a stage and a ring +-1, and past them; then runs without power
+    quiet = total[:1025].clone()
+    for start, stop in ((0, 3), (120, 140), (250, 262), (383, 384), (500, 650), (1000, 1025)):
+        quiet[start:stop] = 0.0
+    cases = [(feats[:n], total[:n], f"F = {n}")
+             for n in (0, 1, 127, 128, 129, 384, 385, 511, 512, 513, 1025)]
+    cases.append((feats[:1025], quiet, f"F = 1025, {int((quiet <= 10).sum())} frames without "
+                  "power in 6 runs"))
+    for mode in (0, 3):
+        for f_in, t_in, what in cases if mode == 0 else cases[-1:]:
+            before = tweb.gmm_flags.launches
+            k_flags, k_state = tweb.gmm_flags(f_in, t_in, tweb.MODE_TABLE[mode], final_state=True)
+            p_flags, p_state = tweb.gmm_flags_plain(f_in, t_in, tweb.MODE_TABLE[mode],
+                                                    final_state=True)
+            require(tweb.gmm_flags.launches == before + 1 and torch.equal(k_flags, p_flags),
+                    f"kernel I mode {mode}, {what}: flags differ from the plain loop on the card "
+                    f"on {int((k_flags != p_flags).sum())} frames")
+            same_state(k_state, p_state, f"mode {mode}, {what}")
+    print(f"kernel I at the ring's edges ({', '.join(w for _, _, w in cases[:-1])}; mode 0) and "
+          f"with {cases[-1][2]} (modes 0 and 3): one launch each, flags equal to the plain loop "
+          f"on the card and the final state bitwise its own")
+    # I's float divisions take __fdiv_rn's fast path where their operands
+    # lie in [2^-50, 2^50): held to __fdiv_rn on random pairs there
+    from lnasr_tpu_torch import _build
+
+    lib = _build.load("webrtc_gmm", tweb._GMM_ARGTYPES)
+    lib.webrtc_gmm_div_check.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong,
+                                         ctypes.c_void_p, ctypes.c_void_p]
+    pairs, differ = 1 << 34, torch.zeros(1, dtype=torch.int64, device=DEVICE)
+    rc = lib.webrtc_gmm_div_check(pairs, 16, differ.data_ptr(),
+                                  torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    require(rc == 0 and int(differ) == 0, f"kernel I's fast division differs from __fdiv_rn "
+            f"on {int(differ)} of {pairs} pairs (rc {rc})")
+    print(f"kernel I's fast float division: equal to __fdiv_rn on all {pairs} random operand pairs "
+          "in [2^-50, 2^50)")
     prof = kernel_device_ms(torch, lambda: tweb.gmm_flags(feats, total, thr), "webrtc_gmm",
                             calls=3)
     wrapper_ms = cuda_ms(lambda: tweb.gmm_flags(feats, total, thr), reps=5)

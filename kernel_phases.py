@@ -34,10 +34,17 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
   pass and the publication of its own, each summed over the frames from
   the block's first thread, then the final argmax (per block), and the
   cycles a valid step of each frame-loop phase;
-- I on the stream's features (6,292 frames, mode 0): each frame's
-  decision (likelihoods, ratio, flag), minimum tracker (aging walk,
-  insertion, smoothed minimum) and adaptation, summed over the frames by
-  the warp's first lane, and the cycles a frame of each.
+- I on the stream's features (6,292 frames, mode 0): the GMM warp's
+  decision (likelihoods, ratio, flag), adaptation (both outcomes) and
+  select (the flag's outcome, the next frame's state-only terms) a frame
+  with power, its waits for the tracker warps' stages, and the first
+  tracker warp's frame loops (aging, insertion, smoothed minimum), each
+  summed over the frames by its warp's first lane, and the cycles a frame
+  of each, and the frames redone with ``__fdiv_rn``; the shares are of
+  the GMM warp's own time (a checkout from
+  before the tracker warps: one warp's decision, minimum tracker and
+  adaptation a frame). The stamped kernel's flags and final state must be
+  the unstamped one's, bit for bit.
 
 Each launch goes through the checkout's own wrapper (``ops.*._launch``)
 pointed at the stamped library, and its output is checked against the
@@ -90,6 +97,13 @@ def _acc32(q, indent):
             + f"ph_acc[{q}] += n_ - ph_t; ph_t = n_; }}\n")
 
 
+def _sh(q):
+    """Kernel I's GMM frame (its branch-free pass): the cycles since the
+    last mark into ``ph_sh[q]`` from lane 0."""
+    return ("    if (FAST && threadIdx.x == 0) { const unsigned long long n_ = clock64(); "
+            f"ph_sh[{q}] += n_ - ph_sh[6]; ph_sh[6] = n_; }}\n")
+
+
 def _h_final(stride):
     """Kernel H's stamps at its end, from the block's first thread: 1, then
     the running totals of the load, the four frame-loop phases and the
@@ -103,6 +117,7 @@ def _h_final(stride):
             "    }\n")
 
 
+I_PHASES = ["decision", "adaptation", "select", "ring wait", "tracker frames"]
 H_PHASES = ["load", "within-word pass", "exchange wait", "hop pass", "publish", "final argmax"]
 # kernel H's sums are 32-bit (a phase's cycles over a launch fit), which
 # keeps the stamps' registers few
@@ -232,7 +247,42 @@ PATCH_SETS = {
         ("row routes and resident route", 7, H_PHASES, H_ROW_PATCHES + H_RESIDENT_PATCHES),
         ("rows owned by history", 7, H_PHASES, H_ROW_PATCHES),
     ],
+    # kernel I: the GMM warp's phases a frame and its waits on the ring,
+    # the tracker warps' frame loops (the first tracker warp's), each summed
+    # by its warp's first lane, then written as running totals by thread 0
     "webrtc_gmm": [
+        ("tracker warps and a GMM warp", 8, I_PHASES, [
+            ("namespace {\n", "__shared__ unsigned long long ph_sh[8];  // the GMM warp's sums\n"),
+            ("    int oh = 0, sr = 0;\n",
+             "    if (threadIdx.x == 0) for (int q = 0; q < 8; ++q) ph_sh[q] = 0;\n"),
+            ("        // -- the wait for the trackers' stage --\n",
+             "        if (threadIdx.x == 0) ph_sh[7] = clock64();\n"),
+            ("        bar_wait(&r.full[rs], (st / N_STAGES) & 1);\n",
+             "        if (threadIdx.x == 0) ph_sh[3] += clock64() - ph_sh[7];\n"),
+            ("                    if (!__all_sync(FULL, ok)) vad = gmm_frame<false>(k, s, x, mvn, "
+             "out, ok);\n",
+             "                    if (!__all_sync(FULL, ok) && threadIdx.x == 0) ph_sh[5] += 1;\n"),
+            ("    const T tiny = (T)1e-38;\n",
+             "    if (FAST && threadIdx.x == 0) ph_sh[6] = clock64();\n"),
+            ("    const bool vad = any_local || sum_llr >= k.global_thr;\n", _sh(0)),
+            ("    // -- the outcome --\n", _sh(1)),
+            ("    out.ngm = vad ? ngm1 : ngm0;\n", _sh(2)),
+            ("        p.state_i[2] = sr;\n",
+             "        for (int q = 0; q < 4; ++q) g_stamps[1000 + q] = ph_sh[q];\n"
+             "        g_stamps[1005] = ph_sh[5];\n"),
+            ("    int age = 0, fc = 0;\n", "    unsigned long long tr_acc = 0;\n"),
+            ("        // -- the tracker's frames --\n",
+             "        const unsigned long long tr_t = clock64();\n"),
+            ("        bar_arrive(&r.full[s]);\n", "        tr_acc += clock64() - tr_t;\n"),
+            ("    if (w == 0 && lane == 0) p.state_i[0] = fc;\n",
+             "    if (w == 0 && lane == 0) g_stamps[1004] = tr_acc;\n"),
+            ("    if (warp == 0) gmm_warp<T>(p, r); else tracker_warp<T>(p, r, warp - 1);\n",
+             "    __syncthreads();\n    if (threadIdx.x == 0) {\n"
+             "        unsigned long long c_ = 1;\n        g_stamps[0] = c_;\n"
+             "        for (int q = 0; q < 5; ++q) g_stamps[1 + q] = c_ += g_stamps[1000 + q];\n"
+             "        g_stamps[6] = g_stamps[1005];  // frames redone with __fdiv_rn\n"
+             "    }\n"),
+        ]),
         ("one warp, lane = channel", 4, ["decision", "minimum tracker", "adaptation"], [
             ("    int fc = 0, oh = 0, sr = 0;\n",
              "    unsigned long long ph_acc[3] = {0, 0, 0}, ph_t = 0;\n"),
@@ -381,7 +431,7 @@ def main():
             raise SystemExit(f"{name}: no block or warp stamped every boundary ({version})")
         d = np.diff(units, axis=1)
         mean = d.mean(0)
-        return dict(version=version, units=len(units),
+        return dict(version=version, units=len(units), first_row=stamps[:stride].tolist(),
                     cycles={p: float(c) for p, c in zip(phases, mean)},
                     shares={p: float(c / mean.sum()) for p, c in zip(phases, mean)},
                     unit_cycles=float(d.sum(1).mean()))
@@ -488,13 +538,23 @@ def main():
                                                 tweb.initial_filter_state(torch.float32, dev))
         call = lambda: tweb.gmm_flags(feats, total, tweb.MODE_TABLE[0])  # noqa: E731
         res = split("webrtc_gmm", call)
-        got = call()
+        got = tweb.gmm_flags(feats, total, tweb.MODE_TABLE[0], final_state=True)
         use("webrtc_gmm", plain["webrtc_gmm"])
-        if not torch.equal(got, call()):
+        ref = tweb.gmm_flags(feats, total, tweb.MODE_TABLE[0], final_state=True)
+        same = torch.equal(got[0], ref[0]) and all(
+            torch.equal(a.view(torch.int32) if a.is_floating_point() else a,
+                        b.view(torch.int32) if b.is_floating_point() else b)
+            for a, b in zip(got[1], ref[1]))
+        if not same:
             raise SystemExit("the stamped kernel I differs from the unstamped one")
-        emit(kernel="I", what=f"mode 0, {n} frames", **res,
-             cycles_per_frame={p: c / n for p, c in res["cycles"].items()},
-             **times("webrtc_gmm", call), sm_clock_mhz=sm_clock())
+        row = dict(kernel="I", what=f"mode 0, {n} frames", **res,
+                   cycles_per_frame={p: c / n for p, c in res["cycles"].items()})
+        if res["version"] == "tracker warps and a GMM warp":  # the trackers run beside it
+            chain = {p: res["cycles"][p] for p in I_PHASES[:4]}
+            row["shares"] = {p: c / sum(chain.values()) for p, c in chain.items()}
+            row["active_frames"] = int((total > 10).sum())
+            row["frames_redone"] = int(res["first_row"][6])  # with __fdiv_rn
+        emit(**row, **times("webrtc_gmm", call), sm_clock_mhz=sm_clock())
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

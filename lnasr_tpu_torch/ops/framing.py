@@ -31,8 +31,12 @@ def preemphasis(signal: torch.Tensor, alpha: float) -> torch.Tensor:
 
 def split_frames(signal: torch.Tensor, frame_len: int, frame_step: int) -> torch.Tensor:
     """``(..., S)`` -> overlapping frames ``(..., N, frame_len)``, the tail
-    zero-padded (or truncated) to :func:`pad_length`."""
+    zero-padded (or truncated) to :func:`pad_length`. A signal of exactly
+    ``frame_len - frame_step`` samples has no frame: ``(..., 0,
+    frame_len)``."""
     signal_length = signal.shape[-1]
+    if num_frames(signal_length, frame_len, frame_step) == 0:
+        return signal.new_zeros((*signal.shape[:-1], 0, frame_len))
     padded = pad_length(signal_length, frame_len, frame_step)
     if padded > signal_length:
         signal = torch.nn.functional.pad(signal, (0, padded - signal_length))

@@ -34,6 +34,8 @@ def _amplitudes(signal: torch.Tensor, config: LTSDConfig, dtype) -> torch.Tensor
     sig = signal.to(dtype)
     zeros = sig.new_zeros(sig.shape[:-1] + (config.step_size,))
     frames = split_frames(torch.cat([zeros, sig], dim=-1), config.win_size, config.step_size)
+    if frames.shape[-2] == 0:  # an empty signal: no frame (an FFT of none can fail)
+        return frames.new_zeros(frames.shape[:-1] + (config.win_size // 2 + 1,))
     window = torch.as_tensor(hamming_window(config.win_size), dtype=dtype, device=sig.device)
     return torch.fft.rfft(frames * window, n=config.win_size).abs()
 

@@ -45,3 +45,16 @@ def test_dry_run_of_the_trigram_group(monkeypatch, tmp_path):
     assert tri.ROUTES == ("smem", "global", "resident")
     assert [r["what"] for r in rows][0].startswith("H decode core V=6")
     assert rows[-1]["what"] == "H V=6 backtrace" and all(r["ms"] > 0 for r in rows)
+
+
+def test_dry_run_of_the_backtrace_floor_group(monkeypatch, tmp_path):
+    """Group Hbt at a cut vocabulary: H's backtrace held to the plain
+    gathers and timed (the chain floor and the cold timing need the card)."""
+    monkeypatch.setattr(kernel_timing, "H_VOCAB", 6)
+    out = tmp_path / "rows.jsonl"
+    monkeypatch.setattr(sys, "argv", ["kernel_timing.py", "--device", "cpu", "--kernels", "Hbt",
+                                      "--reps", "1", "--out", str(out)])
+    assert kernel_timing.main() == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines() if '"kernel"' in line]
+    assert len(rows) == 1 and rows[0]["what"].startswith("H V=6 backtrace and its chain floor")
+    assert rows[0]["bt_ms"] > 0 and "floor_ms" not in rows[0]

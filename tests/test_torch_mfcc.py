@@ -65,8 +65,6 @@ def test_framing_matches(length):
     L, S = 400, 160
     assert tframing.num_frames(length, L, S) == jframing.num_frames(length, L, S)
     assert tframing.pad_length(length, L, S) == jframing.pad_length(length, L, S)
-    if tframing.num_frames(length, L, S) == 0:
-        return
     np.testing.assert_array_equal(
         tframing.split_frames(torch.as_tensor(x), L, S).numpy(),
         np.asarray(jframing.split_frames(jnp.asarray(x), L, S)))
@@ -78,6 +76,41 @@ def test_framing_matches(length):
     np.testing.assert_array_equal(
         tframing.frame_mask(torch.as_tensor(lengths), n, L, S).numpy(),
         np.asarray(jframing.frame_mask(jnp.asarray(lengths), n, L, S)))
+
+
+@pytest.mark.parametrize("shape, L, S", [((3, 240), 400, 160), ((1024,), 2048, 1024),
+                                          ((128,), 256, 128), ((2, 0), 400, 400)])
+def test_framing_zero_frames(shape, L, S):
+    """A signal of exactly L - S samples has no frame: the JAX package's
+    ``(..., 0, L)`` in the signal's dtype, whatever the leading axes."""
+    x = np.random.default_rng(L).normal(size=shape).astype(np.float32)
+    assert tframing.num_frames(shape[-1], L, S) == 0
+    got = tframing.split_frames(torch.as_tensor(x), L, S)
+    ref = np.asarray(jframing.split_frames(jnp.asarray(x), L, S))
+    assert tuple(got.shape) == ref.shape == (*shape[:-1], 0, L)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_mfcc_zero_frames():
+    """``MFCC`` of 240 int16 samples (no frame at L = 400, S = 160): every
+    output's shape and dtype the JAX package's, the serving path's and the
+    kernel's plain version empty too."""
+    x = np.random.default_rng(240).integers(-3000, 3000, size=240).astype(np.int16)
+    ref = jmfcc.MFCC(jconfig.MFCCConfig())(x)
+    m = tmfcc.MFCC(tconfig.MFCCConfig(), device="cpu")
+    got = m(x)
+    for name in ref._fields:
+        a, b = getattr(got, name), np.asarray(getattr(ref, name))
+        assert tuple(a.shape) == b.shape and a.numpy().dtype == b.dtype, name
+    assert [tuple(r.shape) for r in (ref.power, ref.cepstrum, ref.features, ref.mask)] == [
+        (0, 257), (0, 40), (0, 39), (0,)]
+    feats, mask = m.features_fast(x)
+    assert tuple(feats.shape) == (0, 39) and feats.dtype == torch.float32 and mask is None
+    feats, mask = m.features_fast(np.stack([x, x]), np.array([240, 100]))
+    assert tuple(feats.shape) == (2, 0, 39) and tuple(mask.shape) == (2, 0)
+    mel, energy = mel_frontend(torch.as_tensor(np.stack([x, x, x])), T_CFG)
+    assert tuple(mel.shape) == (3, 0, 40) and tuple(energy.shape) == (3, 0)
 
 
 def test_spectral_constants_match():

@@ -156,6 +156,17 @@ def test_ltsd_matches_jax(vad_audio, alpha):
                                rtol=1e-12, atol=1e-12)
 
 
+@pytest.mark.parametrize("alpha", [None, 0.4])
+def test_ltsd_empty_signal(alpha):
+    """An empty signal (one stride of zeros in front, a window of two
+    strides: no frame) scores no frame, as in the JAX package."""
+    ref = JVadLtsd(JLTSDConfig(alpha=alpha)).detect(np.zeros(0))
+    got = VadLtsd(LTSDConfig(alpha=alpha), device="cpu").detect(np.zeros(0))
+    for a, b in zip(got, ref):
+        assert tuple(a.shape) == np.asarray(b).shape == (0,)
+        assert a.numpy().dtype == np.asarray(b).dtype
+
+
 def _jit(fn, static=()):
     import jax
 
