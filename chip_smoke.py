@@ -41,11 +41,19 @@ kernels' launch counters reset just before and read just after:
   route that takes each), then its segment decode launches the mel
   frontend, the trigram forward (on its resident route, by the route's own
   counter) and the trigram backtrace once each;
-- the device VADs on the stream's audio (LTSD fixed and adaptive, the
-  WebRTC-style torch VAD in modes 0-3, whose GMM recursion is one launch
-  of its kernel a call) against their CPU runs, the plain GMM loop on the
-  card and the native detector, the GMM kernel also at the edges of its
-  ring of stages and on runs of frames without power;
+- the device VADs on the stream's audio (LTSD fixed and adaptive, whose
+  noise recursion is one launch of its kernel a call; the WebRTC-style
+  torch VAD in modes 0-3, whose GMM recursion is one launch of its kernel
+  a call) against their CPU runs, the plain loops on the card and the
+  native detector, the LTSD kernel bit for bit at float32 and float64 on
+  the stream, a batch, a silent start and no valid frame, the GMM kernel
+  also at the edges of its ring of stages and on runs of frames without
+  power;
+- the Viterbi trellis behind every HMM decode, ``trellis_phase``: its
+  kernel bit for bit against the plain loop (scores, backpointers, path,
+  score) on both routes, masks, ties, ``-inf``, T = 1 and N = 1 to 1024,
+  float32 and float64; then ``GMMHMM.decode_batch`` at B = 64 x 10 s with
+  ragged masks (the kernel once) against the plain loop and the CPU;
 - training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
   frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (kernel G
   once a sweep for the forward-backward recursion, torch GEMMs for the
@@ -54,7 +62,8 @@ kernels' launch counters reset just before and read just after:
   and resume bitwise (the GMM-HMM and a 65,536-symbol discrete HMM);
   ``entry.unit_training(22)`` (mel frontend once, G once a sweep) against
   the CPU, with a planted decode by the trained units (mel frontend,
-  dense-graph Viterbi); the word segmenter against the CPU;
+  dense-graph Viterbi); the word segmenter against the CPU (the trellis
+  kernel once a sentence, at float64);
 - ``parallel/`` on one world of 4 ranks spawned on the card (gloo; the
   kernels built here first): data-parallel EM on the flagship batch (16
   utterances a rank, the mel frontend once on each rank's signals, G once
@@ -1384,14 +1393,23 @@ def vad_phase(torch, entry, wrappers, card, launches):
         require(np.allclose(got, ref, rtol=1e-8, atol=1e-10),
                 f"{name}: card vs CPU float64 scores differ by {np.abs(got - ref).max()}")
         vad = VadLtsd(cfg, device=DEVICE)
+        vad.detect(x)
+        torch.cuda.synchronize()
+        reset_counts(*wrappers)
         got32 = vad.detect(x).ltsd.cpu().numpy()
+        counts = {w.__name__: w.launches for w in wrappers}
+        want = {n: int(alpha is not None and n == "ltsd_noise") for n in counts}
+        require(counts == want, f"{name}: detect launched {counts}, expected {want}")
+        launches[name] = counts
         ms = host_ms(lambda: vad.detect(x).ltsd.cpu(), reps=5, warmup=1)
         out[name] = ms / audio_s
         print(f"{name} VAD on the stream ({audio_s} s, {len(got)} frames): card equal to CPU in "
               f"float64 (rtol 1e-8, atol 1e-10; max err {np.abs(got - ref).max():.3g}); float32 "
               f"on the card {np.abs(got32 - ref).max():.3g} dB from the float64 scores, "
               f"{int((got32 > cfg.threshold).sum())} vs {int((ref > cfg.threshold).sum())} speech "
-              f"frames; {ms:.4f} ms = {ms / audio_s:.4f} ms per second of audio on {card}")
+              f"frames; launches {counts}; {ms:.4f} ms = {ms / audio_s:.4f} ms per second of "
+              f"audio on {card} (host clock, one device->host copy)")
+    out["ltsd_noise"] = check_ltsd_noise(torch, audio, card)
 
     sig = torch.as_tensor(audio, device=DEVICE)
     n_frames = len(audio) // tweb.FRAME_LEN_16K
@@ -1522,6 +1540,285 @@ def vad_phase(torch, entry, wrappers, card, launches):
                   "bound": i_bound, "frames": n_frames,
                   "state_err": max(out[f"gmm mode {m}"]["state_err"] for m in range(4))}
     return out
+
+
+def same_or_nan(torch, got, ref):
+    """Float tensors equal bit for bit where ``ref`` is not NaN, NaN where it
+    is (a NaN's payload and sign are not compared)."""
+    nan = torch.isnan(ref)
+    if not torch.equal(nan, torch.isnan(got)):
+        return False
+    return same_bits(torch, [torch.where(nan, 0.0, got)], [torch.where(nan, 0.0, ref)])
+
+
+def finite_err(torch, got, ref):
+    """Largest ``|got - ref|`` where both are finite (0.0 where none is)."""
+    both = torch.isfinite(got) & torch.isfinite(ref)
+    return float((got - ref)[both].abs().max()) if bool(both.any()) else 0.0
+
+
+def parent_ltsd_loop(torch, ltse, noise, config):
+    """The adaptive LTSD's frame loop as the port ran it before kernel J
+    (~15 torch ops a frame, sums in torch's order): kept to time what J
+    replaced, never on a path."""
+    alpha = config.alpha
+    scores = torch.zeros(ltse.shape[:-1], dtype=ltse.dtype, device=ltse.device)
+    for t in range(config.order, ltse.shape[-2] - config.order):
+        ltse_t = ltse[..., t, :]
+        ratio = (ltse_t * ltse_t / noise).sum(dim=-1)
+        score = 10.0 * torch.log10(torch.clamp(ratio / config.win_size, min=1e-30))
+        adapted = alpha * noise + (1.0 - alpha) * (ltse_t.sum(dim=-1) / config.win_size)[..., None]
+        noise = torch.where((score < config.threshold)[..., None], adapted, noise)
+        scores[..., t] = score
+    return scores
+
+
+def check_ltsd_noise(torch, audio, card):
+    """Kernel J (``vad.ltsd.ltsd_noise``) bit for bit against its plain
+    loop on the card (NaN where it has NaN), one launch a call, at float32
+    and float64 on the stream (at the default threshold, at 15 dB, where
+    most frames adapt, and with windows of 256 and 4096 samples: 1 and 13
+    warps an utterance against the default's 7), a batch of three 20 s
+    pieces of it, the stream's first 20 s with 1 s of digital silence in
+    front (noise 0: NaN and inf scores) and a 0.6 s signal (no frame in the
+    valid band); then J on the stream at float32 (the adaptive
+    ``detect``'s dtype) by CUDA events over back-to-back launches and
+    torch.profiler, beside the plain loop, the loop the port ran before J
+    and the chain floor (J at one frequency bin, on one warp: a division,
+    the butterfly, log10 and the compare, every frame), with J's bound."""
+    from lnasr_tpu_torch.config import LTSDConfig
+    from lnasr_tpu_torch.vad import ltsd
+
+    cfg = LTSDConfig(alpha=0.4)
+    x = torch.as_tensor(audio.astype(np.float64) / 32768.0, device=DEVICE)
+    piece = 20 * 16000
+    silent = x[:piece].clone()
+    silent[:16000] = 0.0
+    adapting = LTSDConfig(alpha=0.4, threshold=15.0)  # most frames adapt the noise
+    signals = {"stream": (x, cfg), "stream at 15 dB": (x, adapting),
+               "stream, window 256": (x, LTSDConfig(alpha=0.4, win_size=256, step_size=128)),
+               "stream, window 4096": (x, LTSDConfig(alpha=0.4, win_size=4096, step_size=2048)),
+               "batch of 3": (torch.stack([x[k * piece:(k + 1) * piece] for k in range(3)]), cfg),
+               "1 s of zeros in front": (silent, cfg), "0.6 s": (x[:9600], cfg)}
+
+    def inputs(sig, dtype, c=cfg):
+        amps = ltsd._amplitudes(sig, c, dtype)
+        return ltsd._ltse(amps, c.order), amps[..., :2, :].mean(dim=-2) ** 2
+
+    lines, nan_frames, err = [], 0, 0.0
+    for dtype in (torch.float32, torch.float64):
+        for what, (sig, c) in signals.items():
+            ltse, noise = inputs(sig, dtype, c)
+            before = ltsd.ltsd_noise.launches
+            got = ltsd.ltsd_noise(ltse, noise, c)
+            ref = ltsd.ltsd_noise_plain(ltse, noise, c)
+            torch.cuda.synchronize()
+            require(ltsd.ltsd_noise.launches == before + 1 and got.dtype == dtype
+                    and got.shape == ref.shape and same_or_nan(torch, got, ref),
+                    f"kernel J {what} {dtype}: differs from the plain loop on the card on "
+                    f"{int((got != ref).sum())} frames")
+            nan_frames += int(torch.isnan(got).sum())
+            err = max(err, finite_err(torch, got, ref))
+            if dtype == torch.float32:
+                band = ref[..., c.order:ref.shape[-1] - c.order]
+                lines.append(f"{what} {tuple(ltse.shape)}, {ltsd.ltsd_warps(ltse.shape[-1])} "
+                             f"warps: {int(band.numel())} valid frames, "
+                             f"{int(torch.isnan(band).sum())} NaN, {int(torch.isinf(band).sum())} "
+                             f"inf, {int((band < c.threshold).sum())} adapted")
+    require(nan_frames > 0, "kernel J's checks met no NaN score (the silent start)")
+    print("kernel J vs its plain loop on the card, float32 and float64, bit for bit (NaN where "
+          "it has NaN), one launch a call: " + "; ".join(lines))
+
+    ltse, noise = inputs(x, torch.float32)
+    t_len, f = ltse.shape
+    fn = lambda: ltsd.ltsd_noise(ltse, noise, cfg)  # noqa: E731
+    ms = burst_ms(fn, launches=10)
+    wrapper_ms = cuda_ms(fn, reps=10)
+    prof = profiled_device(torch, fn, calls=5)
+    one = (ltse[:, :1].contiguous(), noise[:1].contiguous())  # a lane's one bin: the chain
+    floor_ms = burst_ms(lambda: ltsd.ltsd_noise(*one, cfg), launches=10)
+    ref = ltsd.ltsd_noise_plain(ltse, noise, cfg)
+    plain_ms = cuda_ms(lambda: ltsd.ltsd_noise_plain(ltse, noise, cfg), reps=2, warmup=0)
+    parent = parent_ltsd_loop(torch, ltse, noise, cfg)
+    parent_ms = cuda_ms(lambda: parent_ltsd_loop(torch, ltse, noise, cfg), reps=2, warmup=0)
+    valid = t_len - 2 * cfg.order
+    adapted = int((ref[cfg.order:t_len - cfg.order] < cfg.threshold).sum())
+    # the LTSE rows of the valid frames and the noise read once, the scores
+    # written; a square, a division and two adds a bin and frame, a multiply
+    # and an add a bin on the frames that adapt
+    j_bound = bound(4 * (valid * f + f + t_len), 4 * valid * f + 2 * adapted * f)
+    close = float((parent - ref)[cfg.order:t_len - cfg.order].abs().max())
+    print(f"timing on {card}: kernel J on the stream's {valid} valid frames of {f} bins "
+          f"(float32): {ms:.4f} ms (CUDA events, back-to-back launches), profiler "
+          f"{prof[0]:.4f} ms ({prof[1]} of 5 launches recorded in window {prof[2]}), the wrapper "
+          f"call {wrapper_ms:.4f} ms; chain floor (one bin) {floor_ms:.4f} ms; the plain loop on "
+          f"the card {plain_ms:.1f} ms, the loop before J {parent_ms:.1f} ms (CUDA events; its "
+          f"scores "
+          f"{close:.3g} dB from the plain loop's: torch's order of sums); bound "
+          f"{j_bound[0]:.6f} ms by {j_bound[1]}")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "profiler_ms": prof[0],
+            "profiler_launches": prof[1], "floor_ms": floor_ms, "plain_ms": plain_ms,
+            "parent_ms": parent_ms, "bound": j_bound, "frames": valid, "bins": f, "err": err}
+
+
+# kernel K's checks: (N, B, T, kind); every route that takes N, float32 and
+# float64. T = 9000 at N = 32 and T = 2000 at N = 1024 keep the backpointers
+# off chip and grow the backtrace's chunks past 32 steps
+TRELLIS_CASES = [(5, 3, 40, "random"), (5, 3, 40, "ties"), (5, 3, 40, "inf"), (5, 3, 40, "dead"),
+                 (1, 3, 17, "random"), (1, 2, 1, "final"), (5, 2, 1, "final"), (8, 2, 2, "inf"),
+                 (9, 3, 50, "ties"), (16, 2, 33, "inf"), (32, 2, 9000, "random"),
+                 (33, 3, 20, "final"), (33, 3, 20, "inf"), (179, 2, 300, "ties"),
+                 (1024, 1, 2000, "random")]
+
+
+def trellis_inputs(torch, rng, n, b, t, kind, dtype, dev):
+    """``(log_pi, log_a, log_b, mask, log_final)`` on ``dev``: ragged masks
+    (full, a 1-frame utterance, holes inside); ``ties`` quantized, ``inf``
+    an unreachable state, a dead end, ``-inf`` emissions and endings,
+    ``dead`` every ending ``-inf``, ``final`` random ending weights (the CPU
+    test's cases, tests/test_torch_viterbi_trellis.py)."""
+    log_a = np.log(rng.dirichlet(np.ones(n), size=n))
+    log_pi = np.log(rng.dirichlet(np.ones(n)))
+    log_b = rng.normal(size=(b, t, n))
+    lengths = np.array([t, 1, max(1, t - 3)][:b] + [t] * max(0, b - 3))
+    mask = np.arange(t)[None, :] < lengths[:, None]
+    if b > 2 and t > 6:
+        mask[2, 2:4] = False
+    log_final = None
+    with np.errstate(divide="ignore"):
+        if kind == "ties":
+            log_a, log_pi = np.round(log_a), np.zeros(n)
+            log_b = np.round(log_b * 2.0) / 2.0
+        elif kind == "inf":
+            if n > 2:
+                log_a[:, 1] = -np.inf
+                log_a[2, :] = -np.inf
+            log_pi[n // 2] = -np.inf
+            log_b[rng.random(log_b.shape) < 0.1] = -np.inf
+            log_final = np.where(rng.random(n) < 0.5, -np.inf, rng.normal(size=n))
+            log_final[0] = 0.0
+        elif kind == "dead":
+            log_final = np.full(n, -np.inf)
+        elif kind == "final":
+            log_final = rng.normal(size=n)
+    on = lambda v: None if v is None else torch.as_tensor(v, dtype=dtype, device=dev)  # noqa: E731
+    return (on(log_pi), on(log_a), on(log_b), torch.as_tensor(mask, device=dev), on(log_final))
+
+
+def same_trellis(torch, got, ref):
+    """Kernel K's four outputs bit for bit the plain loop's."""
+    return (same_bits(torch, [got.scores, got.score], [ref.scores, ref.score])
+            and got.backptr.dtype == ref.backptr.dtype == torch.int32
+            and torch.equal(got.backptr, ref.backptr) and torch.equal(got.path, ref.path))
+
+
+def check_trellis(torch, tr, dev):
+    """Kernel K against ``viterbi_scan_plain`` on the card, all four
+    outputs bit for bit, on :data:`TRELLIS_CASES` at float32 and float64,
+    on every route that takes N (forced), two launches bitwise."""
+    lines = []
+    for k, (n, b, t, kind) in enumerate(TRELLIS_CASES):
+        routes = ["warp", "block"] if n <= 32 else ["block"]
+        for dtype in (torch.float32, torch.float64):
+            args = trellis_inputs(torch, np.random.default_rng(90 + k), n, b, t, kind, dtype, dev)
+            ref = tr.viterbi_scan_plain(*args)
+            for route in routes:
+                got = tr._viterbi_launch(*args, route=route)
+                again = tr._viterbi_launch(*args, route=route)
+                torch.cuda.synchronize()
+                require(same_trellis(torch, got, ref) and same_trellis(torch, again, got),
+                        f"kernel K N={n} B={b} T={t} {kind} {dtype} {route}: differs from the "
+                        f"plain loop (path on {int((got.path != ref.path).sum())} frames, "
+                        f"backpointers on {int((got.backptr != ref.backptr).sum())})")
+        c, chunk = tr.viterbi_chunks(t, n, routes[0])
+        lines.append(f"N={n} B={b} T={t} {kind} ({'/'.join(routes)}; chunks {c}x{chunk}"
+                     + (", backpointers off chip" if routes[0] == "warp"
+                        and not tr.viterbi_on_chip(t, n, "warp") else "") + ")")
+    print("kernel K vs viterbi_scan_plain on the card, float32 and float64, every route forced, "
+          "scores, backpointers, path and score bit for bit, two launches bitwise: "
+          + "; ".join(lines))
+
+
+def trellis_phase(torch, entry, wrappers, card, launches):
+    """Kernel K, the Viterbi trellis behind every HMM decode:
+    :func:`check_trellis`; then ``GMMHMM.decode_batch`` at the flagship's
+    width (B = 64 x 10 s of ``entry.training`` features, 5 x 8 x 39
+    diagonal, seeded ragged lengths) with the counters reset just before:
+    K once and nothing else, its paths the plain loop's on the card's own
+    emissions and within 0.999 of the CPU decode's frames; K timed by CUDA
+    events over back-to-back launches and torch.profiler, beside the plain
+    loop on the card (the port's ``viterbi_scan`` before K), the wrapper
+    call, ``decode_batch`` end to end and the chain floor (K at N = 1 on
+    the same batch and mask), with K's bound."""
+    from lnasr_tpu_torch.ops import trellis as tr
+
+    check_trellis(torch, tr, torch.device(DEVICE))
+    model = entry.flagship_model(DEVICE)
+    run = entry.training(device=DEVICE)
+    feats = run.features
+    b, t, _ = feats.shape
+    lengths = np.random.default_rng(17).integers(t // 3, t + 1, size=b)
+    lengths[0] = t
+    mask = torch.as_tensor(np.arange(t)[None, :] < lengths[:, None], device=DEVICE)
+    model.decode_batch(feats, mask)
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    by_route = tr.viterbi_scan.route_launches
+    by_route.update(dict.fromkeys(by_route, 0))
+    paths = model.decode_batch(feats, mask)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    route_counts = dict(by_route)
+    launches["gmmhmm decode"] = counts
+    want = {n: int(n == "viterbi_scan") for n in counts}
+    require(counts == want, f"GMMHMM.decode_batch launched {counts}, expected {want}")
+    route = [r for r, c in route_counts.items() if c]
+    require(len(route) == 1, f"GMMHMM.decode_batch: kernel K's launches by route {route_counts}")
+    log_b = model.emissions(feats)
+    args = (model.log_pi, model.log_a, log_b, mask)
+    ref = tr.viterbi_scan_plain(*args)
+    plain_ms = cuda_ms(lambda: tr.viterbi_scan_plain(*args), reps=2, warmup=0)
+    got = tr.viterbi_scan(*args)
+    require(same_trellis(torch, got, ref) and torch.equal(paths, ref.path),
+            f"GMMHMM.decode_batch: kernel K differs from the plain loop on the card on "
+            f"{int((got.path != ref.path).sum())} frames")
+    err = max(finite_err(torch, got.scores, ref.scores), finite_err(torch, got.score, ref.score))
+    model_cpu = entry.flagship_model("cpu")
+    paths_c = model_cpu.decode_batch(feats.cpu(), mask.cpu())
+    agree = float((paths.cpu() == paths_c).float().mean())
+    require(agree >= 0.999, f"GMMHMM.decode_batch: card and CPU paths agree on {agree} of frames")
+    tail = all(bool((paths[i, lengths[i]:] == paths[i, lengths[i] - 1]).all()) for i in range(b))
+    require(tail, "a masked tail does not repeat the last valid state")
+    fn = lambda: tr.viterbi_scan(*args)  # noqa: E731
+    ms = burst_ms(fn)
+    wrapper_ms = cuda_ms(fn, reps=20)
+    prof = profiled_device(torch, fn, calls=10)
+    one = (torch.zeros(1, device=DEVICE), torch.zeros((1, 1), device=DEVICE),
+           log_b[..., :1].contiguous(), mask)
+    floor_ms = burst_ms(lambda: tr.viterbi_scan(*one))
+    decode_ms = host_ms(lambda: model.decode_batch(feats, mask).cpu(), reps=10)
+    n = log_b.shape[-1]
+    steps = int(mask[:, 1:].sum())
+    # the emission rows of frame 0 and the valid steps, the mask and the
+    # model in (a masked frame needs no emission); trellis, backpointers,
+    # path and score out; an add and a compare a (source, target) pair a
+    # valid step
+    k_bound = bound(4 * (b + steps) * n + b * t + 4 * (n + n * n) + 4 * 2 * b * t * n + 4 * b * t
+                    + 4 * b, 2 * n * n * steps)
+    print(f"main path: GMMHMM.decode_batch on B={b} x {entry.TRAIN_SECONDS} s (T={t}, N={n}, "
+          f"lengths {int(lengths.min())}-{t}): kernel K once on its {route[0]} route, launches "
+          f"{counts}; paths bitwise "
+          f"the plain loop's on the card, {agree:.6f} of frames on the CPU decode's state")
+    print(f"timing on {card}: kernel K at the decode's inputs {ms:.4f} ms (CUDA events, "
+          f"back-to-back launches), profiler {prof[0]:.4f} ms ({prof[1]} of 10 launches recorded "
+          f"in window {prof[2]}), the wrapper call {wrapper_ms:.4f} ms, chain floor (N = 1) "
+          f"{floor_ms:.4f} ms; the plain loop on the card (viterbi_scan before K; CUDA events) "
+          f"{plain_ms:.1f} ms; decode_batch end to end {decode_ms:.4f} ms (host clock, one "
+          f"device->host copy); bound {k_bound[0]:.6f} ms by {k_bound[1]}")
+    return {"ms": ms, "wrapper_ms": wrapper_ms, "profiler_ms": prof[0],
+            "profiler_launches": prof[1], "floor_ms": floor_ms, "plain_ms": plain_ms,
+            "decode_ms": decode_ms, "bound": k_bound, "agree": agree, "route": route[0],
+            "err": err}
 
 
 # the segmenter's corpus: space-separated words (tests/test_seg.py's)
@@ -1968,19 +2265,31 @@ def training_phase(torch, entry, wrappers, card, launches):
     with counted_sweeps() as sweeps:
         seg = Seg(device=DEVICE).train(SegDataSet.mark(line) for line in SEG_CORPUS)
     torch.cuda.synchronize()
+    train_counts = {w.__name__: w.launches for w in wrappers}
+    # the segmenter trains by counting (HMM.from_counts): no E-step, no kernel
+    require(sweeps[0] == 0 and not any(train_counts.values()),
+            f"the segmenter's training ran {sweeps[0]} E-steps, launches {train_counts}")
+    # each segmentation is one float64 decode: kernel K once a sentence
+    reset_counts(*wrappers)
+    got = [seg.segment(text) for text in SEG_SENTENCES]
+    torch.cuda.synchronize()
     counts = {w.__name__: w.launches for w in wrappers}
     launches["segmenter"] = counts
-    # the segmenter trains by counting (HMM.from_counts): no E-step, no kernel
-    require(sweeps[0] == 0 and not any(counts.values()),
-            f"the segmenter's training ran {sweeps[0]} E-steps, launches {counts}")
-    got = [seg.segment(text) for text in SEG_SENTENCES]
+    want = {n: len(SEG_SENTENCES) * int(n == "viterbi_scan") for n in counts}
+    require(counts == want, f"the segmentations launched {counts}, expected {want}")
     seg_s = time.perf_counter() - t0
     seg_cpu = Seg(device="cpu").train(SegDataSet.mark(line) for line in SEG_CORPUS)
     ref = [seg_cpu.segment(text) for text in SEG_SENTENCES]
     require(got == ref, f"segmenter: card {got} vs CPU {ref}")
     require(got[0] == ["我们", "喜欢", "学习", "中文"], f"segmenter: {got[0]}")
+    codes = seg.model.emissions(seg._encode(SEG_SENTENCES[-1]))
+    k = trellis.viterbi_scan(seg.model.log_pi, seg.model.log_a, codes)
+    require(same_trellis(torch, k, trellis.viterbi_scan_plain(seg.model.log_pi, seg.model.log_a,
+                                                                codes)),
+            "the segmenter's float64 decode: kernel K differs from the plain loop on the card")
     print(f"segmenter on the card: {got} (equal to the CPU's); training and {len(got)} "
-          f"segmentations {seg_s:.3f} s; training launches {counts}")
+          f"segmentations {seg_s:.3f} s; training launches {train_counts}, the segmentations' "
+          f"{counts} (kernel K once a sentence, float64, bitwise the plain loop's)")
     return {"sweep_ms": step_ms, "busy": busy / prof_ms, "launches": n_launch, "stages": stages,
             "unit_s": unit_s, "g": g}
 
@@ -2010,6 +2319,7 @@ def parallel_rank(ckdir):
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.parallel import distributed as D
     from lnasr_tpu_torch.parallel.mesh import mesh_axis
+    from lnasr_tpu_torch.vad import ltsd as tltsd
     from lnasr_tpu_torch.vad import webrtc as tweb
 
     dev = D.local_device()
@@ -2019,7 +2329,8 @@ def parallel_rank(ckdir):
     host = lambda x: x.detach().cpu().numpy()  # noqa: E731
     counted = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
                F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
-               tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags)
+               tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags, tltsd.ltsd_noise,
+               trellis.viterbi_scan)
 
     def counts():
         return {w.__name__: w.launches for w in counted}
@@ -3101,6 +3412,7 @@ def main():
     from lnasr_tpu_torch.ops import viterbi as vt
     from lnasr_tpu_torch.ops import viterbi_dense as vd
     from lnasr_tpu_torch.ops.framing import hamming_window, num_frames, split_frames
+    from lnasr_tpu_torch.vad import ltsd as tltsd
     from lnasr_tpu_torch.vad import webrtc as tweb
     from lnasr_tpu_torch.ops.spectral import mel_filterbank
 
@@ -3309,7 +3621,8 @@ def main():
     torch.cuda.synchronize()
     wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
                 F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
-                tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags)
+                tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags, tltsd.ltsd_noise,
+                trellis.viterbi_scan)
     reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
@@ -3611,6 +3924,7 @@ def main():
     stream_phase(torch, entry, wrappers, card, launches)
     trig = trigram_phase(torch, entry, wrappers, card, launches)
     vads = vad_phase(torch, entry, wrappers, card, launches)
+    trel = trellis_phase(torch, entry, wrappers, card, launches)
 
     # -- 12. training -------------------------------------------------------
     train = training_phase(torch, entry, wrappers, card, launches)
@@ -3694,6 +4008,28 @@ def main():
     i_row |= {"ms": gm["ms"], "profiler_ms": gm["profiler_ms"],
               "profiler_launches": gm["profiler_launches"], "frames": gm["frames"]}
     kernels.append(i_row)
+    # kernels J and K: ``ms`` by CUDA events over back-to-back launches queued
+    # behind a spinning kernel, the profiler's figure beside; ``loop_ms`` the
+    # frame loop each replaced, on the card
+    jn = vads["ltsd_noise"]
+    j_row = kernel_row("ltsd_noise", "ltsd_noise", "ltsd adaptive",
+                       "lnasr_tpu/vad/ltsd.py:101 (step :89-99, lax.scan under jax.jit :119; "
+                       "vmapped by detect_batch :125-128)", jn["err"], jn["wrapper_ms"],
+                       jn["plain_ms"], jn["bound"])
+    j_row |= {"ms": jn["ms"], "profiler_ms": jn["profiler_ms"],
+              "profiler_launches": jn["profiler_launches"], "loop_ms": jn["parent_ms"],
+              "chain_floor_ms": jn["floor_ms"], "frames": jn["frames"], "bins": jn["bins"]}
+    kernels.append(j_row)
+    k_row = kernel_row("viterbi_trellis", "viterbi_scan", "gmmhmm decode",
+                       "lnasr_tpu/ops/trellis.py:92 viterbi_scan (forward lax.scan :126, "
+                       "backtrace lax.scan :138; under jax.jit in models/hmm.py:228-247 and "
+                       "models/gmmhmm.py:345-353)", trel["err"], trel["wrapper_ms"],
+                       trel["plain_ms"], trel["bound"])
+    k_row |= {"ms": trel["ms"], "profiler_ms": trel["profiler_ms"],
+              "profiler_launches": trel["profiler_launches"], "route_taken": trel["route"],
+              "loop_ms": trel["plain_ms"], "chain_floor_ms": trel["floor_ms"],
+              "decode_ms": trel["decode_ms"]}
+    kernels.append(k_row)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

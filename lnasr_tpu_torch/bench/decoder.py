@@ -12,8 +12,10 @@ Five rows, each printed as one JSON line as it completes:
 2. ``lattice_1k``: the lattice-recording pass of N-best serving (on CUDA
    the lattice kernel) against ``factored_lattice_scan``;
 3. ``dense_kernel``: the dense-graph Viterbi (on CUDA its kernel) against
-   the port's ``viterbi_scan`` at N = ``--n``, T = ``--t``: the paths must
-   be bitwise equal, and the row's value is the speed-up;
+   the port's ``viterbi_scan`` (on CUDA the trellis kernel's block route,
+   the counterpart of the JAX package's jitted scan) at N = ``--n``,
+   T = ``--t``: the paths must be bitwise equal, and the row's value is
+   the speed-up;
 4. ``large_vocab_5k`` and ``large_vocab_10k``: a corpus-trained bigram
    over 5,000 and 10,000 words, three realizations of the same search:
    the backoff-factored hop (rank-1 plus sparse seen bigrams; it has no

@@ -18,10 +18,17 @@ Counterparts of the JAX package's ``ops/trellis.py``:
   :func:`forward_assoc`, the forward pass as a log-depth Hillis-Steele
   scan over (N, N) operators; :func:`posteriors`, the E-step's ``xi`` and
   ``gamma``.
-- :func:`viterbi_scan`: a T-step loop whose step is one batched (+, max)
-  matrix-vector product with first-index argmax backpointers. It is the
-  plain version of the batched Viterbi kernel (``ops/viterbi.py``) and
-  serves masked decodes.
+- :func:`viterbi_scan`: the max-plus trellis with first-index argmax
+  backpointers and its backtrace, behind every HMM decode. For CUDA
+  tensors it launches the hand-written kernel of
+  ``csrc/viterbi_trellis.cu`` (kernel K: trellis and backtrace in one
+  launch; a warp a sequence for N <= 32, a block for N <= 1024:
+  :func:`viterbi_trellis_route`), the counterpart of the JAX package's
+  jitted ``lax.scan`` pair; for CPU tensors it runs
+  :func:`viterbi_scan_plain`, a T-step loop whose step is one batched
+  (+, max) matrix-vector product, which the kernel is held to bitwise and
+  which the Viterbi kernels B and C are held to as well
+  (``ops/viterbi.py``, ``ops/viterbi_dense.py``).
 
 Conventions: natural-log inputs; time-major emissions ``log_b[..., t, j]``;
 an optional boolean ``mask[..., t]`` marks real frames, and masked steps
@@ -378,19 +385,23 @@ class ViterbiResult(NamedTuple):
     score: torch.Tensor  # (...) best final log-score
 
 
-def viterbi_scan(
+def viterbi_scan_plain(
     log_pi: torch.Tensor,
     log_a: torch.Tensor,
     log_b: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     log_final: Optional[torch.Tensor] = None,
 ) -> ViterbiResult:
-    """Max-plus trellis and backtrace over ``log_b (..., T, N)``.
+    """Kernel K's plain version: the max-plus trellis over ``log_b (..., T,
+    N)`` as a T-step loop, then the backtrace as T - 1 gathers.
 
-    ``log_final (N,)`` adds per-state termination weights before the final
-    argmax; the reported ``score`` includes it. Ties pick the first index,
-    as ``jnp.argmax`` does, so paths and scores are bitwise those of the
-    JAX scan on the same fp32 inputs."""
+    A step is ``v'[j] = max_i(v[i] + A[i, j]) + b[t, j]``, the max taken
+    first, with the first ``i`` that reaches it as the backpointer (ties
+    pick the first index, as ``jnp.argmax`` does); a masked frame keeps
+    ``v`` and points every state to itself. ``log_final (N,)`` adds
+    per-state termination weights before the final argmax; the reported
+    ``score`` includes it. Paths and scores are bitwise those of the JAX
+    scan on the same inputs."""
     t, n = log_b.shape[-2:]
     states = torch.arange(n, dtype=torch.int32, device=log_b.device)
     v = log_pi + log_b[..., 0, :]
@@ -419,3 +430,141 @@ def viterbi_scan(
         path.append(prev)
     path = torch.stack(path[::-1], dim=-1)
     return ViterbiResult(scores=scores, backptr=backptr, path=path, score=score)
+
+
+# kernel K (csrc/viterbi_trellis.cu): its routes, in the order of its codes
+VITERBI_ROUTES = ("warp", "block")
+VITERBI_MAX_N = 1024  # the block route's threads: one a target state
+VITERBI_CHUNK = 32  # the backtrace's chunk of steps, while the maps fit
+VITERBI_BP_SMEM = 48 * 1024  # warp route: T * N int8 backpointers kept on chip, at most
+# bytes of int16 chunk maps and chunk ends a sequence keeps in shared memory
+VITERBI_MAP_BYTES = {"warp": 16 * 1024, "block": 96 * 1024}
+# log_pi, log_a, log_b, mask, log_final, B, T, N, route, on_chip, n_chunks,
+# chunk, is_double, scores, backptr, path, score, stream
+_VITERBI_ARGTYPES = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+
+
+def viterbi_trellis_route(n: int) -> str:
+    """Kernel K's route for ``n`` states: ``"warp"`` for N <= 32 (a warp a
+    sequence, lane = state), ``"block"`` for 33 <= N <= 1024 (a block a
+    sequence, a thread a target state, ``v`` double-buffered in shared
+    memory); past that the kernel has no route and this raises."""
+    if n < 1:
+        raise ValueError(f"the Viterbi trellis kernel needs at least one state, got N={n}")
+    if n <= 32:
+        return "warp"
+    if n <= VITERBI_MAX_N:
+        return "block"
+    raise ValueError(f"the Viterbi trellis kernel takes N <= {VITERBI_MAX_N} states (a thread a "
+                     f"target state), got N={n}")
+
+
+def viterbi_chunks(t: int, n: int, route: str) -> Tuple[int, int]:
+    """``(C, K)``: kernel K's backtrace cuts the ``t - 1`` steps into ``C``
+    chunks of ``K`` (the last may be shorter). ``C`` is ``ceil((t - 1) /
+    32)`` while the chunks' int16 maps ``(C, N)`` and ends ``(C,)`` fit in
+    :data:`VITERBI_MAP_BYTES` of the route, so ``K`` is at most
+    :data:`VITERBI_CHUNK`; past that ``C`` stays at what fits and ``K``
+    grows.
+    No step: ``(0, 1)``."""
+    steps = t - 1
+    if steps < 1:
+        return 0, 1
+    cap = max(1, VITERBI_MAP_BYTES[route] // (2 * (n + 1)))
+    c = min(-(-steps // VITERBI_CHUNK), cap)
+    k = -(-steps // c)
+    return -(-steps // k), k
+
+
+def viterbi_on_chip(t: int, n: int, route: str) -> bool:
+    """Whether kernel K's backtrace reads int8 backpointers it kept in
+    shared memory (the warp route, where ``T * N`` bytes fit) rather than
+    the int32 ``backptr`` output in device memory."""
+    return route == "warp" and t * n <= VITERBI_BP_SMEM
+
+
+def _viterbi_launch(log_pi, log_a, log_b, mask=None, log_final=None, route=None, on_chip=None):
+    """Kernel K on the card: :class:`ViterbiResult` of ``log_b (..., T,
+    N)``, leading dimensions flattened; ``log_pi (N,)``, ``log_a (N, N)``
+    and ``log_final (N,)`` shared by the batch, ``mask (..., T)``
+    broadcast. The inputs promote as the plain loop's arithmetic does
+    (float32 or float64; a ``log_final`` wider than that raises). ``route``
+    overrides :func:`viterbi_trellis_route` (the block route runs any N up
+    to 1024, the warp route N <= 32); ``on_chip`` overrides
+    :func:`viterbi_on_chip` (``False``: the backtrace reads the int32
+    output; ``True`` where the rule does not allow it raises). Every check
+    reads shapes, dtypes and devices only: nothing waits on the card."""
+    dev = log_b.device
+    if log_b.dim() < 2:
+        raise ValueError(f"log_b must be (..., T, N), got shape {tuple(log_b.shape)}")
+    lead, (t, n) = tuple(log_b.shape[:-2]), tuple(log_b.shape[-2:])
+    if (log_a.shape != (n, n) or log_pi.shape != (n,)
+            or (log_final is not None and log_final.shape != (n,))):
+        raise ValueError(f"the Viterbi trellis kernel takes log_pi (N,), log_a (N, N) and "
+                         f"log_final (N,) shared by the batch; got N={n}, log_pi "
+                         f"{tuple(log_pi.shape)}, log_a {tuple(log_a.shape)}"
+                         + ("" if log_final is None else f", log_final {tuple(log_final.shape)}"))
+    if t < 1:
+        raise ValueError("the Viterbi trellis kernel needs at least one frame")
+    dtype = torch.promote_types(torch.promote_types(log_pi.dtype, log_a.dtype), log_b.dtype)
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the Viterbi trellis kernel takes float32 or float64, got {dtype}")
+    if log_final is not None and torch.promote_types(dtype, log_final.dtype) != dtype:
+        raise ValueError(f"log_final is {log_final.dtype}, wider than the trellis' {dtype}")
+    for name, x in (("log_pi", log_pi), ("log_a", log_a), ("mask", mask),
+                    ("log_final", log_final)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, log_b on {dev}")
+    route = viterbi_trellis_route(n) if route is None else route
+    if route not in VITERBI_ROUTES or (route == "warp" and n > 32) or n > VITERBI_MAX_N:
+        raise ValueError(f"no route {route!r} of the Viterbi trellis kernel at N={n}")
+    fits = viterbi_on_chip(t, n, route)
+    if on_chip and not fits:
+        raise ValueError(f"kernel K's {route} route cannot keep T={t} x N={n} backpointers on chip")
+    on_chip = fits if on_chip is None else on_chip
+    b = math.prod(lead)
+    scores = torch.empty(lead + (t, n), dtype=dtype, device=dev)
+    backptr = torch.empty(lead + (t, n), dtype=torch.int32, device=dev)
+    path = torch.empty(lead + (t,), dtype=torch.int32, device=dev)
+    score = torch.empty(lead, dtype=dtype, device=dev)
+    if b > 0:
+        m = None if mask is None else _dense(torch.broadcast_to(mask, lead + (t,)), torch.bool)
+        pi, a, lb = _dense(log_pi, dtype), _dense(log_a, dtype), _dense(log_b, dtype)
+        lf = None if log_final is None else _dense(log_final, dtype)
+        n_chunks, chunk = viterbi_chunks(t, n, route)
+        lib = _build.load("viterbi_trellis", _VITERBI_ARGTYPES)
+        with torch.cuda.device(dev):  # launch on the tensors' card
+            rc = lib.viterbi_trellis_launch(
+                pi.data_ptr(), a.data_ptr(), lb.data_ptr(), None if m is None else m.data_ptr(),
+                None if lf is None else lf.data_ptr(), b, t, n, VITERBI_ROUTES.index(route),
+                int(on_chip), n_chunks, chunk, int(dtype == torch.float64),
+                scores.data_ptr(), backptr.data_ptr(), path.data_ptr(), score.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, "viterbi_trellis", rc)
+        viterbi_scan.launches += 1
+        viterbi_scan.route_launches[route] += 1
+    return ViterbiResult(scores=scores, backptr=backptr, path=path, score=score)
+
+
+def viterbi_scan(
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    log_final: Optional[torch.Tensor] = None,
+) -> ViterbiResult:
+    """Max-plus trellis and backtrace over ``log_b (..., T, N)``: the
+    trellis ``scores``, int32 ``backptr`` (row 0 zeros), int32 ``path`` and
+    the best final ``score``, with the semantics of
+    :func:`viterbi_scan_plain` (masked frames keep ``v`` and point to
+    themselves; ``log_final (N,)`` is added before the final argmax; ties
+    pick the first index). CUDA tensors launch kernel K once (float32 or
+    float64, N <= 1024, ``log_pi``/``log_a``/``log_final`` shared by the
+    batch; anything else raises), CPU tensors run the plain loop."""
+    if not _on_cuda(log_b):
+        return viterbi_scan_plain(log_pi, log_a, log_b, mask, log_final)
+    return _viterbi_launch(log_pi, log_a, log_b, mask, log_final)
+
+
+viterbi_scan.launches = 0  # kernel K launches; plain CPU calls do not count
+viterbi_scan.route_launches = dict.fromkeys(VITERBI_ROUTES, 0)  # the same, by route

@@ -19,7 +19,7 @@ from typing import Tuple
 import torch
 
 from lnasr_tpu_torch import _build
-from lnasr_tpu_torch.ops.trellis import viterbi_scan
+from lnasr_tpu_torch.ops.trellis import viterbi_scan_plain
 from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 N_MAX = 32  # one warp per utterance, one lane per state
@@ -41,9 +41,9 @@ def viterbi_smem_ok(t: int, n: int) -> bool:
 
 def viterbi_plain(log_pi: torch.Tensor, log_a: torch.Tensor,
                   log_b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain version: :func:`viterbi_scan` without mask or
-    final weights."""
-    res = viterbi_scan(log_pi, log_a, log_b)
+    """The kernel's plain version: :func:`viterbi_scan_plain` without mask
+    or final weights."""
+    res = viterbi_scan_plain(log_pi, log_a, log_b)
     return res.path, res.score
 
 

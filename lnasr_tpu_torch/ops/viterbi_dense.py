@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 
 from lnasr_tpu_torch import _build
-from lnasr_tpu_torch.ops.trellis import viterbi_scan
+from lnasr_tpu_torch.ops.trellis import viterbi_scan_plain
 
 SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 MAX_THREADS = 1024
@@ -121,9 +121,9 @@ def viterbi_dense_plain(log_pi: torch.Tensor, log_a: torch.Tensor, log_b: torch.
                         mask: Optional[torch.Tensor] = None,
                         log_final: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's plain version: :func:`viterbi_scan` with ``mask`` and
-    ``log_final``."""
-    res = viterbi_scan(log_pi, log_a, log_b, mask=mask, log_final=log_final)
+    """The kernel's plain version: :func:`viterbi_scan_plain` with ``mask``
+    and ``log_final``."""
+    res = viterbi_scan_plain(log_pi, log_a, log_b, mask=mask, log_final=log_final)
     return res.path, res.score
 
 

@@ -8,16 +8,23 @@ noise spectrum on frames classified silent.
 
 Framing, FFT and the windowed max run over the whole signal (and over a
 leading batch axis: :meth:`VadLtsd.detect_batch`). The adaptive variant is
-sequential over frames: a loop of a few tensor ops a frame on the
-signal's device, the counterpart of the JAX package's ``lax.scan``.
+sequential over frames, the JAX package's ``lax.scan``: for CUDA tensors
+:func:`ltsd_noise` runs it in one launch of the hand-written kernel of
+``csrc/ltsd_noise.cu`` (kernel J: a block of :func:`ltsd_warps` warps an
+utterance), for CPU tensors
+:func:`ltsd_noise_plain` runs it as a frame loop in the kernel's order of
+sums, which the kernel is held to bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
 import torch
 
+from lnasr_tpu_torch import _build
 from lnasr_tpu_torch._device import resolve_device
 from lnasr_tpu_torch.config import LTSDConfig
 from lnasr_tpu_torch.ops.framing import hamming_window, split_frames
@@ -72,26 +79,148 @@ def ltsd_scores(signal: torch.Tensor, config: LTSDConfig = LTSDConfig(),
     return torch.where(valid, scores, torch.zeros((), dtype=scores.dtype, device=scores.device))
 
 
+LANES = 32  # a warp
+BINS_A_LANE = 5  # kernel J's aim: bins a lane, while warps allow
+MAX_BINS_A_LANE = 8  # kernel J's registers a lane hold: F <= 32 * 32 * 8 = 8192 on the card
+MAX_WARPS = 32  # a block of 1024 threads
+
+
+def ltsd_warps(f: int) -> int:
+    """Kernel J's warps an utterance for ``f`` frequency bins, which also
+    fix the order of its sums (:func:`_lane_sum`): the fewest whose lanes
+    hold at most :data:`BINS_A_LANE` bins each, up to 32 (7 at the default
+    window's 1025 bins)."""
+    return min(MAX_WARPS, -(-f // (LANES * BINS_A_LANE)))
+
+
+def _lane_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x (..., F)`` summed in kernel J's fixed order, on any device, over
+    the ``W = ltsd_warps(F)`` warps' lanes: lane L = 32 w + l adds its bins
+    L, L + 32 W, ... in ascending order (bins past F add +0), each warp's
+    lanes are added by the XOR butterfly 16, 8, 4, 2, 1, and the W warps'
+    partials in ascending order of warp. Every add is one elementwise IEEE
+    add, so the result does not depend on the device or on torch's
+    reduction order."""
+    f = x.shape[-1]
+    warps = ltsd_warps(f)
+    lanes = LANES * warps
+    chunks = -(-f // lanes)
+    x = torch.nn.functional.pad(x, (0, chunks * lanes - f)).unflatten(-1, (chunks, lanes))
+    acc = x[..., 0, :]
+    for c in range(1, chunks):
+        acc = acc + x[..., c, :]
+    acc = acc.unflatten(-1, (warps, LANES))
+    h = LANES // 2
+    while h:  # lane 0's value of the butterfly
+        acc = acc[..., :h] + acc[..., h:2 * h]
+        h //= 2
+    total = acc[..., 0, 0]
+    for w in range(1, warps):
+        total = total + acc[..., w, 0]
+    return total
+
+
+def ltsd_noise_plain(ltse: torch.Tensor, noise: torch.Tensor,
+                     config: LTSDConfig) -> torch.Tensor:
+    """Kernel J's plain version: the adaptive LTSD's frame loop over the
+    LTSE ``(..., T, F)`` from the initial noise spectrum ``(..., F)``,
+    returning the scores ``(..., T)`` (0 outside the valid band, whose
+    frames leave the noise as it is). A frame scores ``10 log10(max(
+    sum(ltse^2 / noise) / win, 1e-30))`` and, below the threshold, adapts
+    ``noise = alpha noise + (1 - alpha) sum(ltse) / win``. Both sums run in
+    :func:`_lane_sum`'s order, the divisions by ``win`` are true divisions
+    by a tensor (a CUDA division by a host scalar is a multiplication by its
+    reciprocal), and each other op rounds once, so the kernel can repeat
+    every bit."""
+    assert config.alpha is not None
+    n = ltse.shape[-2]
+    alpha = config.alpha
+    win = torch.tensor(float(config.win_size), dtype=ltse.dtype, device=ltse.device)
+    # the state-free part: each frame's adapted level (1 - alpha) sum(ltse) / win
+    level = (1.0 - alpha) * (_lane_sum(ltse) / win)
+    scores = torch.zeros(ltse.shape[:-1], dtype=ltse.dtype, device=ltse.device)
+    for t in range(config.order, n - config.order):
+        ltse_t = ltse[..., t, :]
+        ratio = _lane_sum(ltse_t * ltse_t / noise)
+        score = 10.0 * torch.log10(torch.clamp(ratio / win, min=1e-30))
+        adapted = alpha * noise + level[..., t, None]
+        noise = torch.where((score < config.threshold)[..., None], adapted, noise)
+        scores[..., t] = score
+    return scores
+
+
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+# ltse, noise, B, T, F, order, warps, is_double, win, threshold, alpha,
+# one_minus_alpha, scores, stream
+_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _P, _P]
+
+
+def _on_cuda(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"the LTSD runs on cpu or cuda tensors, got {x.device}")
+    return True
+
+
+def _launch(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torch.Tensor:
+    """Kernel J on the card, leading dimensions of ``ltse (..., T, F)`` and
+    ``noise (..., F)`` flattened into its batch. Every check reads shapes,
+    dtypes and devices only."""
+    dev, dtype = ltse.device, ltse.dtype
+    if (ltse.dim() < 2 or tuple(noise.shape) != tuple(ltse.shape[:-2]) + tuple(ltse.shape[-1:])
+            or noise.dtype != dtype or noise.device != dev
+            or dtype not in (torch.float32, torch.float64)):
+        raise ValueError(f"the LTSD noise kernel takes float32 or float64 ltse (..., T, F) and "
+                         f"noise (..., F) of one dtype on one device, got {dtype} "
+                         f"{tuple(ltse.shape)} and {noise.dtype} {tuple(noise.shape)} on "
+                         f"{noise.device}")
+    lead, (t, f) = tuple(ltse.shape[:-2]), tuple(ltse.shape[-2:])
+    warps = ltsd_warps(f)
+    if f > LANES * warps * MAX_BINS_A_LANE:
+        limit = LANES * MAX_WARPS * MAX_BINS_A_LANE
+        raise ValueError(f"the LTSD noise kernel takes at most {limit} frequency bins (a window "
+                         f"of {2 * limit - 2} samples), got {f}")
+    b = math.prod(lead)
+    scores = torch.empty(lead + (t,), dtype=dtype, device=dev)
+    if b > 0:
+        x, n0 = ltse.contiguous(), noise.contiguous()
+        lib = _build.load("ltsd_noise", _ARGTYPES)
+        with torch.cuda.device(dev):  # launch on the tensors' card
+            rc = lib.ltsd_noise_launch(x.data_ptr(), n0.data_ptr(), b, t, f, config.order, warps,
+                                       int(dtype == torch.float64), float(config.win_size),
+                                       float(config.threshold), float(config.alpha),
+                                       1.0 - config.alpha, scores.data_ptr(),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+        _build.check(lib, "ltsd_noise", rc)
+        ltsd_noise.launches += 1
+    return scores
+
+
+def ltsd_noise(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torch.Tensor:
+    """The adaptive LTSD's noise recursion over the LTSE ``(..., T, F)``
+    from the initial noise ``(..., F)``: the scores ``(..., T)``. CUDA
+    tensors launch kernel J once (float32 or float64; anything else
+    raises), CPU tensors run :func:`ltsd_noise_plain`."""
+    assert config.alpha is not None
+    if not _on_cuda(ltse):
+        return ltsd_noise_plain(ltse, noise, config)
+    return _launch(ltse, noise, config)
+
+
+ltsd_noise.launches = 0  # kernel J launches; plain CPU calls do not count
+
+
 def ltsd_scores_adaptive(signal: torch.Tensor, config: LTSDConfig,
                          dtype=torch.float32) -> torch.Tensor:
     """LTSD with the noise spectrum adapted on frames scored below the
-    threshold: a frame loop over the valid band (frames outside it score 0
-    and leave the noise as it is)."""
+    threshold: the framing, FFT and windowed max over the whole signal,
+    then the frame recursion in one call of :func:`ltsd_noise` (kernel J on
+    the card)."""
     assert config.alpha is not None
     amps = _amplitudes(signal, config, dtype)
     noise = amps[..., :2, :].mean(dim=-2) ** 2
-    ltse = _ltse(amps, config.order)
-    n = amps.shape[-2]
-    alpha = config.alpha
-    scores = torch.zeros(amps.shape[:-1], dtype=amps.dtype, device=amps.device)
-    for t in range(config.order, n - config.order):
-        ltse_t = ltse[..., t, :]
-        score = _score((ltse_t * ltse_t / noise).sum(dim=-1), config)
-        adapt = score < config.threshold
-        adapted = alpha * noise + (1.0 - alpha) * (ltse_t.sum(dim=-1) / config.win_size)[..., None]
-        noise = torch.where(adapt[..., None], adapted, noise)
-        scores[..., t] = score
-    return scores
+    return ltsd_noise(_ltse(amps, config.order), noise, config)
 
 
 class VadLtsd:

@@ -7,8 +7,12 @@ of its three arguments, and every group that reads the batch failed)."""
 import json
 import sys
 
+import numpy as np
+import pytest
+
 import chip_smoke
 import kernel_timing
+from lnasr_tpu_torch.config import LTSDConfig
 
 
 def test_dry_run_of_the_flagship_groups(monkeypatch, tmp_path):
@@ -58,3 +62,41 @@ def test_dry_run_of_the_backtrace_floor_group(monkeypatch, tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines() if '"kernel"' in line]
     assert len(rows) == 1 and rows[0]["what"].startswith("H V=6 backtrace and its chain floor")
     assert rows[0]["bt_ms"] > 0 and "floor_ms" not in rows[0]
+
+
+def test_dry_run_of_the_ltsd_and_trellis_groups(monkeypatch, tmp_path):
+    """Groups J and K on a cut stream and batch: the adaptive ``detect``,
+    J at float32 and float64 held to its plain loop, K at
+    ``decode_batch``'s inputs held to its plain loop, each with its bound
+    and chain floor (the plain versions here)."""
+    from lnasr_tpu_torch import entry
+
+    training, stream = entry.training, entry.serving_stream
+    monkeypatch.setattr(entry, "training",
+                        lambda device="cuda": training(device=device, batch=3, seconds=1))
+    monkeypatch.setattr(entry, "serving_stream", lambda seed=0: stream(seed)[:16000 * 4])
+    out = tmp_path / "rows.jsonl"
+    monkeypatch.setattr(sys, "argv", ["kernel_timing.py", "--device", "cpu", "--kernels", "J,K",
+                                      "--reps", "1", "--out", str(out)])
+    assert kernel_timing.main() == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines() if '"kernel"' in line]
+    assert [r["kernel"] for r in rows] == ["J", "J", "J", "J", "K"]
+    assert rows[0]["what"].startswith("J detect adaptive, 4.0 s")
+    assert rows[1]["what"].startswith("J detect fixed, 4.0 s") and rows[1]["ms"] > 0
+    assert [r["what"].split()[-1] for r in rows[2:4]] == ["float32", "float64"]
+    assert all(r["ms"] > 0 and r["floor_ms"] > 0 and r["bound_ms"] > 0 for r in rows[2:])
+    # J's bound: the LTSE rows of the valid band, the noise and the scores
+    for r, itemsize in zip(rows[2:4], (4, 8)):
+        valid, f = int(r["what"].split()[2]), int(r["what"].split()[5])
+        t = valid + 2 * LTSDConfig().order
+        want = itemsize * (valid * f + f + t) / chip_smoke.HBM_BYTES_PER_S * 1e3
+        assert r["bound_ms"] == pytest.approx(want, rel=1e-12)
+    k = rows[-1]
+    assert k["kernel_k"] and k["what"] == "K viterbi_scan at decode_batch's inputs B=3 T=99 N=5"
+    assert k["plain_ms"] > 0 and k["decode_ms"] > 0
+    # K's bound: emission rows of the valid frames only, the mask and every output
+    b, t, n = 3, 99, 5
+    lengths = np.random.default_rng(17).integers(t // 3, t + 1, size=b)
+    lengths[0] = t
+    want = (4 * int(lengths.sum()) * n + b * t + 8 * b * t * n + 4 * b * t + 4 * b)
+    assert k["bound_ms"] == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
