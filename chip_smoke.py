@@ -1573,19 +1573,43 @@ def parent_ltsd_loop(torch, ltse, noise, config):
     return scores
 
 
+def alternating_ltse(torch, dtype, t_len=400, f=1025, seed=12):
+    """Seeded LTSE ``(t_len, f)`` and noise ``(f,)`` whose frames alternate
+    quiet and loud (x100): at :data:`ALTERNATING_THRESHOLD` the adaptive
+    LTSD's flag alternates frame by frame (the CPU test's case,
+    tests/test_torch_ltsd_kernel.py)."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((t_len, f)) * 10.0 ** rng.uniform(-2, 1, size=(t_len, f))
+    x = x * np.where(np.arange(t_len) % 2 == 1, 100.0, 1.0)[:, None]
+    noise = (rng.random(f) + 0.1) ** 2
+    return (torch.as_tensor(x, dtype=dtype, device=DEVICE),
+            torch.as_tensor(noise, dtype=dtype, device=DEVICE))
+
+
+ALTERNATING_THRESHOLD = 27.0
+
+
 def check_ltsd_noise(torch, audio, card):
-    """Kernel J (``vad.ltsd.ltsd_noise``) bit for bit against its plain
-    loop on the card (NaN where it has NaN), one launch a call, at float32
-    and float64 on the stream (at the default threshold, at 15 dB, where
-    most frames adapt, and with windows of 256 and 4096 samples: 1 and 13
-    warps an utterance against the default's 7), a batch of three 20 s
-    pieces of it, the stream's first 20 s with 1 s of digital silence in
-    front (noise 0: NaN and inf scores) and a 0.6 s signal (no frame in the
+    """Kernel J (``vad.ltsd.ltsd_noise``: the rows pass and the recursion,
+    two kernels a call) bit for bit against its plain loop on the card
+    (NaN where it has NaN), one launch a call, at float32 and float64 on
+    the stream (at the default threshold, at 15 dB, where most frames
+    adapt, at 200 dB, where every frame adapts, at -200 dB, where none
+    does, and with windows of 256, 512, 4096, 5954, 10240 and 16382
+    samples: 129, 257, 2049, 2978, 5121 and 8192 bins on 1, 2, 13, 19, 31
+    and 31 division warps an utterance at float32 (5, 5, 5, 5, 6 and 9 bins
+    a lane), 2, 3, 22, 31, 31 and 31 at float64 (3, 3, 3, 4, 6 and 9 bins a
+    lane: past 2976 bins at float64 and 4960 at float32 the 31 warps take
+    more bins than the rule aims at), against the default's 7 and 11), an
+    LTSE whose flag alternates frame by frame, a batch of three 20 s
+    pieces of the stream, its first 20 s with 1 s of digital silence in
+    front (noise 0: NaN and inf scores; the float recursion runs that
+    utterance with the IEEE division) and a 0.6 s signal (no frame in the
     valid band); then J on the stream at float32 (the adaptive
     ``detect``'s dtype) by CUDA events over back-to-back launches and
-    torch.profiler, beside the plain loop, the loop the port ran before J
-    and the chain floor (J at one frequency bin, on one warp: a division,
-    the butterfly, log10 and the compare, every frame), with J's bound."""
+    torch.profiler, its two kernels apart, beside the plain loop, the loop
+    the port ran before J and the chain floor (J at one frequency bin, on
+    one warp), with J's bound."""
     from lnasr_tpu_torch.config import LTSDConfig
     from lnasr_tpu_torch.vad import ltsd
 
@@ -1596,12 +1620,21 @@ def check_ltsd_noise(torch, audio, card):
     silent[:16000] = 0.0
     adapting = LTSDConfig(alpha=0.4, threshold=15.0)  # most frames adapt the noise
     signals = {"stream": (x, cfg), "stream at 15 dB": (x, adapting),
+               "stream at 200 dB": (x, LTSDConfig(alpha=0.4, threshold=200.0)),
+               "stream at -200 dB": (x, LTSDConfig(alpha=0.4, threshold=-200.0)),
                "stream, window 256": (x, LTSDConfig(alpha=0.4, win_size=256, step_size=128)),
+               "stream, window 512": (x, LTSDConfig(alpha=0.4, win_size=512, step_size=256)),
                "stream, window 4096": (x, LTSDConfig(alpha=0.4, win_size=4096, step_size=2048)),
+               **{f"stream, window {w}": (x, LTSDConfig(alpha=0.4, win_size=w, step_size=w // 2))
+                  for w in (5954, 10240, 16382)},
+               "alternating flag": (None, LTSDConfig(alpha=0.4,
+                                                     threshold=ALTERNATING_THRESHOLD)),
                "batch of 3": (torch.stack([x[k * piece:(k + 1) * piece] for k in range(3)]), cfg),
                "1 s of zeros in front": (silent, cfg), "0.6 s": (x[:9600], cfg)}
 
     def inputs(sig, dtype, c=cfg):
+        if sig is None:
+            return alternating_ltse(torch, dtype)
         amps = ltsd._amplitudes(sig, c, dtype)
         return ltsd._ltse(amps, c.order), amps[..., :2, :].mean(dim=-2) ** 2
 
@@ -1619,12 +1652,22 @@ def check_ltsd_noise(torch, audio, card):
                     f"{int((got != ref).sum())} frames")
             nan_frames += int(torch.isnan(got).sum())
             err = max(err, finite_err(torch, got, ref))
+            band = ref[..., c.order:ref.shape[-1] - c.order]
+            flags = band < c.threshold
+            if what == "alternating flag":
+                require(bool((flags[1:] != flags[:-1]).all()),
+                        f"kernel J's alternating case ({dtype}): the flag does not alternate")
+            if what in ("stream at 200 dB", "stream at -200 dB"):  # all adapt, or none
+                every = what == "stream at 200 dB"
+                require(bool((flags | torch.isnan(band)).all() if every else not flags.any()),
+                        f"kernel J {what} ({dtype}): {int(flags.sum())} of {int(flags.numel())} "
+                        f"frames adapt")
             if dtype == torch.float32:
-                band = ref[..., c.order:ref.shape[-1] - c.order]
                 lines.append(f"{what} {tuple(ltse.shape)}, {ltsd.ltsd_warps(ltse.shape[-1])} "
-                             f"warps: {int(band.numel())} valid frames, "
+                             f"warps ({ltsd.ltsd_warps(ltse.shape[-1], 8)} at float64): "
+                             f"{int(band.numel())} valid frames, "
                              f"{int(torch.isnan(band).sum())} NaN, {int(torch.isinf(band).sum())} "
-                             f"inf, {int((band < c.threshold).sum())} adapted")
+                             f"inf, {int(flags.sum())} adapted")
     require(nan_frames > 0, "kernel J's checks met no NaN score (the silent start)")
     print("kernel J vs its plain loop on the card, float32 and float64, bit for bit (NaN where "
           "it has NaN), one launch a call: " + "; ".join(lines))
@@ -1637,6 +1680,12 @@ def check_ltsd_noise(torch, audio, card):
     prof = profiled_device(torch, fn, calls=5)
     one = (ltse[:, :1].contiguous(), noise[:1].contiguous())  # a lane's one bin: the chain
     floor_ms = burst_ms(lambda: ltsd.ltsd_noise(*one, cfg), launches=10)
+    # a call's two kernels, apart
+    rows = torch.empty((t_len * ltsd.ltsd_row(f, 4),), dtype=torch.float32, device=DEVICE)
+    scores = torch.empty(t_len, dtype=torch.float32, device=DEVICE)
+    ltsd._rows_pass(ltse, cfg, rows)
+    rows_ms = burst_ms(lambda: ltsd._rows_pass(ltse, cfg, rows), launches=10)
+    recursion_ms = burst_ms(lambda: ltsd._recursion(rows, noise, cfg, scores), launches=10)
     ref = ltsd.ltsd_noise_plain(ltse, noise, cfg)
     plain_ms = cuda_ms(lambda: ltsd.ltsd_noise_plain(ltse, noise, cfg), reps=2, warmup=0)
     parent = parent_ltsd_loop(torch, ltse, noise, cfg)
@@ -1650,23 +1699,31 @@ def check_ltsd_noise(torch, audio, card):
     close = float((parent - ref)[cfg.order:t_len - cfg.order].abs().max())
     print(f"timing on {card}: kernel J on the stream's {valid} valid frames of {f} bins "
           f"(float32): {ms:.4f} ms (CUDA events, back-to-back launches), profiler "
-          f"{prof[0]:.4f} ms ({prof[1]} of 5 launches recorded in window {prof[2]}), the wrapper "
-          f"call {wrapper_ms:.4f} ms; chain floor (one bin) {floor_ms:.4f} ms; the plain loop on "
-          f"the card {plain_ms:.1f} ms, the loop before J {parent_ms:.1f} ms (CUDA events; its "
-          f"scores "
-          f"{close:.3g} dB from the plain loop's: torch's order of sums); bound "
+          f"{prof[0]:.4f} ms ({prof[1]} kernels recorded of 5 calls, two a call, in window "
+          f"{prof[2]}; the rows pass {rows_ms:.4f} ms, the recursion {recursion_ms:.4f} ms), the "
+          f"wrapper call {wrapper_ms:.4f} ms; chain floor (one bin) {floor_ms:.4f} ms; the plain "
+          f"loop on the card {plain_ms:.1f} ms, the loop before J {parent_ms:.1f} ms (CUDA events; "
+          f"its scores {close:.3g} dB from the plain loop's: torch's order of sums); bound "
           f"{j_bound[0]:.6f} ms by {j_bound[1]}")
     return {"ms": ms, "wrapper_ms": wrapper_ms, "profiler_ms": prof[0],
             "profiler_launches": prof[1], "floor_ms": floor_ms, "plain_ms": plain_ms,
-            "parent_ms": parent_ms, "bound": j_bound, "frames": valid, "bins": f, "err": err}
+            "parent_ms": parent_ms, "bound": j_bound, "frames": valid, "bins": f, "err": err,
+            "rows_ms": rows_ms, "recursion_ms": recursion_ms}
 
 
 # kernel K's checks: (N, B, T, kind); every route that takes N, float32 and
 # float64. T = 9000 at N = 32 and T = 2000 at N = 1024 keep the backpointers
-# off chip and grow the backtrace's chunks past 32 steps
+# off chip and grow the backtrace's chunks past 32 steps; the warp route at
+# N = 1-8, 9, 16 and 32, T = 1, 2, 33 (a group and a frame at float32, two
+# groups and a frame at float64), 64 and 999, and "first": every frame
+# after frame 0 masked in every row
 TRELLIS_CASES = [(5, 3, 40, "random"), (5, 3, 40, "ties"), (5, 3, 40, "inf"), (5, 3, 40, "dead"),
                  (1, 3, 17, "random"), (1, 2, 1, "final"), (5, 2, 1, "final"), (8, 2, 2, "inf"),
                  (9, 3, 50, "ties"), (16, 2, 33, "inf"), (32, 2, 9000, "random"),
+                 (2, 3, 33, "random"), (3, 2, 2, "ties"), (4, 3, 33, "first"),
+                 (6, 2, 1, "random"), (7, 3, 64, "inf"), (8, 3, 999, "random"),
+                 (1, 2, 33, "first"), (16, 2, 2, "first"), (32, 2, 33, "first"),
+                 (5, 64, 999, "first"),
                  (33, 3, 20, "final"), (33, 3, 20, "inf"), (179, 2, 300, "ties"),
                  (1024, 1, 2000, "random")]
 
@@ -1675,8 +1732,9 @@ def trellis_inputs(torch, rng, n, b, t, kind, dtype, dev):
     """``(log_pi, log_a, log_b, mask, log_final)`` on ``dev``: ragged masks
     (full, a 1-frame utterance, holes inside); ``ties`` quantized, ``inf``
     an unreachable state, a dead end, ``-inf`` emissions and endings,
-    ``dead`` every ending ``-inf``, ``final`` random ending weights (the CPU
-    test's cases, tests/test_torch_viterbi_trellis.py)."""
+    ``dead`` every ending ``-inf``, ``final`` random ending weights,
+    ``first`` every frame after frame 0 masked (the CPU test's cases,
+    tests/test_torch_viterbi_trellis.py)."""
     log_a = np.log(rng.dirichlet(np.ones(n), size=n))
     log_pi = np.log(rng.dirichlet(np.ones(n)))
     log_b = rng.normal(size=(b, t, n))
@@ -1701,6 +1759,8 @@ def trellis_inputs(torch, rng, n, b, t, kind, dtype, dev):
             log_final = np.full(n, -np.inf)
         elif kind == "final":
             log_final = rng.normal(size=n)
+        elif kind == "first":
+            mask[:, 1:] = False
     on = lambda v: None if v is None else torch.as_tensor(v, dtype=dtype, device=dev)  # noqa: E731
     return (on(log_pi), on(log_a), on(log_b), torch.as_tensor(mask, device=dev), on(log_final))
 
@@ -4018,7 +4078,8 @@ def main():
                        jn["plain_ms"], jn["bound"])
     j_row |= {"ms": jn["ms"], "profiler_ms": jn["profiler_ms"],
               "profiler_launches": jn["profiler_launches"], "loop_ms": jn["parent_ms"],
-              "chain_floor_ms": jn["floor_ms"], "frames": jn["frames"], "bins": jn["bins"]}
+              "chain_floor_ms": jn["floor_ms"], "frames": jn["frames"], "bins": jn["bins"],
+              "rows_ms": jn["rows_ms"], "recursion_ms": jn["recursion_ms"]}
     kernels.append(j_row)
     k_row = kernel_row("viterbi_trellis", "viterbi_scan", "gmmhmm decode",
                        "lnasr_tpu/ops/trellis.py:92 viterbi_scan (forward lax.scan :126, "

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Split kernels A (mel frontend), B (small-N Viterbi), G
-(forward-backward, chunked route), H (the trigram decode's forward) and I
-(the WebRTC VAD's GMM) of a checkout into phases on one NVIDIA GPU, with
-``clock64()`` stamps.
+(forward-backward, chunked route), H (the trigram decode's forward), I
+(the WebRTC VAD's GMM), J (the adaptive LTSD's noise recursion) and K
+(the masked Viterbi trellis, warp route) of a checkout into phases on one
+NVIDIA GPU, with ``clock64()`` stamps.
 
-    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G,H,I]
+    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G,H,I,J,K]
 
 The kernel sources under ``DIR/lnasr_tpu_torch/csrc`` are copied, a
 ``clock64()`` stamp is inserted at each phase boundary (text patches keyed
@@ -44,7 +45,25 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
   the GMM warp's own time (a checkout from
   before the tracker warps: one warp's decision, minimum tracker and
   adaptation a frame). The stamped kernel's flags and final state must be
-  the unstamped one's, bit for bit.
+  the unstamped one's, bit for bit;
+- J on the stream at float32 (``LTSDConfig(alpha=0.4)``, 972 valid frames
+  of 1025 bins), a frame's phases summed over the band: with division
+  warps and a combiner warp, the first division lane's wait for the last
+  flag and its select, the wait for the row's stage, both candidates'
+  divisions, the butterflies and the publication of the partials, and
+  beside them the combiner's wait for the partials, their sum, the tail
+  (division by win, log10, compare), the flag's publication and the
+  score's store and the stage's refill (each role's own totals: they run
+  side by side); a checkout from before it (one barrier a frame, the
+  block's first thread): the divisions, the butterflies, the barrier, the
+  partials' sum, the tail, the adaptation and the wait for the next row's
+  load;
+- K's warp route at ``GMMHMM.decode_batch``'s inputs (B = 64, T = 999,
+  N = 5, seeded ragged masks): a step's shuffles and tree, mask select and
+  row stores, each group's copy of its rows and prefetch, summed over the
+  forward from the warp's first lane, the forward's unstamped rest, then
+  the backtrace's three phases as B's. J's and K's stamped outputs must be
+  the unstamped ones and their plain loops', bit for bit.
 
 Each launch goes through the checkout's own wrapper (``ops.*._launch``)
 pointed at the stamped library, and its output is checked against the
@@ -116,6 +135,54 @@ def _h_final(stride):
             f"        g_stamps[blockIdx.x * {stride} + 6] = c_ + ((unsigned)clock64() - fin_t);\n"
             "    }\n")
 
+
+def _final(stride, n, cond, indent):
+    """Phases summed inside a loop, written once by the first thread when
+    ``cond`` holds: 1, then the running totals of ``ph_acc[0..n)``."""
+    pad = " " * indent
+    return (f"{pad}if ({cond} && threadIdx.x == 0) {{\n"
+            f"{pad}    unsigned long long c_ = 1;\n"
+            f"{pad}    g_stamps[blockIdx.x * {stride}] = c_;\n"
+            f"{pad}    for (int q = 0; q < {n}; ++q)\n"
+            f"{pad}        g_stamps[blockIdx.x * {stride} + 1 + q] = c_ += ph_acc[q];\n"
+            f"{pad}}}\n")
+
+
+# kernel J: a frame's phases summed over the band by every thread, written
+# by the block's first thread at the last frame (per block: an utterance)
+J_PHASES_V1 = ["divisions", "butterflies", "barrier wait", "partials' sum", "tail", "adaptation",
+               "next row's load"]
+# the division warps' five phases, then the combiner's five: each role's
+# own totals (the two run side by side), between markers (slots 0 and 11)
+J_PHASES = ["row loads + flag wait + select", "row wait", "divisions", "butterflies", "publish",
+            "partials wait", "partials' sum", "tail", "flag publish", "score + refill"]
+J_STRIDE = 12
+RAW = {"division warps and a combiner warp"}  # versions whose slots are raw totals
+# kernel K's warp route: a step's phases summed over the forward from the
+# warp's first lane and written at its end as running totals from the
+# clock at its start, the forward's unstamped rest up to the final argmax,
+# then the backtrace's three phases as kernel B's (clock stamps)
+K_PHASES = ["shuffles + tree", "mask select", "row stores", "group copy", "group prefetch",
+            "forward other", "final argmax + chunk walks", "map composition", "path fill"]
+K_STRIDE = 10
+K_START = ("    unsigned ph_acc[5] = {0, 0, 0, 0, 0};\n"
+           "    const unsigned long long ph_base = clock64();\n"
+           "    unsigned ph_t = (unsigned)ph_base;\n")
+K_FORWARD_END = ("    if (lane == 0) {\n"
+                 "        unsigned long long c_ = ph_base;\n"
+                 f"        g_stamps[blockIdx.x * {K_STRIDE}] = c_;\n"
+                 "        for (int q = 0; q < 5; ++q)\n"
+                 f"            g_stamps[blockIdx.x * {K_STRIDE} + 1 + q] = c_ += ph_acc[q];\n"
+                 f"        g_stamps[blockIdx.x * {K_STRIDE} + 6] = clock64();\n"
+                 "    }\n")
+K_BACKTRACE = [  # the backtrace shared by both routes
+    ("            if (w < n_walks) maps[w] = (int16_t)s[q];\n        }\n    }\n    barrier<BLOCK>();\n",
+     f"    if (tid == 0) STAMP(blockIdx.x * {K_STRIDE} + 7);\n"),
+    ("            ends[c - 1] = (int16_t)e;\n        }\n    }\n    barrier<BLOCK>();\n",
+     f"    if (tid == 0) STAMP(blockIdx.x * {K_STRIDE} + 8);\n"),
+    ("                    pb[t - 1] = s[q];\n                }\n            }\n        }\n    }\n",
+     f"    barrier<BLOCK>();\n    if (tid == 0) STAMP(blockIdx.x * {K_STRIDE} + 9);\n"),
+]
 
 I_PHASES = ["decision", "adaptation", "select", "ring wait", "tracker frames"]
 H_PHASES = ["load", "within-word pass", "exchange wait", "hop pass", "publish", "final argmax"]
@@ -298,9 +365,84 @@ PATCH_SETS = {
              "        for (int q = 0; q < 3; ++q) g_stamps[1 + q] = c_ += ph_acc[q];\n"),
         ]),
     ],
+    "ltsd_noise": [
+        ("division warps and a combiner warp", J_STRIDE, J_PHASES, [
+            # each role's totals, written at its end (before the a phase's own mark)
+            ("        publish(sh, (j + 1) & 1, w, sk, sa);\n        lvl = lvl_next;\n    }\n",
+             "    if (threadIdx.x == 0) {\n"
+             f"        g_stamps[blockIdx.x * {J_STRIDE}] = 1;\n"
+             "        for (int q = 0; q < 5; ++q)\n"
+             f"            g_stamps[blockIdx.x * {J_STRIDE} + 1 + q] = ph_acc[q];\n"
+             "    }\n"),
+            ("        if (++s == S) s = 0;\n        prev = flag;\n    }\n",
+             "    if (lane == 0) {\n"
+             "        for (int q = 0; q < 5; ++q)\n"
+             f"            g_stamps[blockIdx.x * {J_STRIDE} + 6 + q] = ph_acc[q];\n"
+             f"        g_stamps[blockIdx.x * {J_STRIDE} + 11] = 1;\n"
+             "    }\n"),
+            # the division warps' frame (warp 0's first lane): the row's wait
+            # (and the loop's own work), then the flag's
+            ("    int s = 0;         // the stage of the frame divided\n",
+             "    unsigned ph_acc[5] = {0, 0, 0, 0, 0}, ph_t = (unsigned)clock64();\n"),
+            ("        bar_wait(&sh.full[s], sp);  // frame t + 1's row\n", _acc32(1, 8)),
+            ("                yn[k] = adapt ? yda[k] : yn[k];\n            }\n        }\n",
+             _acc32(0, 8)),
+            ("            sa = k == 0 ? ta : add_rn(sa, ta);\n        }\n", _acc32(2, 8)),
+            ("        sa = butterfly(sa);\n", _acc32(3, 8)),
+            ("        publish(sh, (j + 1) & 1, w, sk, sa);\n", _acc32(4, 8)),
+            # the combiner's frame (its first lane)
+            ("    bool ok = true, prev = false;  // prev: the last frame's flag\n",
+             "    unsigned ph_acc[5] = {0, 0, 0, 0, 0}, ph_t = (unsigned)clock64();\n"),
+            ("        bar_wait(&sh.done[b], (j >> 1) & 1);  // frame t's partials, from every division "
+             "warp\n", _acc32(0, 8)),
+            ("        const R q = sum_first(sh.part[b][prev], p.warps);\n", _acc32(1, 8)),
+            ("        const bool flag = score < c.thr;\n", _acc32(2, 8)),
+            ("        bar_arrive(&sh.told[b]);\n", _acc32(3, 8)),
+            ("        prev = flag;\n", _acc32(4, 8)),
+        ]),
+        ("one barrier a frame", 8, J_PHASES_V1, [
+            ("        nxt[k] = R(0);\n    }\n",
+             "    unsigned ph_acc[7] = {0, 0, 0, 0, 0, 0, 0}, ph_t = 0;\n"),
+            ("        R s2 = R(0), s1 = R(0);\n", "        ph_t = (unsigned)clock64();\n"),
+            ("            s1 = k == 0 ? cur[k] : add_rn(s1, cur[k]);\n        }\n", _acc32(0, 8)),
+            ("        s1 = butterfly(s1);\n", _acc32(1, 8)),
+            ("        __syncthreads();  // the other parity's reads finished a frame ago\n",
+             _acc32(2, 8)),
+            ("            q1 = add_rn(q1, part[par][1][i]);\n        }\n", _acc32(3, 8)),
+            ("        if (L == 0) out[t] = score;\n", _acc32(4, 8)),
+            ("                if (L + NL * k < F) noise[k] = add_rn(mul_rn(alpha, noise[k]), level);"
+             "\n        }\n", _acc32(5, 8)),
+            ("        for (int k = 0; k < BINS; ++k) cur[k] = nxt[k];\n",
+             _acc32(6, 8) + _final(8, 7, "t == stop - 1", 8)),
+        ]),
+    ],
+    "viterbi_trellis": [
+        ("groups of G frames, ballot mask bits, staged rows", K_STRIDE, K_PHASES, [
+            ("    R v = on ? add_rn(pi[lane], lb[lane]) : NEG_INF;  // frame 0\n", K_START),
+            ("            tree_argmax<0, NMAX>(c, best, arg);\n", _acc32(0, 12)),
+            ("            arg = valid ? arg : (k == 0 ? self0 : lane);\n", _acc32(1, 12)),
+            ("                bps[k * N + lane] = (int8_t)arg;\n            }\n", _acc32(2, 12)),
+            ("            bpg[i] = bps[i];\n        }\n        __syncwarp();\n", _acc32(3, 8)),
+            ("        int8_t* bps = ON_CHIP ? bp8 + (size_t)t0 * N : bp8;\n", _acc32(4, 8)),
+            ("        mcur = mnxt;\n", _acc32(4, 8)),
+            ("    // final state: the first argmax of v (+ log_final); score: its value\n",
+             K_FORWARD_END),
+        ] + K_BACKTRACE),
+        ("mask bytes, stores every step", K_STRIDE, K_PHASES, [
+            ("    R v = on ? add_rn(pi[lane], lb[lane]) : NEG_INF;\n", K_START),
+            ("            tree_argmax<0, NMAX>(c, best, arg);\n", _acc32(0, 12)),
+            ("                nv = v;\n                arg = lane;\n            }\n", _acc32(1, 12)),
+            ("                if (bp8) bp8[(size_t)t * N + lane] = (int8_t)arg;\n            }\n",
+             _acc32(2, 12)),
+            ("            vnxt[k] = (mk && t < Tn) ? mk[t] != 0 : true;\n        }\n", _acc32(4, 8)),
+            ("            vcur[k] = vnxt[k];\n        }\n", _acc32(4, 8)),
+            ("    // final state: the first argmax of v (+ log_final); score: its value\n",
+             K_FORWARD_END),
+        ] + K_BACKTRACE),
+    ],
 }
 KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "G": "forward_backward",
-                "H": "trigram_forward", "I": "webrtc_gmm"}
+                "H": "trigram_forward", "I": "webrtc_gmm", "J": "ltsd_noise", "K": "viterbi_trellis"}
 
 
 def stamped_source(src, name):
@@ -341,7 +483,8 @@ def main():
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", default="")
     ap.add_argument("--sass", default="")
-    ap.add_argument("--kernels", default="A,B,G,H,I", help="the kernels to split: A, B, G, H, I")
+    ap.add_argument("--kernels", default="A,B,G,H,I,J,K",
+                    help="the kernels to split: A, B, G, H, I, J, K")
     args = ap.parse_args()
     names = [KERNEL_NAMES[k] for k in args.kernels.split(",")]
     import torch
@@ -374,8 +517,11 @@ def main():
             f.write(src)
         procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"))
     _build.build_all()  # the unstamped kernels: the stamps' cost, and the SASS
+    from lnasr_tpu_torch.vad import ltsd
+
     argtypes = {"mel_frontend": mf._ARGTYPES, "viterbi": vt._ARGTYPES,
-                "forward_backward": tr._ARGTYPES, "webrtc_gmm": tweb._GMM_ARGTYPES}
+                "forward_backward": tr._ARGTYPES, "webrtc_gmm": tweb._GMM_ARGTYPES,
+                "ltsd_noise": ltsd._ARGTYPES, "viterbi_trellis": tr._VITERBI_ARGTYPES}
     if "trigram_forward" in names:
         from lnasr_tpu_torch.ops import trigram as tri
 
@@ -425,11 +571,16 @@ def main():
         rc = lib.read_stamps(stamps.ctypes.data, N_STAMPS)
         if rc:
             raise SystemExit(f"read_stamps failed: cudaError {rc}")
-        units = stamps[: N_STAMPS // stride * stride].reshape(-1, stride)[:, : len(phases) + 1]
-        units = units[(units != 0).all(1)].astype(np.int64)
+        units = stamps[: N_STAMPS // stride * stride].reshape(-1, stride)
+        if version in RAW:  # each phase's own total between the two markers
+            units = units[(units[:, 0] == 1) & (units[:, len(phases) + 1] == 1)].astype(np.int64)
+            d = units[:, 1:len(phases) + 1]
+        else:
+            units = units[:, : len(phases) + 1]
+            units = units[(units != 0).all(1)].astype(np.int64)
+            d = np.diff(units, axis=1)
         if not len(units):
             raise SystemExit(f"{name}: no block or warp stamped every boundary ({version})")
-        d = np.diff(units, axis=1)
         mean = d.mean(0)
         return dict(version=version, units=len(units), first_row=stamps[:stride].tolist(),
                     cycles={p: float(c) for p, c in zip(phases, mean)},
@@ -555,6 +706,59 @@ def main():
             row["active_frames"] = int((total > 10).sum())
             row["frames_redone"] = int(res["first_row"][6])  # with __fdiv_rn
         emit(**row, **times("webrtc_gmm", call), sm_clock_mhz=sm_clock())
+    if "ltsd_noise" in names:
+        from lnasr_tpu_torch.config import LTSDConfig
+
+        cfg_j = LTSDConfig(alpha=0.4)
+        sig = torch.as_tensor(entry.serving_stream(0).astype(np.float64) / 32768.0, device=dev)
+        amps = ltsd._amplitudes(sig, cfg_j, torch.float32)
+        ltse, noise = ltsd._ltse(amps, cfg_j.order), amps[:2].mean(dim=0) ** 2
+        call = lambda: ltsd._launch(ltse, noise, cfg_j)  # noqa: E731
+        res = split("ltsd_noise", call)
+        got = call()
+        use("ltsd_noise", plain["ltsd_noise"])
+        ref = call()
+        nan = torch.isnan(ref)
+        if not (torch.equal(nan, torch.isnan(got)) and torch.equal(
+                torch.where(nan, 0.0, got).view(torch.int32),
+                torch.where(nan, 0.0, ref).view(torch.int32))):
+            raise SystemExit("the stamped kernel J differs from the unstamped one")
+        if not torch.equal(torch.where(nan, 0.0, ref).view(torch.int32), torch.where(
+                nan, 0.0, ltsd.ltsd_noise_plain(ltse, noise, cfg_j)).view(torch.int32)):
+            raise SystemExit("kernel J differs from its plain loop")
+        t, f = ltse.shape
+        frames = t - 2 * cfg_j.order
+        per_frame = {p: c / frames for p, c in res["cycles"].items()}
+        row = dict(kernel="J", what=f"stream, {frames} valid frames x {f} bins, float32, "
+                   f"{ltsd.ltsd_warps(f)} warps", **res, cycles_per_frame=per_frame)
+        if res["version"] in RAW:  # the two roles run side by side: a frame each
+            row["division_cycles_per_frame"] = sum(list(per_frame.values())[:5])
+            row["combiner_cycles_per_frame"] = sum(list(per_frame.values())[5:])
+        emit(**row, **times("ltsd_noise", call), sm_clock_mhz=sm_clock())
+    if "viterbi_trellis" in names:
+        model = entry.flagship_model(dev)
+        feats = entry.training(device=dev).features
+        b, t, _ = feats.shape
+        lengths = np.random.default_rng(17).integers(t // 3, t + 1, size=b)
+        lengths[0] = t
+        mask = torch.as_tensor(np.arange(t)[None, :] < lengths[:, None], device=dev)
+        args_k = (model.log_pi, model.log_a, model.emissions(feats), mask)
+        call = lambda: tr._viterbi_launch(*args_k)  # noqa: E731
+        res = split("viterbi_trellis", call)
+        got = call()
+        use("viterbi_trellis", plain["viterbi_trellis"])
+        ref = call()
+        same = lambda x, y: all(  # noqa: E731
+            torch.equal(u.view(torch.int32) if u.is_floating_point() else u,
+                        w.view(torch.int32) if w.is_floating_point() else w) for u, w in zip(x, y))
+        if not same(got, ref):
+            raise SystemExit("the stamped kernel K differs from the unstamped one")
+        if not same(ref, tr.viterbi_scan_plain(*args_k)):
+            raise SystemExit("kernel K differs from its plain loop")
+        emit(kernel="K", what=f"decode_batch's inputs B={b}, T={t}, N={args_k[2].shape[-1]}, "
+             f"ragged masks", **res,
+             cycles_per_step={p: c / (t - 1) for p, c in res["cycles"].items()},
+             **times("viterbi_trellis", call), sm_clock_mhz=sm_clock())
     print(card)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -32,13 +32,19 @@
 // Two routes (ops/trellis.py:viterbi_trellis_route):
 //
 // - warp (N <= 32): a block of one warp a sequence, lane j = state j, the
-//   column A[:, j] in registers. A step is N shuffles of v, N adds and a
+//   column A[:, j] in registers. A step is N shuffles of v, N adds, a
 //   balanced (value, index) tree whose ties keep the lower index (N <= 8
-//   is a template argument; 16 and 32 pad with -inf). The emissions and
-//   mask bytes of the next STEPS frames are loaded while the current ones
-//   are used. Backpointers go to the int32 output and, where T N bytes
-//   fit (VITERBI_BP_SMEM), also as int8 to shared memory for the
-//   backtrace.
+//   is a template argument; 16 and 32 pad with -inf), the emission's add
+//   and the mask's select, with no branch: kernel B's step and one select.
+//   The frames run in groups of G (32 at float32, 16 at float64) aligned
+//   to frame 0. The next group's emissions (a register each) and mask
+//   (lane k loads frame t0 + G + k's byte; one ballot a group makes the
+//   group's bits, a step tests its bit) load while the current group is
+//   stepped. A step writes its trellis row and int8 backpointers to shared
+//   memory; at the group's end the warp copies the group's G N values of
+//   each to the outputs as coalesced stores. The int8 backpointers of the
+//   whole sequence stay on chip where T N bytes fit (VITERBI_BP_SMEM,
+//   ON_CHIP: the backtrace reads them there), else a group's.
 // - block (33 <= N <= 1024): a block a sequence, thread j = target j, v
 //   double-buffered in shared memory (one barrier a step), the column read
 //   through L1; a linear scan over i with a strict > keeps the first
@@ -61,7 +67,6 @@
 
 namespace {
 
-constexpr int STEPS = 16;  // frames of emissions and mask prefetched a group
 constexpr int WALKS = 8;   // chunk walks interleaved a thread
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int NO_INDEX = 1 << 30;  // loses every tie of the final argmax
@@ -197,9 +202,16 @@ __device__ void backtrace(const BpRead& bp, int T, int N, int n_chunks, int K, i
     }
 }
 
-// warp route: NMAX candidates a step (= N when EXACT)
-template <typename R, int NMAX, bool EXACT>
+// frames a group of the warp route: a register each for the emissions of
+// this group and of the next
+template <typename R>
+__host__ __device__ constexpr int group() { return sizeof(R) == 4 ? 32 : 16; }
+
+// warp route: NMAX candidates a step (= N when EXACT); ON_CHIP: the int8
+// backpointers of every frame in shared memory, else of a group
+template <typename R, int NMAX, bool EXACT, bool ON_CHIP>
 __global__ void __launch_bounds__(32) warp_kernel(Args a) {
+    constexpr int G = group<R>();
     extern __shared__ __align__(16) unsigned char smem[];
     const int N = EXACT ? NMAX : a.N;
     const int Tn = a.T;
@@ -207,9 +219,10 @@ __global__ void __launch_bounds__(32) warp_kernel(Args a) {
     const int b = blockIdx.x;
     const bool on = lane < N;
     const R NEG_INF = -INFINITY;
-    int16_t* maps = reinterpret_cast<int16_t*>(smem);  // (n_chunks, N) start states
-    int16_t* ends = maps + (size_t)a.n_chunks * N;      // (n_chunks,) end states
-    int8_t* bp8 = a.on_chip ? reinterpret_cast<int8_t*>(ends + a.n_chunks) : nullptr;
+    R* stage = reinterpret_cast<R*>(smem);                            // (G, N) a group's rows
+    int16_t* maps = reinterpret_cast<int16_t*>(stage + (size_t)G * N);  // (n_chunks, N) starts
+    int16_t* ends = maps + (size_t)a.n_chunks * N;                   // (n_chunks,) end states
+    int8_t* bp8 = reinterpret_cast<int8_t*>(ends + a.n_chunks);     // (T, N) ON_CHIP, else (G, N)
     const R* pi = static_cast<const R*>(a.log_pi);
     const R* la = static_cast<const R*>(a.log_a);
     const R* lf = static_cast<const R*>(a.log_final);
@@ -222,30 +235,28 @@ __global__ void __launch_bounds__(32) warp_kernel(Args a) {
     R col[NMAX];  // column j = lane of the transition matrix
 #pragma unroll
     for (int i = 0; i < NMAX; ++i) col[i] = (on && i < N) ? la[i * N + lane] : NEG_INF;
-    R v = on ? add_rn(pi[lane], lb[lane]) : NEG_INF;
-    if (on) {
-        sc[lane] = v;
-        bp[lane] = 0;
-        if (bp8) bp8[lane] = 0;
-    }
+    R v = on ? add_rn(pi[lane], lb[lane]) : NEG_INF;  // frame 0
 
-    R cur[STEPS], nxt[STEPS];
-    bool vcur[STEPS], vnxt[STEPS];
+    R cur[G], nxt[G];
 #pragma unroll
-    for (int k = 0; k < STEPS; ++k) {
-        const int t = 1 + k;
-        cur[k] = (on && t < Tn) ? lb[(size_t)t * N + lane] : R(0);
-        vcur[k] = (mk && t < Tn) ? mk[t] != 0 : true;
-    }
-    for (int t0 = 1; t0 < Tn; t0 += STEPS) {
+    for (int k = 0; k < G; ++k) cur[k] = (on && k < Tn) ? lb[(size_t)k * N + lane] : R(0);
+    // lane k: the mask byte of frame t0 + k, kept raw until the group's
+    // ballot (a compare right after the load would wait for it)
+    int mcur = (mk && lane < G && lane < Tn) ? mk[lane] : 1;
+    for (int t0 = 0; t0 < Tn; t0 += G) {
 #pragma unroll
-        for (int k = 0; k < STEPS; ++k) {
-            const int t = t0 + STEPS + k;
+        for (int k = 0; k < G; ++k) {
+            const int t = t0 + G + k;
             nxt[k] = (on && t < Tn) ? lb[(size_t)t * N + lane] : R(0);
-            vnxt[k] = (mk && t < Tn) ? mk[t] != 0 : true;
         }
+        const int tm = t0 + G + lane;
+        const int mnxt = (mk && lane < G && tm < Tn) ? mk[tm] : 1;
+        // bit k: frame t0 + k is valid; frame 0 is no step (v kept, pointer 0)
+        const unsigned bits = __ballot_sync(FULL, mcur != 0) & (t0 == 0 ? ~1u : FULL);
+        const int self0 = t0 == 0 ? 0 : lane;
+        int8_t* bps = ON_CHIP ? bp8 + (size_t)t0 * N : bp8;
 #pragma unroll
-        for (int k = 0; k < STEPS; ++k) {
+        for (int k = 0; k < G; ++k) {
             const int t = t0 + k;
             if (t >= Tn) break;  // uniform across the warp
             R c[NMAX];
@@ -254,23 +265,30 @@ __global__ void __launch_bounds__(32) warp_kernel(Args a) {
             R best;
             int arg;
             tree_argmax<0, NMAX>(c, best, arg);
-            R nv = add_rn(best, cur[k]);
-            if (!vcur[k]) {  // a masked frame: v kept, every state its own pointer
-                nv = v;
-                arg = lane;
-            }
+            const R nv = add_rn(best, cur[k]);
+            // a masked frame: v kept, every state its own pointer
+            const bool valid = (bits >> k) & 1u;
+            v = valid ? nv : v;
+            arg = valid ? arg : (k == 0 ? self0 : lane);
             if (on) {
-                v = nv;
-                sc[(size_t)t * N + lane] = nv;
-                bp[(size_t)t * N + lane] = arg;
-                if (bp8) bp8[(size_t)t * N + lane] = (int8_t)arg;
+                stage[k * N + lane] = v;
+                bps[k * N + lane] = (int8_t)arg;
             }
         }
-#pragma unroll
-        for (int k = 0; k < STEPS; ++k) {
-            cur[k] = nxt[k];
-            vcur[k] = vnxt[k];
+        __syncwarp();
+        // the group's trellis rows and backpointers, coalesced
+        const int cnt = min(G, Tn - t0) * N;
+        R* scg = sc + (size_t)t0 * N;
+        int* bpg = bp + (size_t)t0 * N;
+#pragma unroll 4
+        for (int i = lane; i < cnt; i += 32) {
+            scg[i] = stage[i];
+            bpg[i] = bps[i];
         }
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < G; ++k) cur[k] = nxt[k];
+        mcur = mnxt;
     }
 
     // final state: the first argmax of v (+ log_final); score: its value
@@ -282,8 +300,8 @@ __global__ void __launch_bounds__(32) warp_kernel(Args a) {
         pb[Tn - 1] = bi;
     }
     __syncwarp();  // every lane's backpointer stores visible to the warp
-    backtrace<false>(BpRead{bp8, bp, N}, Tn, N, a.n_chunks, a.chunk, bi, maps, ends, pb, lane,
-                     32);
+    backtrace<false>(BpRead{ON_CHIP ? bp8 : nullptr, bp, N}, Tn, N, a.n_chunks, a.chunk, bi, maps,
+                     ends, pb, lane, 32);
 }
 
 // block route: a thread a target state, v double-buffered in shared memory
@@ -376,14 +394,21 @@ __global__ void __launch_bounds__(1024) block_kernel(Args a) {
 
 size_t map_bytes(const Args& a) { return 2 * (size_t)a.n_chunks * (a.N + 1); }
 
-template <typename R, int NMAX, bool EXACT>
-int launch_warp(const Args& a, int B, cudaStream_t s) {
-    const size_t smem = map_bytes(a) + (a.on_chip ? (size_t)a.T * a.N : 0);
-    cudaError_t err = cudaFuncSetAttribute(warp_kernel<R, NMAX, EXACT>,
+template <typename R, int NMAX, bool EXACT, bool ON_CHIP>
+int launch_warp_at(const Args& a, int B, cudaStream_t s) {
+    const size_t rows = (size_t)group<R>() * a.N;
+    const size_t smem = rows * sizeof(R) + map_bytes(a) + (ON_CHIP ? (size_t)a.T * a.N : rows);
+    cudaError_t err = cudaFuncSetAttribute(warp_kernel<R, NMAX, EXACT, ON_CHIP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
-    warp_kernel<R, NMAX, EXACT><<<B, 32, smem, s>>>(a);
+    warp_kernel<R, NMAX, EXACT, ON_CHIP><<<B, 32, smem, s>>>(a);
     return (int)cudaGetLastError();
+}
+
+template <typename R, int NMAX, bool EXACT>
+int launch_warp(const Args& a, int B, cudaStream_t s) {
+    return a.on_chip ? launch_warp_at<R, NMAX, EXACT, true>(a, B, s)
+                     : launch_warp_at<R, NMAX, EXACT, false>(a, B, s);
 }
 
 template <typename R>

@@ -9,9 +9,10 @@ noise spectrum on frames classified silent.
 Framing, FFT and the windowed max run over the whole signal (and over a
 leading batch axis: :meth:`VadLtsd.detect_batch`). The adaptive variant is
 sequential over frames, the JAX package's ``lax.scan``: for CUDA tensors
-:func:`ltsd_noise` runs it in one launch of the hand-written kernel of
-``csrc/ltsd_noise.cu`` (kernel J: a block of :func:`ltsd_warps` warps an
-utterance), for CPU tensors
+:func:`ltsd_noise` runs it in one call of the hand-written kernels of
+``csrc/ltsd_noise.cu`` (kernel J: every frame's squares and level over the
+whole card, then the recursion, a block of :func:`ltsd_warps` division
+warps and a combiner warp an utterance), for CPU tensors
 :func:`ltsd_noise_plain` runs it as a frame loop in the kernel's order of
 sums, which the kernel is held to bit for bit.
 """
@@ -80,29 +81,42 @@ def ltsd_scores(signal: torch.Tensor, config: LTSDConfig = LTSDConfig(),
 
 
 LANES = 32  # a warp
-BINS_A_LANE = 5  # kernel J's aim: bins a lane, while warps allow
-MAX_BINS_A_LANE = 8  # kernel J's registers a lane hold: F <= 32 * 32 * 8 = 8192 on the card
-MAX_WARPS = 32  # a block of 1024 threads
+# kernel J's aim: bins a lane, while warps allow, by itemsize: float64's
+# IEEE divisions run one after another, so it spreads them over more warps
+BINS_A_LANE = {4: 5, 8: 3}
+MAX_BINS_A_LANE = 9  # kernel J's registers a lane hold: 31 warps of 9 bins cover MAX_F
+MAX_WARPS = 31  # division warps: with the combiner warp a block of 1024 threads
+MAX_F = 8192  # frequency bins kernel J takes on the card (a window of 16,382 samples)
 
 
-def ltsd_warps(f: int) -> int:
-    """Kernel J's warps an utterance for ``f`` frequency bins, which also
-    fix the order of its sums (:func:`_lane_sum`): the fewest whose lanes
-    hold at most :data:`BINS_A_LANE` bins each, up to 32 (7 at the default
-    window's 1025 bins)."""
-    return min(MAX_WARPS, -(-f // (LANES * BINS_A_LANE)))
+def ltsd_warps(f: int, itemsize: int = 4) -> int:
+    """Kernel J's division warps an utterance for ``f`` frequency bins of
+    ``itemsize`` bytes, which also fix the order of its sums
+    (:func:`_lane_sum`): the fewest whose lanes hold at most
+    :data:`BINS_A_LANE` bins each, up to 31 (at the default window's 1025
+    bins 7 at float32, 11 at float64)."""
+    return min(MAX_WARPS, -(-f // (LANES * BINS_A_LANE[itemsize])))
+
+
+def ltsd_row(f: int, itemsize: int) -> int:
+    """Elements of a frame's row in kernel J's scratch for ``f`` bins: the
+    squares at the lanes' ``32 W ceil(f / 32 W)`` slots (``W =
+    ltsd_warps(f, itemsize)``), then 16 bytes: the frame's level and its
+    range flag."""
+    lanes = LANES * ltsd_warps(f, itemsize)
+    return lanes * -(-f // lanes) + 16 // itemsize
 
 
 def _lane_sum(x: torch.Tensor) -> torch.Tensor:
     """``x (..., F)`` summed in kernel J's fixed order, on any device, over
-    the ``W = ltsd_warps(F)`` warps' lanes: lane L = 32 w + l adds its bins
-    L, L + 32 W, ... in ascending order (bins past F add +0), each warp's
-    lanes are added by the XOR butterfly 16, 8, 4, 2, 1, and the W warps'
-    partials in ascending order of warp. Every add is one elementwise IEEE
-    add, so the result does not depend on the device or on torch's
-    reduction order."""
+    the lanes of its ``W = ltsd_warps(F, x.element_size())`` warps: lane
+    L = 32 w + l adds its bins L, L + 32 W, ... in ascending order (bins
+    past F add +0), each warp's lanes are added by the XOR butterfly 16, 8,
+    4, 2, 1, and the W warps' partials in ascending order of warp. Every
+    add is one elementwise IEEE add, so the result does not depend on the
+    device or on torch's reduction order."""
     f = x.shape[-1]
-    warps = ltsd_warps(f)
+    warps = ltsd_warps(f, x.element_size())
     lanes = LANES * warps
     chunks = -(-f // lanes)
     x = torch.nn.functional.pad(x, (0, chunks * lanes - f)).unflatten(-1, (chunks, lanes))
@@ -150,9 +164,12 @@ def ltsd_noise_plain(ltse: torch.Tensor, noise: torch.Tensor,
 
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-# ltse, noise, B, T, F, order, warps, is_double, win, threshold, alpha,
-# one_minus_alpha, scores, stream
-_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _D, _P, _P]
+# the recursion, ltsd_noise_launch: rows, noise, B, T, F, order, warps,
+# is_double, win, threshold, alpha, scores, stream
+_ARGTYPES = [_P, _P, _I, _I, _I, _I, _I, _I, _D, _D, _D, _P, _P]
+# the rows pass, ltsd_noise_rows: ltse, B, T, F, warps, is_double, win,
+# one_minus_alpha, rows, stream
+_ROWS_ARGTYPES = [_P, _I, _I, _I, _I, _I, _D, _D, _P, _P]
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -163,10 +180,49 @@ def _on_cuda(x: torch.Tensor) -> bool:
     return True
 
 
+def _library():
+    lib = _build.load("ltsd_noise", _ARGTYPES)
+    lib.ltsd_noise_rows.argtypes = _ROWS_ARGTYPES
+    return lib
+
+
+def _rows_pass(ltse: torch.Tensor, config: LTSDConfig, rows: torch.Tensor) -> None:
+    """Kernel J's first kernel: every frame of the contiguous ``ltse (...,
+    T, F)`` (a batch of ``B`` utterances) into its row of ``rows``, scratch
+    of ``B T ltsd_row(F)`` elements: the squares, the adapted level and
+    whether every square lies where the fast float division is exact."""
+    (t, f), dtype = tuple(ltse.shape[-2:]), ltse.dtype
+    lib = _library()
+    with torch.cuda.device(ltse.device):  # launch on the tensors' card
+        rc = lib.ltsd_noise_rows(ltse.data_ptr(), math.prod(ltse.shape[:-2]), t, f,
+                                 ltsd_warps(f, dtype.itemsize), int(dtype == torch.float64),
+                                 float(config.win_size), 1.0 - config.alpha, rows.data_ptr(),
+                                 torch.cuda.current_stream(ltse.device).cuda_stream)
+    _build.check(lib, "ltsd_noise", rc)
+
+
+def _recursion(rows: torch.Tensor, noise: torch.Tensor, config: LTSDConfig,
+               scores: torch.Tensor) -> None:
+    """Kernel J's second kernel: the recursion over the rows that
+    :func:`_rows_pass` wrote, from the contiguous initial noise ``(..., F)``,
+    into the scores ``(..., T)``."""
+    f, t, dtype = noise.shape[-1], scores.shape[-1], noise.dtype
+    lib = _library()
+    with torch.cuda.device(noise.device):
+        rc = lib.ltsd_noise_launch(rows.data_ptr(), noise.data_ptr(),
+                                   math.prod(noise.shape[:-1]), t, f, config.order,
+                                   ltsd_warps(f, dtype.itemsize), int(dtype == torch.float64),
+                                   float(config.win_size), float(config.threshold),
+                                   float(config.alpha), scores.data_ptr(),
+                                   torch.cuda.current_stream(noise.device).cuda_stream)
+    _build.check(lib, "ltsd_noise", rc)
+
+
 def _launch(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torch.Tensor:
     """Kernel J on the card, leading dimensions of ``ltse (..., T, F)`` and
-    ``noise (..., F)`` flattened into its batch. Every check reads shapes,
-    dtypes and devices only."""
+    ``noise (..., F)`` flattened into its batch: its two kernels in order on
+    the current stream, the rows pass and the recursion. Every check reads
+    shapes, dtypes and devices only."""
     dev, dtype = ltse.device, ltse.dtype
     if (ltse.dim() < 2 or tuple(noise.shape) != tuple(ltse.shape[:-2]) + tuple(ltse.shape[-1:])
             or noise.dtype != dtype or noise.device != dev
@@ -176,23 +232,15 @@ def _launch(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torc
                          f"{tuple(ltse.shape)} and {noise.dtype} {tuple(noise.shape)} on "
                          f"{noise.device}")
     lead, (t, f) = tuple(ltse.shape[:-2]), tuple(ltse.shape[-2:])
-    warps = ltsd_warps(f)
-    if f > LANES * warps * MAX_BINS_A_LANE:
-        limit = LANES * MAX_WARPS * MAX_BINS_A_LANE
-        raise ValueError(f"the LTSD noise kernel takes at most {limit} frequency bins (a window "
-                         f"of {2 * limit - 2} samples), got {f}")
+    if f > MAX_F:
+        raise ValueError(f"the LTSD noise kernel takes at most {MAX_F} frequency bins (a window "
+                         f"of {2 * MAX_F - 2} samples), got {f}")
     b = math.prod(lead)
     scores = torch.empty(lead + (t,), dtype=dtype, device=dev)
     if b > 0:
-        x, n0 = ltse.contiguous(), noise.contiguous()
-        lib = _build.load("ltsd_noise", _ARGTYPES)
-        with torch.cuda.device(dev):  # launch on the tensors' card
-            rc = lib.ltsd_noise_launch(x.data_ptr(), n0.data_ptr(), b, t, f, config.order, warps,
-                                       int(dtype == torch.float64), float(config.win_size),
-                                       float(config.threshold), float(config.alpha),
-                                       1.0 - config.alpha, scores.data_ptr(),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-        _build.check(lib, "ltsd_noise", rc)
+        rows = torch.empty((b * t * ltsd_row(f, dtype.itemsize),), dtype=dtype, device=dev)
+        _rows_pass(ltse.contiguous(), config, rows)
+        _recursion(rows, noise.contiguous(), config, scores)
         ltsd_noise.launches += 1
     return scores
 
@@ -200,15 +248,15 @@ def _launch(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torc
 def ltsd_noise(ltse: torch.Tensor, noise: torch.Tensor, config: LTSDConfig) -> torch.Tensor:
     """The adaptive LTSD's noise recursion over the LTSE ``(..., T, F)``
     from the initial noise ``(..., F)``: the scores ``(..., T)``. CUDA
-    tensors launch kernel J once (float32 or float64; anything else
-    raises), CPU tensors run :func:`ltsd_noise_plain`."""
+    tensors launch kernel J once, its two kernels (float32 or float64;
+    anything else raises), CPU tensors run :func:`ltsd_noise_plain`."""
     assert config.alpha is not None
     if not _on_cuda(ltse):
         return ltsd_noise_plain(ltse, noise, config)
     return _launch(ltse, noise, config)
 
 
-ltsd_noise.launches = 0  # kernel J launches; plain CPU calls do not count
+ltsd_noise.launches = 0  # kernel J calls (two kernels each); plain CPU calls do not count
 
 
 def ltsd_scores_adaptive(signal: torch.Tensor, config: LTSDConfig,

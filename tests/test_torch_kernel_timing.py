@@ -100,3 +100,33 @@ def test_dry_run_of_the_ltsd_and_trellis_groups(monkeypatch, tmp_path):
     lengths[0] = t
     want = (4 * int(lengths.sum()) * n + b * t + 8 * b * t * n + 4 * b * t + 4 * b)
     assert k["bound_ms"] == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3, rel=1e-12)
+
+
+@pytest.mark.parametrize("kernel", ["A", "B", "G", "H", "I", "J", "K"])
+def test_phase_stamps_fit_the_committed_kernels(kernel):
+    """``kernel_phases.py``'s CPU side: a patch set of each kernel finds
+    every anchor once in the committed source (J's and K's the newest), and
+    the stamped copy
+    declares the stamps and writes each unit's phases (J: five a frame for
+    the division warps and five for the combiner, K: the warp route's
+    nine) without dropping a line of the source."""
+    import os
+
+    import kernel_phases
+
+    name = kernel_phases.KERNEL_NAMES[kernel]
+    with open(os.path.join(os.path.dirname(kernel_phases.__file__), "lnasr_tpu_torch", "csrc",
+                           f"{name}.cu")) as f:
+        src = f.read()
+    stamped, (version, stride, phases) = kernel_phases.stamped_source(src, name)
+    if kernel in "JK":
+        assert version == kernel_phases.PATCH_SETS[name][0][0]
+    assert "g_stamps" in stamped and "read_stamps" in stamped and stride > len(phases)
+    kept = iter(stamped.splitlines())
+    assert all(any(line == s for s in kept) for line in src.splitlines())  # in order
+    if kernel == "J":  # five phases a role, each role's totals written once
+        assert phases == kernel_phases.J_PHASES and stamped.count("ph_acc[") == 14
+        assert stride == kernel_phases.J_STRIDE and version in kernel_phases.RAW
+    if kernel == "K":
+        assert phases == kernel_phases.K_PHASES and stride == kernel_phases.K_STRIDE
+        assert stamped.count("STAMP(blockIdx.x * 10 + ") == 3

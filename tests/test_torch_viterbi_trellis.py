@@ -11,12 +11,21 @@ route and chunk rules, and its wrapper's host side.
 - ``viterbi_trellis_route`` and ``viterbi_chunks``: every N up to 1024
   has a route, N = 1025 none; the chunks cover the steps within the
   route's shared-memory budget.
+- A NumPy model of the warp route's forward (``warp_forward_model``):
+  groups of G frames (32 at float32, 16 at float64) aligned to frame 0,
+  the group's mask as one ballot word (bit k: frame t0 + k, bit 0 of the
+  first group cleared, so frame 0 keeps ``v`` and points to state 0), a
+  branch-free step whose select keeps ``v`` on masked frames, the rows
+  staged and copied a group at a time; bitwise the plain loop's at T = 1,
+  2, 31, 32, 33 and 999, with every frame after the first masked, the
+  first frames masked, and ragged masks.
 - The wrapper's host side on CPU tensors, with ``_build.load`` replaced by
-  a NumPy model of the kernel (the forward's adds and first-index argmax,
-  then the chunk-map backtrace at the wrapper's chunking, reading the
-  int8 copy or the int32 output as the on-chip rule says) that reads the
-  C call's pointers: flattening, promotion, mask broadcast, forced
-  routes; all four outputs bitwise the plain loop's. Through it,
+  a NumPy model of the kernel (the warp route's group forward, or the
+  block route's adds and first-index argmax, then the chunk-map backtrace
+  at the wrapper's chunking, reading the int8 copy or the int32 output as
+  the on-chip rule says) that reads the C call's pointers: flattening,
+  promotion, mask broadcast, forced routes; all four outputs bitwise the
+  plain loop's. Through it,
   ``HMM.decode_batch``, ``GMMHMM.decode_batch`` and the segmenter make one
   launch a call (a sentence) and decode as the JAX package does.
 - ``viterbi_plain`` and ``viterbi_dense_plain`` (kernels B's and C's plain
@@ -154,25 +163,76 @@ def test_on_chip_rule():
 # -- the wrapper's host side against a model of the kernel --------------------------
 
 
-def kernel_model(pi, a, lb, mask, lf, on_chip, n_chunks, chunk):
-    """Kernel K in NumPy: the forward's adds in the working type, the first
-    index of the max, masked frames kept; the final argmax; then the
-    backtrace by chunk maps: (1) every chunk walked from each end state,
-    (2) the chunk ends composed from the last frame, (3) the chunks walked
-    again from their ends, writing the path."""
+def warp_group(dtype):
+    """Frames a group of the warp route: 32 at float32, 16 at float64."""
+    return 32 if np.dtype(dtype) == np.float32 else 16
+
+
+def warp_forward_model(pi, a, lb, mask):
+    """The warp route's forward in NumPy, as the kernel schedules it:
+    groups of G frames from frame 0; a group's mask is one ballot word
+    (lane k's bit: frame t0 + k), bit 0 of the first group cleared; every
+    step computes the max-plus candidate, then selects it or keeps ``v``
+    (a masked frame points every state to itself, frame 0 to state 0);
+    the step's row and int8 pointers go to the group's stage, copied out
+    when the group ends. Returns ``(scores, int32 backptr, v, ballots)``."""
     b, t, n = lb.shape
+    g = warp_group(lb.dtype)
     scores = np.empty_like(lb)
     bp = np.zeros((b, t, n), np.int32)
+    lanes = np.arange(n, dtype=np.int32)
     v = pi + lb[:, 0]
-    scores[:, 0] = v
-    for s in range(1, t):
-        cand = v[:, :, None] + a
-        new = cand.max(axis=1) + lb[:, s]
-        arg = cand.argmax(axis=1).astype(np.int32)
-        valid = np.ones(b, bool) if mask is None else mask[:, s]
-        v = np.where(valid[:, None], new, v)
-        bp[:, s] = np.where(valid[:, None], arg, np.arange(n, dtype=np.int32))
-        scores[:, s] = v
+    ballots = []
+    for t0 in range(0, t, g):
+        frames = np.arange(t0, t0 + 32)
+        byte = np.ones((b, 32), bool)  # lanes past G or T, and no mask: valid
+        inside = (np.arange(32) < g) & (frames < t)
+        if mask is not None:
+            byte[:, inside] = mask[:, frames[inside]]
+        word = (byte.astype(np.uint64) << np.arange(32, dtype=np.uint64)).sum(1)
+        bits = word & (~np.uint64(1) if t0 == 0 else np.uint64(0xFFFFFFFF))
+        ballots.append(bits)
+        stage = np.empty((b, g, n), lb.dtype)
+        stage8 = np.empty((b, g, n), np.int8)
+        for k in range(min(g, t - t0)):
+            cand = v[:, :, None] + a
+            new = cand.max(axis=1) + lb[:, t0 + k]
+            arg = cand.argmax(axis=1).astype(np.int32)
+            valid = ((bits >> np.uint64(k)) & np.uint64(1)).astype(bool)[:, None]
+            v = np.where(valid, new, v)
+            self_ = np.zeros(n, np.int32) if t0 + k == 0 else lanes
+            stage[:, k] = v
+            stage8[:, k] = np.where(valid, arg, self_)
+        rows = min(g, t - t0)
+        scores[:, t0:t0 + rows] = stage[:, :rows]
+        bp[:, t0:t0 + rows] = stage8[:, :rows]
+    return scores, bp, v, ballots
+
+
+def kernel_model(pi, a, lb, mask, lf, on_chip, n_chunks, chunk, route="warp"):
+    """Kernel K in NumPy: the forward (the warp route's groups,
+    :func:`warp_forward_model`, or the block route's frame loop: the adds
+    in the working type, the first index of the max, masked frames kept);
+    the final argmax; then the backtrace by chunk maps: (1) every chunk
+    walked from each end state, (2) the chunk ends composed from the last
+    frame, (3) the chunks walked again from their ends, writing the
+    path."""
+    b, t, n = lb.shape
+    if route == "warp":
+        scores, bp, v, _ = warp_forward_model(pi, a, lb, mask)
+    else:
+        scores = np.empty_like(lb)
+        bp = np.zeros((b, t, n), np.int32)
+        v = pi + lb[:, 0]
+        scores[:, 0] = v
+        for s in range(1, t):
+            cand = v[:, :, None] + a
+            new = cand.max(axis=1) + lb[:, s]
+            arg = cand.argmax(axis=1).astype(np.int32)
+            valid = np.ones(b, bool) if mask is None else mask[:, s]
+            v = np.where(valid[:, None], new, v)
+            bp[:, s] = np.where(valid[:, None], arg, np.arange(n, dtype=np.int32))
+            scores[:, s] = v
     vf = v if lf is None else v + lf
     last, score = vf.argmax(axis=1), vf.max(axis=1)
     read = bp.astype(np.int8) if on_chip else bp
@@ -225,7 +285,7 @@ class _ModelLibrary:
                            self._view(lb, dt, (b, t, n)).copy(),
                            None if mask is None else self._view(mask, np.bool_, (b, t)).copy(),
                            None if lf is None else self._view(lf, dt, (n,)).copy(),
-                           on_chip, n_chunks, chunk)
+                           on_chip, n_chunks, chunk, ttr.VITERBI_ROUTES[route])
         for ptr, x, kind in zip((scores, backptr, path, score), out, (dt, np.int32, np.int32, dt)):
             self._view(ptr, kind, x.shape)[...] = x
         return 0
@@ -344,6 +404,48 @@ def test_segmenter_one_launch_a_sentence(model_library):
         assert model_library.calls[-1]["is_double"] == 1 and model_library.calls[-1]["n"] == 4
         assert got == ref.segment(text)
     assert port.segment("我们喜欢学习中文") == ["我们", "喜欢", "学习", "中文"]
+
+
+def _warp_case(rng, n, b, t, pattern, dtype):
+    """Random model and emissions with a mask ``pattern``: ``after first``
+    (every frame after frame 0 masked), ``first frames`` (frames 1-3
+    masked, or as many as there are), ``ragged`` (lengths T, 1, T - 3 and
+    holes, as the card's cases)."""
+    pi, a, lb, mask, _ = _case(rng, n, b, t, "random", dtype)
+    if pattern == "after first":
+        mask = np.zeros((b, t), bool)
+        mask[:, 0] = True
+    elif pattern == "first frames":
+        mask = np.ones((b, t), bool)
+        mask[:, 1:4] = False
+    return pi, a, lb, mask
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("t", [1, 2, 31, 32, 33, 999])
+@pytest.mark.parametrize("pattern", ["after first", "first frames", "ragged"])
+def test_warp_groups_bitwise_vs_plain(dtype, t, pattern):
+    """The warp route's group schedule and ballot bits against the plain
+    loop: scores and backpointers bit for bit, masked frames' rows equal to
+    the last valid frame's."""
+    n, b = 5, 3
+    rng = np.random.default_rng([t, len(pattern)])
+    pi, a, lb, mask = _warp_case(rng, n, b, t, pattern, dtype)
+    scores, bp, _, ballots = warp_forward_model(pi, a, lb, mask)
+    ref = ttr.viterbi_scan_plain(*_tt(pi, a, lb, mask))
+    np.testing.assert_array_equal(scores.view(np.uint8), ref.scores.numpy().view(np.uint8))
+    np.testing.assert_array_equal(bp, ref.backptr.numpy())
+    g = warp_group(dtype)
+    assert len(ballots) == -(-t // g)
+    low = [(np.asarray(word) & np.uint64((1 << g) - 1)) for word in ballots]
+    want = np.ones((b, len(ballots) * g), bool)  # a group's G bits: its frames' masks, 1 past T
+    want[:, :t] = mask
+    want[:, 0] = False  # frame 0 is no step
+    got = np.stack([(w[:, None] >> np.arange(g, dtype=np.uint64)) & np.uint64(1) for w in low], 1)
+    np.testing.assert_array_equal(got.reshape(b, -1).astype(bool), want)
+    if pattern == "after first" and t > 1:
+        assert (bp[:, 1:] == np.arange(n)).all()
+        assert (scores[:, 1:] == scores[:, :1]).all()
 
 
 # -- the CPU path, the plain call sites, the refusals --------------------------------
