@@ -29,6 +29,17 @@ kernels' launch counters reset just before and read just after:
 - the recognizer's bucketed N-best segment decode at V = 1000 (mel
   frontend and lattice-recording kernels, then the host's word lattice),
   ``entry.recognizer_serving(1000)[0].decode_segment_nbest``;
+- the exact backoff search at V = 5000, ``backoff_phase``: the forward,
+  backtrace and lattice kernels with the backoff hop (rank-1 plus the
+  sparse seen-bigram arcs, in CSR) bitwise against their plain versions,
+  each launched twice, on the 5000-word serving segment, on
+  ``bench/decoder``'s 5k and 10k graphs and on small graphs with planted
+  ties, no silence word, rows without arcs, all-``-inf`` starts, masked
+  frames (the last one too) and T = 1; then
+  ``entry.recognizer_serving(5000)``'s ``decode_segment`` (mel frontend,
+  forward and backtrace once each) and ``decode_segment_nbest`` (mel
+  frontend and lattice once each) with a spy on the scans (never
+  called), against the CPU recognizer and a planted word sequence;
 - live serving at V = 1000, ``entry.streaming_serving(1000)``: a ~60 s
   stream in 100 ms chunks through ``StreamingRecognizer`` (the native
   VAD, built with ``g++``, closes segments; each segment launches the mel
@@ -1023,6 +1034,344 @@ def feed_stream(torch, srec, audio, chunk, wrappers=None, on_path=()):
         segs += out
         peak = max(peak, srec.stats.buffer_samples)
     return segs, lat, peak, totals
+
+
+BACKOFF_VOCAB = 5000  # the serving recognizer of the exact backoff search
+BACKOFF_BENCH_VOCABS = (5000, 10000)  # bench/decoder's large_vocab rows
+BACKOFF_BENCH_FRAMES = 500
+
+
+@contextlib.contextmanager
+def counted_scans(tdec, F):
+    """Count the calls of the scans the JAX package jits (the port's
+    ``factored_trellis_scan`` and ``factored_lattice_scan``) while the
+    block runs, with a spy in each module that holds one. Yields the list
+    of the names called."""
+    calls = []
+    sites = [(tdec, "factored_trellis_scan"), (tdec, "factored_lattice_scan"),
+             (F, "factored_lattice_scan")]
+    saved = [(m, n, getattr(m, n)) for m, n in sites]
+    for m, n, fn in saved:
+        def spy(*args, _fn=fn, _n=n, **kw):
+            calls.append(_n)
+            return _fn(*args, **kw)
+        setattr(m, n, spy)
+    try:
+        yield calls
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def backoff_graph(torch, F, dev, rng, v, s, k, sil, ties, dead=False):
+    """A random factored graph with a backoff hop, as :func:`check_backoff`
+    reads one: rows of 0 to ``k`` arcs (sources ascending), some scored at
+    their own backoff estimate ``from_w[src] + uni[dst]`` (ties between the
+    rank-1 and the sparse families), with ``ties`` integer scores (ties
+    between two arcs' ``exit + val``), a silence word or none; ``dead``:
+    every start is ``-inf``. Returns ``(graph, pi_grid, final_grid,
+    draw)``, ``draw(*shape)`` the scores' distribution."""
+    def draw(*shape):
+        x = rng.normal(scale=2.0, size=shape)
+        return np.round(x) if ties else x
+
+    from_w, uni = draw(v), draw(v)
+    sil_idx = v - 1 if sil else -1
+    sil_from = np.full(v, -np.inf)
+    if sil:
+        sil_from = draw(v)
+        sil_from[sil_idx] = uni[sil_idx] = -np.inf
+    pred = np.zeros((v, k), np.int32)
+    val = np.full((v, k), -np.inf)
+    for w in range(v):
+        n = int(rng.integers(0, k + 1))
+        src = np.sort(rng.choice(v, size=n, replace=False))
+        x = from_w[src] + uni[w] + np.abs(draw(n))
+        at = rng.random(n) < 0.4
+        x[at] = from_w[src[at]] + uni[w]
+        pred[w, :n], val[w, :n] = src, x
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)  # noqa: E731
+    hop = F.backoff_hop(types.SimpleNamespace(
+        from_w=f32(from_w), uni=f32(uni), sil_from=f32(sil_from), sil_idx=sil_idx,
+        pred=torch.as_tensor(pred, device=dev), val=f32(val)))
+    inner = np.full((v, s, s), -np.inf)
+    exit_idx = rng.integers(0, s, size=v)
+    for w in range(v):
+        for j in range(exit_idx[w] + 1):
+            inner[w, j, j] = -1.0 if ties else np.log(0.5)
+            if j < exit_idx[w]:
+                inner[w, j, j + 1] = -1.0 if ties else np.log(0.5)
+    pi = np.full((v, s), -np.inf)
+    if not dead:
+        pi[:, 0] = draw(v)
+    final = np.where(np.arange(s)[None] == exit_idx[:, None], 0.0, -np.inf)
+    g = types.SimpleNamespace(inner_a=f32(inner), hop=hop, _kernel_hop=hop, hop_t=None,
+                              exit_idx=torch.as_tensor(exit_idx.astype(np.int32), device=dev),
+                              grid_shape=(v, s))
+    return g, f32(pi), f32(final), draw
+
+
+def check_backoff(torch, F, tdec, graph, log_b, pi_grid, final_grid, mask, what, scan=True):
+    """Kernels D, E and F with a backoff hop against their plain versions on
+    the card, bit for bit in every output (``-inf`` included), each kernel
+    launched twice (the same bits both times); with ``scan`` also the path
+    and score of the port's ``factored_trellis_scan`` on the graph's own
+    hop (the padded factors for a built graph)."""
+    hop, ia, ei = graph._kernel_hop, graph.inner_a, graph.exit_idx
+    require(F.hop_kind(hop) == "backoff", f"{what}: not a backoff hop")
+    bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x  # noqa: E731
+    same = lambda a, b: all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))  # noqa: E731
+    d = [F.factored_forward(pi_grid, ia, ei, hop, log_b, mask) for _ in range(2)]
+    d_p = F.factored_forward_plain(pi_grid, ia, ei, hop, log_b, mask)
+    e = [F.factored_backtrace(d[0], ia, ei, hop, final_grid, mask) for _ in range(2)]
+    e_p = F.factored_backtrace_plain(d_p, ia, ei, hop, final_grid, mask)
+    f = [F.factored_lattice(pi_grid, ia, ei, hop, log_b, mask) for _ in range(2)]
+    f_p = F.factored_lattice_plain(pi_grid, ia, ei, hop, log_b, mask)
+    torch.cuda.synchronize()
+    require(same(d, [d_p, d_p]), f"kernel D (backoff) differs from the plain forward ({what}): "
+                                 f"{int((bits(d[0]) != bits(d_p)).sum())} grid entries")
+    require(same(e[0], e_p) and same(e[1], e_p),
+            f"kernel E (backoff) differs from the plain replay ({what}): "
+            f"{int((e[0][0] != e_p[0]).sum())} path entries, score {float(e[0][1])} vs "
+            f"{float(e_p[1])}")
+    require(same(f[0], f_p) and same(f[1], f_p),
+            f"kernel F (backoff) differs from the plain records ({what}): "
+            + ", ".join(f"{int((bits(a) != bits(b)).sum())} {n}" for a, b, n in
+                        zip(f[0], f_p, ("scores", "starts", "preds"))))
+    if scan:
+        path_s, score_s = tdec.factored_trellis_scan(log_b, ia, graph.hop, pi_grid, final_grid,
+                                                     ei, mask)
+        require(torch.equal(e[0][0], path_s) and torch.equal(e[0][1], score_s),
+                f"kernels D+E (backoff) differ from the scan decoder ({what})")
+    t_len, v, s = log_b.shape
+    entries, hops, _ = replay_counts(torch, F, e[0][0], mask, s)
+    sil = f"word {hop.sil_idx}" if hop.sil_idx >= 0 else "none"
+    print(f"kernels D, E, F with a backoff hop vs plain ({what}; T={t_len}, V={v}, S={s}, "
+          f"{len(hop.arc_src)} arcs, silence {sil}): grids, path, score and records bitwise, "
+          f"two launches each the same bits{', path and score the scan decoder' if scan else ''}"
+          f" ({int(torch.isfinite(d_p).sum())} finite grid entries; E's walk: {entries} steps "
+          f"at a word's first state, {hops} word changes)")
+
+
+def backoff_bench_graph(torch, dev, vocab, n_frames):
+    """``bench/decoder``'s large-vocabulary backoff graph and frames at
+    ``vocab`` words (its corpus-trained bigram, in-degree <= 256, S = 3, no
+    silence word), built as its ``large_vocab`` rows build them."""
+    from lnasr_tpu_torch.bench import decoder as bdec
+    from lnasr_tpu_torch.bench.corpus import make_corpus
+    from lnasr_tpu_torch.config import NGramConfig
+    from lnasr_tpu_torch.models.ngram import NGramCounter, NGramModel
+
+    sents = make_corpus(bdec.LM_SENTENCES, vocab, np.random.default_rng(1))
+    lm = NGramModel(NGramCounter(2, sents), NGramConfig(order=2))
+    rng = np.random.default_rng(0)
+    g = bdec._graph(vocab, dev, rng, lm, hop_mode="backoff", width=5, hop_max_in_degree=256)
+    return g, bdec._frames(rng, n_frames, dev)
+
+
+def backoff_phase(torch, entry, wrappers, card, launches):
+    """The exact backoff search on the card (kernels D, E and F with the
+    backoff hop: rank-1 plus the sparse seen-bigram arcs, in CSR). Holds the
+    three kernels bitwise to their plain versions on the V = 5000 serving
+    segment, on ``bench/decoder``'s 5k and 10k graphs, and on small graphs
+    with planted ties, no silence word, rows without arcs, all-``-inf``
+    starts, masked frames (the last one too) and T = 1; then drives
+    ``entry.recognizer_serving(5000)``'s ``decode_segment`` (A, D, E once
+    each) and ``decode_segment_nbest`` (A, F once each) with a spy on the
+    scans (called zero times), against the CPU recognizer on the same
+    weights (words; N-best lists, scores within 1e-6 relative) and a
+    planted word sequence; times the kernels, their plain versions, the
+    scans they replace and the segment decodes."""
+    from lnasr_tpu_torch.models import decoder as tdec
+    from lnasr_tpu_torch.ops import factored as F
+
+    dev = torch.device(DEVICE)
+    n_sm = F.sm_count(dev)
+    t_phase = time.perf_counter()
+    rec, seg = entry.recognizer_serving(BACKOFF_VOCAB, device=dev)
+    rec_c = entry.recognizer_serving(BACKOFF_VOCAB, device="cpu")[0]
+    g = rec.graph
+    hop = g._kernel_hop
+    require(isinstance(g, tdec.FactoredDecodingGraph) and isinstance(hop, F.BackoffHop),
+            f"V={BACKOFF_VOCAB} did not compose the factored graph with a backoff hop")
+    padded, n_seg, _ = rec._pad_to_bucket(seg)
+    feats, mask = rec.am.mfcc.features_fast(torch.from_numpy(padded).to(dev),
+                                            lengths=torch.tensor([n_seg], device=dev))
+    log_b, pi_g, fin_g = g._grid_inputs(feats)
+    t_len, v, s = log_b.shape
+    require(F.factored_kernel_ok(t_len, v, s, hop, n_sm) and F.lattice_kernel_ok(v, s, hop, n_sm),
+            f"the V={v} backoff graph is past the kernels' capacity")
+    print(f"backoff slice geometry: V={BACKOFF_VOCAB} words + <sil>, grid ({v}, {s}), "
+          f"{len(hop.arc_src)} finite arcs in CSR (padded rows {tuple(g.hop.val.shape)}), "
+          f"segment T={t_len} ({int(mask.sum())} valid), grids {4 * t_len * v * s / 1e6:.1f} MB")
+
+    # -- D, E, F bitwise against their plain versions ----------------------
+    inputs = {"V=5000 segment": (g, log_b, pi_g, fin_g, mask)}
+    check_backoff(torch, F, tdec, g, log_b, pi_g, fin_g, mask, "the V=5000 segment, bucket mask")
+    # planted words at the segment's geometry: a path with hops between words
+    in_lm = set(rec.lm.ngram.vocabulary())
+    alt_feats, alt_n, alt_pairs = ambiguous_features(g, in_lm, t_len, np.random.default_rng(7))
+    alt_obs = torch.as_tensor(alt_feats, device=dev)
+    alt_mask = torch.arange(t_len, device=dev) < alt_n
+    lb_alt, pi_alt, fin_alt = g._grid_inputs(alt_obs)
+    check_backoff(torch, F, tdec, g, lb_alt, pi_alt, fin_alt, alt_mask,
+                  "V=5000, 21 planted words at the segment's geometry")
+    for vocab in BACKOFF_BENCH_VOCABS:
+        gb, frames = backoff_bench_graph(torch, dev, vocab, BACKOFF_BENCH_FRAMES)
+        require(F.factored_kernel_ok(BACKOFF_BENCH_FRAMES, *gb.grid_shape, gb._kernel_hop, n_sm),
+                f"bench/decoder's {vocab}-word backoff graph is past the kernels' capacity")
+        lb, pi_b, fin_b = gb._grid_inputs(frames)
+        inputs[f"bench V={vocab}"] = (gb, lb, pi_b, fin_b, None)
+        check_backoff(torch, F, tdec, gb, lb, pi_b, fin_b, None,
+                      f"bench/decoder's large_vocab_{vocab // 1000}k graph, no silence word")
+        last = torch.arange(BACKOFF_BENCH_FRAMES, device=dev) < BACKOFF_BENCH_FRAMES - 1
+        last[[1, BACKOFF_BENCH_FRAMES // 2]] = False
+        check_backoff(torch, F, tdec, gb, lb, pi_b, fin_b, last,
+                      f"large_vocab_{vocab // 1000}k, frames 1, T/2 and the last masked",
+                      scan=False)
+    rng = np.random.default_rng(19)
+    for v_t, s_t, k_t, sil, ties, t_t, dead in (
+            (12, 3, 4, True, True, 40, False), (12, 3, 4, False, True, 40, False),
+            (40, 4, 8, True, False, 64, False), (300, 3, 6, True, True, 50, False),
+            (12, 3, 4, True, False, 30, True), (9, 3, 3, True, False, 1, False),
+            (9, 3, 3, False, True, 2, False)):
+        gt, pi_t, fin_t, draw = backoff_graph(torch, F, dev, rng, v_t, s_t, k_t, sil, ties, dead)
+        lb = torch.as_tensor(np.asarray(draw(t_t, v_t, s_t), np.float32), device=dev)
+        m = torch.arange(t_t, device=dev) < t_t - 1
+        if t_t > 4:
+            m[[1, t_t // 2]] = False
+        for mm, what in ((None, "no mask"), (m, "masks, the last frame masked")):
+            check_backoff(torch, F, tdec, gt, lb, pi_t, fin_t, mm,
+                          f"random, at most {k_t} arcs a row, {'integer ties, ' if ties else ''}"
+                          f"{'all -inf starts, ' if dead else ''}{what}")
+
+    # -- the main paths, through the recognizer ------------------------------
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    with counted_scans(tdec, F) as scans:
+        words, score = rec.decode_segment(seg)
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["V=5000 backoff"] = counts
+    one_best = ("mel_frontend", "factored_forward", "factored_backtrace")
+    print(f"main path: Recognizer.decode_segment at V={BACKOFF_VOCAB} (factored graph, backoff "
+          f"hop) on {len(seg) / 16000} s -> {len(words)} words {words[:8]}, score {score}; "
+          f"launches {counts}; scans called {len(scans)} times")
+    require(all(counts[n] == 1 for n in one_best)
+            and all(counts[n] == 0 for n in counts if n not in one_best),
+            f"the V=5000 segment decode did not launch exactly {one_best} once each: {counts}")
+    require(not scans, f"the V=5000 segment decode called the scans: {scans}")
+    words_c, score_c = rec_c.decode_segment(seg)
+    rel = abs(score - score_c) / abs(score_c)
+    require(words == words_c and rel < 1e-4,
+            f"V=5000: card {words} ({score}) vs CPU {words_c} ({score_c})")
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    with counted_scans(tdec, F) as scans:
+        hyps = rec.decode_segment_nbest(seg, n=5, with_confidence=True)
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["V=5000 backoff nbest"] = counts
+    nb_path = ("mel_frontend", "factored_lattice")
+    require(all(counts[n] == 1 for n in nb_path)
+            and all(counts[n] == 0 for n in counts if n not in nb_path),
+            f"the V=5000 N-best decode did not launch exactly {nb_path} once each: {counts}")
+    require(not scans, f"the V=5000 N-best decode called the scans: {scans}")
+    hyps_c = rec_c.decode_segment_nbest(seg, n=5, with_confidence=True)
+    nb_rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(hyps, hyps_c))
+    require(len(hyps) >= 1 and [h.words for h in hyps] == [h.words for h in hyps_c]
+            and nb_rel < 1e-6,
+            f"V=5000 N-best: card {[h.words for h in hyps]} vs CPU {[h.words for h in hyps_c]}, "
+            f"score rel err {nb_rel}")
+    print(f"main path: Recognizer.decode_segment_nbest(n=5, with_confidence=True) at "
+          f"V={BACKOFF_VOCAB} -> {len(hyps)} hypotheses; launches {counts}; scans called "
+          f"{len(scans)} times; vs the CPU recognizer on the same weights: words equal (1-best "
+          f"score rel err {rel:.3g}), N-best lists equal (max score rel err {nb_rel:.3g})")
+    # planted words: the 1-best decode recovers them, and the N-best list
+    # with alternatives (three word sites between close word pairs) is the CPU's
+    planted = [w for w in g.words if w in in_lm][3:9]
+    obs = planted_features(torch, g, np.random.default_rng(BACKOFF_VOCAB), planted)
+    got, path_g, score_g = g.decode(obs)
+    got_c, path_gc, score_gc = rec_c.graph.decode(obs)
+    require(got == planted and got_c == planted and np.array_equal(path_g, path_gc),
+            f"V=5000 planted {planted}: card {got}, CPU {got_c}")
+    alt = lattice_nbest(g, host_records(tdec, g, alt_obs, alt_mask, alt_n))[0]
+    g_c = rec_c.graph
+    alt_c = lattice_nbest(g_c, host_records(tdec, g_c, alt_obs.cpu(), alt_mask.cpu(), alt_n))[0]
+    alt_rel = max(abs(a.score - b.score) / abs(b.score) for a, b in zip(alt, alt_c))
+    require(len({tuple(h.words) for h in alt}) >= 2
+            and [h.words for h in alt] == [h.words for h in alt_c] and alt_rel < 1e-6,
+            f"V=5000 planted N-best: card {[h.words for h in alt]} vs CPU "
+            f"{[h.words for h in alt_c]} (score rel err {alt_rel})")
+    print(f"V=5000 planted decode {planted} -> {got} (paths equal to the CPU's); N-best with "
+          f"alternatives ({alt_n} planted frames, word sites between {alt_pairs}): {len(alt)} "
+          f"hypotheses {[(len(h.words), h.score) for h in alt]}, equal to the CPU's (max score "
+          f"rel err {alt_rel:.3g})")
+
+    # -- timing ----------------------------------------------------------------
+    out = {}
+    for name, (gi, lb, pi_i, fin_i, m) in inputs.items():
+        h, ia, ei = gi._kernel_hop, gi.inner_a, gi.exit_idx
+        grids = F.factored_forward(pi_i, ia, ei, h, lb, m)
+        t_i, v_i, s_i = lb.shape
+        nnz = len(h.arc_src)
+        row = {"d_ms": cuda_ms(lambda: F.factored_forward(pi_i, ia, ei, h, lb, m), reps=20),
+               "e_ms": cuda_ms(lambda: F.factored_backtrace(grids, ia, ei, h, fin_i, m), reps=20),
+               "f_ms": cuda_ms(lambda: F.factored_lattice(pi_i, ia, ei, h, lb, m), reps=20),
+               "scan_ms": cuda_ms(lambda: tdec.factored_trellis_scan(
+                   lb, ia, gi.hop, pi_i, fin_i, ei, m), reps=2, warmup=1),
+               "lattice_scan_ms": cuda_ms(lambda: F.factored_lattice_scan(
+                   lb, ia, gi.hop, pi_i, ei, m), reps=2, warmup=1)}
+        # what the arcs cost D: the same frames with the rank-1 family alone
+        r1 = F.Rank1Hop(h.from_w, h.uni, h.sil_from, h.sil_idx)
+        row["d_rank1_ms"] = cuda_ms(lambda: F.factored_forward(pi_i, ia, ei, r1, lb, m), reps=20)
+        # the work these inputs need: valid steps, the replay's steps at a
+        # word's first state; each input read once, each output written once
+        steps = t_i - 1 if m is None else int(m[1:].sum())
+        entries = replay_counts(torch, F, F.factored_backtrace(grids, ia, ei, h, fin_i, m)[0],
+                                m, s_i)[0]
+        graph_bytes = 4 * (v_i * s_i + v_i * s_i * s_i + 5 * v_i + 1) + 12 * nnz
+        grid_bytes = 4 * t_i * v_i * s_i
+        fwd_ops = steps * (2 * v_i * s_i * s_i + 5 * v_i + 2 * nnz + v_i * s_i)
+        row["d_bound"] = bound(graph_bytes + 2 * grid_bytes + t_i, fwd_ops)
+        row["e_bound"] = bound(4 * (2 * v_i * s_i + 2 * s_i * steps + 2 * v_i * entries + v_i)
+                               + 8 * nnz + 5 * t_i + 4,
+                               2 * v_i * s_i + steps * 2 * s_i + entries * 4 * v_i + 2 * nnz)
+        row["f_bound"] = bound(graph_bytes + grid_bytes + 12 * t_i * v_i + t_i, fwd_ops)
+        if name == "V=5000 segment":
+            row |= {"d_plain_ms": cuda_ms(lambda: F.factored_forward_plain(pi_i, ia, ei, h, lb, m),
+                                          reps=3, warmup=1),
+                    "e_plain_ms": cuda_ms(lambda: F.factored_backtrace_plain(
+                        grids, ia, ei, h, fin_i, m), reps=3, warmup=1),
+                    "f_plain_ms": cuda_ms(lambda: F.factored_lattice_plain(pi_i, ia, ei, h, lb, m),
+                                          reps=3, warmup=1),
+                    "d_dev_ms": device_ms(torch, lambda: F.factored_forward(
+                        pi_i, ia, ei, h, lb, m)),
+                    "e_dev_ms": device_ms(torch, lambda: F.factored_backtrace(
+                        grids, ia, ei, h, fin_i, m)),
+                    "f_dev_ms": device_ms(torch, lambda: F.factored_lattice(
+                        pi_i, ia, ei, h, lb, m))}
+            print(f"timing on {card}: {name}: plain versions on the card D {row['d_plain_ms']:.4f} "
+                  f"ms, E {row['e_plain_ms']:.4f} ms, F {row['f_plain_ms']:.4f} ms; device time "
+                  f"per call (torch.profiler) D {row['d_dev_ms']:.4f} ms, E {row['e_dev_ms']:.4f} "
+                  f"ms, F {row['f_dev_ms']:.4f} ms")
+        print(f"timing on {card}: {name} (T={t_i}, V={v_i}, S={s_i}, {nnz} arcs, {steps} valid "
+              f"steps): kernel D {row['d_ms']:.4f} ms (bound {row['d_bound'][0]:.5f} ms by "
+              f"{row['d_bound'][1]}; {row['d_rank1_ms']:.4f} ms with the rank-1 family alone, no "
+              f"arcs), E {row['e_ms']:.4f} ms (bound {row['e_bound'][0]:.5f} ms by "
+              f"{row['e_bound'][1]}; {entries} steps at a word's first state), F "
+              f"{row['f_ms']:.4f} ms (bound {row['f_bound'][0]:.5f} ms by {row['f_bound'][1]}); "
+              f"the scans they replace on the card: factored_trellis_scan {row['scan_ms']:.4f} ms, "
+              f"factored_lattice_scan {row['lattice_scan_ms']:.4f} ms (CUDA events)")
+        out[name] = row
+    seg_ms = host_ms(lambda: rec.decode_segment(seg), reps=10)
+    nb_ms = host_ms(lambda: rec.decode_segment_nbest(seg, n=5, with_confidence=True), reps=10)
+    seg_s = len(seg) / 16000
+    print(f"timing on {card}: segment decode V={BACKOFF_VOCAB} (backoff hop): {seg_ms:.4f} ms per "
+          f"{seg_s} s segment = {seg_s / (seg_ms / 1e3):.1f} audio-s/s; N-best (n=5, with "
+          f"confidences) {nb_ms:.4f} ms (host clock, one device->host copy each)")
+    device_breakdown(torch, lambda: rec.decode_segment(seg), seg_ms,
+                     f"{card}, segment decode V={BACKOFF_VOCAB} backoff")
+    print(f"backoff phase: {time.perf_counter() - t_phase:.1f} s")
+    return out | {"segment_ms": seg_ms, "nbest_ms": nb_ms}
 
 
 def stream_phase(torch, entry, wrappers, card, launches):
@@ -3980,6 +4329,9 @@ def main():
           + ", ".join(f"{k} {v:.4f} ms" for k, v in dev_ms.items())
           + f"; kernel E on the planted path of 21 words {e_alt_dev_ms:.4f} ms")
 
+    # -- 8b. the exact backoff search at V = 5000: D, E, F with the CSR hop ---
+    bo = backoff_phase(torch, entry, wrappers, card, launches)
+
     # -- 9, 10, 11. live serving: the stream, the trigram graph, device VADs --
     stream_phase(torch, entry, wrappers, card, launches)
     trig = trigram_phase(torch, entry, wrappers, card, launches)
@@ -4091,6 +4443,35 @@ def main():
               "loop_ms": trel["plain_ms"], "chain_floor_ms": trel["floor_ms"],
               "decode_ms": trel["decode_ms"]}
     kernels.append(k_row)
+    # the backoff kind of D, E and F (the exact backoff search's scans
+    # replaced): ``ms`` the device time per call at the V = 5000 segment,
+    # the scan each replaces (``scan_ms``, on the card) and the bench graphs'
+    # times beside
+    seg5k = bo["V=5000 segment"]
+    for name, key, path, replaces in (
+            ("factored_forward", "d", "V=5000 backoff",
+             "lnasr_tpu/models/decoder.py:709 factored_trellis_scan's forward with HopFactors "
+             "(_hop_entry :115-151; jax.jit :1044, vmapped :1125)"),
+            ("factored_backtrace", "e", "V=5000 backoff",
+             "lnasr_tpu/models/decoder.py:709 factored_trellis_scan's backpointers and reverse "
+             "scan with HopFactors (:732-761; jax.jit :1044, vmapped :1125)"),
+            ("factored_lattice", "f", "V=5000 backoff nbest",
+             "lnasr_tpu/models/decoder.py:765 factored_lattice_scan with HopFactors "
+             "(jax.jit :1162)")):
+        scan_key = "lattice_scan_ms" if key == "f" else "scan_ms"
+        kernels.append({
+            "name": f"{name}[backoff]", "route": "cuda",
+            "source": f"lnasr_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+            "launches": launches[path][name],
+            "launches_by_path": {p: c[name] for p, c in launches.items()
+                                 if p.startswith("V=5000 backoff")},
+            "max_abs_err": 0.0, "ms": seg5k[f"{key}_dev_ms"], "wrapper_ms": seg5k[f"{key}_ms"],
+            "plain_ms": seg5k[f"{key}_plain_ms"], "bound_ms": seg5k[f"{key}_bound"][0],
+            "bound_by": seg5k[f"{key}_bound"][1], "library_ms": None,
+            "scan_ms": seg5k[scan_key],
+            "bench_ms": {n: {"ms": bo[n][f"{key}_ms"], "bound_ms": bo[n][f"{key}_bound"][0],
+                             "scan_ms": bo[n][scan_key]}
+                         for n in bo if n.startswith("bench")}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

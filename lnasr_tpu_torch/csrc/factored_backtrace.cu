@@ -14,7 +14,13 @@
 // grid[T-1] + final over flat v*S+s ids. These are the rules of
 // lnasr_tpu_torch/models/decoder.py:factored_trellis_scan, so the path and
 // score are bitwise those of the scan. Hop kind "none" (loop-free graphs)
-// is taken here too, where the JAX package fell back to an XLA scan.
+// is taken here too, where the JAX package fell back to an XLA scan. The
+// backoff kind (rank-1 plus sparse seen-bigram arcs) replaces the reverse
+// scan of lnasr_tpu/models/decoder.py:709 factored_trellis_scan with
+// HopFactors (backpointers at :732-741 by _hop_entry :115-151): at j = 0
+// the rank-1 argmax above, plus the first argmax over w's arcs of
+// exits[src] + val (the lowest source on a tie), the entry their larger
+// value and its source the smaller of the achieving families' sources.
 //
 // What bounds it on an H100: the work is small (it reads at most the 16 MB
 // of grids once at V = 1000, S = 8, T = 510, ~5 us at 3.35 TB/s) but it is
@@ -50,7 +56,9 @@
 // window, the L2 round trips of the rows and of the K exit rows (K * V * 4
 // bytes) and two block barrier waits (three when the word changes), plus
 // the walk's chain of shared loads; windows are ~T / K plus the path's
-// word changes.
+// word changes. A backoff hop adds to each warp's speculative hop work a
+// pass over w's arcs (a lane an arc, read through the read-only path: all
+// of a window's warps read the same row) and one more warp argmax.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -60,7 +68,7 @@ namespace {
 
 constexpr int HOP_NONE = 0;
 constexpr int HOP_DENSE = 1;
-constexpr int HOP_RANK1 = 2;
+constexpr int HOP_BACKOFF = 3;
 constexpr int K = 32;                 // frames a window; one warp each
 constexpr int THREADS = K * 32;
 constexpr int SMEM_LIMIT = 232448;    // a block's shared memory on sm_90
@@ -74,6 +82,9 @@ struct Args {
     const float* from_w;    // (V,)
     const float* uni;       // (V,)
     const float* sil_from;  // (V,)
+    const int* arc_ptr;     // (V + 1,) backoff arcs in CSR by destination
+    const int* arc_src;     // (nnz,) ascending within a row
+    const float* arc_val;   // (nnz,)
     const float* final_grid;  // (V, S)
     const uint8_t* mask;    // (T,) or null
     const float* exits;     // (T, Vp) from the pre-pass, or null (no hop)
@@ -199,8 +210,28 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
                 arg_take(m2, a2, m3, a3);
                 arg_take(m0, a0, m2, a2);
                 warp_argmax(m0, a0);  // every lane holds it
-                hv = hk == HOP_RANK1 && w != p.sil_idx ? m0 + p.uni[w] : m0;
-                hpred = a0 * S + p.exit_idx[a0];
+                hv = m0;
+                int hsrc = a0;
+                if (hk != HOP_DENSE && w != p.sil_idx) {
+                    const float r1 = m0 + p.uni[w];
+                    hv = r1;
+                    if (hk == HOP_BACKOFF) {
+                        // the first argmax over w's arcs of exits[src] + val
+                        const float* exr = p.exits + (size_t)(tau - 1) * Vp;
+                        float sm = -INFINITY;
+                        int sa = BIG;
+                        const int k1 = __ldg(p.arc_ptr + w + 1);
+                        for (int k = __ldg(p.arc_ptr + w) + lane; k < k1; k += 32) {
+                            const int sk = __ldg(p.arc_src + k);
+                            arg_take(sm, sa, __ldg(exr + sk) + __ldg(p.arc_val + k), sk);
+                        }
+                        warp_argmax(sm, sa);
+                        hv = fmaxf(r1, sm);
+                        hsrc = min(r1 >= hv ? a0 : BIG, sm >= hv ? sa : BIG);
+                    }
+                }
+                // a source past V only from NaN inputs: keep the read in bounds
+                hpred = hsrc < V ? hsrc * S + p.exit_idx[hsrc] : -1;
             }
             float* r = row + warp * S;
             if (lane < S) r[lane] = rv;
@@ -250,12 +281,15 @@ size_t smem_bytes(int V, int S, int hop_kind) {
 extern "C" int factored_backtrace_launch(const float* grids, const float* inner_a, const int* exit_idx,
                                          int hop_kind, const float* hop_t, const float* from_w,
                                          const float* uni, const float* sil_from, int sil_idx,
+                                         const int* arc_ptr, const int* arc_dst,
+                                         const int* arc_src, const float* arc_val,
                                          const float* final_grid, const uint8_t* mask, int T, int V,
                                          int S, float* exits, int* path, float* score,
                                          void* stream) {
+    (void)arc_dst;  // the forwards' flat arc walk needs it, the replay's row walk does not
     if (T < 1 || V < 1 || S < 1) return (int)cudaErrorInvalidValue;
-    if (hop_kind != HOP_NONE && hop_kind != HOP_DENSE && hop_kind != HOP_RANK1)
-        return (int)cudaErrorInvalidValue;
+    if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
+    if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
     if (hop_kind != HOP_NONE && exits == nullptr) return (int)cudaErrorInvalidValue;
     const size_t smem = smem_bytes(V, S, hop_kind);
     if (smem + 1024 > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
@@ -271,8 +305,8 @@ extern "C" int factored_backtrace_launch(const float* grids, const float* inner_
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
-    Args a{grids, inner_a, exit_idx, hop_t, from_w, uni, sil_from, final_grid, mask,
-           exits, path, score, hop_kind, sil_idx, T, V, S};
+    Args a{grids, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_src, arc_val,
+           final_grid, mask, exits, path, score, hop_kind, sil_idx, T, V, S};
     factored_backtrace_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }

@@ -8,7 +8,11 @@
 //   exit[v]      = grid[v, exit_idx[v]]
 //   entry[w]     = max_v exit[v] + hop[v, w]                    (dense hop)
 //                | max_v(exit + from_w) + uni[w], silence: max_v(exit + sil_from)  (rank-1)
+//                | max(rank-1, max over w's arcs of exit[src] + val)   (backoff)
 //   grid         = max(within, entry at j = 0) + log_b[t]; masked frames keep it.
+// The backoff kind also replaces lnasr_tpu/models/decoder.py:709
+// factored_trellis_scan's forward with HopFactors (_hop_entry :115-151,
+// jitted at :1044 and :1125), a lax.scan that XLA ran as one device program.
 // Only maxima are needed here (the backtrace re-derives the argmaxes), and
 // max is exact and order-free, so the grids are bitwise those of
 // lnasr_tpu_torch/models/decoder.py:factored_trellis_scan at every state,
@@ -60,6 +64,22 @@
 //
 // Hop kind "none" (loop-free graphs) has no exchange. The rank-1 hop reads
 // the same exchange.
+//
+// The backoff hop (rank-1 plus the sparse seen-bigram arcs) reads the same
+// exchange: the V exits of the previous frame are already in shared memory
+// for the rank-1 max. Its arcs come in CSR by destination (the factors'
+// finite (V, K) slots; the padding is -inf and changes no maximum), so a
+// block's arcs are one contiguous range [arc_ptr[w0], arc_ptr[w0 + nw]).
+// Each frame the block's threads walk that range flat (an arc a thread a
+// round: no warp idles on a short row, as one per destination word would),
+// add exit[src] + val from the shared column, and fold the sum into their
+// destination's 32-bit key with a shared-memory atomicMax. The key is the
+// float's order-preserving bit pattern, so the max is exact and the order
+// of the atomics changes no bit. The arcs are read through the read-only
+// data path each frame, not staged: at the 5k-word serving graph a block
+// owns a few hundred arcs, which stay in L1. What this adds to a frame: one
+// barrier-free pass over the block's arcs plus the barrier the rank-1
+// block max already has.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -69,6 +89,7 @@ namespace {
 
 constexpr int HOP_NONE = 0;
 constexpr int HOP_DENSE = 1;
+constexpr int HOP_BACKOFF = 3;
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
 constexpr int POLL = 4;             // exchange slots a thread loads at once
@@ -82,6 +103,10 @@ struct Args {
     const float* from_w;    // (V,) rank-1 rows
     const float* uni;       // (V,)
     const float* sil_from;  // (V,)
+    const int* arc_ptr;     // (V + 1,) backoff arcs in CSR by destination
+    const int* arc_dst;     // (nnz,) each arc's destination
+    const int* arc_src;     // (nnz,)
+    const float* arc_val;   // (nnz,)
     const float* log_b;     // (T, V, S)
     const uint8_t* mask;    // (T,) or null
     float* grids;           // (T, V, S)
@@ -101,6 +126,16 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long 
 
 __device__ __forceinline__ unsigned long long tagged(int t, float x) {
     return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
+}
+
+// A float's order-preserving 32-bit key (larger float, larger key) and back.
+__device__ __forceinline__ unsigned key_of(float x) {
+    const unsigned b = __float_as_uint(x);
+    return (b & 0x80000000u) ? ~b : b | 0x80000000u;
+}
+
+__device__ __forceinline__ float float_of(unsigned k) {
+    return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
 }
 
 __device__ __forceinline__ float block_max(float x, float* red) {
@@ -167,6 +202,10 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     float* ex = ent + p.wpb;                         // [V] exits of the last published frame
     int* eidx = reinterpret_cast<int*>(ex + V);      // [wpb]
     float* hs = reinterpret_cast<float*>(eidx + p.wpb);  // [wpb * V] hop columns (dense)
+    unsigned* spk = reinterpret_cast<unsigned*>(eidx + p.wpb);  // [wpb] sparse maxima (backoff)
+    // the block's arcs (backoff): one range, the CSR being by destination
+    const int arc0 = hk == HOP_BACKOFF ? p.arc_ptr[w0] : 0;
+    const int arc1 = hk == HOP_BACKOFF ? p.arc_ptr[w0 + nw] : 0;
 
     for (int k = tid; k < cells * S; k += nth) ia[k] = p.inner_a[(size_t)w0 * S * S + k];
     for (int k = tid; k < nw; k += nth) eidx[k] = p.exit_idx[w0 + k];
@@ -209,6 +248,9 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
         }
 
         if (hk != HOP_NONE) {
+            // the sparse keys' reset: every read of the last frame's is done
+            if (hk == HOP_BACKOFF)
+                for (int w = tid; w < nw; w += nth) spk[w] = key_of(-INFINITY);
             read_exits(p.xch + (n_pub & 1) * V, (unsigned)last_pub, V, ex);
             __syncthreads();
             if (hk == HOP_DENSE) {
@@ -239,10 +281,18 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
                     m1 = fmaxf(m1, ex[v] + p.from_w[v]);
                     m2 = fmaxf(m2, ex[v] + p.sil_from[v]);
                 }
+                // backoff: each arc's exit[src] + val into its word's key
+                // (the block max's barriers order the atomics before the reads)
+                for (int k = arc0 + tid; k < arc1; k += nth)
+                    atomicMax(spk + (__ldg(p.arc_dst + k) - w0),
+                              key_of(ex[__ldg(p.arc_src + k)] + __ldg(p.arc_val + k)));
                 m1 = block_max(m1, red);
                 m2 = block_max(m2, red);
-                for (int w = tid; w < nw; w += nth)
-                    ent[w] = (w0 + w == p.sil_idx) ? m2 : m1 + p.uni[w0 + w];
+                for (int w = tid; w < nw; w += nth) {
+                    float e = (w0 + w == p.sil_idx) ? m2 : m1 + p.uni[w0 + w];
+                    if (hk == HOP_BACKOFF && w0 + w != p.sil_idx) e = fmaxf(e, float_of(spk[w]));
+                    ent[w] = e;
+                }
             }
             __syncthreads();  // also: every read of g is done
         } else {
@@ -267,6 +317,7 @@ size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
     size_t f = (size_t)wpb * S + (size_t)wpb * S * S + wpb + V;
     size_t bytes = f * sizeof(float) + (size_t)wpb * sizeof(int);
     if (hop_kind == HOP_DENSE) bytes += (size_t)wpb * V * sizeof(float);
+    if (hop_kind == HOP_BACKOFF) bytes += (size_t)wpb * sizeof(unsigned);
     return bytes;
 }
 
@@ -275,10 +326,13 @@ size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
 extern "C" int factored_forward_launch(const float* pi_grid, const float* inner_a, const int* exit_idx,
                                        int hop_kind, const float* hop_t, const float* from_w,
                                        const float* uni, const float* sil_from, int sil_idx,
-                                       const float* log_b, const uint8_t* mask, int T, int V, int S,
-                                       int n_sm, float* grids, unsigned long long* xch,
-                                       void* stream) {
+                                       const int* arc_ptr, const int* arc_dst, const int* arc_src,
+                                       const float* arc_val, const float* log_b,
+                                       const uint8_t* mask, int T, int V, int S, int n_sm,
+                                       float* grids, unsigned long long* xch, void* stream) {
     if (T < 1 || V < 1 || S < 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
+    if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
+    if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
     const int wpb = (V + n_sm - 1) / n_sm;
     const int blocks = (V + wpb - 1) / wpb;
     int threads = ((wpb * S + 31) / 32) * 32;
@@ -293,8 +347,8 @@ extern "C" int factored_forward_launch(const float* pi_grid, const float* inner_
     err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * sizeof(unsigned long long),
                           (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
-    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, log_b, mask, grids, xch,
-           hop_kind, sil_idx, T, V, S, wpb};
+    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_dst, arc_src,
+           arc_val, log_b, mask, grids, xch, hop_kind, sil_idx, T, V, S, wpb};
     void* params[] = {&a};
     err = cudaLaunchCooperativeKernel((const void*)factored_forward_kernel, dim3(blocks), dim3(threads),
                                       params, smem, (cudaStream_t)stream);

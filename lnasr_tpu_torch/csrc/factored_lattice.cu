@@ -11,6 +11,9 @@
 //   entry[w], esrc[w] = max / lowest argmax over v of exit[v] + hop[v, w]
 //                       (dense hop), or max_v(exit + from_w) + uni[w] with
 //                       its lowest argmax, silence: max_v(exit + sil_from)
+//                       (rank-1), or the larger of that and max over w's
+//                       arcs of exit[src] + val, the source the smaller of
+//                       the achieving families' lowest sources (backoff)
 //   where entry[w] > within[w, 0] (strictly): state 0 takes entry, start = t,
 //                       pred = esrc[w]
 //   grid = within + log_b[t]; masked frames are identity steps.
@@ -53,6 +56,16 @@
 // What bounds it now is what bounds D: the exchange's latency per frame
 // (a store's trip to L2 and the poll's round trip) plus the block's hop
 // reduction, T times over.
+//
+// The backoff kind also replaces lnasr_tpu/models/decoder.py:765
+// factored_lattice_scan with HopFactors (jitted at :1162), a lax.scan XLA
+// ran as one device program. Its sparse arcs come in CSR by destination and
+// are walked as in factored_forward.cu: the block's arcs flat over its
+// threads, each sum folded into its destination's key with a shared-memory
+// atomicMax. Here the key is 64 bits, the float's order-preserving pattern
+// above the complemented source, so the largest value wins and, on a tie,
+// the smallest source: the first argmax of the rows sorted by source, in
+// any order of the atomics.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -62,7 +75,8 @@ namespace {
 
 constexpr int HOP_NONE = 0;
 constexpr int HOP_DENSE = 1;
-constexpr int HOP_RANK1 = 2;
+constexpr int HOP_BACKOFF = 3;
+constexpr int BIG = 0x7fffffff;     // no source
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
 constexpr int POLL = 4;             // exchange slots a thread loads at once
@@ -76,6 +90,10 @@ struct Args {
     const float* from_w;    // (V,) rank-1 rows
     const float* uni;       // (V,)
     const float* sil_from;  // (V,)
+    const int* arc_ptr;     // (V + 1,) backoff arcs in CSR by destination
+    const int* arc_dst;     // (nnz,) each arc's destination
+    const int* arc_src;     // (nnz,)
+    const float* arc_val;   // (nnz,)
     const float* log_b;     // (T, V, S)
     const uint8_t* mask;    // (T,) or null
     float* exit_score;      // (T, V)
@@ -98,6 +116,21 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long 
 __device__ __forceinline__ unsigned long long tagged(int t, float x) {
     return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
 }
+
+// A (value, source) pair as one 64-bit key: a larger value, or an equal
+// value and a smaller source, is a larger key.
+__device__ __forceinline__ unsigned long long key_of(float x, int src) {
+    const unsigned b = __float_as_uint(x);
+    const unsigned k = (b & 0x80000000u) ? ~b : b | 0x80000000u;
+    return ((unsigned long long)k << 32) | (unsigned)~src;
+}
+
+__device__ __forceinline__ float value_of(unsigned long long key) {
+    const unsigned k = (unsigned)(key >> 32);
+    return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
+}
+
+__device__ __forceinline__ int source_of(unsigned long long key) { return (int)~(unsigned)key; }
 
 // (value, index) argmax: the larger value, the smaller index on a tie.
 __device__ __forceinline__ void arg_take(float& m, int& a, float om, int oa) {
@@ -176,7 +209,10 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
     const int tid = threadIdx.x, nth = blockDim.x;
     const int hk = p.hop_kind;
 
-    float* g = reinterpret_cast<float*>(smem);       // [wpb * S] this block's rows
+    // [wpb] the sparse family's (value, source) keys (backoff), first: 8-byte aligned
+    unsigned long long* spk = reinterpret_cast<unsigned long long*>(smem);
+    float* g = reinterpret_cast<float*>(smem + (hk == HOP_BACKOFF ? 8 * p.wpb : 0));
+    // [wpb * S] this block's rows
     float* ia = g + p.wpb * S;                       // [wpb * S * S]
     float* ent = ia + p.wpb * S * S;                 // [wpb]
     float* ex = ent + p.wpb;                         // [V] exits of the last published frame
@@ -185,6 +221,9 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
     int* st = esrc + p.wpb;                          // [wpb * S] token start frames
     int* pr = st + p.wpb * S;                        // [wpb * S] token predecessor words
     float* hs = reinterpret_cast<float*>(pr + p.wpb * S);  // [wpb * V] hop columns (dense)
+    // the block's arcs (backoff): one range, the CSR being by destination
+    const int arc0 = hk == HOP_BACKOFF ? p.arc_ptr[w0] : 0;
+    const int arc1 = hk == HOP_BACKOFF ? p.arc_ptr[w0 + nw] : 0;
 
     for (int k = tid; k < cells * S; k += nth) ia[k] = p.inner_a[(size_t)w0 * S * S + k];
     for (int k = tid; k < nw; k += nth) eidx[k] = p.exit_idx[w0 + k];
@@ -249,6 +288,9 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
         }
 
         if (hk != HOP_NONE) {
+            // the sparse keys' reset: every read of the last frame's is done
+            if (hk == HOP_BACKOFF)
+                for (int w = tid; w < nw; w += nth) spk[w] = key_of(-INFINITY, BIG);
             read_exits(p.xch + (n_pub & 1) * V, (unsigned)last_pub, V, ex);
             __syncthreads();
             if (hk == HOP_DENSE) {
@@ -300,12 +342,27 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
                         a2 = v;
                     }
                 }
+                // backoff: each arc's (exit[src] + val, src) into its word's
+                // key (the block argmax's barriers order the atomics before
+                // the reads)
+                for (int k = arc0 + tid; k < arc1; k += nth) {
+                    const int src = __ldg(p.arc_src + k);
+                    atomicMax(spk + (__ldg(p.arc_dst + k) - w0),
+                              key_of(ex[src] + __ldg(p.arc_val + k), src));
+                }
                 block_argmax(m1, a1, redv, redi);
                 block_argmax(m2, a2, redv, redi);
                 for (int w = tid; w < nw; w += nth) {
                     const bool sil = w0 + w == p.sil_idx;
-                    ent[w] = sil ? m2 : m1 + p.uni[w0 + w];
-                    esrc[w] = sil ? a2 : a1;
+                    float e = sil ? m2 : m1 + p.uni[w0 + w];
+                    int s = sil ? a2 : a1;
+                    if (hk == HOP_BACKOFF && !sil) {
+                        const float sp = value_of(spk[w]), r1 = e;
+                        e = fmaxf(r1, sp);
+                        s = min(r1 >= e ? a1 : BIG, sp >= e ? source_of(spk[w]) : BIG);
+                    }
+                    ent[w] = e;
+                    esrc[w] = s;
                 }
             }
             __syncthreads();  // also: every read of g, st and pr is done
@@ -342,6 +399,7 @@ size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
     size_t f = (size_t)wpb * S + (size_t)wpb * S * S + wpb + V;
     size_t bytes = f * sizeof(float) + (size_t)(2 * wpb + 2 * wpb * S) * sizeof(int);
     if (hop_kind == HOP_DENSE) bytes += (size_t)wpb * V * sizeof(float);
+    if (hop_kind == HOP_BACKOFF) bytes += (size_t)wpb * sizeof(unsigned long long);
     return bytes;
 }
 
@@ -350,12 +408,14 @@ size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
 extern "C" int factored_lattice_launch(const float* pi_grid, const float* inner_a, const int* exit_idx,
                                        int hop_kind, const float* hop_t, const float* from_w,
                                        const float* uni, const float* sil_from, int sil_idx,
-                                       const float* log_b, const uint8_t* mask, int T, int V, int S,
-                                       int n_sm, float* exit_score, int* exit_start, int* exit_pred,
+                                       const int* arc_ptr, const int* arc_dst, const int* arc_src,
+                                       const float* arc_val, const float* log_b,
+                                       const uint8_t* mask, int T, int V, int S, int n_sm,
+                                       float* exit_score, int* exit_start, int* exit_pred,
                                        unsigned long long* xch, void* stream) {
     if (T < 1 || V < 1 || S < 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
-    if (hop_kind != HOP_NONE && hop_kind != HOP_DENSE && hop_kind != HOP_RANK1)
-        return (int)cudaErrorInvalidValue;
+    if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
+    if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
     const int wpb = (V + n_sm - 1) / n_sm;
     const int blocks = (V + wpb - 1) / wpb;
     int threads = ((wpb * S + 31) / 32) * 32;
@@ -370,8 +430,9 @@ extern "C" int factored_lattice_launch(const float* pi_grid, const float* inner_
     err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * sizeof(unsigned long long),
                           (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
-    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, log_b, mask,
-           exit_score, exit_start, exit_pred, xch, hop_kind, sil_idx, T, V, S, wpb};
+    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_dst, arc_src,
+           arc_val, log_b, mask, exit_score, exit_start, exit_pred, xch, hop_kind, sil_idx, T,
+           V, S, wpb};
     void* params[] = {&a};
     err = cudaLaunchCooperativeKernel((const void*)factored_lattice_kernel, dim3(blocks), dim3(threads),
                                       params, smem, (cudaStream_t)stream);

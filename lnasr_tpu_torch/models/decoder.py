@@ -15,14 +15,15 @@ weights. Two graph realizations share these semantics:
   grid; a frame is a batched ``(V, S, S)`` within-word max-plus and a word
   hop reduction (dense ``(V, V)``, backoff factors, or none). The forward
   and the replay backtrace are the wrappers of ``ops/factored.py`` (the
-  kernels on CUDA, their plain versions on the CPU); factors with sparse
-  edges take :func:`factored_trellis_scan`.
+  kernels on CUDA, their plain versions on the CPU) for every hop kind;
+  :func:`factored_trellis_scan` is the JAX package's scan, kept as their
+  reference.
 
 The factored graph also records word lattices (:meth:`FactoredDecodingGraph.
 decode_lattice`): per frame and word the exit record ``(score, start,
-pred)``: kernel F of ``ops/factored.py`` on CUDA and its plain version on
-the CPU, or :func:`~lnasr_tpu_torch.ops.factored.factored_lattice_scan`
-for factors with sparse edges. The host turns them into a
+pred)``: kernel F of ``ops/factored.py`` on CUDA and its plain version
+(:func:`~lnasr_tpu_torch.ops.factored.factored_lattice_scan`) on the CPU,
+for every hop kind. The host turns them into a
 :class:`~lnasr_tpu_torch.models.lattice.WordLattice` (N-best, posteriors,
 LM rescoring).
 
@@ -51,10 +52,11 @@ from lnasr_tpu_torch.models.lexicon import Lexicon
 from lnasr_tpu_torch.models.ngram import BOS, EOS, NGramModel
 from lnasr_tpu_torch.ops.factored import (
     Rank1Hop,
+    backoff_hop,
     factored_backtrace,
     factored_forward,
     factored_lattice,
-    factored_lattice_scan,
+    factored_lattice_scan,  # noqa: F401 - the JAX package's name in this module
     hop_entry as _hop_entry,
 )
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
@@ -629,8 +631,9 @@ class FactoredDecodingGraph:
     O(V S^2 + V^2) per frame instead of the dense graph's O((V S)^2), with
     the same words, paths and scores. The forward and the replay backtrace
     are the wrappers of ``ops/factored.py`` (kernels D and E on CUDA, their
-    plain versions on the CPU); factors with sparse edges take
-    :func:`factored_trellis_scan` (:meth:`_decode_grid`)."""
+    plain versions on the CPU) for every hop kind (:meth:`_decode_grid`):
+    backoff factors with sparse edges go to them as a CSR of their finite
+    arcs (:class:`~lnasr_tpu_torch.ops.factored.BackoffHop`)."""
 
     SILENCE = SILENCE
     # "auto" hop_mode switches to backoff factors past this vocabulary,
@@ -676,6 +679,8 @@ class FactoredDecodingGraph:
         if self.hop_rank1_only:
             self._kernel_hop = Rank1Hop(self.hop.from_w, self.hop.uni, self.hop.sil_from,
                                         self.hop.sil_idx)
+        elif isinstance(hop, HopFactors):  # the finite arcs in CSR by destination
+            self._kernel_hop = backoff_hop(self.hop)
         self.log_w, self.mu, self.cov = (tensor(x) for x in emission_params)
 
     @classmethod
@@ -739,9 +744,8 @@ class FactoredDecodingGraph:
 
     @property
     def has_kernel(self) -> bool:
-        """Whether the graph's hop kind has kernels: a dense hop, edge-free
-        factors or no hop. Factors with sparse edges decode with the scans,
-        as in the JAX package."""
+        """Whether the graph's hop kind has kernels: true for every hop (a
+        dense hop, edge-free factors, factors with sparse edges, none)."""
         return self.hop is None or self._kernel_hop is not None
 
     def host_hop(self):
@@ -760,13 +764,9 @@ class FactoredDecodingGraph:
                                      self.cov, self.cov_type)
 
     def _decode_grid(self, log_b, pi_grid, final_grid, mask):
-        """The 1-best decode by hop kind alone: factors with sparse edges
-        take the scan; every other graph the forward and backtrace
-        wrappers, kernels D and E on CUDA (which raise past their capacity
+        """The 1-best decode: the forward and backtrace wrappers for every
+        hop kind, kernels D and E on CUDA (which raise past their capacity
         or off float32) and their plain versions on the CPU."""
-        if not self.has_kernel:
-            return factored_trellis_scan(log_b, self.inner_a, self.hop, pi_grid, final_grid,
-                                         self.exit_idx, mask)
         hop = self._kernel_hop
         grids = factored_forward(pi_grid, self.inner_a, self.exit_idx, hop, log_b, mask,
                                  hop_t=self.hop_t)
@@ -809,23 +809,18 @@ class FactoredDecodingGraph:
     # -- lattices --------------------------------------------------------------
 
     def _lattice_grid(self, log_b, pi_grid, mask):
-        """Records by hop kind alone: factors with sparse edges take the
-        scan (they have no kernel, as in the JAX package); every other
-        graph takes :func:`~lnasr_tpu_torch.ops.factored.factored_lattice`,
-        kernel F on CUDA (which raises past its capacity or off float32)
-        and its plain version on the CPU."""
-        if not self.has_kernel:
-            return factored_lattice_scan(log_b, self.inner_a, self.hop, pi_grid, self.exit_idx,
-                                         mask)[:3]
+        """Records for every hop kind:
+        :func:`~lnasr_tpu_torch.ops.factored.factored_lattice`, kernel F on
+        CUDA (which raises past its capacity or off float32) and its plain
+        version on the CPU."""
         return factored_lattice(pi_grid, self.inner_a, self.exit_idx, self._kernel_hop, log_b,
                                 mask, hop_t=self.hop_t)
 
     def lattice_records_arrays(self, obs: torch.Tensor, mask: Optional[torch.Tensor]):
         """Device lattice-record core: ``(features (T, D), mask) ->
         (exit_score, exit_start, exit_pred)`` ``(T, V)`` tensors on the
-        graph's device: kernel F on CUDA, its plain version on the CPU, the
-        scan for factors with sparse edges (:meth:`_lattice_grid`);
-        identical records. Unreachable records stay ``-inf``
+        graph's device: kernel F on CUDA, its plain version on the CPU
+        (:meth:`_lattice_grid`); identical records. Unreachable records stay ``-inf``
         (the port has no finite sentinel to restore)."""
         log_b, pi_grid, _ = self._grid_inputs(obs)
         return self._lattice_grid(log_b, pi_grid, mask)

@@ -21,19 +21,24 @@ the kernels are held to bitwise.
 The word hop is ``None`` (loop-free graph), a dense ``(V, V)`` matrix
 ``hop[from, to]``, or backoff factors (``from_w``, ``uni``, ``sil_from``,
 ``sil_idx``, ``pred``, ``val``: :class:`lnasr_tpu_torch.models.decoder.
-HopFactors`, duck-typed here). The kernels take the dense matrix and the
-edge-free ("rank-1") factors; factors with sparse edges take the scans,
-as in the JAX package: :func:`factored_lattice_scan` here (it is also the
-lattice kernel's plain version) and ``factored_trellis_scan`` in
-:mod:`lnasr_tpu_torch.models.decoder`.
+HopFactors`, duck-typed here). The kernels take four hop kinds: none, the
+dense matrix, the edge-free ("rank-1") factors (:class:`Rank1Hop`) and
+the factors with sparse seen-bigram edges as a CSR of their finite arcs
+by destination (:class:`BackoffHop`, built by :func:`backoff_hop`). The
+padded ``(V, K)`` factors stay the operand of the scans, the counterparts
+of the JAX package's jitted scans: :func:`factored_lattice_scan` here
+(it is also the lattice kernel's plain version) and
+``factored_trellis_scan`` in :mod:`lnasr_tpu_torch.models.decoder`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from lnasr_tpu_torch import _build
@@ -45,16 +50,19 @@ BACKTRACE_WINDOW = 32  # frames a backtrace window stages: csrc/factored_backtra
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
-# sil_idx, log_b, mask, T, V, S, n_sm, grids, exchange, stream
-_FWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-# grids, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
-# sil_idx, final, mask, T, V, S, exits, path, score, stream
-_BWD_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P]
-# pi_grid, inner_a, exit_idx, hop_kind, hop_t, from_w, uni, sil_from,
-# sil_idx, log_b, mask, T, V, S, n_sm, exit_score, exit_start, exit_pred,
+# every launch's hop operands: hop_kind, hop_t, from_w, uni, sil_from,
+# sil_idx, arc_ptr, arc_dst, arc_src, arc_val
+_HOP_ARGTYPES = [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P]
+# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm, grids,
 # exchange, stream
-_LAT_ARGTYPES = [_P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_FWD_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# grids, inner_a, exit_idx, (hop), final, mask, T, V, S, exits, path,
+# score, stream
+_BWD_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _P, _P, _P, _P]
+# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm,
+# exit_score, exit_start, exit_pred, exchange, stream
+_LAT_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_HOP_IDS = {"none": 0, "dense": 1, "rank1": 2, "backoff": 3}  # the kernels' HOP_* constants
 
 
 class Rank1Hop(NamedTuple):
@@ -69,16 +77,60 @@ class Rank1Hop(NamedTuple):
     sil_idx: int  # silence word id, -1 when absent
 
 
+class BackoffHop(NamedTuple):
+    """Backoff factors with sparse seen-bigram edges, the kernels' backoff
+    hop operand: the rank-1 family of :class:`Rank1Hop` and, per
+    destination ``w``, ``sp[w] = max over w's arcs of exit[src] + val``;
+    ``entry[w] = max(r1[w], sp[w])``, the silence word riding ``sil_from``.
+    The arcs are the factors' finite ``(V, K)`` slots in CSR by
+    destination (:func:`backoff_hop`): a padded slot is ``-inf`` and can
+    neither raise a maximum nor tie a finite one."""
+
+    from_w: torch.Tensor  # (V,)
+    uni: torch.Tensor  # (V,)
+    sil_from: torch.Tensor  # (V,)
+    sil_idx: int  # silence word id, -1 when absent
+    arc_ptr: torch.Tensor  # (V + 1,) int32: destination w's arcs are [arc_ptr[w], arc_ptr[w+1])
+    arc_src: torch.Tensor  # (nnz,) int32 source words, ascending within a row
+    arc_val: torch.Tensor  # (nnz,) arc scores, all finite
+    arc_dst: torch.Tensor  # (nnz,) int32 each arc's destination (its CSR row)
+
+
+def backoff_hop(factors) -> BackoffHop:
+    """The CSR operand of ``factors`` (``from_w``, ``uni``, ``sil_from``,
+    ``sil_idx``, padded ``pred``/``val`` rows): every finite ``val`` slot
+    as an arc, rows by destination, sources ascending within a row, on the
+    device and in the dtype of ``factors.from_w``."""
+    pred = torch.as_tensor(factors.pred).cpu().numpy()
+    val = torch.as_tensor(factors.val).cpu().numpy()
+    dst, k = np.nonzero(np.isfinite(val))
+    src = pred[dst, k]
+    order = np.lexsort((src, dst))
+    dst, src, arc_val = dst[order], src[order], val[dst[order], k[order]]
+    v = pred.shape[0]
+    ptr = np.zeros(v + 1, np.int64)
+    np.cumsum(np.bincount(dst, minlength=v), out=ptr[1:])
+    if ptr[-1] >= 2**31:
+        raise ValueError(f"{ptr[-1]} arcs overflow the CSR's int32 offsets")
+    dev, dtype = factors.from_w.device, factors.from_w.dtype
+    i32 = lambda x: torch.as_tensor(x.astype(np.int32), device=dev)  # noqa: E731
+    return BackoffHop(factors.from_w, factors.uni, factors.sil_from, int(factors.sil_idx),
+                      i32(ptr), i32(src), torch.as_tensor(arc_val, dtype=dtype, device=dev),
+                      i32(dst))
+
+
 def _is_factors(hop) -> bool:
     return hop is not None and hasattr(hop, "from_w")
 
 
 def hop_kind(hop) -> str:
     """``"none"``, ``"dense"``, ``"rank1"`` (:class:`Rank1Hop`, or factors
-    without a finite sparse edge) or ``"backoff"`` (factors with sparse
-    seen-bigram edges)."""
+    without a finite sparse edge) or ``"backoff"`` (:class:`BackoffHop`,
+    or padded factors with sparse seen-bigram edges)."""
     if hop is None:
         return "none"
+    if isinstance(hop, BackoffHop):
+        return "backoff"
     if not _is_factors(hop):
         return "dense"
     if not hasattr(hop, "val"):
@@ -93,12 +145,28 @@ def hop_entry(exit_v: torch.Tensor, hop) -> Tuple[torch.Tensor, torch.Tensor]:
     dense first-index rule: the rank-1 family's achiever is the lowest
     index, the sparse family's the lowest achieving predecessor (rows are
     sorted by source id), and the source is the smaller of the achieving
-    families' sources; the silence word rides ``sil_from``."""
+    families' sources; the silence word rides ``sil_from``.
+
+    A :class:`BackoffHop` gives the padded factors' entries everywhere and
+    their sources wherever the entry is finite (the only places a source
+    is read: a hop is taken only when strictly better than the within-word
+    candidate). Where a row's best arc is ``-inf`` its source is the row's
+    lowest (as in the kernels), and a row without arcs has none
+    (``V + 1``)."""
     if _is_factors(hop):
         big = hop.from_w.shape[0] + 1
         m1, a1 = torch.max(exit_v + hop.from_w, dim=0)
         r1 = m1 + hop.uni
-        if not hasattr(hop, "pred"):  # Rank1Hop: max(r1, -inf) is r1
+        if isinstance(hop, BackoffHop):
+            src, dst = hop.arc_src.long(), hop.arc_dst.long()
+            cand = exit_v[src] + hop.arc_val  # (nnz,)
+            sp = torch.full_like(r1, -math.inf).scatter_reduce(0, dst, cand, "amax")
+            fill = torch.full(r1.shape, big, dtype=torch.long, device=r1.device)
+            sp_src = fill.scatter_reduce(0, dst, torch.where(cand == sp[dst], src, big), "amin")
+            entry = torch.maximum(r1, sp)
+            esrc = torch.minimum(torch.where(r1 >= entry, a1, fill),
+                                 torch.where(sp >= entry, sp_src, fill)).to(torch.int32)
+        elif not hasattr(hop, "pred"):  # Rank1Hop: max(r1, -inf) is r1
             entry, esrc = r1, a1.to(torch.int32).expand(r1.shape[0]).clone()
         else:
             cand = exit_v[hop.pred.long()] + hop.val  # (V, K)
@@ -147,14 +215,13 @@ def factored_backtrace_plain(grids: torch.Tensor, inner_a: torch.Tensor, exit_id
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact-replay backtrace over ``grids (T, V, S)`` -> ``(path (T,) int32
     in v*S+s ids, score)``: the JAX package's ``factored_backtrace``
-    extended with the rank-1 rules of its ``_bwd_kernel``. Per step: the
-    first s maximizing ``grid[t-1][w, s] + inner_a[w, s, j]``; at j = 0 the
-    first hop source, taken only when strictly better; masked frames point
-    to themselves; termination is the first maximum over flat ids."""
+    extended with the rank-1 rules of its ``_bwd_kernel`` and the backoff
+    rules of ``models/decoder.py:_hop_entry`` (:func:`hop_entry`). Per
+    step: the first s maximizing ``grid[t-1][w, s] + inner_a[w, s, j]``;
+    at j = 0 the first hop source, taken only when strictly better; masked
+    frames point to themselves; termination is the first maximum over flat
+    ids."""
     kind = hop_kind(hop)
-    if kind == "backoff":
-        raise ValueError("the replay backtrace takes a dense hop, rank-1 factors or "
-                         "no hop; factors with sparse edges decode with the scan")
     t_len, v_words, s_max = grids.shape
     exit_l = exit_idx.long()
     exit_host = exit_l.tolist()
@@ -176,6 +243,8 @@ def factored_backtrace_plain(grids: torch.Tensor, inner_a: torch.Tensor, exit_id
             exit_vals = vprev[rows, exit_l]
             if kind == "dense":
                 hmax, src = torch.max(exit_vals + hop[:, w], dim=0)
+            elif kind == "backoff":
+                hmax, src = (x[w] for x in hop_entry(exit_vals, hop))
             elif w == sil:
                 hmax, src = torch.max(exit_vals + hop.sil_from, dim=0)
             else:
@@ -196,13 +265,12 @@ def factored_lattice_scan(log_b_grid: torch.Tensor, inner_a: torch.Tensor, hop,
     """The lattice-recording forward, ``(exit_score (T, V), exit_start (T, V)
     int32, exit_pred (T, V) int32, v_last (V, S))``: the JAX package's
     ``models/decoder.py:factored_lattice_scan`` with its argument order and
-    the same adds in the same order, for every hop kind (:func:`hop_entry`),
-    so also the scan path of factors with sparse edges. Each state carries
-    the frame its word token was entered (``start``) and the word it was
-    entered from (``pred``, -1 at sentence begin), both following the first
-    within-word argmax; state 0 takes ``(t, hop source)`` only where the
-    hop is strictly better. Masked frames are identity steps and repeat
-    the previous frame's records."""
+    the same adds in the same order, for every hop kind (:func:`hop_entry`).
+    Each state carries the frame its word token was entered (``start``) and
+    the word it was entered from (``pred``, -1 at sentence begin), both
+    following the first within-word argmax; state 0 takes ``(t, hop
+    source)`` only where the hop is strictly better. Masked frames are
+    identity steps and repeat the previous frame's records."""
     t_len, v_words, s_max = log_b_grid.shape
     dev = log_b_grid.device
     exit_l = exit_idx.long()[:, None]
@@ -251,9 +319,11 @@ def forward_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
     """Shared memory of one forward block (``csrc/factored_forward.cu:
     smem_bytes``): its grid rows, inner blocks, entries, exit indices, the
     V exit scores of the previous frame and, for a dense hop, its ``wpb``
-    hop columns."""
+    hop columns, for a backoff hop its words' sparse maxima (one 32-bit
+    key a word)."""
     floats = wpb * s + wpb * s * s + wpb + v
-    return 4 * (floats + wpb) + (4 * wpb * v if kind == "dense" else 0)
+    extra = {"dense": 4 * wpb * v, "backoff": 4 * wpb}.get(kind, 0)
+    return 4 * (floats + wpb) + extra
 
 
 def backtrace_smem_bytes(v: int, s: int, kind: str) -> int:
@@ -278,14 +348,24 @@ def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
     (4 T V S bytes) stay within 2 GiB of HBM. The backtrace's one block
     must hold a window (:func:`backtrace_smem_bytes`: with a hop, V up to
     ~57,000 words at S = 8, past the ~16,900 the forward takes on 132
-    SMs). Factors with sparse edges have no kernel."""
-    kind = hop_kind(hop)
-    if kind == "backoff" or min(t_len, v, s, n_sm) < 1:
+    SMs). A backoff hop is taken as a :class:`BackoffHop` (padded factors
+    are the scans' operand); its arcs are read through the read-only data
+    path, not staged, so their number adds no limit past the CSR's int32
+    offsets, and its shared memory is the rank-1 hop's plus a 32-bit key
+    a word in the forward."""
+    if not _kernel_operand(hop) or min(t_len, v, s, n_sm) < 1:
         return False
+    kind = hop_kind(hop)
     wpb = -(-v // n_sm)
     return (wpb * s <= MAX_THREADS and forward_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
             and backtrace_smem_bytes(v, s, kind) + 1024 <= SMEM_LIMIT
             and 4 * t_len * v * s <= GRID_BUDGET)
+
+
+def _kernel_operand(hop) -> bool:
+    """Whether ``hop`` is a kernel operand: none, a dense matrix, a
+    :class:`Rank1Hop` or a :class:`BackoffHop` (not padded factors)."""
+    return not _is_factors(hop) or isinstance(hop, (Rank1Hop, BackoffHop))
 
 
 def backtrace_windows(path, mask, s_max: int, window: int = BACKTRACE_WINDOW) -> list:
@@ -313,18 +393,20 @@ def backtrace_windows(path, mask, s_max: int, window: int = BACKTRACE_WINDOW) ->
 def lattice_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
     """Shared memory of one lattice block (``csrc/factored_lattice.cu:
     smem_bytes``): the forward's (:func:`forward_smem_bytes`) plus each
-    word's hop source and its cells' start and pred rows."""
-    return forward_smem_bytes(v, s, wpb, kind) + 4 * (wpb + 2 * wpb * s)
+    word's hop source and its cells' start and pred rows; a backoff hop's
+    keys carry the sparse argmax too (64 bits a word)."""
+    extra = 4 * wpb if kind == "backoff" else 0
+    return forward_smem_bytes(v, s, wpb, kind) + 4 * (wpb + 2 * wpb * s) + extra
 
 
 def lattice_kernel_ok(v: int, s: int, hop, n_sm: int) -> bool:
     """Kernel F's H100 capacity rule: the forward's threads and shared-memory
     test (:func:`factored_kernel_ok`) with F's own shared memory; no grid
-    budget, since F stores no grids, only its ``(T, V)`` records. Factors
-    with sparse edges have no kernel."""
-    kind = hop_kind(hop)
-    if kind == "backoff" or min(v, s, n_sm) < 1:
+    budget, since F stores no grids, only its ``(T, V)`` records. A backoff
+    hop is taken as a :class:`BackoffHop`, as in the forward."""
+    if not _kernel_operand(hop) or min(v, s, n_sm) < 1:
         return False
+    kind = hop_kind(hop)
     wpb = -(-v // n_sm)
     return wpb * s <= MAX_THREADS and lattice_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
 
@@ -346,21 +428,34 @@ def _check(name, x, shape, dtype, dev):
 
 
 def _hop_args(hop, hop_t, v, dev):
-    """``(kind id, hop_t, from_w, uni, sil_from, sil_idx)`` for a launch;
-    absent operands are ``None`` (null pointers)."""
+    """A launch's hop operands (``_HOP_ARGTYPES``, pointers as the checked
+    tensors, which :func:`_c_args` turns into pointers at the call): the
+    kind id, ``hop_t``, ``from_w``, ``uni``, ``sil_from``, ``sil_idx``,
+    ``arc_ptr``, ``arc_dst``, ``arc_src``, ``arc_val``; absent operands are
+    ``None`` (null pointers)."""
     kind = hop_kind(hop)
-    if kind == "backoff":
-        raise ValueError("the factored kernels take a dense hop, rank-1 factors or no "
-                         "hop; factors with sparse edges decode with the scan")
-    f32 = torch.float32
+    f32, i32 = torch.float32, torch.int32
+    ops = [None] * 8
     if kind == "dense":
         _check("hop", hop, (v, v), f32, dev)
-        hop_t = hop.t().contiguous() if hop_t is None else _check("hop_t", hop_t, (v, v), f32, dev)
-        return 1, hop_t, None, None, None, -1
-    if kind == "rank1":
-        parts = [_check(n, getattr(hop, n), (v,), f32, dev) for n in ("from_w", "uni", "sil_from")]
-        return (2, None, *parts, int(hop.sil_idx))
-    return 0, None, None, None, None, -1
+        ops[0] = hop.t().contiguous() if hop_t is None else _check("hop_t", hop_t, (v, v), f32, dev)
+    elif kind != "none":
+        if not isinstance(hop, (Rank1Hop, BackoffHop)):
+            raise ValueError("the factored kernels take factors with sparse edges as a "
+                             "BackoffHop (ops.factored.backoff_hop), not padded rows")
+        ops[1:4] = [_check(n, getattr(hop, n), (v,), f32, dev)
+                    for n in ("from_w", "uni", "sil_from")]
+        if kind == "backoff":
+            nnz = hop.arc_src.shape[0]
+            ops[4] = _check("arc_ptr", hop.arc_ptr, (v + 1,), i32, dev)
+            ops[5:8] = [_check(n, getattr(hop, n), (nnz,), dt, dev) for n, dt in
+                        (("arc_dst", i32), ("arc_src", i32), ("arc_val", f32))]
+    sil_idx = int(hop.sil_idx) if kind in ("rank1", "backoff") else -1
+    return [_HOP_IDS[kind], *ops[:4], sil_idx, *ops[4:]]
+
+
+def _c_args(args):
+    return [_ptr(x) if x is None or torch.is_tensor(x) else x for x in args]
 
 
 def _ptr(x):
@@ -398,7 +493,7 @@ def factored_forward(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     inner_a = _check("inner_a", inner_a, (v, s, s), f32, dev)
     exit_idx = _check("exit_idx", exit_idx, (v,), torch.int32, dev)
     mask = _mask_arg(mask, (t,), dev)
-    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    hop_args = _hop_args(hop, hop_t, v, dev)
     grids = torch.empty((t, v, s), dtype=f32, device=dev)
     # the exit exchange, (frame tag, fp32 exit) in 8 bytes a slot; the
     # launcher fills it with a tag no frame uses before the kernel runs
@@ -406,9 +501,8 @@ def factored_forward(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     lib = _build.load("factored_forward", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_forward_launch(
-            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
-            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
-            _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exchange.data_ptr(),
+            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), *_c_args(hop_args),
+            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exchange.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_forward", rc)
@@ -442,18 +536,18 @@ def factored_backtrace(grids: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     exit_idx = _check("exit_idx", exit_idx, (v,), torch.int32, dev)
     final_grid = _check("final_grid", final_grid, (v, s), f32, dev)
     mask = _mask_arg(mask, (t,), dev)
-    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    hop_args = _hop_args(hop, hop_t, v, dev)
     path = torch.empty((t,), dtype=torch.int32, device=dev)
     score = torch.empty((), dtype=f32, device=dev)
     # every frame's exit scores, gathered by the pre-pass into rows of V
     # rounded up to 4 (no hop: unused)
-    exits = torch.empty((t, -(-v // 4) * 4), dtype=f32, device=dev) if kind else None
+    exits = torch.empty((t, -(-v // 4) * 4), dtype=f32, device=dev) if hop_args[0] else None
     lib = _build.load("factored_backtrace", _BWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_backtrace_launch(
-            grids.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
-            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, final_grid.data_ptr(),
-            _ptr(mask), t, v, s, _ptr(exits), path.data_ptr(), score.data_ptr(),
+            grids.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), *_c_args(hop_args),
+            final_grid.data_ptr(), _ptr(mask), t, v, s, _ptr(exits), path.data_ptr(),
+            score.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_backtrace", rc)
@@ -491,7 +585,7 @@ def factored_lattice(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     inner_a = _check("inner_a", inner_a, (v, s, s), f32, dev)
     exit_idx = _check("exit_idx", exit_idx, (v,), i32, dev)
     mask = _mask_arg(mask, (t,), dev)
-    kind, hop_t, from_w, uni, sil_from, sil_idx = _hop_args(hop, hop_t, v, dev)
+    hop_args = _hop_args(hop, hop_t, v, dev)
     score = torch.empty((t, v), dtype=f32, device=dev)
     start = torch.empty((t, v), dtype=i32, device=dev)
     pred = torch.empty((t, v), dtype=i32, device=dev)
@@ -501,9 +595,9 @@ def factored_lattice(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     lib = _build.load("factored_lattice", _LAT_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_lattice_launch(
-            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), kind, _ptr(hop_t),
-            _ptr(from_w), _ptr(uni), _ptr(sil_from), sil_idx, log_b_grid.data_ptr(),
-            _ptr(mask), t, v, s, n_sm, score.data_ptr(), start.data_ptr(), pred.data_ptr(),
+            pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), *_c_args(hop_args),
+            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, score.data_ptr(), start.data_ptr(),
+            pred.data_ptr(),
             exchange.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_lattice", rc)

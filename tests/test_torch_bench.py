@@ -170,11 +170,13 @@ def test_decoder_bench_runs(tiny_decoder, tmp_path):
     assert fac["paths_equal_scan"] and fac["value"] > 0 and fac["frames"] == 60
     assert lat["records_equal_scan"] and lat["value"] > 0
     assert dense["paths_bit_identical"] and dense["value"] > 0
-    assert sorted(big5["realizations"]) == ["backoff_scan", "dense_scan", "hyp_lengths", "rank1"]
-    assert sorted(big10["realizations"]) == ["backoff_scan", "hyp_lengths", "rank1"]
+    assert sorted(big5["realizations"]) == ["backoff", "dense_scan", "hyp_lengths", "rank1"]
+    assert sorted(big10["realizations"]) == ["backoff", "hyp_lengths", "rank1"]
     for big in (big5, big10):
         assert not any("error" in r for r in big["realizations"].values())
-        assert big["value"] == big["realizations"]["backoff_scan"]["audio_s_per_s"] > 0
+        assert big["value"] == big["realizations"]["backoff"]["audio_s_per_s"] > 0
+        assert big["realizations"]["backoff"]["paths_equal_scan"]
+        assert big["realizations"]["backoff"]["arcs"] > 0
         assert big["realizations"]["rank1"]["pruned_arcs"] > 0
         assert big["realizations"]["rank1"]["paths_equal_scan"]
 

@@ -8,7 +8,11 @@ words' exits at frame 0 and at every valid frame (the k-th publication into
 buffer ``k & 1``, tagged with its frame), poll all V slots of the other
 buffer until every tag is the last published frame's, then step its words
 with the exits it took (the plain recursion: ``factored_lattice_scan``'s
-within-word argmax and ``hop_entry``). A masked frame publishes nothing and
+within-word argmax and ``hop_entry``; for a backoff hop the blocks compute
+the entry from the polled column as the kernels do: the rank-1 argmax over
+the column, and the block's own range of CSR arcs folded into per-word
+(value, source) keys by a max in a seeded random order, the model of the
+kernels' shared-memory atomics). A masked frame publishes nothing and
 repeats its records. Every load and store of one slot is one atomic step,
 and a seeded scheduler picks which block moves next. The checks: every exit
 a reader takes is the plain forward's exit at the frame it asked for, and
@@ -99,6 +103,35 @@ class _Exchange:
         self.slots[buf][v] = (tag, value, pub)
 
 
+def _backoff_entry(ex, hop, words, rng):
+    """Kernels D's and F's backoff entry of the block's ``words`` from the
+    polled column ``ex``: the rank-1 family's first argmax, the silence
+    word's, and the block's arcs (one CSR range) folded in a random order
+    into each word's key ``(value, -source)`` by a max, as the kernels'
+    atomicMax folds their 64-bit keys; then the larger family, the smaller
+    achieving source."""
+    big = 0x7FFFFFFF
+    m1, a1 = torch.max(ex + hop.from_w, dim=0)
+    m2, a2 = torch.max(ex + hop.sil_from, dim=0)
+    keys = {w: (float("-inf"), -big) for w in words}
+    ptr = hop.arc_ptr.tolist()
+    arcs = list(range(ptr[words[0]], ptr[words[-1] + 1]))
+    for k in rng.sample(arcs, len(arcs)):
+        w, src = int(hop.arc_dst[k]), int(hop.arc_src[k])
+        keys[w] = max(keys[w], (float(ex[src] + hop.arc_val[k]), -src))
+    entry, esrc = torch.empty(len(words)), torch.empty(len(words), dtype=torch.int32)
+    for q, w in enumerate(words):
+        if w == hop.sil_idx:
+            entry[q], esrc[q] = m2, int(a2)
+            continue
+        r1 = m1 + hop.uni[w]
+        sp, sp_src = torch.tensor(keys[w][0], dtype=r1.dtype), -keys[w][1]
+        e = torch.maximum(r1, sp)
+        entry[q] = e
+        esrc[q] = min(int(a1) if r1 >= e else big, sp_src if sp >= e else big)
+    return entry, esrc
+
+
 def _block(b, words, ex_slots, world, mask, taken, out, rule):
     """One block of kernel D or F, as a generator: each ``yield`` ends one
     atomic load or store of a slot. ``out`` collects its rows and records."""
@@ -140,8 +173,11 @@ def _block(b, words, ex_slots, world, mask, taken, out, rule):
         taken.append((b, t, last_pub, ex.clone()))
         within, wsrc = torch.max(g[:, :, None] + inner_a[words], dim=1)
         nst, npr = torch.gather(st, 1, wsrc), torch.gather(pr, 1, wsrc)
-        entry, esrc = F.hop_entry(ex, hop)
-        entry, esrc = entry[words], esrc[words]
+        if F.hop_kind(hop) == "backoff":
+            entry, esrc = _backoff_entry(ex, hop, words, rng)
+        else:
+            entry, esrc = F.hop_entry(ex, hop)
+            entry, esrc = entry[words], esrc[words]
         wins = entry > within[:, 0]
         within[:, 0] = torch.maximum(within[:, 0], entry)
         nst[:, 0] = torch.where(wins, torch.full_like(nst[:, 0], t), nst[:, 0])
@@ -192,7 +228,7 @@ MASKS = {
 }
 
 
-@pytest.mark.parametrize("hop_mode", ["dense", "rank1"])
+@pytest.mark.parametrize("hop_mode", ["dense", "rank1", "backoff"])
 @pytest.mark.parametrize("mask_name", sorted(MASKS))
 @pytest.mark.parametrize("wpb", [1, 4])
 def test_exchange_model_bitwise(hop_mode, mask_name, wpb):

@@ -119,10 +119,13 @@ def test_plain_forward_backtrace_bitwise_vs_jax_scan(hop_mode, loop, with_lm, wi
 
 
 def test_backoff_factors_scan_bitwise_vs_jax():
-    """Factors with sparse edges have no kernel: the scan decodes them, in
-    both packages, with the same hop-entry argmax rules."""
+    """Factors with sparse edges: the scan decodes them, in both packages,
+    with the same hop-entry argmax rules, and the kernels' plain D and E
+    take them as a CSR of their finite arcs (``BackoffHop``) with the same
+    path and score."""
     jg, tg, rng = _graphs(8, "backoff", seed=4)
     assert F.hop_kind(tg.hop) == "backoff" and not tg.hop_rank1_only
+    assert isinstance(tg._kernel_hop, F.BackoffHop) and F.hop_kind(tg._kernel_hop) == "backoff"
     obs = rng.normal(scale=8.0, size=(35, DIM)).astype(np.float32)
     log_b, pi_grid, final_grid = _grid_inputs(jg, obs)
     mask = np.arange(35) < 30
@@ -140,9 +143,17 @@ def test_backoff_factors_scan_bitwise_vs_jax():
         e, s = F.hop_entry(_t(exit_v), tg.hop)
         np.testing.assert_array_equal(e.numpy(), np.asarray(j_e))
         np.testing.assert_array_equal(s.numpy(), np.asarray(j_s))
-    with pytest.raises(ValueError, match="sparse edges"):
-        F.factored_backtrace(torch.zeros((3,) + tg.grid_shape), tg.inner_a, tg.exit_idx, tg.hop,
-                             _t(final_grid))
+        e, s = F.hop_entry(_t(exit_v), tg._kernel_hop)  # the CSR: every entry is finite
+        assert np.isfinite(e.numpy()).all()
+        np.testing.assert_array_equal(e.numpy(), np.asarray(j_e))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(j_s))
+    grids = F.factored_forward(_t(pi_grid), tg.inner_a, tg.exit_idx, tg._kernel_hop, _t(log_b),
+                               _t(mask))
+    path, score = F.factored_backtrace(grids, tg.inner_a, tg.exit_idx, tg._kernel_hop,
+                                       _t(final_grid), _t(mask))
+    np.testing.assert_array_equal(path.numpy(), np.asarray(j_path))
+    assert score.numpy().view(np.int32) == np.asarray(j_score).view(np.int32)
+    assert F.factored_forward.launches == 0 and F.factored_backtrace.launches == 0
 
 
 @pytest.mark.parametrize("hop_mode,loop", [("dense", True), ("rank1", True), ("dense", False)])
@@ -248,13 +259,14 @@ def test_graph_decode_and_batch_match_jax():
 
 
 def test_kernel_dispatch_and_capacity():
-    """The graph's kernels are picked by hop kind alone (``has_kernel``):
-    a dense hop, edge-free factors or no hop, never sparse edges. The H100
-    rule takes the serving graph (V = 1001, S = 8) and the rank-1 factors
-    far past it (up to one thread per cell of a block's ceil(V / SMs)
-    words)."""
+    """Every hop kind has kernels (``has_kernel``): a dense hop, edge-free
+    factors, factors with sparse edges (as a ``BackoffHop``) or no hop. The
+    H100 rule takes the serving graph (V = 1001, S = 8) and the rank-1 and
+    backoff factors far past it (up to one thread per cell of a block's
+    ceil(V / SMs) words); padded factors are the scans' operand, not the
+    kernels'."""
     for hop_mode, loop, has in (("dense", True, True), ("rank1", True, True),
-                                ("dense", False, True), ("backoff", True, False)):
+                                ("dense", False, True), ("backoff", True, True)):
         _, tg, _ = _graphs(6, hop_mode, loop, seed=1)
         assert tg.has_kernel == has
     assert F.factored_kernel_ok(511, 1001, 8, torch.zeros(1001, 1001), 132)
@@ -265,16 +277,17 @@ def test_kernel_dispatch_and_capacity():
     assert not F.factored_kernel_ok(511, 20000, 8, None, 132)  # 152 words x 8 cells > 1024 threads
     assert not F.factored_kernel_ok(200_000, 16000, 8, None, 132)  # grids past 2 GiB
     _, tb, _ = _graphs(6, "backoff", seed=1)
-    assert not F.factored_kernel_ok(100, 7, 4, tb.hop, 132)
+    assert not F.factored_kernel_ok(100, 7, 4, tb.hop, 132)  # padded rows: the scans' operand
+    assert F.factored_kernel_ok(100, 7, 4, tb._kernel_hop, 132)
     assert F.factored_forward.launches == 0 and F.factored_backtrace.launches == 0
 
 
 def test_decode_grid_routes_by_hop_kind(monkeypatch):
-    """The 1-best decode takes the forward and backtrace wrappers for dense
-    and rank-1 hops and the loop-free graph (their plain versions on the
-    CPU, counting no launch; results as before, the scan's bitwise) and the
-    scan for factors with sparse edges. A CUDA graph past D's capacity (a
-    1-SM card) or in float64 raises instead of dropping to the scan."""
+    """The 1-best decode takes the forward and backtrace wrappers for every
+    hop kind: dense, rank-1 and backoff hops and the loop-free graph (their
+    plain versions on the CPU, counting no launch; results the JAX scan's
+    bitwise), never the scan. A CUDA graph past D's capacity (a 1-SM card)
+    or in float64 raises instead of dropping to the scan."""
     calls = []
     for name in ("factored_forward", "factored_backtrace", "factored_trellis_scan"):
         real = getattr(tdec, name)
@@ -300,7 +313,7 @@ def test_decode_grid_routes_by_hop_kind(monkeypatch):
         np.testing.assert_array_equal(score.numpy(), np.asarray(j_score))
     kernels = ["factored_forward", "factored_backtrace"]
     assert routes == {("dense", True): kernels, ("rank1", True): kernels,
-                      ("dense", False): kernels, ("backoff", True): ["factored_trellis_scan"]}
+                      ("dense", False): kernels, ("backoff", True): kernels}
     monkeypatch.undo()
 
     # a 300-word dense graph: within D's capacity on 132 SMs, past it on 1;

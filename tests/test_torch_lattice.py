@@ -134,13 +134,13 @@ def test_records_bitwise_vs_jax_scan(hop_mode, masked):
     _assert_records_equal(scan, ref)
     np.testing.assert_array_equal(scan[3].numpy(), np.asarray(ref[3]))  # v_last
     assert np.isinf(scan[0].numpy()).any() and np.isfinite(scan[0].numpy()).any()
-    if hop_mode != "backoff":
-        plain = F.factored_lattice(_t(pi_grid), tg.inner_a, tg.exit_idx, tg._kernel_hop,
-                                   _t(log_b), m)
-        _assert_records_equal(plain, ref)
-        assert F.factored_lattice.launches == 0
-    # the graph's dispatch on the CPU takes the scan (on the port's own
-    # emissions, which differ from the JAX package's by fp32 reassociation)
+    plain = F.factored_lattice(_t(pi_grid), tg.inner_a, tg.exit_idx, tg._kernel_hop,
+                               _t(log_b), m)
+    _assert_records_equal(plain, ref)
+    assert F.factored_lattice.launches == 0
+    # the graph's dispatch on the CPU takes the plain version, which equals
+    # the scan on the graph's own hop (on the port's own emissions, which
+    # differ from the JAX package's by fp32 reassociation)
     t_log_b, t_pi, _ = tg._grid_inputs(_t(obs))
     _assert_records_equal(tg.lattice_records_arrays(_t(obs), m),
                           tdec.factored_lattice_scan(t_log_b, tg.inner_a, tg.hop, t_pi,
@@ -321,11 +321,10 @@ def test_decode_lattice_and_batch_match_jax():
 
 def test_lattice_kernel_dispatch_and_capacity(monkeypatch):
     """F's capacity rule: the forward's threads and shared-memory test with
-    F's own rows and no grid budget; never sparse edges. The graph picks
-    the records' path by hop kind alone: factors with sparse edges take
-    the scan, every other graph the wrapper (the plain version on the CPU,
-    counting no launch), which raises for a CUDA graph past F's capacity
-    instead of dropping to the scan."""
+    F's own rows and no grid budget; sparse edges as a ``BackoffHop``, not
+    as padded rows. Every graph takes the wrapper, whatever its hop kind
+    (the plain version on the CPU, counting no launch), which raises for a
+    CUDA graph past F's capacity instead of dropping to the scan."""
     calls = []
 
     def spy(*args, **kw):
@@ -336,7 +335,7 @@ def test_lattice_kernel_dispatch_and_capacity(monkeypatch):
     for hop_mode in ("dense", "rank1", "backoff"):
         _, g, rng, _ = _world(6, hop_mode, seed=1)
         g.lattice_records_arrays(_t(rng.normal(size=(9, DIM)).astype(np.float32)), None)
-    assert calls == ["dense", "rank1"]
+    assert calls == ["dense", "rank1", "backoff"]
     monkeypatch.undo()
     # a 300-word dense graph: within F's capacity on 132 SMs, past it on 1
     # (300 hop columns of 1.2 KB in one block's shared memory); the CUDA
@@ -370,6 +369,7 @@ def test_lattice_kernel_dispatch_and_capacity(monkeypatch):
             == F.forward_smem_bytes(1001, 8, wpb, "dense") + 4 * (wpb + 2 * wpb * 8))
     _, tb, _, _ = _world(6, "backoff", seed=1)
     assert F.hop_kind(tb.hop) == "backoff" and not F.lattice_kernel_ok(7, 4, tb.hop, 132)
+    assert F.lattice_kernel_ok(7, 4, tb._kernel_hop, 132)
     with pytest.raises(ValueError, match="cpu or cuda"):
         F.factored_lattice(torch.zeros(2, 2), torch.zeros(2, 2, 2),
                            torch.zeros(2, dtype=torch.int32), None,

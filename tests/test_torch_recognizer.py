@@ -44,6 +44,7 @@ from lnasr_tpu_torch.models.recognizer import (
     Recognizer,
     segment_speech,
 )
+from lnasr_tpu_torch.ops.factored import BackoffHop
 
 SR = 16000
 WORD_F0 = {"low": 220.0, "mid": 560.0, "high": 1400.0}
@@ -312,6 +313,29 @@ def test_nbest_matches_jax(models, bucket):
     got = t.decode_segment_nbest(audio, n=3, rescore_lm=LanguageModel(tri), pool=6)
     _assert_nbest_close(got, j.decode_segment_nbest(audio, n=3, rescore_lm=j_tri, pool=6))
     assert got == t.decode_segment_nbest(audio, n=3, rescore_lm=tri, pool=6)
+
+
+def test_recognizer_backoff_matches_jax(models):
+    """A small ``Recognizer`` with ``hop_mode="backoff"``: its graph takes
+    the CSR hop (kernels on a card, their plain versions here) and its
+    words and N-best lists equal the JAX recognizer's, which runs the
+    jitted scans."""
+    j, t = _pair(models, hop_mode="backoff", bucket_frames=64)
+    assert isinstance(t.graph._kernel_hop, BackoffHop) and t.graph.has_kernel
+    assert len(t.graph._kernel_hop.arc_src) > 0
+    rng = np.random.default_rng(5)
+    audio = _utterance(["low", "mid", "high", "mid", "low"], rng)
+    j_words, j_score = j.decode_segment(audio)
+    words, score = t.decode_segment(audio)
+    assert words == j_words and len(words) >= 4
+    assert score == pytest.approx(j_score, rel=1e-4)
+    j_hyps = j.decode_segment_nbest(audio, n=4)
+    hyps = t.decode_segment_nbest(audio, n=4)
+    assert [h.words for h in hyps] == [h.words for h in j_hyps] and len(hyps) >= 2
+    for a, b in zip(hyps, j_hyps):
+        assert a.score == pytest.approx(b.score, rel=1e-4)
+    assert hyps[0].words == words
+    assert set(WORD_F0) >= {w for h in hyps for w in h.words}
 
 
 def test_recognize_nbest_matches_jax(models):
