@@ -1063,17 +1063,22 @@ def counted_scans(tdec, F):
             setattr(m, n, fn)
 
 
-def backoff_graph(torch, F, dev, rng, v, s, k, sil, ties, dead=False):
+def backoff_graph(torch, F, dev, rng, v, s, k, sil, ties, dead=False, scale=2.0, heavy=None):
     """A random factored graph with a backoff hop, as :func:`check_backoff`
     reads one: rows of 0 to ``k`` arcs (sources ascending), some scored at
     their own backoff estimate ``from_w[src] + uni[dst]`` (ties between the
     rank-1 and the sparse families), with ``ties`` integer scores (ties
-    between two arcs' ``exit + val``), a silence word or none; ``dead``:
-    every start is ``-inf``. Returns ``(graph, pi_grid, final_grid,
-    draw)``, ``draw(*shape)`` the scores' distribution."""
+    between two arcs' ``exit + val``; a small ``scale`` makes many words
+    tie, so that the achieving sources lie in different blocks), a silence
+    word or none; ``dead``: every start is ``-inf``; ``heavy``: ``{word:
+    arcs}`` rows longer than the rest. Returns ``(graph, pi_grid,
+    final_grid, draw)``, ``draw(*shape)`` the scores' distribution."""
     def draw(*shape):
-        x = rng.normal(scale=2.0, size=shape)
+        x = rng.normal(scale=scale, size=shape)
         return np.round(x) if ties else x
+
+    heavy = heavy or {}
+    k_rest, k = k, max([k, *heavy.values()])
 
     from_w, uni = draw(v), draw(v)
     sil_idx = v - 1 if sil else -1
@@ -1084,7 +1089,7 @@ def backoff_graph(torch, F, dev, rng, v, s, k, sil, ties, dead=False):
     pred = np.zeros((v, k), np.int32)
     val = np.full((v, k), -np.inf)
     for w in range(v):
-        n = int(rng.integers(0, k + 1))
+        n = heavy.get(w, int(rng.integers(0, k_rest + 1)))
         src = np.sort(rng.choice(v, size=n, replace=False))
         x = from_w[src] + uni[w] + np.abs(draw(n))
         at = rng.random(n) < 0.4
@@ -1111,16 +1116,60 @@ def backoff_graph(torch, F, dev, rng, v, s, k, sil, ties, dead=False):
     return g, f32(pi), f32(final), draw
 
 
+def map_line(F, hop, s, n_sm, what, bound=False):
+    """Print the word-to-block map that kernels D and F take for a backoff
+    hop (``ops.factored.block_layout``): its blocks and threads, the
+    largest block's words, arcs and distinct sources, and the exchange
+    slots a block polls a frame, against the V of a full poll; with
+    ``bound``, require that the largest block holds at most the largest row
+    plus an even share of the arcs. Returns the layout."""
+    lay = F.block_layout(hop, s, n_sm)
+    ptr = np.asarray(hop.cache["ptr"], np.int64)
+    blk = np.asarray(lay.blk_ptr)
+    words, arcs, srcs = np.diff(blk), np.diff(ptr[blk]), np.diff(np.asarray(lay.src_ptr))
+    big = int(np.argmax(arcs))
+    v, nnz, row = len(ptr) - 1, int(ptr[-1]), int(np.diff(ptr).max())
+    share = row + -(-nnz // lay.n_blocks)
+    threads = max(256, -(-lay.max_words * s // 32) * 32)
+    print(f"word-to-block map ({what}; V={v}, S={s}, {nnz} arcs, largest row {row}): "
+          f"{lay.n_blocks} blocks of {threads} threads; largest block {lay.max_words} words; the "
+          f"block with the most arcs {int(arcs[big])} arcs (words {int(blk[big])}-"
+          f"{int(blk[big + 1]) - 1}, {int(words[big])} words, {int(srcs[big])} distinct sources; "
+          f"largest row + even share {share}); most sources a block {lay.max_src}; slots a block "
+          f"polls a frame: {4 * lay.n_blocks} partial words (D and F) + <= {lay.max_src} "
+          f"sources (a full poll: {v} exits)")
+    require(not bound or lay.max_arcs <= share,
+            f"{what}: the map's largest block holds {lay.max_arcs} arcs, past {share}")
+    return lay
+
+
 def check_backoff(torch, F, tdec, graph, log_b, pi_grid, final_grid, mask, what, scan=True):
     """Kernels D, E and F with a backoff hop against their plain versions on
     the card, bit for bit in every output (``-inf`` included), each kernel
     launched twice (the same bits both times); with ``scan`` also the path
     and score of the port's ``factored_trellis_scan`` on the graph's own
-    hop (the padded factors for a built graph)."""
+    hop (the padded factors for a built graph). Then D, E and F again with
+    the graph's rank-1 family alone (a ``Rank1Hop``: the partials without
+    arcs, the even word map) against their plain versions."""
     hop, ia, ei = graph._kernel_hop, graph.inner_a, graph.exit_idx
     require(F.hop_kind(hop) == "backoff", f"{what}: not a backoff hop")
     bits = lambda x: x.view(torch.int32) if x.is_floating_point() else x  # noqa: E731
     same = lambda a, b: all(torch.equal(bits(x), bits(y)) for x, y in zip(a, b))  # noqa: E731
+    r1 = F.Rank1Hop(hop.from_w, hop.uni, hop.sil_from, hop.sil_idx)
+    d = [F.factored_forward(pi_grid, ia, ei, r1, log_b, mask) for _ in range(2)]
+    d_p = F.factored_forward_plain(pi_grid, ia, ei, r1, log_b, mask)
+    e = F.factored_backtrace(d[0], ia, ei, r1, final_grid, mask)
+    e_p = F.factored_backtrace_plain(d_p, ia, ei, r1, final_grid, mask)
+    f = [F.factored_lattice(pi_grid, ia, ei, r1, log_b, mask) for _ in range(2)]
+    f_p = F.factored_lattice_plain(pi_grid, ia, ei, r1, log_b, mask)
+    torch.cuda.synchronize()
+    require(same(d, [d_p, d_p]), f"kernel D (rank-1) differs from the plain forward ({what}): "
+                                 f"{int((bits(d[0]) != bits(d_p)).sum())} grid entries")
+    require(same(e, e_p), f"kernel E (rank-1) differs from the plain replay ({what})")
+    require(same(f[0], f_p) and same(f[1], f_p),
+            f"kernel F (rank-1) differs from the plain records ({what}): "
+            + ", ".join(f"{int((bits(a) != bits(b)).sum())} {n}" for a, b, n in
+                        zip(f[0], f_p, ("scores", "starts", "preds"))))
     d = [F.factored_forward(pi_grid, ia, ei, hop, log_b, mask) for _ in range(2)]
     d_p = F.factored_forward_plain(pi_grid, ia, ei, hop, log_b, mask)
     e = [F.factored_backtrace(d[0], ia, ei, hop, final_grid, mask) for _ in range(2)]
@@ -1150,7 +1199,36 @@ def check_backoff(torch, F, tdec, graph, log_b, pi_grid, final_grid, mask, what,
           f"{len(hop.arc_src)} arcs, silence {sil}): grids, path, score and records bitwise, "
           f"two launches each the same bits{', path and score the scan decoder' if scan else ''}"
           f" ({int(torch.isfinite(d_p).sum())} finite grid entries; E's walk: {entries} steps "
-          f"at a word's first state, {hops} word changes)")
+          f"at a word's first state, {hops} word changes); with the rank-1 family alone D, E, F "
+          f"bitwise too")
+
+
+def cross_block_ties(torch, F, graph, log_b, pi_grid, n_sm):
+    """Count, over the plain forward's frames of ``graph`` (a backoff hop),
+    the frames whose rank-1 maximum is reached by words of two or more
+    blocks of the kernels' map, and the words whose entry ties a rank-1
+    source and an arc source in different blocks; require both, so that
+    the bitwise checks on this graph covered the tie rules across blocks."""
+    hop, s = graph._kernel_hop, log_b.shape[2]
+    blk = np.asarray(F.block_layout(hop, s, n_sm).blk_ptr)
+    grids = F.factored_forward_plain(pi_grid, graph.inner_a, graph.exit_idx, hop, log_b)
+    exits = grids[:, torch.arange(grids.shape[1], device=grids.device),
+                  graph.exit_idx.long()].cpu().numpy()
+    from_w, uni = hop.from_w.cpu().numpy(), hop.uni.cpu().numpy()
+    src, dst, val = (x.cpu().numpy() for x in (hop.arc_src, hop.arc_dst, hop.arc_val))
+    block_of = np.searchsorted(blk, np.arange(len(from_w)), side="right") - 1
+    r1_frames = mixed = 0
+    for ex in exits[:-1]:
+        c = ex + from_w
+        top = np.flatnonzero(c == c.max())
+        r1_frames += len(set(block_of[top])) > 1
+        a1 = top[0]
+        cand = ex[src] + val
+        r1 = c.max() + uni[dst]
+        mixed += int(((cand == r1) & np.isfinite(cand) & (block_of[src] != block_of[a1])).sum())
+    print(f"  cross-block ties: {r1_frames} of {len(exits) - 1} frames with the rank-1 maximum "
+          f"in two or more blocks; {mixed} arcs tying the rank-1 entry from another block")
+    require(r1_frames > 0 and mixed > 0, "the tie graph planted no tie across blocks")
 
 
 def backoff_bench_graph(torch, dev, vocab, n_frames):
@@ -1205,6 +1283,8 @@ def backoff_phase(torch, entry, wrappers, card, launches):
           f"{len(hop.arc_src)} finite arcs in CSR (padded rows {tuple(g.hop.val.shape)}), "
           f"segment T={t_len} ({int(mask.sum())} valid), grids {4 * t_len * v * s / 1e6:.1f} MB")
 
+    maps = {"V=5000 segment": map_line(F, hop, s, n_sm, "the V=5000 serving graph")}
+
     # -- D, E, F bitwise against their plain versions ----------------------
     inputs = {"V=5000 segment": (g, log_b, pi_g, fin_g, mask)}
     check_backoff(torch, F, tdec, g, log_b, pi_g, fin_g, mask, "the V=5000 segment, bucket mask")
@@ -1220,6 +1300,8 @@ def backoff_phase(torch, entry, wrappers, card, launches):
         gb, frames = backoff_bench_graph(torch, dev, vocab, BACKOFF_BENCH_FRAMES)
         require(F.factored_kernel_ok(BACKOFF_BENCH_FRAMES, *gb.grid_shape, gb._kernel_hop, n_sm),
                 f"bench/decoder's {vocab}-word backoff graph is past the kernels' capacity")
+        maps[f"bench V={vocab}"] = map_line(F, gb._kernel_hop, gb.grid_shape[1], n_sm,
+                                            f"bench/decoder's {vocab}-word graph", bound=True)
         lb, pi_b, fin_b = gb._grid_inputs(frames)
         inputs[f"bench V={vocab}"] = (gb, lb, pi_b, fin_b, None)
         check_backoff(torch, F, tdec, gb, lb, pi_b, fin_b, None,
@@ -1230,12 +1312,31 @@ def backoff_phase(torch, entry, wrappers, card, launches):
                       f"large_vocab_{vocab // 1000}k, frames 1, T/2 and the last masked",
                       scan=False)
     rng = np.random.default_rng(19)
-    for v_t, s_t, k_t, sil, ties, t_t, dead in (
-            (12, 3, 4, True, True, 40, False), (12, 3, 4, False, True, 40, False),
-            (40, 4, 8, True, False, 64, False), (300, 3, 6, True, True, 50, False),
-            (12, 3, 4, True, False, 30, True), (9, 3, 3, True, False, 1, False),
-            (9, 3, 3, False, True, 2, False)):
-        gt, pi_t, fin_t, draw = backoff_graph(torch, F, dev, rng, v_t, s_t, k_t, sil, ties, dead)
+    # the last two: rows far past an even block share (the map's floor: a
+    # block of their own), at the low ids and in the middle; and integer
+    # scores in a narrow range, so that the rank-1 maxima and the arcs tie
+    # across many blocks
+    heavy = {0: 256, 1: 200, 2: 180, 1500: 256}
+    for v_t, s_t, k_t, sil, ties, t_t, dead, scale, rows in (
+            (12, 3, 4, True, True, 40, False, 2.0, None),
+            (12, 3, 4, False, True, 40, False, 2.0, None),
+            (40, 4, 8, True, False, 64, False, 2.0, None),
+            (300, 3, 6, True, True, 50, False, 2.0, None),
+            (12, 3, 4, True, False, 30, True, 2.0, None),
+            (9, 3, 3, True, False, 1, False, 2.0, None),
+            (9, 3, 3, False, True, 2, False, 2.0, None),
+            (3000, 3, 4, True, False, 60, False, 2.0, heavy),
+            (2000, 3, 6, True, True, 60, False, 0.4, None)):
+        gt, pi_t, fin_t, draw = backoff_graph(torch, F, dev, rng, v_t, s_t, k_t, sil, ties, dead,
+                                              scale=scale, heavy=rows)
+        if rows or v_t > 1000:
+            what = "rows of 180-256 arcs" if rows else "narrow integer scores"
+            lay = map_line(F, gt._kernel_hop, s_t, n_sm, what, bound=True)
+            if rows:
+                blk = np.asarray(lay.blk_ptr)
+                alone = [int(np.diff(blk)[np.searchsorted(blk, w, side="right") - 1])
+                         for w in rows]
+                print(f"  the heavy rows' blocks hold {alone} words")
         lb = torch.as_tensor(np.asarray(draw(t_t, v_t, s_t), np.float32), device=dev)
         m = torch.arange(t_t, device=dev) < t_t - 1
         if t_t > 4:
@@ -1243,7 +1344,11 @@ def backoff_phase(torch, entry, wrappers, card, launches):
         for mm, what in ((None, "no mask"), (m, "masks, the last frame masked")):
             check_backoff(torch, F, tdec, gt, lb, pi_t, fin_t, mm,
                           f"random, at most {k_t} arcs a row, {'integer ties, ' if ties else ''}"
-                          f"{'all -inf starts, ' if dead else ''}{what}")
+                          f"{'all -inf starts, ' if dead else ''}"
+                          f"{f'heavy rows {rows}, ' if rows else ''}"
+                          f"{f'scores at scale {scale}, ' if scale != 2.0 else ''}{what}")
+        if v_t > 1000 and not rows:
+            cross_block_ties(torch, F, gt, lb, pi_t, n_sm)
 
     # -- the main paths, through the recognizer ------------------------------
     torch.cuda.synchronize()
@@ -1323,6 +1428,9 @@ def backoff_phase(torch, entry, wrappers, card, launches):
         # what the arcs cost D: the same frames with the rank-1 family alone
         r1 = F.Rank1Hop(h.from_w, h.uni, h.sil_from, h.sil_idx)
         row["d_rank1_ms"] = cuda_ms(lambda: F.factored_forward(pi_i, ia, ei, r1, lb, m), reps=20)
+        row["f_rank1_ms"] = cuda_ms(lambda: F.factored_lattice(pi_i, ia, ei, r1, lb, m), reps=20)
+        row["map"] = {k: getattr(maps[name], k) for k in ("n_blocks", "max_words", "max_arcs",
+                                                           "max_src")}
         # the work these inputs need: valid steps, the replay's steps at a
         # word's first state; each input read once, each output written once
         steps = t_i - 1 if m is None else int(m[1:].sum())
@@ -1358,7 +1466,8 @@ def backoff_phase(torch, entry, wrappers, card, launches):
               f"{row['d_bound'][1]}; {row['d_rank1_ms']:.4f} ms with the rank-1 family alone, no "
               f"arcs), E {row['e_ms']:.4f} ms (bound {row['e_bound'][0]:.5f} ms by "
               f"{row['e_bound'][1]}; {entries} steps at a word's first state), F "
-              f"{row['f_ms']:.4f} ms (bound {row['f_bound'][0]:.5f} ms by {row['f_bound'][1]}); "
+              f"{row['f_ms']:.4f} ms (bound {row['f_bound'][0]:.5f} ms by {row['f_bound'][1]}; "
+              f"{row['f_rank1_ms']:.4f} ms with the rank-1 family alone); "
               f"the scans they replace on the card: factored_trellis_scan {row['scan_ms']:.4f} ms, "
               f"factored_lattice_scan {row['lattice_scan_ms']:.4f} ms (CUDA events)")
         out[name] = row
@@ -4228,7 +4337,7 @@ def main():
     e_args = (grids, ia, ei, hop, final1000, mask1000)
     d_ms = cuda_ms(lambda: F.factored_forward(*d_args, hop_t=hop_t), reps=30)
     # what bounds D: the same frames with no hop (no exchange at all) and
-    # with a rank-1 hop (the exchange and a V-long block max, no V x V work)
+    # with a rank-1 hop (the blocks' partials exchanged, no V x V work)
     r1 = F.Rank1Hop(*(torch.as_tensor(np.random.default_rng(k).normal(size=vw)
                                       .astype(np.float32), device=dev) for k in range(3)), 0)
     d_none_ms = cuda_ms(lambda: F.factored_forward(pi1000, ia, ei, None, log_b1000, mask1000),
@@ -4274,7 +4383,7 @@ def main():
           f"({alt_counts[0]} steps at a first state, {alt_counts[1]} word changes, "
           f"{len(alt_counts[2])} windows)")
     print(f"timing on {card}: kernel D's frames without the dense hop: no hop (no exchange) "
-          f"{d_none_ms:.4f} ms, rank-1 hop (exchange + block max) {d_rank1_ms:.4f} ms, so the "
+          f"{d_none_ms:.4f} ms, rank-1 hop (the partials' exchange) {d_rank1_ms:.4f} ms, so the "
           f"exchange and the dense reduction take {1e3 * (d_ms - d_none_ms) / steps:.3f} us a "
           f"frame")
     for v, ms in seg_ms.items():
@@ -4468,9 +4577,9 @@ def main():
             "max_abs_err": 0.0, "ms": seg5k[f"{key}_dev_ms"], "wrapper_ms": seg5k[f"{key}_ms"],
             "plain_ms": seg5k[f"{key}_plain_ms"], "bound_ms": seg5k[f"{key}_bound"][0],
             "bound_by": seg5k[f"{key}_bound"][1], "library_ms": None,
-            "scan_ms": seg5k[scan_key],
+            "scan_ms": seg5k[scan_key], "map": seg5k["map"],
             "bench_ms": {n: {"ms": bo[n][f"{key}_ms"], "bound_ms": bo[n][f"{key}_bound"][0],
-                             "scan_ms": bo[n][scan_key]}
+                             "scan_ms": bo[n][scan_key], "map": bo[n]["map"]}
                          for n in bo if n.startswith("bench")}})
     print(json.dumps({"kernels": kernels}))
     print(card_line())

@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Split kernels A (mel frontend), B (small-N Viterbi), G
+"""Split kernels A (mel frontend), B (small-N Viterbi), D (the factored
+forward's rank-1 and backoff kinds), G
 (forward-backward, chunked route), H (the trigram decode's forward), I
 (the WebRTC VAD's GMM), J (the adaptive LTSD's noise recursion) and K
 (the masked Viterbi trellis, warp route) of a checkout into phases on one
 NVIDIA GPU, with ``clock64()`` stamps.
 
-    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,G,H,I,J,K]
+    python3 kernel_phases.py --root DIR [--out FILE] [--sass DIR] [--kernels A,B,D,G,H,I,J,K]
 
 The kernel sources under ``DIR/lnasr_tpu_torch/csrc`` are copied, a
 ``clock64()`` stamp is inserted at each phase boundary (text patches keyed
 by the lines they follow; a source whose anchors are missing is refused),
-and the copy is built with ``nvcc`` under ``_archive/phases/``. The
+and the copy is built with ``nvcc`` under ``_archive/phases/`` (with
+``csrc/`` on the include path, for its local headers). The
 committed sources never carry the stamps. Each block (A) or warp (B)
 records its stamps from its first thread; the script prints the mean
 cycles of each phase over the blocks or warps, the shares, and the event
@@ -35,6 +37,14 @@ time of the stamped and of the unstamped kernel (the stamps' cost):
   pass and the publication of its own, each summed over the frames from
   the block's first thread, then the final argmax (per block), and the
   cycles a valid step of each frame-loop phase;
+- D's rank-1 and backoff kinds at the V = 5000 serving segment (both
+  kinds) and at ``bench/decoder``'s 5k and 10k graphs (backoff): a valid
+  frame's within-word step, the wait for the exchange (the blocks'
+  partials and the block's own arcs' sources), the partials' combine, the
+  arc pass, the entry and the rows, and the closing barrier with the
+  partials' publication, each summed over the frames from the block's
+  first thread, and the cycles a valid step of each; the stamped grids
+  must be the unstamped kernel's and the plain forward's, bit for bit;
 - I on the stream's features (6,292 frames, mode 0): the GMM warp's
   decision (likelihoods, ratio, flag), adaptation (both outcomes) and
   select (the flag's outcome, the next frame's state-only terms) a frame
@@ -184,6 +194,28 @@ K_BACKTRACE = [  # the backtrace shared by both routes
      f"    barrier<BLOCK>();\n    if (tid == 0) STAMP(blockIdx.x * {K_STRIDE} + 9);\n"),
 ]
 
+# kernel D's factored kinds (rank-1 and backoff): a valid frame's phases
+# summed over the frames by every thread in 32 bits, written by the block's
+# first thread (a word's state 0; it also publishes the partials)
+D_PHASES = ["within-word step", "exchange wait", "partials' combine", "arc pass + barrier",
+            "entry + rows", "barrier + publish"]
+D_STRIDE = 8
+D_PATCHES = [
+    ("    bool valid_next = T > 1 && (p.mask == nullptr || p.mask[1]);\n",
+     "    unsigned ph_acc[6] = {0, 0, 0, 0, 0, 0}, ph_t = (unsigned)clock64();\n"),
+    ("        float e = 0.0f, m = -INFINITY;\n", _acc32(5, 8)),
+    ("            // the sparse keys' reset: every read of the last frame's is done\n",
+     _acc32(0, 12)),
+    ("                       bsrc, n_src, (unsigned)last_pub, got);\n"
+     "            __syncthreads();  // also: every read of g is done\n", _acc32(1, 12)),
+    ("            combine_polled(got, p.n_blocks, rk);\n", _acc32(2, 12)),
+    ("            __syncthreads();  // the warps' combines (and the arcs' atomics) are done\n",
+     _acc32(3, 12)),
+    ("        ++n_pub;\n        last_pub = t;\n", _acc32(4, 8)),
+    ("        if (kFactors) publish_partials(wk, part, p.n_blocks, n_pub & 1, t);\n    }\n",
+     "    { const unsigned n_ = (unsigned)clock64(); ph_acc[5] += n_ - ph_t; }\n"
+     + _final(D_STRIDE, 6, "kFactors", 4)),
+]
 I_PHASES = ["decision", "adaptation", "select", "ring wait", "tracker frames"]
 H_PHASES = ["load", "within-word pass", "exchange wait", "hop pass", "publish", "final argmax"]
 # kernel H's sums are 32-bit (a phase's cycles over a launch fit), which
@@ -310,6 +342,11 @@ PATCH_SETS = {
     # the end as running totals from 1 (a stamp of 0 means "not stamped")
     # kernel H: both kernels of the file, the row routes' (smem, global) and
     # the resident route's; a file from before the resident route has the first alone
+    # kernel D: the factored kinds' frame (rank-1 partials, the backoff
+    # kind's own sources and arcs)
+    "factored_forward": [
+        ("per-block rank-1 partials", D_STRIDE, D_PHASES, D_PATCHES),
+    ],
     "trigram_forward": [
         ("row routes and resident route", 7, H_PHASES, H_ROW_PATCHES + H_RESIDENT_PATCHES),
         ("rows owned by history", 7, H_PHASES, H_ROW_PATCHES),
@@ -441,7 +478,7 @@ PATCH_SETS = {
         ] + K_BACKTRACE),
     ],
 }
-KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "G": "forward_backward",
+KERNEL_NAMES = {"A": "mel_frontend", "B": "viterbi", "D": "factored_forward", "G": "forward_backward",
                 "H": "trigram_forward", "I": "webrtc_gmm", "J": "ltsd_noise", "K": "viterbi_trellis"}
 
 
@@ -457,9 +494,9 @@ def stamped_source(src, name):
     raise SystemExit(f"{name}.cu: no phase patch set matches this source")
 
 
-def build(nvcc, src_path, out):
+def build(nvcc, src_path, out, include):
     cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-o", out, src_path]
+           "-Xcompiler", "-fPIC", "-I", include, "-o", out, src_path]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -483,8 +520,8 @@ def main():
     ap.add_argument("--root", required=True)
     ap.add_argument("--out", default="")
     ap.add_argument("--sass", default="")
-    ap.add_argument("--kernels", default="A,B,G,H,I,J,K",
-                    help="the kernels to split: A, B, G, H, I, J, K")
+    ap.add_argument("--kernels", default="A,B,D,G,H,I,J,K",
+                    help="the kernels to split: A, B, D, G, H, I, J, K")
     args = ap.parse_args()
     names = [KERNEL_NAMES[k] for k in args.kernels.split(",")]
     import torch
@@ -515,7 +552,7 @@ def main():
         path = os.path.join(work, f"{name}_stamped.cu")
         with open(path, "w") as f:
             f.write(src)
-        procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"))
+        procs[name] = build(nvcc, path, os.path.join(work, f"{name}_stamped.so"), _build.CSRC)
     _build.build_all()  # the unstamped kernels: the stamps' cost, and the SASS
     from lnasr_tpu_torch.vad import ltsd
 
@@ -526,6 +563,10 @@ def main():
         from lnasr_tpu_torch.ops import trigram as tri
 
         argtypes["trigram_forward"] = tri._FWD_ARGTYPES
+    if "factored_forward" in names:
+        from lnasr_tpu_torch.ops import factored as F
+
+        argtypes["factored_forward"] = F._FWD_ARGTYPES
     stamped, plain = {}, {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
@@ -681,6 +722,39 @@ def main():
                      **res, cycles_per_step={p: c / steps for p, c in res["cycles"].items()
                                              if p not in ("load", "final argmax")},
                      **times("trigram_forward", call), sm_clock_mhz=sm_clock())
+    if "factored_forward" in names:
+        import chip_smoke
+
+        rec, seg = entry.recognizer_serving(5000, device=dev)
+        padded, n, _ = rec._pad_to_bucket(seg)
+        feats, mask = rec.am.mfcc.features_fast(torch.from_numpy(padded).to(dev),
+                                                lengths=torch.tensor([n], device=dev))
+        g = rec.graph
+        h = g._kernel_hop
+        cases = [("V=5000 segment, backoff hop", g, h, *g._grid_inputs(feats)[:2], mask),
+                 ("V=5000 segment, rank-1 hop", g, F.Rank1Hop(h.from_w, h.uni, h.sil_from,
+                                                              h.sil_idx),
+                  *g._grid_inputs(feats)[:2], mask)]
+        for vocab in (5000, 10000):
+            gb, frames = chip_smoke.backoff_bench_graph(torch, dev, vocab, 500)
+            lb, pi = gb._grid_inputs(frames)[:2]
+            cases.append((f"bench V={vocab}, backoff hop", gb, gb._kernel_hop, lb, pi, None))
+        for what, gi, hop, lb, pi, m in cases:
+            d_args = (pi, gi.inner_a, gi.exit_idx, hop, lb, m)
+            call = lambda: F.factored_forward(*d_args)  # noqa: E731
+            res = split("factored_forward", call)
+            got = call()
+            use("factored_forward", plain["factored_forward"])
+            ref = call()
+            if not (torch.equal(got.view(torch.int32), ref.view(torch.int32)) and torch.equal(
+                    ref.view(torch.int32), F.factored_forward_plain(*d_args).view(torch.int32))):
+                raise SystemExit(f"the stamped kernel D differs ({what})")
+            steps = lb.shape[0] - 1 if m is None else int(m[1:].sum())
+            lay = F.block_layout(hop, lb.shape[2], F.sm_count(dev))
+            emit(kernel="D", what=f"{what}, T={lb.shape[0]}, {steps} valid steps", **res,
+                 cycles_per_step={p: c / steps for p, c in res["cycles"].items()},
+                 blocks=lay.n_blocks if lay else None, max_src=lay.max_src if lay else 0,
+                 **times("factored_forward", call), sm_clock_mhz=sm_clock())
     if "webrtc_gmm" in names:
         audio = entry.serving_stream(0)
         n = len(audio) // tweb.FRAME_LEN_16K

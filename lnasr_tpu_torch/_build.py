@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface. At first use it is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``lnasr_tpu_torch/_build/`` (keyed by the source's hash, so an edited
-source rebuilds) and loaded with ``ctypes``. Nothing is built when the
+``lnasr_tpu_torch/_build/`` (keyed by the hash of the source and of the
+local headers, so an edited source or header rebuilds) and loaded with ``ctypes``. Nothing is built when the
 package is imported. :func:`build_all` starts one ``nvcc`` per source,
 all at once, and waits for them.
 
@@ -55,9 +55,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """The library of ``csrc/<name>.cu``, keyed by the hash of the source
+    and of every local header in ``csrc/`` (``*.cuh``), which it may include."""
+    h = hashlib.sha256()
+    for path in [os.path.join(CSRC, f"{name}.cu"), *sorted(glob.glob(os.path.join(CSRC, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

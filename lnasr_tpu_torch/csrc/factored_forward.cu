@@ -32,68 +32,27 @@
 // others is the previous frame's V exit scores, so the time is T times the
 // latency of that exchange plus the block's hop reduction.
 //
-// The first design ordered the exchange with a cooperative grid barrier
-// per frame (3.8 us: a block barrier, a device-wide fence that also waited
-// for the block's grid rows, an atomic on one counter shared by 126
-// blocks, a spin; then a second trip through L2 for the exits). This one
-// has no barrier across blocks in its frame loop. Each word's exit travels
-// with its frame's tag in one aligned 64-bit word, (tag << 32) | bits, that
-// the exit cell's thread stores with st.relaxed.gpu; readers poll the V
-// slots with ld.relaxed.gpu (all their slots loaded at once, one L2 round
-// trip when the values are there) until every tag is the frame they need.
-// A 64-bit access is single-copy atomic, so a matching tag brings its own
-// value and nothing needs a fence or a counter; the grid rows' stores are
-// never waited for (only kernel E reads them, after the kernel ends). Each
-// block's own within-word step is computed before the poll, while the
-// other blocks' exits are in flight.
-//
-// Tags and buffers. Frame 0 and every valid frame publish; a masked frame
-// leaves the grid, so its exits are those of the last published frame and
-// it publishes nothing (readers ask for the last published frame's tag).
-// The k-th publication goes to buffer k & 1 of a (2, V) array. Two buffers
-// are enough: a block publishes k + 1 (overwriting k - 1) only after
-// reading every word's k, and each block publishes k only after reading
-// all of k - 1, so nobody still reads k - 1. Stale tags: the launcher
-// fills the exchange with tag 0xffffffff (cudaMemsetAsync on the kernel's
-// stream, before it) on every launch, a tag no frame uses (T < 2^31), so a
-// buffer that PyTorch's caching allocator hands back from an earlier
-// launch is never taken as ready. The cooperative launch is kept: it
-// guarantees that every block is resident, without which a spin could
-// wait for a block that never runs. A spin that lasts seconds traps (a
-// launch error, not a hung card).
-//
-// Hop kind "none" (loop-free graphs) has no exchange. The rank-1 hop reads
-// the same exchange.
-//
-// The backoff hop (rank-1 plus the sparse seen-bigram arcs) reads the same
-// exchange: the V exits of the previous frame are already in shared memory
-// for the rank-1 max. Its arcs come in CSR by destination (the factors'
-// finite (V, K) slots; the padding is -inf and changes no maximum), so a
-// block's arcs are one contiguous range [arc_ptr[w0], arc_ptr[w0 + nw]).
-// Each frame the block's threads walk that range flat (an arc a thread a
-// round: no warp idles on a short row, as one per destination word would),
-// add exit[src] + val from the shared column, and fold the sum into their
-// destination's 32-bit key with a shared-memory atomicMax. The key is the
-// float's order-preserving bit pattern, so the max is exact and the order
-// of the atomics changes no bit. The arcs are read through the read-only
-// data path each frame, not staged: at the 5k-word serving graph a block
-// owns a few hundred arcs, which stay in L1. What this adds to a frame: one
-// barrier-free pass over the block's arcs plus the barrier the rank-1
-// block max already has.
+// The exchange (factored_exchange.cuh, which states its format and why its
+// publication order is safe): each word's exit, or for the rank-1 and
+// backoff hops each block's two rank-1 partials as (value, source) keys
+// and, for the backoff kind, the exits of the block's own arcs' sources,
+// travel with their frame's tag in 64-bit words polled by the readers,
+// with no barrier across blocks in the frame loop. Each block's own
+// within-word step is computed before the poll, while the other blocks'
+// exits are in flight; the grid rows' stores are never waited for (only
+// kernel E reads them, after the kernel ends). Hop kind "none"
+// (loop-free graphs) has no exchange. What bounds the factored kinds is
+// the exchange's latency: ~2.3 us a frame on an H100 at the V = 5000
+// segment (1.19 ms over 509 frames), a third of it the wait for the
+// slowest block's partials (kernel_phases.py --kernels D). The backoff
+// kind's words are cut into blocks by arcs (ops/factored.py:block_map),
+// since a corpus bigram's popular words have the lowest ids and equal
+// ranges of words would give block 0 most of the arcs.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "factored_exchange.cuh"
 #include <stdint.h>
 
 namespace {
-
-constexpr int HOP_NONE = 0;
-constexpr int HOP_DENSE = 1;
-constexpr int HOP_BACKOFF = 3;
-constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
-constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
-constexpr int POLL = 4;             // exchange slots a thread loads at once
-constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
 
 struct Args {
     const float* pi_grid;   // (V, S)
@@ -107,110 +66,57 @@ struct Args {
     const int* arc_dst;     // (nnz,) each arc's destination
     const int* arc_src;     // (nnz,)
     const float* arc_val;   // (nnz,)
+    const int* blk_ptr;     // (n_blocks + 1,) backoff: block b's words [blk_ptr[b], blk_ptr[b + 1])
+    const int* src_ptr;     // (n_blocks + 1,) backoff: block b's sources src[src_ptr[b] ...]
+    const int* src;         // each block's distinct arc sources, ascending
+    const int* arc_lsrc;    // (nnz,) each arc's source, an index into its block's list
     const float* log_b;     // (T, V, S)
     const uint8_t* mask;    // (T,) or null
     float* grids;           // (T, V, S)
-    unsigned long long* xch;  // (2, V) exchange: (frame tag << 32) | exit bits
-    int hop_kind, sil_idx, T, V, S, wpb;
+    // (2, V) exits: (frame tag << 32) | exit bits (dense, backoff), then
+    // (2, n_blocks, PART) partials: (frame tag << 32) | half a key (rank-1, backoff)
+    unsigned long long* xch;
+    int hop_kind, sil_idx, T, V, S, wpb, n_blocks;
 };
 
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-    unsigned long long x;
-    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(x) : "l"(p) : "memory");
-    return x;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long x) {
-    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(x) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long tagged(int t, float x) {
-    return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
-}
-
-// A float's order-preserving 32-bit key (larger float, larger key) and back.
-__device__ __forceinline__ unsigned key_of(float x) {
-    const unsigned b = __float_as_uint(x);
-    return (b & 0x80000000u) ? ~b : b | 0x80000000u;
-}
-
-__device__ __forceinline__ float float_of(unsigned k) {
-    return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
-}
-
-__device__ __forceinline__ float block_max(float x, float* red) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) red[warp] = x;
-    __syncthreads();
-    float r = red[0];
-    for (int w = 1; w < nw; ++w) r = fmaxf(r, red[w]);
-    return r;
-}
-
-// ex[v] = the exit of word v tagged `tag`, from one buffer of the exchange.
-// A thread's slots are polled together: every round reloads all its slots
-// not yet tagged, so a round costs one L2 round trip however many of them
-// were early.
-__device__ void read_exits(const unsigned long long* src, unsigned tag, int V, float* ex) {
-    const int tid = threadIdx.x, nth = blockDim.x;
-    for (int base = tid; base < V; base += nth * POLL) {
-        unsigned long long x[POLL];
-        unsigned pending = 0;
-#pragma unroll
-        for (int q = 0; q < POLL; ++q) {
-            const int v = base + q * nth;
-            if (v < V) {
-                x[q] = ld_relaxed(src + v);
-                pending |= 1u << q;
-            }
-        }
-        for (long long round = 0; pending; ++round) {
-            if (round > SPIN_LIMIT) __trap();
-#pragma unroll
-            for (int q = 0; q < POLL; ++q) {
-                if ((pending >> q & 1) && (unsigned)(x[q] >> 32) == tag) {
-                    ex[base + q * nth] = __uint_as_float((unsigned)x[q]);
-                    pending &= ~(1u << q);
-                }
-            }
-#pragma unroll
-            for (int q = 0; q < POLL; ++q)
-                if (pending >> q & 1) x[q] = ld_relaxed(src + base + q * nth);
-        }
-    }
-}
-
 // The launch bounds hold registers to 64 per thread, so that a block of
-// up to 1024 threads fits the SM's 64 K registers.
+// up to 1024 threads fits the SM's 64 K registers. kFactors: the rank-1 and
+// backoff kinds (partials); otherwise none and dense (the V-slot exchange).
+template <bool kFactors>
 __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ float red[32];
+    __shared__ unsigned long long wk[32][2];  // each warp's partial keys (factors)
+    __shared__ unsigned long long rk[32][2];  // the polled keys, combined 32 blocks each
 
     const int V = p.V, S = p.S, T = p.T;
-    const int w0 = blockIdx.x * p.wpb;
-    const int nw = min(p.wpb, V - w0);  // >= 1: the launcher sizes the grid
+    const BlockRange r = block_range<kFactors>(p);
+    const int w0 = r.w0, nw = r.nw, n_src = r.n_src;
     const int cells = nw * S;
     const int tid = threadIdx.x, nth = blockDim.x;
     const int hk = p.hop_kind;
-
-    float* g = reinterpret_cast<float*>(smem);       // [wpb * S] this block's rows
+    const int n_part = PART * p.n_blocks;
+    // rank-1, backoff: the polled slots and the sparse keys, then the rows
+    const Polled pl = polled_layout(smem, n_part, n_src);
+    unsigned* got = pl.got;                          // [n_part + n_src]
+    unsigned long long* spk = pl.spk;                // [wpb] (backoff)
+    float* g = kFactors ? reinterpret_cast<float*>(spk + (hk == HOP_BACKOFF ? p.wpb : 0))
+                        : reinterpret_cast<float*>(smem);  // [wpb * S] this block's rows
     float* ia = g + p.wpb * S;                       // [wpb * S * S]
+    // none, dense
     float* ent = ia + p.wpb * S * S;                 // [wpb]
     float* ex = ent + p.wpb;                         // [V] exits of the last published frame
-    int* eidx = reinterpret_cast<int*>(ex + V);      // [wpb]
+    int* eidx = kFactors ? reinterpret_cast<int*>(ent) : reinterpret_cast<int*>(ex + V);  // [wpb]
     float* hs = reinterpret_cast<float*>(eidx + p.wpb);  // [wpb * V] hop columns (dense)
-    unsigned* spk = reinterpret_cast<unsigned*>(eidx + p.wpb);  // [wpb] sparse maxima (backoff)
-    // the block's arcs (backoff): one range, the CSR being by destination
-    const int arc0 = hk == HOP_BACKOFF ? p.arc_ptr[w0] : 0;
-    const int arc1 = hk == HOP_BACKOFF ? p.arc_ptr[w0 + nw] : 0;
+    int* bsrc = eidx + p.wpb;                        // [n_src] the block's sources (backoff)
+    unsigned long long* part = p.xch + (hk == HOP_BACKOFF ? 2 * (size_t)V : 0);
 
     for (int k = tid; k < cells * S; k += nth) ia[k] = p.inner_a[(size_t)w0 * S * S + k];
     for (int k = tid; k < nw; k += nth) eidx[k] = p.exit_idx[w0 + k];
-    if (hk == HOP_DENSE) {
+    if (!kFactors && hk == HOP_DENSE) {
         for (int k = tid; k < nw * V; k += nth) hs[k] = p.hop_t[(size_t)w0 * V + k];
+    }
+    if (kFactors) {
+        for (int k = tid; k < n_src; k += nth) bsrc[k] = p.src[r.src0 + k];
     }
     const size_t row0 = (size_t)w0 * S;
     const size_t frame = (size_t)V * S;
@@ -224,7 +130,23 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
     }
     __syncthreads();
     const bool exits_own = hk != HOP_NONE && k_own >= 0 && j_own == eidx[w_own];
-    if (exits_own) st_relaxed(p.xch + w0 + w_own, tagged(0, g[k_own]));
+    // the factors this thread adds on a frame's chain, in registers: its
+    // exit's rank-1 rows, its word's unigram at state 0
+    const float fw = kFactors && exits_own ? p.from_w[w0 + w_own] : 0.0f;
+    const float sf = kFactors && exits_own ? p.sil_from[w0 + w_own] : 0.0f;
+    const float un = kFactors && k_own >= 0 && j_own == 0 ? p.uni[w0 + w_own] : 0.0f;
+    // the exit cell's publication of frame t's exit x (buffer `buf`)
+    auto publish_exit = [&](int buf, int t, float x) {
+        if (!kFactors || hk == HOP_BACKOFF)
+            st_relaxed(p.xch + (size_t)buf * V + w0 + w_own, tagged(t, x));
+    };
+    if (exits_own) publish_exit(0, 0, g[k_own]);
+    if (kFactors) {
+        const float x = k_own >= 0 ? g[k_own] : 0.0f;
+        fold_partials(wk, exits_own, x + fw, x + sf, w0 + w_own);
+        __syncthreads();
+        publish_partials(wk, part, p.n_blocks, 0, 0);
+    }
     int n_pub = 0, last_pub = 0;  // publications so far - 1, frame of the last
 
     bool valid_next = T > 1 && (p.mask == nullptr || p.mask[1]);
@@ -247,113 +169,111 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_forward_kernel(Args p) {
             for (int s = 1; s < S; ++s) m = fmaxf(m, gr[s] + a[(size_t)s * S]);
         }
 
-        if (hk != HOP_NONE) {
+        if (kFactors) {
             // the sparse keys' reset: every read of the last frame's is done
             if (hk == HOP_BACKOFF)
-                for (int w = tid; w < nw; w += nth) spk[w] = key_of(-INFINITY);
+                for (int w = tid; w < nw; w += nth) spk[w] = key_of(-INFINITY, BIG);
+            read_slots(part + (size_t)(n_pub & 1) * n_part, n_part, p.xch + (size_t)(n_pub & 1) * V,
+                       bsrc, n_src, (unsigned)last_pub, got);
+            __syncthreads();  // also: every read of g is done
+            combine_polled(got, p.n_blocks, rk);
+            if (hk == HOP_BACKOFF)
+                fold_arcs(spk, w0, r.arc0, r.arc1, p.arc_dst, p.arc_lsrc, p.arc_val, p.arc_src,
+                          reinterpret_cast<const float*>(got + n_part));
+            __syncthreads();  // the warps' combines (and the arcs' atomics) are done
+            if (k_own >= 0 && j_own == 0) {
+                unsigned long long k1, k2;
+                polled_max(rk, p.n_blocks, k1, k2);
+                const int w = w0 + w_own;
+                float en = w == p.sil_idx ? value_of(k2) : value_of(k1) + un;
+                if (hk == HOP_BACKOFF && w != p.sil_idx) {
+                    const float sp = value_of(spk[w_own]);
+                    if (sp > en) en = sp;  // torch.maximum(r1, sp): r1 on a tie
+                }
+                if (en > m) m = en;
+            }
+        } else if (hk != HOP_NONE) {
             read_exits(p.xch + (n_pub & 1) * V, (unsigned)last_pub, V, ex);
             __syncthreads();
-            if (hk == HOP_DENSE) {
-                // one warp per destination word, lanes over source words
-                const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
-                for (int w = warp; w < nw; w += nwarps) {
-                    const float* col = hs + (size_t)w * V;
-                    // four running maxima (max is exact and order-free), so
-                    // four sources' loads are in flight at once
-                    float h0 = -INFINITY, h1 = -INFINITY, h2 = -INFINITY, h3 = -INFINITY;
-                    int v = lane;
-                    for (; v + 96 < V; v += 128) {
-                        h0 = fmaxf(h0, ex[v] + col[v]);
-                        h1 = fmaxf(h1, ex[v + 32] + col[v + 32]);
-                        h2 = fmaxf(h2, ex[v + 64] + col[v + 64]);
-                        h3 = fmaxf(h3, ex[v + 96] + col[v + 96]);
-                    }
-                    for (; v < V; v += 32) h0 = fmaxf(h0, ex[v] + col[v]);
-                    float h = fmaxf(fmaxf(h0, h1), fmaxf(h2, h3));
+            // one warp per destination word, lanes over source words
+            const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
+            for (int w = warp; w < nw; w += nwarps) {
+                const float* col = hs + (size_t)w * V;
+                // four running maxima (max is exact and order-free), so
+                // four sources' loads are in flight at once
+                float h0 = -INFINITY, h1 = -INFINITY, h2 = -INFINITY, h3 = -INFINITY;
+                int v = lane;
+                for (; v + 96 < V; v += 128) {
+                    h0 = fmaxf(h0, ex[v] + col[v]);
+                    h1 = fmaxf(h1, ex[v + 32] + col[v + 32]);
+                    h2 = fmaxf(h2, ex[v + 64] + col[v + 64]);
+                    h3 = fmaxf(h3, ex[v + 96] + col[v + 96]);
+                }
+                for (; v < V; v += 32) h0 = fmaxf(h0, ex[v] + col[v]);
+                float h = fmaxf(fmaxf(h0, h1), fmaxf(h2, h3));
 #pragma unroll
-                    for (int off = 16; off > 0; off >>= 1)
-                        h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, off));
-                    if (lane == 0) ent[w] = h;
-                }
-            } else {
-                float m1 = -INFINITY, m2 = -INFINITY;
-                for (int v = tid; v < V; v += nth) {
-                    m1 = fmaxf(m1, ex[v] + p.from_w[v]);
-                    m2 = fmaxf(m2, ex[v] + p.sil_from[v]);
-                }
-                // backoff: each arc's exit[src] + val into its word's key
-                // (the block max's barriers order the atomics before the reads)
-                for (int k = arc0 + tid; k < arc1; k += nth)
-                    atomicMax(spk + (__ldg(p.arc_dst + k) - w0),
-                              key_of(ex[__ldg(p.arc_src + k)] + __ldg(p.arc_val + k)));
-                m1 = block_max(m1, red);
-                m2 = block_max(m2, red);
-                for (int w = tid; w < nw; w += nth) {
-                    float e = (w0 + w == p.sil_idx) ? m2 : m1 + p.uni[w0 + w];
-                    if (hk == HOP_BACKOFF && w0 + w != p.sil_idx) e = fmaxf(e, float_of(spk[w]));
-                    ent[w] = e;
-                }
+                for (int off = 16; off > 0; off >>= 1)
+                    h = fmaxf(h, __shfl_xor_sync(0xffffffffu, h, off));
+                if (lane == 0) ent[w] = h;
             }
             __syncthreads();  // also: every read of g is done
+            if (k_own >= 0 && j_own == 0 && ent[w_own] > m) m = ent[w_own];
         } else {
             __syncthreads();  // every read of g is done
         }
 
+        const float nv = m + e;
         if (k_own >= 0) {
-            if (hk != HOP_NONE && j_own == 0 && ent[w_own] > m) m = ent[w_own];
-            const float nv = m + e;
             g[k_own] = nv;
             out[k_own] = nv;
-            if (exits_own) st_relaxed(p.xch + ((n_pub + 1) & 1) * V + w0 + w_own, tagged(t, nv));
+            if (exits_own) publish_exit((n_pub + 1) & 1, t, nv);
         }
+        if (kFactors) fold_partials(wk, exits_own, nv + fw, nv + sf, w0 + w_own);
         ++n_pub;
         last_pub = t;
-        __syncthreads();  // the new rows are in g
+        __syncthreads();  // the new rows are in g (and every warp's partial keys in wk)
+        if (kFactors) publish_partials(wk, part, p.n_blocks, n_pub & 1, t);
     }
 }
 
 // Mirrored by lnasr_tpu_torch/ops/factored.py:forward_smem_bytes (capacity rule).
-size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
+size_t smem_bytes(int V, int S, int wpb, int hop_kind, int n_blocks, int n_src) {
+    if (hop_kind == HOP_RANK1 || hop_kind == HOP_BACKOFF)  // rows, inner blocks, exit indices
+        return factors_smem_bytes((size_t)wpb * S + (size_t)wpb * S * S + wpb, wpb, hop_kind, n_blocks, n_src);
     size_t f = (size_t)wpb * S + (size_t)wpb * S * S + wpb + V;
     size_t bytes = f * sizeof(float) + (size_t)wpb * sizeof(int);
     if (hop_kind == HOP_DENSE) bytes += (size_t)wpb * V * sizeof(float);
-    if (hop_kind == HOP_BACKOFF) bytes += (size_t)wpb * sizeof(unsigned);
     return bytes;
 }
 
 }  // namespace
 
+// blk_ptr, src_ptr, src, arc_lsrc, n_blocks, max_words and max_src are the
+// backoff kind's word-to-block map and block source lists
+// (ops/factored.py:block_layout); the other kinds take null and 0 and get
+// ceil(V / n_sm) words a block.
 extern "C" int factored_forward_launch(const float* pi_grid, const float* inner_a, const int* exit_idx,
                                        int hop_kind, const float* hop_t, const float* from_w,
                                        const float* uni, const float* sil_from, int sil_idx,
                                        const int* arc_ptr, const int* arc_dst, const int* arc_src,
                                        const float* arc_val, const float* log_b,
                                        const uint8_t* mask, int T, int V, int S, int n_sm,
+                                       const int* blk_ptr, const int* src_ptr, const int* src,
+                                       const int* arc_lsrc, int n_blocks, int max_words, int max_src,
                                        float* grids, unsigned long long* xch, void* stream) {
-    if (T < 1 || V < 1 || S < 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
-    if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
-    if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
-    const int wpb = (V + n_sm - 1) / n_sm;
-    const int blocks = (V + wpb - 1) / wpb;
-    int threads = ((wpb * S + 31) / 32) * 32;
-    if (threads < 256) threads = 256;
-    if (wpb * S > MAX_THREADS) return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(V, S, wpb, hop_kind);
-    if (smem + 1024 > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(factored_forward_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (T < 1) return (int)cudaErrorInvalidValue;
+    Geometry geo;
+    cudaError_t err = launch_geometry(hop_kind, V, S, n_sm, arc_ptr, blk_ptr, src_ptr, arc_lsrc, n_blocks,
+                                      max_words, max_src, geo);
     if (err != cudaSuccess) return (int)err;
-    // tag 0xffffffff in every slot: no frame's (see the note on stale tags)
-    err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * sizeof(unsigned long long),
-                          (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_dst, arc_src,
-           arc_val, log_b, mask, grids, xch, hop_kind, sil_idx, T, V, S, wpb};
-    void* params[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)factored_forward_kernel, dim3(blocks), dim3(threads),
-                                      params, smem, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    const bool factors = hop_kind == HOP_RANK1 || hop_kind == HOP_BACKOFF;
+    const void* kernel = factors ? (const void*)factored_forward_kernel<true>
+                                 : (const void*)factored_forward_kernel<false>;
+    Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_dst, arc_src, arc_val,
+           blk_ptr, src_ptr, src, arc_lsrc, log_b, mask, grids, xch, hop_kind, sil_idx, T, V, S, geo.wpb,
+           geo.blocks};
+    return (int)launch_exchange(kernel, geo, smem_bytes(V, S, geo.wpb, hop_kind, geo.blocks, max_src),
+                                exchange_slots(hop_kind, V, geo.blocks), xch, &a, stream);
 }
 
 extern "C" const char* factored_forward_error_string(int err) {

@@ -35,52 +35,37 @@
 // the kernel's time (~3.9 us a frame, as in kernel D before it lost its
 // own).
 //
-// The exchange is now kernel D's (factored_forward.cu explains why it is
-// safe): each word's exit travels with its frame's tag in one aligned
-// 64-bit word, (tag << 32) | bits, stored by the exit cell's thread with
-// st.relaxed.gpu; readers poll all their slots at once with ld.relaxed.gpu
-// until every tag is the frame they need. There is no fence, counter or
-// cross-block barrier anywhere in the kernel. Frame 0 and every valid
-// frame publish, the k-th publication into buffer k & 1; a masked frame
-// publishes nothing (its exits are the last published frame's) but still
-// writes its three records, repeating the carried state. The launcher
-// fills the int64 exchange with tag 0xffffffff before every launch, a spin
-// that lasts SPIN_LIMIT rounds traps, and the launch stays cooperative so
-// that every block is resident. The block's own within-word step (max,
-// first argmax, carried start and pred) is computed before the poll, while
-// the other blocks' exits are in flight; only state 0 compares with the
-// entry after it. The dense-hop reduction carries four (value, index)
-// pairs a lane over interleaved strides, so four sources' loads are in
-// flight, merged (and then across the warp) by the larger value and, on a
-// tie, the smaller index, so the lowest source still wins exact ties.
-// What bounds it now is what bounds D: the exchange's latency per frame
-// (a store's trip to L2 and the poll's round trip) plus the block's hop
-// reduction, T times over.
+// The exchange is kernel D's (factored_exchange.cuh states its format
+// and why its publication order is safe): each word's exit, or for the
+// rank-1 and backoff hops each block's rank-1 partials as (value, source)
+// keys and, for the backoff kind, the exits of the block's own arcs'
+// sources, travel with their frame's tag in 64-bit words polled by the
+// readers. There is no fence, counter or cross-block barrier anywhere in
+// the kernel. A masked frame publishes nothing (its exits are the last
+// published frame's) but still writes its three records, repeating the
+// carried state. The block's own within-word step (max, first argmax,
+// carried start and pred) is computed before the poll, while the other
+// blocks' exits are in flight; only state 0 compares with the entry after
+// it. The dense-hop reduction carries four (value, index) pairs a lane
+// over interleaved strides, so four sources' loads are in flight, merged
+// (and then across the warp) by the larger value and, on a tie, the
+// smaller index, so the lowest source still wins exact ties. F reads the
+// factored kinds' keys' sources too: combining the blocks' keys by max
+// gives the global first argmax, the tie rule of the plain torch.max,
+// since a block's sources are the words it owns, and the sparse arcs are
+// folded into per-word keys of the same form (the lowest achieving arc
+// source); the entry and its source are formed in the word's state-0
+// thread's registers. What bounds it is what bounds D: the exchange's
+// latency per frame plus the block's hop reduction, T times over.
 //
 // The backoff kind also replaces lnasr_tpu/models/decoder.py:765
 // factored_lattice_scan with HopFactors (jitted at :1162), a lax.scan XLA
-// ran as one device program. Its sparse arcs come in CSR by destination and
-// are walked as in factored_forward.cu: the block's arcs flat over its
-// threads, each sum folded into its destination's key with a shared-memory
-// atomicMax. Here the key is 64 bits, the float's order-preserving pattern
-// above the complemented source, so the largest value wins and, on a tie,
-// the smallest source: the first argmax of the rows sorted by source, in
-// any order of the atomics.
+// ran as one device program.
 
-#include <cuda_runtime.h>
-#include <math.h>
+#include "factored_exchange.cuh"
 #include <stdint.h>
 
 namespace {
-
-constexpr int HOP_NONE = 0;
-constexpr int HOP_DENSE = 1;
-constexpr int HOP_BACKOFF = 3;
-constexpr int BIG = 0x7fffffff;     // no source
-constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
-constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
-constexpr int POLL = 4;             // exchange slots a thread loads at once
-constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
 
 struct Args {
     const float* pi_grid;   // (V, S)
@@ -94,43 +79,20 @@ struct Args {
     const int* arc_dst;     // (nnz,) each arc's destination
     const int* arc_src;     // (nnz,)
     const float* arc_val;   // (nnz,)
+    const int* blk_ptr;     // (n_blocks + 1,) backoff: block b's words [blk_ptr[b], blk_ptr[b + 1])
+    const int* src_ptr;     // (n_blocks + 1,) backoff: block b's sources src[src_ptr[b] ...]
+    const int* src;         // each block's distinct arc sources, ascending
+    const int* arc_lsrc;    // (nnz,) each arc's source, an index into its block's list
     const float* log_b;     // (T, V, S)
     const uint8_t* mask;    // (T,) or null
     float* exit_score;      // (T, V)
     int* exit_start;        // (T, V)
     int* exit_pred;         // (T, V)
-    unsigned long long* xch;  // (2, V) exchange: (frame tag << 32) | exit bits
-    int hop_kind, sil_idx, T, V, S, wpb;
+    // (2, V) exits: (frame tag << 32) | exit bits (dense, backoff), then
+    // (2, n_blocks, PART) partials: (frame tag << 32) | half a key (rank-1, backoff)
+    unsigned long long* xch;
+    int hop_kind, sil_idx, T, V, S, wpb, n_blocks;
 };
-
-__device__ __forceinline__ unsigned long long ld_relaxed(const unsigned long long* p) {
-    unsigned long long x;
-    asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];" : "=l"(x) : "l"(p) : "memory");
-    return x;
-}
-
-__device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long long x) {
-    asm volatile("st.relaxed.gpu.global.b64 [%0], %1;" ::"l"(p), "l"(x) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long tagged(int t, float x) {
-    return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
-}
-
-// A (value, source) pair as one 64-bit key: a larger value, or an equal
-// value and a smaller source, is a larger key.
-__device__ __forceinline__ unsigned long long key_of(float x, int src) {
-    const unsigned b = __float_as_uint(x);
-    const unsigned k = (b & 0x80000000u) ? ~b : b | 0x80000000u;
-    return ((unsigned long long)k << 32) | (unsigned)~src;
-}
-
-__device__ __forceinline__ float value_of(unsigned long long key) {
-    const unsigned k = (unsigned)(key >> 32);
-    return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
-}
-
-__device__ __forceinline__ int source_of(unsigned long long key) { return (int)~(unsigned)key; }
 
 // (value, index) argmax: the larger value, the smaller index on a tie.
 __device__ __forceinline__ void arg_take(float& m, int& a, float om, int oa) {
@@ -149,86 +111,47 @@ __device__ __forceinline__ void warp_argmax(float& m, int& a) {
     }
 }
 
-__device__ __forceinline__ void block_argmax(float& m, int& a, float* redv, int* redi) {
-    warp_argmax(m, a);
-    const int warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
-    __syncthreads();
-    if ((threadIdx.x & 31) == 0) {
-        redv[warp] = m;
-        redi[warp] = a;
-    }
-    __syncthreads();
-    m = redv[0];
-    a = redi[0];
-    for (int w = 1; w < nw; ++w) arg_take(m, a, redv[w], redi[w]);
-}
-
-// ex[v] = the exit of word v tagged `tag`, from one buffer of the exchange
-// (factored_forward.cu:read_exits): every round reloads all of a thread's
-// slots not yet tagged, so a round costs one L2 round trip.
-__device__ void read_exits(const unsigned long long* src, unsigned tag, int V, float* ex) {
-    const int tid = threadIdx.x, nth = blockDim.x;
-    for (int base = tid; base < V; base += nth * POLL) {
-        unsigned long long x[POLL];
-        unsigned pending = 0;
-#pragma unroll
-        for (int q = 0; q < POLL; ++q) {
-            const int v = base + q * nth;
-            if (v < V) {
-                x[q] = ld_relaxed(src + v);
-                pending |= 1u << q;
-            }
-        }
-        for (long long round = 0; pending; ++round) {
-            if (round > SPIN_LIMIT) __trap();
-#pragma unroll
-            for (int q = 0; q < POLL; ++q) {
-                if ((pending >> q & 1) && (unsigned)(x[q] >> 32) == tag) {
-                    ex[base + q * nth] = __uint_as_float((unsigned)x[q]);
-                    pending &= ~(1u << q);
-                }
-            }
-#pragma unroll
-            for (int q = 0; q < POLL; ++q)
-                if (pending >> q & 1) x[q] = ld_relaxed(src + base + q * nth);
-        }
-    }
-}
-
 // The launch bounds hold registers to 64 per thread, so that a block of
-// up to 1024 threads fits the SM's 64 K registers.
+// up to 1024 threads fits the SM's 64 K registers. kFactors: the rank-1 and
+// backoff kinds (partials); otherwise none and dense (the V-slot exchange).
+template <bool kFactors>
 __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
     extern __shared__ __align__(16) unsigned char smem[];
-    __shared__ float redv[32];
-    __shared__ int redi[32];
+    __shared__ unsigned long long wk[32][2];  // each warp's partial keys (factors)
+    __shared__ unsigned long long rk[32][2];  // the polled keys, combined 32 blocks each
 
     const int V = p.V, S = p.S, T = p.T;
-    const int w0 = blockIdx.x * p.wpb;
-    const int nw = min(p.wpb, V - w0);  // >= 1: the launcher sizes the grid
+    const BlockRange r = block_range<kFactors>(p);
+    const int w0 = r.w0, nw = r.nw, n_src = r.n_src;
     const int cells = nw * S;
     const int tid = threadIdx.x, nth = blockDim.x;
     const int hk = p.hop_kind;
-
-    // [wpb] the sparse family's (value, source) keys (backoff), first: 8-byte aligned
-    unsigned long long* spk = reinterpret_cast<unsigned long long*>(smem);
-    float* g = reinterpret_cast<float*>(smem + (hk == HOP_BACKOFF ? 8 * p.wpb : 0));
-    // [wpb * S] this block's rows
+    const int n_part = PART * p.n_blocks;
+    // rank-1, backoff: the polled slots and the sparse keys, then the rows
+    const Polled pl = polled_layout(smem, n_part, n_src);
+    unsigned* got = pl.got;                          // [n_part + n_src]
+    unsigned long long* spk = pl.spk;                // [wpb] (backoff)
+    float* g = kFactors ? reinterpret_cast<float*>(spk + (hk == HOP_BACKOFF ? p.wpb : 0))
+                        : reinterpret_cast<float*>(smem);  // [wpb * S] this block's rows
     float* ia = g + p.wpb * S;                       // [wpb * S * S]
+    // none, dense
     float* ent = ia + p.wpb * S * S;                 // [wpb]
     float* ex = ent + p.wpb;                         // [V] exits of the last published frame
-    int* eidx = reinterpret_cast<int*>(ex + V);      // [wpb]
-    int* esrc = eidx + p.wpb;                        // [wpb] hop source of each word
-    int* st = esrc + p.wpb;                          // [wpb * S] token start frames
+    int* eidx = kFactors ? reinterpret_cast<int*>(ent) : reinterpret_cast<int*>(ex + V);  // [wpb]
+    int* esrc = eidx + p.wpb;                        // [wpb] hop source of each word (dense)
+    int* st = kFactors ? esrc : esrc + p.wpb;        // [wpb * S] token start frames
     int* pr = st + p.wpb * S;                        // [wpb * S] token predecessor words
     float* hs = reinterpret_cast<float*>(pr + p.wpb * S);  // [wpb * V] hop columns (dense)
-    // the block's arcs (backoff): one range, the CSR being by destination
-    const int arc0 = hk == HOP_BACKOFF ? p.arc_ptr[w0] : 0;
-    const int arc1 = hk == HOP_BACKOFF ? p.arc_ptr[w0 + nw] : 0;
+    int* bsrc = pr + p.wpb * S;                      // [n_src] the block's sources (backoff)
+    unsigned long long* part = p.xch + (hk == HOP_BACKOFF ? 2 * (size_t)V : 0);
 
     for (int k = tid; k < cells * S; k += nth) ia[k] = p.inner_a[(size_t)w0 * S * S + k];
     for (int k = tid; k < nw; k += nth) eidx[k] = p.exit_idx[w0 + k];
-    if (hk == HOP_DENSE) {
+    if (!kFactors && hk == HOP_DENSE) {
         for (int k = tid; k < nw * V; k += nth) hs[k] = p.hop_t[(size_t)w0 * V + k];
+    }
+    if (kFactors) {
+        for (int k = tid; k < n_src; k += nth) bsrc[k] = p.src[r.src0 + k];
     }
     const size_t row0 = (size_t)w0 * S;
     const size_t frame = (size_t)V * S;
@@ -245,11 +168,27 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
     // masked ones included, and publishes its exit at frame 0 and every
     // valid frame; it reads back only its own cell, so no barrier orders it
     const bool exits_own = k_own >= 0 && j_own == eidx[w_own];
+    // the factors this thread adds on a frame's chain, in registers: its
+    // exit's rank-1 rows, its word's unigram at state 0
+    const float fw = kFactors && exits_own ? p.from_w[w0 + w_own] : 0.0f;
+    const float sf = kFactors && exits_own ? p.sil_from[w0 + w_own] : 0.0f;
+    const float un = kFactors && k_own >= 0 && j_own == 0 ? p.uni[w0 + w_own] : 0.0f;
+    // the exit cell's publication of frame t's exit x (buffer `buf`)
+    auto publish_exit = [&](int buf, int t, float x) {
+        if (hk == HOP_DENSE || hk == HOP_BACKOFF)
+            st_relaxed(p.xch + (size_t)buf * V + w0 + w_own, tagged(t, x));
+    };
     if (exits_own) {
         p.exit_score[w0 + w_own] = g[k_own];
         p.exit_start[w0 + w_own] = 0;
         p.exit_pred[w0 + w_own] = -1;
-        if (hk != HOP_NONE) st_relaxed(p.xch + w0 + w_own, tagged(0, g[k_own]));
+        if (hk != HOP_NONE) publish_exit(0, 0, g[k_own]);
+    }
+    if (kFactors) {
+        const float x = k_own >= 0 ? g[k_own] : 0.0f;
+        fold_partials(wk, exits_own, x + fw, x + sf, w0 + w_own);
+        __syncthreads();
+        publish_partials(wk, part, p.n_blocks, 0, 0);
     }
     int n_pub = 0, last_pub = 0;  // publications so far - 1, frame of the last
 
@@ -287,157 +226,142 @@ __global__ void __launch_bounds__(MAX_THREADS) factored_lattice_kernel(Args p) {
             npr = pr[w_own * S + src];
         }
 
-        if (hk != HOP_NONE) {
+        if (kFactors) {
             // the sparse keys' reset: every read of the last frame's is done
             if (hk == HOP_BACKOFF)
                 for (int w = tid; w < nw; w += nth) spk[w] = key_of(-INFINITY, BIG);
+            read_slots(part + (size_t)(n_pub & 1) * n_part, n_part, p.xch + (size_t)(n_pub & 1) * V,
+                       bsrc, n_src, (unsigned)last_pub, got);
+            __syncthreads();  // also: every read of g, st and pr is done
+            combine_polled(got, p.n_blocks, rk);
+            if (hk == HOP_BACKOFF)
+                fold_arcs(spk, w0, r.arc0, r.arc1, p.arc_dst, p.arc_lsrc, p.arc_val, p.arc_src,
+                          reinterpret_cast<const float*>(got + n_part));
+            __syncthreads();  // the warps' combines (and the arcs' atomics) are done
+            if (k_own >= 0 && j_own == 0) {
+                unsigned long long k1, k2;
+                polled_max(rk, p.n_blocks, k1, k2);
+                const int w = w0 + w_own;
+                const bool sil = w == p.sil_idx;
+                float en = sil ? value_of(k2) : value_of(k1) + un;
+                int s = source_of(sil ? k2 : k1);
+                if (hk == HOP_BACKOFF && !sil) {
+                    const float sp = value_of(spk[w_own]), r1 = en;
+                    if (sp > r1) en = sp;  // torch.maximum(r1, sp): r1 on a tie
+                    s = min(r1 >= en ? s : BIG, sp >= en ? source_of(spk[w_own]) : BIG);
+                }
+                if (en > m) {
+                    m = en;
+                    nst = t;
+                    npr = s;
+                }
+            }
+        } else if (hk != HOP_NONE) {
             read_exits(p.xch + (n_pub & 1) * V, (unsigned)last_pub, V, ex);
             __syncthreads();
-            if (hk == HOP_DENSE) {
-                // one warp per destination word, lanes over source words;
-                // four (value, index) pairs a lane, each over increasing
-                // sources (strict > keeps its first), so four sources'
-                // loads are in flight at once
-                const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
-                for (int w = warp; w < nw; w += nwarps) {
-                    const float* col = hs + (size_t)w * V;
-                    float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
-                    int a0 = lane, a1 = lane + 32, a2 = lane + 64, a3 = lane + 96;
-                    int v = lane;
-                    for (; v + 96 < V; v += 128) {
-                        const float c0 = ex[v] + col[v];
-                        const float c1 = ex[v + 32] + col[v + 32];
-                        const float c2 = ex[v + 64] + col[v + 64];
-                        const float c3 = ex[v + 96] + col[v + 96];
-                        if (c0 > m0) { m0 = c0; a0 = v; }
-                        if (c1 > m1) { m1 = c1; a1 = v + 32; }
-                        if (c2 > m2) { m2 = c2; a2 = v + 64; }
-                        if (c3 > m3) { m3 = c3; a3 = v + 96; }
-                    }
-                    for (; v < V; v += 32) {
-                        const float c = ex[v] + col[v];
-                        if (c > m0) { m0 = c; a0 = v; }
-                    }
-                    arg_take(m0, a0, m1, a1);
-                    arg_take(m2, a2, m3, a3);
-                    arg_take(m0, a0, m2, a2);
-                    warp_argmax(m0, a0);
-                    if (lane == 0) {
-                        ent[w] = m0;
-                        esrc[w] = a0;
-                    }
+            // one warp per destination word, lanes over source words;
+            // four (value, index) pairs a lane, each over increasing
+            // sources (strict > keeps its first), so four sources'
+            // loads are in flight at once
+            const int warp = tid >> 5, lane = tid & 31, nwarps = nth >> 5;
+            for (int w = warp; w < nw; w += nwarps) {
+                const float* col = hs + (size_t)w * V;
+                float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+                int a0 = lane, a1 = lane + 32, a2 = lane + 64, a3 = lane + 96;
+                int v = lane;
+                for (; v + 96 < V; v += 128) {
+                    const float c0 = ex[v] + col[v];
+                    const float c1 = ex[v + 32] + col[v + 32];
+                    const float c2 = ex[v + 64] + col[v + 64];
+                    const float c3 = ex[v + 96] + col[v + 96];
+                    if (c0 > m0) { m0 = c0; a0 = v; }
+                    if (c1 > m1) { m1 = c1; a1 = v + 32; }
+                    if (c2 > m2) { m2 = c2; a2 = v + 64; }
+                    if (c3 > m3) { m3 = c3; a3 = v + 96; }
                 }
-            } else {
-                float m1 = -INFINITY, m2 = -INFINITY;
-                int a1 = tid, a2 = tid;
-                for (int v = tid; v < V; v += nth) {
-                    const float c1 = ex[v] + p.from_w[v];
-                    const float c2 = ex[v] + p.sil_from[v];
-                    if (c1 > m1) {
-                        m1 = c1;
-                        a1 = v;
-                    }
-                    if (c2 > m2) {
-                        m2 = c2;
-                        a2 = v;
-                    }
+                for (; v < V; v += 32) {
+                    const float c = ex[v] + col[v];
+                    if (c > m0) { m0 = c; a0 = v; }
                 }
-                // backoff: each arc's (exit[src] + val, src) into its word's
-                // key (the block argmax's barriers order the atomics before
-                // the reads)
-                for (int k = arc0 + tid; k < arc1; k += nth) {
-                    const int src = __ldg(p.arc_src + k);
-                    atomicMax(spk + (__ldg(p.arc_dst + k) - w0),
-                              key_of(ex[src] + __ldg(p.arc_val + k), src));
-                }
-                block_argmax(m1, a1, redv, redi);
-                block_argmax(m2, a2, redv, redi);
-                for (int w = tid; w < nw; w += nth) {
-                    const bool sil = w0 + w == p.sil_idx;
-                    float e = sil ? m2 : m1 + p.uni[w0 + w];
-                    int s = sil ? a2 : a1;
-                    if (hk == HOP_BACKOFF && !sil) {
-                        const float sp = value_of(spk[w]), r1 = e;
-                        e = fmaxf(r1, sp);
-                        s = min(r1 >= e ? a1 : BIG, sp >= e ? source_of(spk[w]) : BIG);
-                    }
-                    ent[w] = e;
-                    esrc[w] = s;
+                arg_take(m0, a0, m1, a1);
+                arg_take(m2, a2, m3, a3);
+                arg_take(m0, a0, m2, a2);
+                warp_argmax(m0, a0);
+                if (lane == 0) {
+                    ent[w] = m0;
+                    esrc[w] = a0;
                 }
             }
             __syncthreads();  // also: every read of g, st and pr is done
-        } else {
-            __syncthreads();  // every read of g, st and pr is done
-        }
-
-        if (k_own >= 0) {
-            if (hk != HOP_NONE && j_own == 0 && ent[w_own] > m) {
+            if (k_own >= 0 && j_own == 0 && ent[w_own] > m) {
                 m = ent[w_own];
                 nst = t;
                 npr = esrc[w_own];
             }
-            const float nv = m + e;
+        } else {
+            __syncthreads();  // every read of g, st and pr is done
+        }
+
+        const float nv = m + e;
+        if (k_own >= 0) {
             g[k_own] = nv;
             st[k_own] = nst;
             pr[k_own] = npr;
             if (exits_own) {
-                if (hk != HOP_NONE)
-                    st_relaxed(p.xch + ((n_pub + 1) & 1) * V + w0 + w_own, tagged(t, nv));
+                if (hk != HOP_NONE) publish_exit((n_pub + 1) & 1, t, nv);
                 p.exit_score[rec + w_own] = nv;
                 p.exit_start[rec + w_own] = nst;
                 p.exit_pred[rec + w_own] = npr;
             }
         }
+        if (kFactors) fold_partials(wk, exits_own, nv + fw, nv + sf, w0 + w_own);
         ++n_pub;
         last_pub = t;
-        __syncthreads();  // the new rows are in g, st and pr
+        __syncthreads();  // the new rows are in g, st and pr (and every warp's keys in wk)
+        if (kFactors) publish_partials(wk, part, p.n_blocks, n_pub & 1, t);
     }
 }
 
 // Mirrored by lnasr_tpu_torch/ops/factored.py:lattice_smem_bytes (capacity rule).
-size_t smem_bytes(int V, int S, int wpb, int hop_kind) {
+size_t smem_bytes(int V, int S, int wpb, int hop_kind, int n_blocks, int n_src) {
+    if (hop_kind == HOP_RANK1 || hop_kind == HOP_BACKOFF)  // rows, inner blocks, exit indices, start, pred
+        return factors_smem_bytes((size_t)wpb * S + (size_t)wpb * S * S + wpb + 2 * (size_t)wpb * S, wpb,
+                                  hop_kind, n_blocks, n_src);
     size_t f = (size_t)wpb * S + (size_t)wpb * S * S + wpb + V;
     size_t bytes = f * sizeof(float) + (size_t)(2 * wpb + 2 * wpb * S) * sizeof(int);
     if (hop_kind == HOP_DENSE) bytes += (size_t)wpb * V * sizeof(float);
-    if (hop_kind == HOP_BACKOFF) bytes += (size_t)wpb * sizeof(unsigned long long);
     return bytes;
 }
 
 }  // namespace
 
+// blk_ptr, src_ptr, src, arc_lsrc, n_blocks, max_words and max_src are the
+// backoff kind's word-to-block map and block source lists
+// (ops/factored.py:block_layout); the other kinds take null and 0 and get
+// ceil(V / n_sm) words a block.
 extern "C" int factored_lattice_launch(const float* pi_grid, const float* inner_a, const int* exit_idx,
                                        int hop_kind, const float* hop_t, const float* from_w,
                                        const float* uni, const float* sil_from, int sil_idx,
                                        const int* arc_ptr, const int* arc_dst, const int* arc_src,
                                        const float* arc_val, const float* log_b,
                                        const uint8_t* mask, int T, int V, int S, int n_sm,
+                                       const int* blk_ptr, const int* src_ptr, const int* src,
+                                       const int* arc_lsrc, int n_blocks, int max_words, int max_src,
                                        float* exit_score, int* exit_start, int* exit_pred,
                                        unsigned long long* xch, void* stream) {
-    if (T < 1 || V < 1 || S < 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
-    if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
-    if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
-    const int wpb = (V + n_sm - 1) / n_sm;
-    const int blocks = (V + wpb - 1) / wpb;
-    int threads = ((wpb * S + 31) / 32) * 32;
-    if (threads < 256) threads = 256;
-    if (wpb * S > MAX_THREADS) return (int)cudaErrorInvalidValue;
-    const size_t smem = smem_bytes(V, S, wpb, hop_kind);
-    if (smem + 1024 > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
-    cudaError_t err = cudaFuncSetAttribute(factored_lattice_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (T < 1) return (int)cudaErrorInvalidValue;
+    Geometry geo;
+    cudaError_t err = launch_geometry(hop_kind, V, S, n_sm, arc_ptr, blk_ptr, src_ptr, arc_lsrc, n_blocks,
+                                      max_words, max_src, geo);
     if (err != cudaSuccess) return (int)err;
-    // tag 0xffffffff in every slot: no frame's (factored_forward.cu, stale tags)
-    err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * sizeof(unsigned long long),
-                          (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
+    const bool factors = hop_kind == HOP_RANK1 || hop_kind == HOP_BACKOFF;
+    const void* kernel = factors ? (const void*)factored_lattice_kernel<true>
+                                 : (const void*)factored_lattice_kernel<false>;
     Args a{pi_grid, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_dst, arc_src,
-           arc_val, log_b, mask, exit_score, exit_start, exit_pred, xch, hop_kind, sil_idx, T,
-           V, S, wpb};
-    void* params[] = {&a};
-    err = cudaLaunchCooperativeKernel((const void*)factored_lattice_kernel, dim3(blocks), dim3(threads),
-                                      params, smem, (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+           arc_val, blk_ptr, src_ptr, src, arc_lsrc, log_b, mask, exit_score, exit_start, exit_pred,
+           xch, hop_kind, sil_idx, T, V, S, geo.wpb, geo.blocks};
+    return (int)launch_exchange(kernel, geo, smem_bytes(V, S, geo.wpb, hop_kind, geo.blocks, max_src),
+                                exchange_slots(hop_kind, V, geo.blocks), xch, &a, stream);
 }
 
 extern "C" const char* factored_lattice_error_string(int err) {

@@ -24,7 +24,10 @@ The word hop is ``None`` (loop-free graph), a dense ``(V, V)`` matrix
 HopFactors`, duck-typed here). The kernels take four hop kinds: none, the
 dense matrix, the edge-free ("rank-1") factors (:class:`Rank1Hop`) and
 the factors with sparse seen-bigram edges as a CSR of their finite arcs
-by destination (:class:`BackoffHop`, built by :func:`backoff_hop`). The
+by destination (:class:`BackoffHop`, built by :func:`backoff_hop`; the
+forward and lattice kernels spread its words over the blocks by
+:func:`block_map` and poll only each block's own arcs' sources,
+:func:`block_sources`). The
 padded ``(V, K)`` factors stay the operand of the scans, the counterparts
 of the JAX package's jitted scans: :func:`factored_lattice_scan` here
 (it is also the lattice kernel's plain version) and
@@ -33,6 +36,7 @@ of the JAX package's jitted scans: :func:`factored_lattice_scan` here
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 import math
@@ -47,22 +51,31 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 GRID_BUDGET = 2 * 1024**3  # bytes of stored grids one decode may take
 MAX_THREADS = 1024  # a forward block's threads: csrc/factored_forward.cu's launch bounds
 BACKTRACE_WINDOW = 32  # frames a backtrace window stages: csrc/factored_backtrace.cu's K
+MAX_BLOCKS = 1024  # the factored kinds' blocks (csrc/factored_exchange.cuh): 32 combines of 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # every launch's hop operands: hop_kind, hop_t, from_w, uni, sil_from,
 # sil_idx, arc_ptr, arc_dst, arc_src, arc_val
 _HOP_ARGTYPES = [_I, _P, _P, _P, _P, _I, _P, _P, _P, _P]
-# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm, grids,
-# exchange, stream
-_FWD_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# the forward's and lattice kernel's word-to-block layout (BlockLayout):
+# blk_ptr, src_ptr, src, arc_lsrc, n_blocks, max_words, max_src
+_MAP_ARGTYPES = [_P, _P, _P, _P, _I, _I, _I]
+# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm, (layout),
+# grids, exchange, stream
+_FWD_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, *_MAP_ARGTYPES, _P, _P, _P]
 # grids, inner_a, exit_idx, (hop), final, mask, T, V, S, exits, path,
 # score, stream
 _BWD_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _P, _P, _P, _P]
-# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm,
+# pi_grid, inner_a, exit_idx, (hop), log_b, mask, T, V, S, n_sm, (layout),
 # exit_score, exit_start, exit_pred, exchange, stream
-_LAT_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P]
+_LAT_ARGTYPES = [_P, _P, _P, *_HOP_ARGTYPES, _P, _P, _I, _I, _I, _I, *_MAP_ARGTYPES,
+                 _P, _P, _P, _P, _P]
 _HOP_IDS = {"none": 0, "dense": 1, "rank1": 2, "backoff": 3}  # the kernels' HOP_* constants
+# exchange words a block publishes a frame for the rank-1 family's partials
+# (csrc/factored_exchange.cuh's PART): m1's and m2's 64-bit (value, source) keys, each as
+# two tagged words
+PART_WORDS = 4
 
 
 class Rank1Hop(NamedTuple):
@@ -94,6 +107,10 @@ class BackoffHop(NamedTuple):
     arc_src: torch.Tensor  # (nnz,) int32 source words, ascending within a row
     arc_val: torch.Tensor  # (nnz,) arc scores, all finite
     arc_dst: torch.Tensor  # (nnz,) int32 each arc's destination (its CSR row)
+    # host copies of arc_ptr and arc_src ("ptr", "src") and the kernels'
+    # layouts built from them (block_layout), so that no launch reads the
+    # CSR back from the card
+    cache: dict
 
 
 def backoff_hop(factors) -> BackoffHop:
@@ -116,7 +133,129 @@ def backoff_hop(factors) -> BackoffHop:
     i32 = lambda x: torch.as_tensor(x.astype(np.int32), device=dev)  # noqa: E731
     return BackoffHop(factors.from_w, factors.uni, factors.sil_from, int(factors.sil_idx),
                       i32(ptr), i32(src), torch.as_tensor(arc_val, dtype=dtype, device=dev),
-                      i32(dst))
+                      i32(dst), {"ptr": ptr.astype(np.int32), "src": src.astype(np.int32)})
+
+
+class BlockLayout(NamedTuple):
+    """How kernels D and F spread a backoff hop's words over their blocks:
+    the word-to-block map (:func:`block_map`) and each block's distinct arc
+    sources (:func:`block_sources`), as the launch operands and the sizes
+    the capacity rule and the launcher read."""
+
+    blk_ptr: object  # (n_blocks + 1,) int32: block b owns words [blk_ptr[b], blk_ptr[b+1])
+    src_ptr: object  # (n_blocks + 1,) int32: block b's sources are src[src_ptr[b]:src_ptr[b+1]]
+    src: object  # int32 each block's distinct arc sources, ascending
+    arc_lsrc: object  # (nnz,) int32 each arc's source as an index into its block's list
+    n_blocks: int
+    max_words: int  # words of the largest block (the launch's threads: its cells)
+    max_src: int  # sources of the block with the most (the slots it polls beside the partials)
+    max_arcs: int  # arcs of the block with the most
+
+
+def _greedy_cut(prefix, cap_arcs: int, cap_words: int, n_max: int) -> Optional[list]:
+    """Contiguous blocks, each as long as ``cap_arcs`` arcs and
+    ``cap_words`` words allow (``prefix``: the arc counts' running sums), as
+    their first words and the end; None if that takes more than ``n_max``
+    blocks. Taking the most each time gives the fewest blocks of any cut
+    under both caps."""
+    v, cut, i = len(prefix) - 1, [0], 0
+    while i < v:
+        j = min(bisect.bisect_right(prefix, prefix[i] + cap_arcs) - 1, i + cap_words, v)
+        if j <= i or len(cut) > n_max:
+            return None
+        cut.append(j)
+        i = j
+    return cut
+
+
+def block_map(arc_ptr, s: int, n_sm: int) -> Optional[np.ndarray]:
+    """Kernels D's and F's word-to-block map for a backoff hop: contiguous
+    ranges of words as ``blk_ptr`` (``n_blocks + 1`` int32), at most
+    ``n_sm`` blocks (all resident under the cooperative launch) of at most
+    ``MAX_THREADS // s`` words (a thread a cell). A block's frame waits for
+    its arcs' rounds (``arcs / threads``) and every block waits for the
+    slowest, so the ranges are cut by arcs: for each thread count from the
+    even map's (``ceil(V / n_sm)`` words a block, at least 256 threads) up,
+    in warps, the cut with the fewest arcs in its largest block under that
+    count's word cap (a bisection over the arc cap, each tried by
+    :func:`_greedy_cut`), and the first count whose largest block takes one
+    round of its threads and holds at most the largest row plus an even
+    share, ``ceil(nnz / n_sm)``; if none does, the cut at the most threads.
+    So a graph with few arcs keeps the even map's threads. None if the words
+    do not fit ``n_sm`` blocks."""
+    arc_ptr = np.asarray(arc_ptr, np.int64)
+    v = len(arc_ptr) - 1
+    cap_all = MAX_THREADS // s if s >= 1 else 0
+    n_sm = min(n_sm, MAX_BLOCKS)
+    if v < 1 or n_sm < 1 or cap_all < 1 or v > n_sm * cap_all:
+        return None
+    prefix = arc_ptr.tolist()
+    rows = np.diff(arc_ptr)
+    share = int(rows.max()) + -(-int(arc_ptr[-1]) // n_sm)
+    first = max(256, -(-(-(-v // n_sm) * s) // 32) * 32)
+    best = None
+    for threads in range(first, MAX_THREADS + 1, 32):
+        cap_words = min(threads // s, cap_all)
+        if cap_words * n_sm < v:
+            continue
+        lo, hi = int(rows.max()), int(arc_ptr[-1])
+        while lo < hi:  # the least arc cap that cuts into at most n_sm blocks
+            mid = (lo + hi) // 2
+            if _greedy_cut(prefix, mid, cap_words, n_sm) is None:
+                lo = mid + 1
+            else:
+                hi = mid
+        best = _greedy_cut(prefix, lo, cap_words, n_sm)
+        words = int(np.diff(best).max())
+        if lo <= min(max(256, -(-words * s // 32) * 32), share):
+            break
+    return np.asarray(best, np.int32)
+
+
+def block_sources(arc_ptr, arc_src, blk_ptr) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Each block's distinct arc sources for the map ``blk_ptr``:
+    ``(src_ptr, src, arc_lsrc)``, block ``b``'s sources ascending in
+    ``src[src_ptr[b]:src_ptr[b+1]]`` (the only exit slots it polls) and each
+    arc's source as an index into its block's list, all int32."""
+    arc_ptr, arc_src = np.asarray(arc_ptr, np.int64), np.asarray(arc_src)
+    lsrc = np.zeros(len(arc_src), np.int32)
+    lists, ptr = [], [0]
+    for w0, w1 in zip(blk_ptr[:-1], blk_ptr[1:]):
+        a0, a1 = arc_ptr[w0], arc_ptr[w1]
+        uniq, inv = np.unique(arc_src[a0:a1], return_inverse=True)
+        lsrc[a0:a1] = inv
+        lists.append(uniq)
+        ptr.append(ptr[-1] + len(uniq))
+    src = np.concatenate(lists) if lists else np.zeros(0)
+    return np.asarray(ptr, np.int32), src.astype(np.int32), lsrc
+
+
+def block_layout(hop, s: int, n_sm: int, device=None) -> Optional[BlockLayout]:
+    """The :class:`BlockLayout` of a :class:`BackoffHop` at ``s`` states
+    and ``n_sm`` SMs, its arrays as NumPy or, with ``device``, as int32
+    tensors there; built once per hop from its host copies and kept in its
+    ``cache``. None for another hop, or where the words do not fit."""
+    if not isinstance(hop, BackoffHop):
+        return None
+    cache, key = hop.cache, (s, n_sm)
+    if key not in cache:
+        ptr, src = cache["ptr"], cache["src"]
+        blk = block_map(ptr, s, n_sm)
+        if blk is None:
+            cache[key] = None
+        else:
+            src_ptr, bsrc, lsrc = block_sources(ptr, src, blk)
+            words, arcs = np.diff(blk), np.diff(np.asarray(ptr, np.int64)[blk])
+            cache[key] = BlockLayout(blk, src_ptr, bsrc, lsrc, len(blk) - 1, int(words.max()),
+                                     int(np.diff(src_ptr).max()), int(arcs.max()))
+    layout = cache[key]
+    if layout is None or device is None:
+        return layout
+    dkey = (s, n_sm, str(device))
+    if dkey not in cache:
+        cache[dkey] = layout._replace(**{n: torch.as_tensor(getattr(layout, n), device=device)
+                                         for n in ("blk_ptr", "src_ptr", "src", "arc_lsrc")})
+    return cache[dkey]
 
 
 def _is_factors(hop) -> bool:
@@ -315,14 +454,30 @@ def factored_lattice_plain(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_id
 # -- capacity rule -------------------------------------------------------------
 
 
-def forward_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
+def _factors_smem_bytes(row_words: int, v: int, wpb: int, kind: str, n_blocks: Optional[int],
+                        n_src: int) -> int:
+    """Shared memory of a forward or lattice block for the rank-1 and
+    backoff hops (``csrc/factored_exchange.cuh:factors_smem_bytes``): the
+    kernel's ``row_words`` 4-byte words, the ``4 n_blocks`` polled partial
+    slots (``n_blocks``: the even map's ``ceil(V / wpb)`` unless given)
+    and, for a backoff hop, ``n_src`` source indices and polled exits
+    (padded to an even count) and a 64-bit sparse key a word."""
+    n_blocks = -(-v // wpb) if n_blocks is None else n_blocks
+    words = row_words + PART_WORDS * n_blocks + -(-n_src // 2) * 2 + n_src
+    return 4 * words + (8 * wpb if kind == "backoff" else 0)
+
+
+def forward_smem_bytes(v: int, s: int, wpb: int, kind: str, n_blocks: Optional[int] = None,
+                       n_src: int = 0) -> int:
     """Shared memory of one forward block (``csrc/factored_forward.cu:
-    smem_bytes``): its grid rows, inner blocks, entries, exit indices, the
-    V exit scores of the previous frame and, for a dense hop, its ``wpb``
-    hop columns, for a backoff hop its words' sparse maxima (one 32-bit
-    key a word)."""
+    smem_bytes``): its grid rows, inner blocks and exit indices; for no hop
+    and a dense hop also its entries and the V exit scores of the previous
+    frame and, for a dense hop, its ``wpb`` hop columns; for the rank-1 and
+    backoff hops the exchange's slots (:func:`_factors_smem_bytes`)."""
+    if kind in ("rank1", "backoff"):
+        return _factors_smem_bytes(wpb * s + wpb * s * s + wpb, v, wpb, kind, n_blocks, n_src)
     floats = wpb * s + wpb * s * s + wpb + v
-    extra = {"dense": 4 * wpb * v, "backoff": 4 * wpb}.get(kind, 0)
+    extra = 4 * wpb * v if kind == "dense" else 0
     return 4 * (floats + wpb) + extra
 
 
@@ -336,28 +491,49 @@ def backtrace_smem_bytes(v: int, s: int, kind: str) -> int:
     return 4 * (vp + s * s + 2 * BACKTRACE_WINDOW * s)
 
 
+def _geometry(v: int, s: int, hop, n_sm: int):
+    """``(wpb, n_blocks, n_src)`` of the forward and lattice launches: the
+    largest block's words, the blocks and the most sources a block polls;
+    a backoff hop's from its :func:`block_layout`, the other kinds'
+    ``ceil(V / n_sm)`` words a block. None where the words do not fit, or
+    where the rank-1 and backoff kinds would have more than
+    :data:`MAX_BLOCKS` blocks."""
+    if hop_kind(hop) == "backoff":
+        layout = block_layout(hop, s, n_sm)
+        return None if layout is None else (layout.max_words, layout.n_blocks, layout.max_src)
+    wpb = -(-v // n_sm)
+    n_blocks = -(-v // wpb)
+    # the factored kinds combine the blocks' keys 32 at a time, in 32 slots
+    return None if hop_kind(hop) == "rank1" and n_blocks > MAX_BLOCKS else (wpb, n_blocks, 0)
+
+
 def factored_kernel_ok(t_len: int, v: int, s: int, hop, n_sm: int) -> bool:
     """The kernels' H100 capacity rule (it replaces the TPU's VMEM budgets
     ``factored_pallas_ok`` / ``factored_rank1_ok``): the forward spreads
-    the V words over ``n_sm`` blocks of ``wpb = ceil(V / n_sm)`` words, one
-    thread per (word, state) cell (``wpb * S <= 1024``, the most threads a
-    block may have; the kernel is compiled for 1024 threads per block, so
-    its registers stay within the SM's 64 K); a block's 227 KB of shared
-    memory must hold its rows and, for a dense hop, its ``wpb`` hop columns
-    (4 * wpb * V bytes: V up to ~2,500 words on 132 SMs); the stored grids
-    (4 T V S bytes) stay within 2 GiB of HBM. The backtrace's one block
-    must hold a window (:func:`backtrace_smem_bytes`: with a hop, V up to
-    ~57,000 words at S = 8, past the ~16,900 the forward takes on 132
-    SMs). A backoff hop is taken as a :class:`BackoffHop` (padded factors
-    are the scans' operand); its arcs are read through the read-only data
-    path, not staged, so their number adds no limit past the CSR's int32
-    offsets, and its shared memory is the rank-1 hop's plus a 32-bit key
-    a word in the forward."""
+    the V words over ``n_sm`` blocks, ``wpb = ceil(V / n_sm)`` words each
+    or, for a backoff hop, the ranges of :func:`block_map` (``wpb`` its
+    largest), one thread per (word, state) cell (``wpb * S <= 1024``, the
+    most threads a block may have; the kernel is compiled for 1024 threads
+    per block, so its registers stay within the SM's 64 K); a block's 227 KB
+    of shared memory must hold its rows and, for a dense hop, its ``wpb``
+    hop columns (4 * wpb * V bytes: V up to ~2,500 words on 132 SMs); the
+    stored grids (4 T V S bytes) stay within 2 GiB of HBM. The backtrace's
+    one block must hold a window (:func:`backtrace_smem_bytes`: with a
+    hop, V up to ~57,000 words at S = 8, past the ~16,900 the forward takes
+    on 132 SMs). A backoff hop is taken as a :class:`BackoffHop` (padded
+    factors are the scans' operand); its arcs are read through the
+    read-only data path, not staged, so their number adds no limit past
+    the CSR's int32 offsets, and its shared memory is the rank-1 hop's plus
+    a 64-bit key a word and its largest source list."""
     if not _kernel_operand(hop) or min(t_len, v, s, n_sm) < 1:
         return False
     kind = hop_kind(hop)
-    wpb = -(-v // n_sm)
-    return (wpb * s <= MAX_THREADS and forward_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
+    geo = _geometry(v, s, hop, n_sm)
+    if geo is None:
+        return False
+    wpb, n_blocks, n_src = geo
+    return (wpb * s <= MAX_THREADS
+            and forward_smem_bytes(v, s, wpb, kind, n_blocks, n_src) + 1024 <= SMEM_LIMIT
             and backtrace_smem_bytes(v, s, kind) + 1024 <= SMEM_LIMIT
             and 4 * t_len * v * s <= GRID_BUDGET)
 
@@ -390,25 +566,43 @@ def backtrace_windows(path, mask, s_max: int, window: int = BACKTRACE_WINDOW) ->
     return windows
 
 
-def lattice_smem_bytes(v: int, s: int, wpb: int, kind: str) -> int:
+def lattice_smem_bytes(v: int, s: int, wpb: int, kind: str, n_blocks: Optional[int] = None,
+                       n_src: int = 0) -> int:
     """Shared memory of one lattice block (``csrc/factored_lattice.cu:
-    smem_bytes``): the forward's (:func:`forward_smem_bytes`) plus each
-    word's hop source and its cells' start and pred rows; a backoff hop's
-    keys carry the sparse argmax too (64 bits a word)."""
-    extra = 4 * wpb if kind == "backoff" else 0
-    return forward_smem_bytes(v, s, wpb, kind) + 4 * (wpb + 2 * wpb * s) + extra
+    smem_bytes``): for no hop and a dense hop the forward's
+    (:func:`forward_smem_bytes`) plus each word's hop source and its cells'
+    start and pred rows; for the rank-1 and backoff hops the rows, inner
+    blocks, exit indices, start and pred rows and the exchange's slots
+    (:func:`_factors_smem_bytes`)."""
+    if kind in ("rank1", "backoff"):
+        return _factors_smem_bytes(wpb * s + wpb * s * s + wpb + 2 * wpb * s, v, wpb, kind,
+                                   n_blocks, n_src)
+    return forward_smem_bytes(v, s, wpb, kind) + 4 * (wpb + 2 * wpb * s)
 
 
 def lattice_kernel_ok(v: int, s: int, hop, n_sm: int) -> bool:
     """Kernel F's H100 capacity rule: the forward's threads and shared-memory
-    test (:func:`factored_kernel_ok`) with F's own shared memory; no grid
-    budget, since F stores no grids, only its ``(T, V)`` records. A backoff
-    hop is taken as a :class:`BackoffHop`, as in the forward."""
+    test (:func:`factored_kernel_ok`, the same blocks) with F's own shared
+    memory; no grid budget, since F stores no grids, only its ``(T, V)``
+    records. A backoff hop is taken as a :class:`BackoffHop`, as in the
+    forward."""
     if not _kernel_operand(hop) or min(v, s, n_sm) < 1:
         return False
-    kind = hop_kind(hop)
-    wpb = -(-v // n_sm)
-    return wpb * s <= MAX_THREADS and lattice_smem_bytes(v, s, wpb, kind) + 1024 <= SMEM_LIMIT
+    geo = _geometry(v, s, hop, n_sm)
+    if geo is None:
+        return False
+    wpb, n_blocks, n_src = geo
+    return (wpb * s <= MAX_THREADS
+            and lattice_smem_bytes(v, s, wpb, hop_kind(hop), n_blocks, n_src) + 1024 <= SMEM_LIMIT)
+
+
+def exchange_slots(v: int, kind: str, n_blocks: int) -> int:
+    """64-bit slots of a forward or lattice launch's exchange (what its
+    launcher fills with the stale tag): ``(2, V)`` exits for the dense and
+    backoff hops (and, unused, for no hop), then ``(2, n_blocks,
+    PART_WORDS)`` partials for the rank-1 and backoff hops."""
+    exits = 0 if kind == "rank1" else 2 * v
+    return exits + (2 * n_blocks * PART_WORDS if kind in ("rank1", "backoff") else 0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -454,6 +648,19 @@ def _hop_args(hop, hop_t, v, dev):
     return [_HOP_IDS[kind], *ops[:4], sil_idx, *ops[4:]]
 
 
+def _layout_args(hop, v, s, n_sm, dev):
+    """A launch's layout operands (``_MAP_ARGTYPES``) and its number of
+    blocks: a backoff hop's :func:`block_layout` on ``dev``; null and 0 for
+    the other kinds, whose launchers take ``ceil(V / n_sm)`` words a
+    block."""
+    layout = block_layout(hop, s, n_sm, dev)
+    if layout is None:
+        wpb = -(-v // n_sm)
+        return [None] * 4 + [0, 0, 0], -(-v // wpb)
+    return [layout.blk_ptr, layout.src_ptr, layout.src, layout.arc_lsrc, layout.n_blocks,
+            layout.max_words, layout.max_src], layout.n_blocks
+
+
 def _c_args(args):
     return [_ptr(x) if x is None or torch.is_tensor(x) else x for x in args]
 
@@ -494,16 +701,19 @@ def factored_forward(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     exit_idx = _check("exit_idx", exit_idx, (v,), torch.int32, dev)
     mask = _mask_arg(mask, (t,), dev)
     hop_args = _hop_args(hop, hop_t, v, dev)
+    layout_args, n_blocks = _layout_args(hop, v, s, n_sm, dev)
     grids = torch.empty((t, v, s), dtype=f32, device=dev)
-    # the exit exchange, (frame tag, fp32 exit) in 8 bytes a slot; the
-    # launcher fills it with a tag no frame uses before the kernel runs
-    exchange = torch.empty((2, v), dtype=torch.int64, device=dev)
+    # the exchange, (frame tag, 32 bits) in 8 bytes a slot: exits and the
+    # blocks' partials; the launcher fills it with a tag no frame uses
+    # before the kernel runs
+    exchange = torch.empty((exchange_slots(v, hop_kind(hop), n_blocks),), dtype=torch.int64,
+                           device=dev)
     lib = _build.load("factored_forward", _FWD_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_forward_launch(
             pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), *_c_args(hop_args),
-            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, grids.data_ptr(), exchange.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
+            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, *_c_args(layout_args),
+            grids.data_ptr(), exchange.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_forward", rc)
     factored_forward.launches += 1
@@ -586,18 +796,20 @@ def factored_lattice(pi_grid: torch.Tensor, inner_a: torch.Tensor, exit_idx: tor
     exit_idx = _check("exit_idx", exit_idx, (v,), i32, dev)
     mask = _mask_arg(mask, (t,), dev)
     hop_args = _hop_args(hop, hop_t, v, dev)
+    layout_args, n_blocks = _layout_args(hop, v, s, n_sm, dev)
     score = torch.empty((t, v), dtype=f32, device=dev)
     start = torch.empty((t, v), dtype=i32, device=dev)
     pred = torch.empty((t, v), dtype=i32, device=dev)
-    # the exit exchange, as in factored_forward: the launcher fills it with
-    # a tag no frame uses before the kernel runs
-    exchange = torch.empty((2, v), dtype=torch.int64, device=dev)
+    # the exchange, as in factored_forward: the launcher fills it with a
+    # tag no frame uses before the kernel runs
+    exchange = torch.empty((exchange_slots(v, hop_kind(hop), n_blocks),), dtype=torch.int64,
+                           device=dev)
     lib = _build.load("factored_lattice", _LAT_ARGTYPES)
     with torch.cuda.device(dev):
         rc = lib.factored_lattice_launch(
             pi_grid.data_ptr(), inner_a.data_ptr(), exit_idx.data_ptr(), *_c_args(hop_args),
-            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, score.data_ptr(), start.data_ptr(),
-            pred.data_ptr(),
+            log_b_grid.data_ptr(), _ptr(mask), t, v, s, n_sm, *_c_args(layout_args),
+            score.data_ptr(), start.data_ptr(), pred.data_ptr(),
             exchange.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
         )
     _build.check(lib, "factored_lattice", rc)

@@ -3,22 +3,29 @@ and F (``csrc/factored_lattice.cu``) share, stepped in seeded random
 interleavings of the blocks, against the plain versions and the JAX package.
 
 The kernels cannot run here, so the protocol runs in Python. Each block owns
-some words and, per frame, does what the kernels' blocks do: publish its
-words' exits at frame 0 and at every valid frame (the k-th publication into
-buffer ``k & 1``, tagged with its frame), poll all V slots of the other
-buffer until every tag is the last published frame's, then step its words
-with the exits it took (the plain recursion: ``factored_lattice_scan``'s
-within-word argmax and ``hop_entry``; for a backoff hop the blocks compute
-the entry from the polled column as the kernels do: the rank-1 argmax over
-the column, and the block's own range of CSR arcs folded into per-word
-(value, source) keys by a max in a seeded random order, the model of the
-kernels' shared-memory atomics). A masked frame publishes nothing and
-repeats its records. Every load and store of one slot is one atomic step,
-and a seeded scheduler picks which block moves next. The checks: every exit
-a reader takes is the plain forward's exit at the frame it asked for, and
-that frame is the last valid one; no slot is overwritten while a block still
-has to read it; and the rows and records the blocks assemble are bitwise
-those of ``factored_forward_plain``, ``factored_lattice_plain`` and the JAX
+some words and, per frame, does what the kernels' blocks do. With a dense
+hop: publish its words' exits at frame 0 and at every valid frame (the k-th
+publication into buffer ``k & 1``, tagged with its frame), poll all V slots
+of the other buffer until every tag is the last published frame's, then
+step its words with the exits it took (the plain recursion:
+``factored_lattice_scan``'s within-word argmax and ``hop_entry``). With the
+rank-1 and backoff hops (the kernels' factored kinds): fold its words' exits
+into the rank-1 family's two (value, source) keys and publish each key as
+two tagged words in a ``(2, n_blocks, 4)`` region (after its exits, for the
+backoff hop); poll the other buffer's partial words of every block and,
+for the backoff hop, the exits of its own arcs' distinct sources only
+(``ops.factored.block_layout``, over the arc-balanced word map), taking a
+key once both of its words carry the frame asked for; combine the blocks'
+keys by max; fold its own arcs into per-word keys in a seeded random order
+(the model of the kernels' shared-memory atomics); then form each word's
+entry and source as the kernels' state-0 threads do. A masked frame
+publishes nothing and repeats its records. Every load and store of one
+slot is one atomic step, and a seeded scheduler picks which block moves
+next. The checks: every exit and partial a reader takes is the plain
+forward's at the frame it asked for, and that frame is the last valid one;
+no slot is overwritten while a block that reads it still has to; and the
+rows and records the blocks assemble are bitwise those of
+``factored_forward_plain``, ``factored_lattice_plain`` and the JAX
 package's ``factored_lattice_scan``. Two broken variants show the model
 catches what the protocol guards against: a buffer picked by frame parity
 instead of publication count, and an exchange not refilled with a tag no
@@ -84,75 +91,132 @@ def _world(v, hop_mode, seed, t_len=24):
 
 
 class _Exchange:
-    """The ``(2, V)`` slots, each ``(tag, value, publication)``, and what
-    every block still has to read."""
+    """The slots, each ``(tag, value, publication)``: ``(2, V)`` exits and,
+    for the factored kinds, ``(2, n_blocks, 4)`` partial words after them
+    (slot ``V + 4 b + q``); and what every block still has to read.
+    ``readers[slot]``: the blocks that read the slot at every publication
+    (all of them, unless given)."""
 
-    def __init__(self, v, n_blocks):
-        self.slots = [[(STALE, np.float32(0.0), None)] * v for _ in range(2)]
+    def __init__(self, v, n_blocks, readers=None):
+        n = v + 4 * n_blocks
+        self.slots = [[(STALE, np.float32(0.0), None)] * n for _ in range(2)]
         self.read = [dict() for _ in range(n_blocks)]  # block -> publication -> slots read
+        self.readers = readers
 
     def store(self, buf, v, tag, value, pub):
         old_pub = self.slots[buf][v][2]
         if old_pub is not None:
-            # every block reads every publication but the last, so one
-            # about to be overwritten must be read by all already
-            waiting = [b for b, r in enumerate(self.read) if v not in r.get(old_pub, ())]
+            # every block that reads the slot reads every publication but
+            # the last, so one about to be overwritten must be read already
+            readers = range(len(self.read)) if self.readers is None else self.readers[v]
+            waiting = [b for b in readers if v not in self.read[b].get(old_pub, ())]
             if waiting:
-                raise ProtocolError(f"publication {old_pub} of word {v} overwritten while blocks "
+                raise ProtocolError(f"publication {old_pub} of slot {v} overwritten while blocks "
                                     f"{waiting} still need it")
         self.slots[buf][v] = (tag, value, pub)
 
 
-def _backoff_entry(ex, hop, words, rng):
-    """Kernels D's and F's backoff entry of the block's ``words`` from the
-    polled column ``ex``: the rank-1 family's first argmax, the silence
-    word's, and the block's arcs (one CSR range) folded in a random order
-    into each word's key ``(value, -source)`` by a max, as the kernels'
-    atomicMax folds their 64-bit keys; then the larger family, the smaller
-    achieving source."""
-    big = 0x7FFFFFFF
-    m1, a1 = torch.max(ex + hop.from_w, dim=0)
-    m2, a2 = torch.max(ex + hop.sil_from, dim=0)
-    keys = {w: (float("-inf"), -big) for w in words}
-    ptr = hop.arc_ptr.tolist()
-    arcs = list(range(ptr[words[0]], ptr[words[-1] + 1]))
-    for k in rng.sample(arcs, len(arcs)):
-        w, src = int(hop.arc_dst[k]), int(hop.arc_src[k])
-        keys[w] = max(keys[w], (float(ex[src] + hop.arc_val[k]), -src))
+BIG = 0x7FFFFFFF  # the kernels' "no source"
+
+
+def _key(x, src):
+    """The kernels' 64-bit (value, source) key of a float32 ``x``: the
+    larger value, then the smaller source (-0 and +0 tied, the winner's
+    sign kept), as a Python int."""
+    bits = int(np.float32(x + np.float32(0.0)).view(np.uint32))
+    hi = (~bits & 0xFFFFFFFF) if bits & 0x80000000 else bits | 0x80000000
+    neg0 = int(np.float32(x).view(np.uint32) == 0x80000000)
+    return (hi << 32) | (((~src & 0xFFFFFFFF) << 1) & 0xFFFFFFFF) | neg0
+
+
+def _value(key):
+    if key & 1:
+        return np.float32(-0.0)
+    hi = key >> 32
+    return np.uint32(hi & 0x7FFFFFFF if hi & 0x80000000 else ~hi & 0xFFFFFFFF).view(np.float32)
+
+
+def _source(key):
+    return ~(((key & 0xFFFFFFFF) >> 1) | 0x80000000) & 0xFFFFFFFF
+
+
+def _partials(ex, hop, words):
+    """A block's two partial keys: its words' ``exit + from_w`` and
+    ``exit + sil_from``, each with the word as its source."""
+    return [max(_key(np.float32(ex[w] + f[w]), w) for w in words)
+            for f in (hop.from_w.numpy(), hop.sil_from.numpy())]
+
+
+def _factored_entry(k1, k2, src_ex, hop, words, lay, b, rng):
+    """Kernels D's and F's entry and source of the block's ``words`` from
+    the combined rank-1 keys and, for a backoff hop, the exits of the
+    block's own sources (``src_ex``, in its list's order): the arcs of its
+    one CSR range folded into per-word keys in a random order (the
+    atomics), then the larger family, the smaller achieving source."""
+    keys = {w: _key(np.float32(-np.inf), BIG) for w in words}
+    if lay is not None:
+        ptr = hop.arc_ptr.tolist()
+        arcs = list(range(ptr[words[0]], ptr[words[-1] + 1]))
+        for k in rng.sample(arcs, len(arcs)):
+            cand = np.float32(src_ex[int(lay.arc_lsrc[k])] + hop.arc_val[k].item())
+            w = int(hop.arc_dst[k])
+            keys[w] = max(keys[w], _key(cand, int(hop.arc_src[k])))
     entry, esrc = torch.empty(len(words)), torch.empty(len(words), dtype=torch.int32)
     for q, w in enumerate(words):
         if w == hop.sil_idx:
-            entry[q], esrc[q] = m2, int(a2)
+            entry[q], esrc[q] = float(_value(k2)), _source(k2)
             continue
-        r1 = m1 + hop.uni[w]
-        sp, sp_src = torch.tensor(keys[w][0], dtype=r1.dtype), -keys[w][1]
-        e = torch.maximum(r1, sp)
-        entry[q] = e
-        esrc[q] = min(int(a1) if r1 >= e else big, sp_src if sp >= e else big)
+        r1 = np.float32(_value(k1) + hop.uni[w].item())
+        sp = _value(keys[w])
+        en = sp if sp > r1 else r1
+        entry[q] = float(en)
+        esrc[q] = min(_source(k1) if r1 >= en else BIG, _source(keys[w]) if sp >= en else BIG)
     return entry, esrc
 
 
-def _block(b, words, ex_slots, world, mask, taken, out, rule):
+def _block(b, words, ex_slots, world, mask, taken, out, rule, lay):
     """One block of kernel D or F, as a generator: each ``yield`` ends one
-    atomic load or store of a slot. ``out`` collects its rows and records."""
+    atomic load or store of a slot. ``out`` collects its rows and records
+    and, for the factored kinds, the partial keys it combined; ``lay`` is
+    the backoff hop's block layout."""
     pi_grid, inner_a, exit_idx, hop, log_b = world
     t_len, v_words, _ = log_b.shape
+    kind = F.hop_kind(hop)
+    factored = kind in ("rank1", "backoff")
+    n_blocks = len(ex_slots.read)
     rng = random.Random(b)
     g = pi_grid[words] + log_b[0][words]
     st = torch.zeros_like(g, dtype=torch.int32)
     pr = torch.full_like(st, -1)
     el = exit_idx.long()[words][:, None]
+    srcs = [] if lay is None else [int(x) for x in lay.src[lay.src_ptr[b]:lay.src_ptr[b + 1]]]
+    # the slots this block polls: every exit (dense), or every block's
+    # partial words and its own sources' exits (the factored kinds)
+    wanted = ([v_words + q for q in range(4 * n_blocks)] + srcs) if factored else \
+        list(range(v_words))
 
     def record(t):
         out["grids"][t][words] = g
         for arr, x in (("score", g), ("start", st), ("pred", pr)):
             out[arr][t][words] = torch.gather(x, 1, el)[:, 0]
 
+    def publish(buf, t, pub):
+        """The exits (dense, backoff) in a random order, then, for the
+        factored kinds, the partial keys' four words in a random order."""
+        order = list(range(len(words)))
+        if kind != "rank1":
+            for q in rng.sample(order, len(order)):
+                ex_slots.store(buf, words[q], t, out["score"][t][words[q]].item(), pub)
+                yield
+        if factored:
+            k1, k2 = _partials(out["score"][t], hop, words)
+            halves = [k1 >> 32, k1 & 0xFFFFFFFF, k2 >> 32, k2 & 0xFFFFFFFF]
+            for q in rng.sample(range(4), 4):
+                ex_slots.store(buf, v_words + 4 * b + q, t, halves[q], pub)
+                yield
+
     record(0)
-    order = list(range(len(words)))
-    for q in rng.sample(order, len(order)):  # frame 0's publication, buffer 0
-        ex_slots.store(0, words[q], 0, out["score"][0][words[q]].item(), 0)
-        yield
+    yield from publish(0, 0, 0)  # frame 0's publication, buffer 0
     n_pub, last_pub = 0, 0
     for t in range(1, t_len):
         if not mask[t]:  # identity step: records repeat, nothing is published
@@ -160,21 +224,30 @@ def _block(b, words, ex_slots, world, mask, taken, out, rule):
             continue
         buf = (n_pub & 1) if rule == "publication" else (last_pub & 1)
         seen = ex_slots.read[b].setdefault(n_pub, set())
-        ex = torch.empty(v_words)
-        pending = list(range(v_words))
+        got = {}
+        pending = list(wanted)
         while pending:  # poll: every slot not yet tagged is reloaded each round
-            for v in rng.sample(pending, len(pending)):
-                tag, value, _ = ex_slots.slots[buf][v]
+            for slot in rng.sample(pending, len(pending)):
+                tag, value, _ = ex_slots.slots[buf][slot]
                 yield
                 if tag == last_pub:
-                    ex[v] = value
-                    seen.add(v)
-                    pending.remove(v)
-        taken.append((b, t, last_pub, ex.clone()))
+                    got[slot] = value
+                    seen.add(slot)
+                    pending.remove(slot)
+        ex = torch.full((v_words,), float("nan"))
+        for slot, value in got.items():
+            if slot < v_words:
+                ex[slot] = value
+        taken.append((b, t, last_pub, ex))
         within, wsrc = torch.max(g[:, :, None] + inner_a[words], dim=1)
         nst, npr = torch.gather(st, 1, wsrc), torch.gather(pr, 1, wsrc)
-        if F.hop_kind(hop) == "backoff":
-            entry, esrc = _backoff_entry(ex, hop, words, rng)
+        if factored:
+            base = [v_words + 4 * c for c in range(n_blocks)]
+            k1 = max(got[q] << 32 | got[q + 1] for q in base)
+            k2 = max(got[q + 2] << 32 | got[q + 3] for q in base)
+            out["parts"].append((b, t, last_pub, k1, k2))
+            entry, esrc = _factored_entry(k1, k2, [np.float32(got[v]) for v in srcs], hop,
+                                          words, lay, b, rng)
         else:
             entry, esrc = F.hop_entry(ex, hop)
             entry, esrc = entry[words], esrc[words]
@@ -185,24 +258,41 @@ def _block(b, words, ex_slots, world, mask, taken, out, rule):
         g, st, pr = within + log_b[t][words], nst, npr
         record(t)
         wbuf = ((n_pub + 1) & 1) if rule == "publication" else (t & 1)
-        for q in rng.sample(order, len(order)):
-            ex_slots.store(wbuf, words[q], t, out["score"][t][words[q]].item(), n_pub + 1)
-            yield
+        yield from publish(wbuf, t, n_pub + 1)
         n_pub, last_pub = n_pub + 1, t
 
 
 def _run(world, mask, wpb, seed, rule="publication", exchange=None, max_steps=400_000):
     """Run the blocks to the end in one seeded interleaving. Returns the
-    assembled rows, records and every exit the readers took."""
+    assembled rows, records, partial keys and every exit the readers took
+    (NaN where a block polls no slot), and the exchange. The blocks own
+    ``wpb`` words each, or for a backoff hop the ranges of
+    ``ops.factored.block_layout`` over ``ceil(V / wpb)`` SMs."""
     t_len, v_words, s_max = world[4].shape
-    blocks = [list(range(w0, min(w0 + wpb, v_words))) for w0 in range(0, v_words, wpb)]
-    exchange = exchange or _Exchange(v_words, len(blocks))
+    hop = world[3]
+    lay = None
+    if F.hop_kind(hop) == "backoff":
+        lay = F.block_layout(hop, s_max, -(-v_words // wpb))
+        blk = [int(x) for x in lay.blk_ptr]
+        blocks = [list(range(w0, w1)) for w0, w1 in zip(blk[:-1], blk[1:])]
+    else:
+        blocks = [list(range(w0, min(w0 + wpb, v_words))) for w0 in range(0, v_words, wpb)]
+    n_blocks = len(blocks)
+    readers = None
+    if F.hop_kind(hop) in ("rank1", "backoff"):  # a partial: every block; an exit: its arcs' blocks
+        readers = {v_words + q: range(n_blocks) for q in range(4 * n_blocks)}
+        for v in range(v_words):
+            readers[v] = [] if lay is None else [
+                b for b in range(n_blocks) if v in set(lay.src[lay.src_ptr[b]:lay.src_ptr[b + 1]])]
+    exchange = exchange or _Exchange(v_words, n_blocks, readers)
     out = {"grids": torch.empty((t_len, v_words, s_max)),
            "score": torch.empty((t_len, v_words)),
            "start": torch.empty((t_len, v_words), dtype=torch.int32),
-           "pred": torch.empty((t_len, v_words), dtype=torch.int32)}
+           "pred": torch.empty((t_len, v_words), dtype=torch.int32),
+           "parts": []}
     taken = []
-    live = [_block(b, ws, exchange, world, mask, taken, out, rule) for b, ws in enumerate(blocks)]
+    live = [_block(b, ws, exchange, world, mask, taken, out, rule, lay)
+            for b, ws in enumerate(blocks)]
     rng = random.Random(seed)
     for _ in range(max_steps):
         if not live:
@@ -232,10 +322,12 @@ MASKS = {
 @pytest.mark.parametrize("mask_name", sorted(MASKS))
 @pytest.mark.parametrize("wpb", [1, 4])
 def test_exchange_model_bitwise(hop_mode, mask_name, wpb):
-    """Over seeded interleavings, every exit a block takes is the plain
-    forward's at the last valid frame, no slot needed is overwritten, and
-    the blocks' rows and records are bitwise ``factored_forward_plain``'s,
-    ``factored_lattice_plain``'s and the JAX package's."""
+    """Over seeded interleavings, every exit and partial key a block takes
+    is the plain forward's at the last valid frame (the factored kinds'
+    blocks take their own sources' exits only), no slot needed is
+    overwritten, and the blocks' rows and records are bitwise
+    ``factored_forward_plain``'s, ``factored_lattice_plain``'s and the JAX
+    package's."""
     jg, world = _inputs(hop_mode, seed=len(hop_mode) + wpb)
     pi_grid, inner_a, exit_idx, hop, log_b = world
     t_len = log_b.shape[0]
@@ -246,12 +338,22 @@ def test_exchange_model_bitwise(hop_mode, mask_name, wpb):
     j_recs = jdec.factored_lattice_scan(jnp.asarray(log_b.numpy()), jg.inner_a, jg.hop,
                                         jnp.asarray(pi_grid.numpy()), jg.exit_idx,
                                         jnp.asarray(mask))
+    factored = hop_mode != "dense"
+    keys = [_partials(recs_ref[0][t], hop, range(log_b.shape[1])) for t in range(t_len)] \
+        if factored else []
     for seed in range(4):
-        out, taken, _ = _run(world, mask, wpb, seed)
+        out, taken, exchange = _run(world, mask, wpb, seed)
         for _, t, asked, ex in taken:
             assert asked == max(u for u in range(t) if u == 0 or mask[u])
-            assert torch.equal(ex.view(torch.int32), recs_ref[0][asked].view(torch.int32))
-        assert len(taken) == -(-log_b.shape[1] // wpb) * int(mask[1:].sum())
+            polled = ~torch.isnan(ex)
+            assert bool(polled.all()) != factored  # the factored kinds poll only their sources
+            assert torch.equal(ex[polled].view(torch.int32),
+                               recs_ref[0][asked][polled].view(torch.int32))
+        for _, t, asked, k1, k2 in out["parts"]:  # the blocks' keys combined: the plain's
+            assert asked == max(u for u in range(t) if u == 0 or mask[u])
+            assert [k1, k2] == keys[asked]
+        assert len(taken) == len(exchange.read) * int(mask[1:].sum())
+        assert len(out["parts"]) == (len(taken) if factored else 0)
         assert torch.equal(out["grids"].view(torch.int32), grids_ref.view(torch.int32))
         for k, name in enumerate(("score", "start", "pred")):
             got = out[name].view(torch.int32) if name == "score" else out[name]

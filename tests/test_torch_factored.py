@@ -600,10 +600,18 @@ def test_backtrace_windows_and_capacity():
     assert F.backtrace_windows(path[:1], None, s) == []
     assert F.backtrace_smem_bytes(1001, 8, "dense") == 4 * (1004 + 64 + 2 * 32 * 8)
     assert F.backtrace_smem_bytes(1001, 8, "none") == 4 * (64 + 2 * 32 * 8)
-    # one word a forward block, S = 2: the forward's block fits, E's hop column does not
+    # 438 words a forward block on 132 SMs, S = 2: the forward's block fits
+    # (876 threads, ~15 KB), E's hop column does not
     v = 57800
     rank1 = F.Rank1Hop(*(torch.zeros(v) for _ in range(3)), -1)
-    assert F.forward_smem_bytes(v, 2, 1, "rank1") + 1024 <= F.SMEM_LIMIT
+    assert -(-v // 132) * 2 <= F.MAX_THREADS
+    assert F.forward_smem_bytes(v, 2, 438, "rank1", n_blocks=132) + 1024 <= F.SMEM_LIMIT
     assert F.backtrace_smem_bytes(v, 2, "rank1") + 1024 > F.SMEM_LIMIT
-    assert not F.factored_kernel_ok(16, v, 2, rank1, v)
+    assert not F.factored_kernel_ok(16, v, 2, rank1, 132)
     assert F.factored_kernel_ok(16, v, 2, None, v)  # no hop, no column
+    # past MAX_BLOCKS blocks the rank-1 kind has no kernel, whatever fits
+    v = 2000
+    rank1 = F.Rank1Hop(*(torch.zeros(v) for _ in range(3)), -1)
+    assert F.factored_kernel_ok(16, v, 2, rank1, v // 2) and F.lattice_kernel_ok(v, 2, rank1, v // 2)
+    assert not F.factored_kernel_ok(16, v, 2, rank1, v) and not F.lattice_kernel_ok(v, 2, rank1, v)
+    assert F.factored_kernel_ok(16, v, 2, None, v)

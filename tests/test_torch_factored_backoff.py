@@ -243,6 +243,7 @@ def test_csr_build_matches_padded_rows():
 
 HOP_PARAMS = ["hop_kind", "hop_t", "from_w", "uni", "sil_from", "sil_idx", "arc_ptr", "arc_dst",
               "arc_src", "arc_val"]
+LAYOUT_PARAMS = ["blk_ptr", "src_ptr", "src", "arc_lsrc", "n_blocks", "max_words", "max_src"]
 
 
 @pytest.mark.parametrize("name,argtypes", [("factored_forward", F._FWD_ARGTYPES),
@@ -251,19 +252,32 @@ HOP_PARAMS = ["hop_kind", "hop_t", "from_w", "uni", "sil_from", "sil_idx", "arc_
 def test_c_signatures_match_argtypes(name, argtypes):
     """Each kernel's C entry takes what its wrapper passes: the argument
     count, pointer or int at every place, the ten hop operands in
-    ``_hop_args``'s order right after ``exit_idx``, and the hop kind ids."""
+    ``_hop_args``'s order right after ``exit_idx``, for D and F the seven
+    layout operands of ``_layout_args`` right after ``n_sm``, the hop
+    kind ids and, for D and F, the exchange's sizes."""
     import ctypes
     import os
     import re
 
-    src = open(os.path.join(os.path.dirname(F.__file__), "..", "csrc", f"{name}.cu")).read()
+    csrc = os.path.join(os.path.dirname(F.__file__), "..", "csrc")
+    src = open(os.path.join(csrc, f"{name}.cu")).read()
     sig = re.search(rf'extern "C" int {name}_launch\((.*?)\)\s*{{', src, re.S).group(1)
+    # with the local headers it includes (D's and F's shared exchange)
+    for header in re.findall(r'#include "(\w+\.cuh)"', src):
+        src += open(os.path.join(csrc, header)).read()
     params = [p.strip() for p in sig.split(",")]
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
     assert kinds == argtypes
     names = [re.split(r"[\s*]+", p)[-1] for p in params]
     assert names[3:13] == HOP_PARAMS
+    if name != "factored_backtrace":  # the word-to-block layout, after n_sm
+        at = names.index("n_sm") + 1
+        assert names[at:at + 7] == LAYOUT_PARAMS and argtypes[at:at + 7] == F._MAP_ARGTYPES
     assert F._HOP_IDS == {"none": 0, "dense": 1, "rank1": 2, "backoff": 3}
     for kind, k in F._HOP_IDS.items():  # every kind id the source names is the wrapper's
         if f"HOP_{kind.upper()}" in src:
             assert f"constexpr int HOP_{kind.upper()} = {k};" in src
+    if name != "factored_backtrace":  # the exchange's sizes, as the capacity rule mirrors them
+        for const, value in (("PART", F.PART_WORDS), ("MAX_BLOCKS", F.MAX_BLOCKS),
+                             ("MAX_THREADS", F.MAX_THREADS), ("SMEM_LIMIT", F.SMEM_LIMIT)):
+            assert re.search(rf"constexpr int {const} = {value};", src)

@@ -46,10 +46,11 @@ REPORT_KEYS = {"protocol_version", "wer", "conditions", "n_ref_words", "n_test_u
                "vocab_words", "fixtures", "config", "cli_check", "cli_default_check"}
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """The plain CPU paths are frame loops of tiny ops: one intra-op thread
-    runs them faster than a pool shared with the suite's other workers."""
+    runs them faster than a pool shared with the suite's other workers
+    (module-wide, so that the module fixtures' protocol run has it too)."""
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
@@ -344,7 +345,7 @@ def reduced(pair):
 
 
 @pytest.fixture(scope="module")
-def core(pair, reduced):
+def core(one_torch_thread, pair, reduced):
     words, gaps = tdemo.recording_words([read_pcm(p) for p in pair])
     with contextlib.redirect_stdout(io.StringIO()):
         return tdemo.protocol(words, gaps, device="cpu", fixtures=list(pair))
