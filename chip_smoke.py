@@ -65,6 +65,14 @@ kernels' launch counters reset just before and read just after:
   score) on both routes, masks, ties, ``-inf``, T = 1 and N = 1 to 1024,
   float32 and float64; then ``GMMHMM.decode_batch`` at B = 64 x 10 s with
   ragged masks (the kernel once) against the plain loop and the CPU;
+- the streaming pipeline's decoder stage, ``stage_phase``: kernel P
+  (one launch an arrived chunk) bit for bit against its plain frame loop
+  in the max-plus semiring (alpha and pointers) and within G's bars in the
+  log semiring, N = 1 to 1024, chunks of 1, 111 and 1000, row 0 at frame
+  0 and later, float32 and float64, ties and ``-inf``; the walk bit for
+  bit against its plain host loop up to T = 100,000; both timed at the
+  pipeline's geometry (the pipelines themselves run in ``parallel/``
+  below, where their launches are counted);
 - training, ``entry.training()``: B=64 utterances of 10 s -> MFCC (mel
   frontend once) -> Baum-Welch sweeps of the flagship GMM-HMM (kernel G
   once a sweep for the forward-backward recursion, torch GEMMs for the
@@ -84,7 +92,8 @@ kernels' launch counters reset just before and read just after:
   stream's features against the scans; ``parallel.decode_batch_sharded``
   at V = 1000 (8 segments, two planted; the mel frontend once, the
   forward and backtrace kernels twice on every rank) bitwise equal to
-  ``decode_batch``; the 2- and 4-stage pipelines; then one sweep on a
+  ``decode_batch``; the 2- and 4-stage pipelines (kernel P once a chunk
+  on the decoder rank, the walk once a decode on every rank); then one sweep on a
   world of one under NCCL. Several ranks on one card show correctness
   and overhead, not scaling;
 - the command line (``lnasr_tpu_torch.cli``), ``cli_phase``: ``mfcc``
@@ -145,6 +154,7 @@ S = SECONDS * SR
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 FP32_FLOPS = 67e12  # H100 SXM fp32 peak outside the tensor cores
+FP64_FLOPS = 34e12  # H100 SXM fp64 peak outside the tensor cores
 
 
 class CheckFailed(RuntimeError):
@@ -287,9 +297,9 @@ def on_device(torch, e):
             and not getattr(e, "is_user_annotation", False))
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, flops=FP32_FLOPS):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_FLOPS * 1e3
+    t_ops = n_ops / flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2339,6 +2349,238 @@ def trellis_phase(torch, entry, wrappers, card, launches):
             "err": err}
 
 
+# -- kernel P: the streaming pipeline's decoder stage and its walk --------------
+
+PIPE_CHUNK = 111  # divides the flagship utterance's T = 999
+STAGE_NS = (1, 5, 32, 33, 257, 1024)  # both routes and their edges
+STAGE_CHUNKS = (1, PIPE_CHUNK, 1000)
+STAGE_KINDS = ("random", "ties", "inf")
+WALK_NS = (1, 5, 32, 33, 257)  # the shuffle route and the chase through memory
+WALK_TS = (1, 2, 999, 100_000)
+
+
+def stage_inputs(rng, n, chunk, kind):
+    """``(alpha, log_pi, log_a, log_b)`` for kernel P as float64 NumPy whose
+    values float32 holds exactly (so one float64 plain run is the oracle of
+    both dtypes): ``random``; ``ties`` integer-valued with ``-inf``
+    transitions, emissions and carried entries (no ``-0.0``); ``inf`` a
+    left-to-right model (``-inf`` but on the diagonal and the next state)
+    with an all ``-inf`` column, a dead start and ``-inf`` carried
+    entries (tests/test_torch_trellis_chunk.py's kinds)."""
+    alpha = rng.normal(scale=5.0, size=n) - 50.0
+    log_pi = np.log(rng.dirichlet(np.ones(n)))
+    log_a = np.log(rng.dirichlet(np.ones(n), size=n))
+    log_b = rng.normal(scale=2.0, size=(chunk, n))
+    with np.errstate(divide="ignore"):
+        if kind == "ties":
+            alpha = rng.integers(-6, 1, size=n) + 0.0
+            log_pi = rng.integers(-2, 1, size=n) + 0.0
+            log_a = rng.integers(-3, 1, size=(n, n)) + 0.0
+            log_b = rng.integers(-4, 1, size=(chunk, n)) + 0.0
+            log_a[rng.random((n, n)) < 0.3] = -np.inf
+            log_b[rng.random((chunk, n)) < 0.1] = -np.inf
+            alpha[rng.random(n) < 0.2] = -np.inf
+        elif kind == "inf":
+            i, j = np.indices((n, n))
+            log_a = np.where((j == i) | (j == i + 1), np.log(0.5), -np.inf)
+            if n > 2:
+                log_a[:, n // 2] = -np.inf
+            log_pi[-1] = -np.inf
+            alpha[rng.random(n) < 0.3] = -np.inf
+    return tuple(x.astype(np.float32).astype(np.float64) for x in (alpha, log_pi, log_a, log_b))
+
+
+def check_stage(torch, tr, dev):
+    """Kernel P against ``trellis_chunk_plain`` on the card, N in
+    :data:`STAGE_NS` by chunks of :data:`STAGE_CHUNKS` (each pair one kind
+    of :data:`STAGE_KINDS`), the chunk's row 0 at frame 0 and at frame 37,
+    float32 and float64, both semirings: the max-plus ``alpha`` and
+    pointer rows bit for bit, the log semiring within G's bars (float64
+    1e-12 max relative, the ``-inf`` pattern identical; float32 within 2x
+    the plain version's RMS distance from float64), its pointers bitwise
+    at chunk 1 (later rows follow an ``alpha`` that differs in its last
+    bits); with no pointers asked for, ``bt`` untouched and ``alpha`` the
+    same bits. Then the walk bit for bit against ``pointer_walk_plain`` at
+    N in :data:`WALK_NS` and T in :data:`WALK_TS`, ties in ``alpha`` and an
+    all ``-inf`` ``alpha``. Returns the largest float64 log-semiring
+    error."""
+    f32, f64 = torch.float32, torch.float64
+    worst, lines = 0.0, []
+    for k, n in enumerate(STAGE_NS):
+        for c, chunk in enumerate(STAGE_CHUNKS):
+            kind = STAGE_KINDS[(k + c) % len(STAGE_KINDS)]
+            raw = stage_inputs(np.random.default_rng(1000 * k + c), n, chunk, kind)
+            errs = []
+            for pos in (0, 37):
+                for semiring in ("max", "log"):
+                    oracle = None
+                    for dtype in (f64, f32):
+                        alpha, pi, a, lb = (torch.as_tensor(x, dtype=dtype, device=dev)
+                                            for x in raw)
+                        ref, ref_bt = tr.trellis_chunk_plain(alpha, pos, pi, a, lb, semiring, True)
+                        bt = torch.full((chunk, n), -7, dtype=torch.int32, device=dev)
+                        got, _ = tr.trellis_chunk(alpha, pos, pi, a, lb, semiring, True, bt)
+                        untouched = torch.full_like(bt, -7)
+                        bare, _ = tr.trellis_chunk(alpha, pos, pi, a, lb, semiring, False,
+                                                   untouched)
+                        torch.cuda.synchronize()
+                        what = f"kernel P N={n} chunk={chunk} {kind} pos={pos} {semiring} {dtype}"
+                        require(same_bits(torch, [bare], [got]) and bool((untouched == -7).all()),
+                                f"{what}: without pointers alpha differs or bt was written")
+                        if semiring == "max" or chunk == 1:
+                            require(torch.equal(bt, ref_bt), f"{what}: pointers differ on "
+                                    f"{int((bt != ref_bt).sum())} of {bt.numel()}")
+                        if semiring == "max":
+                            require(same_bits(torch, [got], [ref]), f"{what}: alpha differs")
+                        elif dtype == f64:
+                            oracle = ref
+                            e = fb_rel(torch, got, ref)[0]
+                            require(e <= 1e-12, f"{what}: {e} from the plain version")
+                            worst = max(worst, finite_err(torch, got, ref))
+                            errs.append(e)
+                        else:
+                            d_g, d_p = fb_rel(torch, got, oracle)[1], fb_rel(torch, ref, oracle)[1]
+                            require(d_g <= 2 * d_p, f"{what}: RMS {d_g} from float64, the plain "
+                                    f"version {d_p}")
+            lines.append(f"N={n} chunk={chunk} {kind} ({tr.trellis_chunk_route(n)}): log f64 "
+                         f"{max(errs):.3g}")
+    print("kernel P vs trellis_chunk_plain on the card, row 0 at frame 0 and 37, float32 and "
+          "float64: max-plus alpha and pointers bit for bit, log semiring float64 within 1e-12 "
+          "(max rel) and float32 within 2x the plain version's RMS distance from float64, "
+          "pointers off leave bt untouched: " + "; ".join(lines))
+    cases = 0
+    for n in WALK_NS:
+        for t in WALK_TS:
+            rng = np.random.default_rng(7 * n + t)
+            bt = torch.as_tensor(rng.integers(0, n, size=(t, n), dtype=np.int32), device=dev)
+            alpha = np.round(rng.normal(size=n))
+            alpha[rng.random(n) < 0.3] = -np.inf
+            for a in (alpha, np.full(n, -np.inf)):
+                a = torch.as_tensor(a, device=dev)
+                got, again = tr.pointer_walk(a, bt), tr.pointer_walk(a, bt)
+                ref = tr.pointer_walk_plain(a, bt)
+                torch.cuda.synchronize()
+                require(torch.equal(got, ref) and torch.equal(again, got),
+                        f"the walk at N={n} T={t}: differs from the plain walk on "
+                        f"{int((got != ref).sum())} frames")
+                cases += 1
+    print(f"the walk vs pointer_walk_plain on the card, bit for bit, two launches equal: "
+          f"{cases} cases, N {WALK_NS} x T {WALK_TS}, ties in alpha and an all -inf alpha")
+    return worst
+
+
+def pipeline_inputs(torch, entry, dev):
+    """``(params, log_b)``: the flagship model at float64 and its emissions
+    on one 10 s utterance of ``entry.training``'s signals (T = 999, N = 5),
+    the decoder stage's inputs in ``parallel_phase``'s pipelines."""
+    from lnasr_tpu_torch.models import gmmhmm as tgh
+
+    p = entry.flagship_model(dev, torch.float64).params
+    x0 = entry.training(device=dev, batch=1).features[0].double()
+    return p, tgh._emissions(p, x0, "diag")[0]
+
+
+def decoder_stage(torch, fn, p, log_b, semiring="max", want_path=True):
+    """``(alpha, bt (T, N))``: the decoder stage over ``log_b (T, N)``, one
+    ``fn`` call (``trellis_chunk`` or its plain version) a chunk of
+    :data:`PIPE_CHUNK`, as ``parallel.pipeline._pipeline`` makes them."""
+    (t, n), chunk = log_b.shape, PIPE_CHUNK
+    alpha = torch.full((n,), -torch.inf, dtype=log_b.dtype, device=log_b.device)
+    bts = torch.zeros((t // chunk, chunk, n), dtype=torch.int32, device=log_b.device)
+    for k in range(t // chunk):
+        alpha, _ = fn(alpha, k * chunk, p.log_pi, p.log_a, log_b[k * chunk:(k + 1) * chunk],
+                      semiring, want_path, bts[k])
+    return alpha, bts.reshape(t, n)
+
+
+def stage_phase(torch, entry, card):
+    """Kernel P and the walk: :func:`check_stage`; then at the pipeline's
+    geometry (one 10 s flagship utterance, T = 999, chunk
+    :data:`PIPE_CHUNK`, the flagship model, N = 5, float64), the decoder
+    stage as ``parallel/pipeline.py`` runs it (one launch a chunk) bit for
+    bit the plain frame loop's, P timed by CUDA events over back-to-back
+    launches (:func:`burst_ms`) on a mid-utterance chunk in both semirings,
+    the wrapper call, the plain version on the card, the chain floor (the
+    same launch at N = 1) and P's bound; the whole stage (9 launches)
+    against the plain frame loop by the host clock; the walk over the
+    utterance's pointers by events, its plain host loop and its chain
+    floor (the walk over a (T, 1) pointer table)."""
+    from lnasr_tpu_torch.ops import trellis as tr
+
+    dev = torch.device(DEVICE)
+    f64 = torch.float64
+    err = check_stage(torch, tr, dev)
+    p, log_b = pipeline_inputs(torch, entry, dev)
+    t, n = log_b.shape
+    chunk = PIPE_CHUNK
+    n_chunks = t // chunk
+
+    def stage(fn, semiring="max", want_path=True):
+        return decoder_stage(torch, fn, p, log_b, semiring, want_path)
+
+    alpha, bt = stage(tr.trellis_chunk)
+    ref_alpha, ref_bt = stage(tr.trellis_chunk_plain)
+    log_alpha, _ = stage(tr.trellis_chunk, "log", False)
+    log_ref, _ = stage(tr.trellis_chunk_plain, "log", False)
+    torch.cuda.synchronize()
+    require(same_bits(torch, [alpha], [ref_alpha]) and torch.equal(bt, ref_bt),
+            "kernel P's decoder stage differs from the plain frame loop at the pipeline's geometry")
+    e_log = fb_rel(torch, log_alpha, log_ref)[0]
+    require(e_log <= 1e-12, f"kernel P's log-semiring stage: {e_log} from the plain frame loop")
+    path = tr.pointer_walk(alpha, bt)
+    require(torch.equal(path, tr.pointer_walk_plain(alpha, bt)), "the walk differs at T=999")
+
+    mid_alpha, _ = tr.trellis_chunk(torch.full((n,), -torch.inf, dtype=f64, device=dev), 0,
+                                    p.log_pi, p.log_a, log_b[:chunk])
+    mid = (mid_alpha, chunk, p.log_pi, p.log_a, log_b[chunk:2 * chunk])
+    bt_mid = torch.zeros((chunk, n), dtype=torch.int32, device=dev)
+    ms = {s: burst_ms(lambda s=s: tr.trellis_chunk(*mid, s, s == "max", bt_mid))
+          for s in ("max", "log")}
+    wrapper_ms = cuda_ms(lambda: tr.trellis_chunk(*mid, "max", True, bt_mid), reps=20)
+    plain_ms = cuda_ms(lambda: tr.trellis_chunk_plain(*mid, "max", True, bt_mid), reps=5, warmup=1)
+    one = (mid_alpha[:1].contiguous(), chunk, p.log_pi[:1].contiguous(),
+           p.log_a[:1, :1].contiguous(), log_b[chunk:2 * chunk, :1].contiguous())
+    bt_one = torch.zeros((chunk, 1), dtype=torch.int32, device=dev)
+    floor_ms = burst_ms(lambda: tr.trellis_chunk(*one, "max", True, bt_one))
+    stage_ms = host_ms(lambda: (stage(tr.trellis_chunk), torch.cuda.synchronize()), reps=10)
+    stage_plain_ms = host_ms(lambda: (stage(tr.trellis_chunk_plain), torch.cuda.synchronize()),
+                             reps=3)
+    walk_ms = burst_ms(lambda: tr.pointer_walk(alpha, bt))
+    walk_wrapper_ms = cuda_ms(lambda: tr.pointer_walk(alpha, bt), reps=20)
+    walk_plain_ms = host_ms(lambda: tr.pointer_walk_plain(alpha, bt), reps=5)
+    flat = torch.zeros((t, 1), dtype=torch.int32, device=dev)
+    walk_floor_ms = burst_ms(lambda: tr.pointer_walk(alpha[:1].contiguous(), flat))
+    # a mid-utterance chunk: alpha, log_a, the chunk's emissions in, alpha and
+    # the pointer rows out; a frame's N^2 adds and compares and N emission
+    # adds (the log semiring 5 N^2 + 3 N: subtraction, exp and sum more)
+    moved = 8 * (n + n * n + chunk * n + n) + 4 * chunk * n
+    ops = chunk * (2 * n * n + n)
+    p_bound = bound(moved, ops, FP64_FLOPS)
+    p_log_bound = bound(moved - 4 * chunk * n, chunk * (5 * n * n + 3 * n), FP64_FLOPS)
+    # the walk: alpha and one pointer a frame in, the path out
+    w_bound = bound(8 * n + 4 * (t - 1) + 4 * t, n, FP64_FLOPS)
+    print(f"kernel P at the pipeline's geometry (T={t} in {n_chunks} chunks of {chunk}, N={n}, "
+          f"float64, the flagship model on a 10 s utterance): the decoder stage bit for bit the "
+          f"plain frame loop's (alpha, pointers; the log semiring {e_log:.3g}), the walk's path "
+          f"the plain walk's")
+    print(f"timing on {card}: kernel P on a mid-utterance chunk {ms['max']:.4f} ms max-plus, "
+          f"{ms['log']:.4f} ms log semiring (CUDA events, back-to-back launches queued), the "
+          f"wrapper call {wrapper_ms:.4f} ms, chain floor (N = 1) {floor_ms:.4f} ms; the plain "
+          f"version on the card {plain_ms:.3f} ms (CUDA events); bound {p_bound[0]:.6f} ms by "
+          f"{p_bound[1]} ({moved} bytes: {moved / HBM_BYTES_PER_S * 1e3:.7f} ms; {ops} "
+          f"operations: {ops / FP64_FLOPS * 1e3:.7f} ms) (log {p_log_bound[0]:.6f} ms by {p_log_bound[1]}); the stage over the "
+          f"utterance ({n_chunks} launches) {stage_ms:.3f} ms vs the plain frame loop "
+          f"{stage_plain_ms:.3f} ms (host clock, synchronized); the walk {walk_ms:.4f} ms (events, "
+          f"queued), the wrapper call {walk_wrapper_ms:.4f} ms, chain floor (T={t}, N = 1) "
+          f"{walk_floor_ms:.4f} ms, the plain host loop after one copy {walk_plain_ms:.3f} ms "
+          f"(host clock); walk bound {w_bound[0]:.6f} ms by {w_bound[1]}")
+    return {"err": err, "ms": ms["max"], "log_ms": ms["log"], "wrapper_ms": wrapper_ms,
+            "plain_ms": plain_ms, "floor_ms": floor_ms, "bound": p_bound,
+            "log_bound": p_log_bound, "stage_ms": stage_ms, "stage_plain_ms": stage_plain_ms,
+            "walk_ms": walk_ms, "walk_wrapper_ms": walk_wrapper_ms,
+            "walk_plain_ms": walk_plain_ms, "walk_floor_ms": walk_floor_ms, "walk_bound": w_bound}
+
+
 # the segmenter's corpus: space-separated words (tests/test_seg.py's)
 SEG_CORPUS = [
     "我们 喜欢 学习 语言 模型",
@@ -2813,7 +3055,6 @@ def training_phase(torch, entry, wrappers, card, launches):
 
 
 PARALLEL_RANKS = 4
-PIPE_CHUNK = 111  # divides the flagship utterance's T = 999
 
 
 def parallel_rank(ckdir):
@@ -2848,7 +3089,7 @@ def parallel_rank(ckdir):
     counted = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
                F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
                tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags, tltsd.ltsd_noise,
-               trellis.viterbi_scan)
+               trellis.viterbi_scan, trellis.trellis_chunk, trellis.pointer_walk)
 
     def counts():
         return {w.__name__: w.launches for w in counted}
@@ -2964,20 +3205,48 @@ def parallel_rank(ckdir):
         out["decode_inputs"] = (host(feats), host(masks))
     out["decode_ms"] = wall_ms(lambda: P.decode_batch_sharded(graph, feats, masks, dp_mesh))
 
-    # -- the streaming pipeline on one 10 s flagship utterance, 2 and 4 stages
+    # -- the streaming pipeline on one 10 s flagship utterance, 2 and 4 stages:
+    # kernel P once a chunk on the decoder rank, the walk once a decode
     params = entry.flagship_model(dev, f64).params
     args = (params.log_pi, params.log_a, params.log_w, params.mu, params.cov,
             feats_all[0].double())
-    pipe, pipe_ms = {}, {}
+    pipe, pipe_ms, meshes = {}, {}, {}
+    sync()
+    reset_counts(*counted)
     for n_stages in (2, 4):
-        mesh = P.make_stage_mesh(n_stages=n_stages)
+        mesh = meshes[n_stages] = P.make_stage_mesh(n_stages=n_stages)
         t0 = time.perf_counter()
         path, score = P.streaming_pipeline_decode(*args, mesh, chunk=PIPE_CHUNK)
         sync()
         pipe_ms[n_stages] = (time.perf_counter() - t0) * 1e3
         ll = P.streaming_pipeline_scores(*args, mesh, chunk=PIPE_CHUNK, semiring="log")
         pipe[n_stages] = dict(path=host(path), score=float(score), loglik=float(ll))
-    out["pipe"], out["pipe_ms"] = pipe, pipe_ms
+    sync()
+    out["pipe_launches"] = counts()
+    # the same decodes again, warm (the first call of a rank also loads the
+    # kernels' library), in turns with the decoder stage and walk the port
+    # ran before kernel P (their plain versions, on the card), then one warm
+    # decode's collectives: calls, bytes, host ms
+    from lnasr_tpu_torch.parallel import pipeline as pipe_mod
+
+    stages = {"kernel": (trellis.trellis_chunk, trellis.pointer_walk),
+              "plain": (trellis.trellis_chunk_plain, trellis.pointer_walk_plain)}
+    pipe_warm_ms, pipe_coll = {}, {}
+    for k, m in meshes.items():
+        decode = lambda m=m: P.streaming_pipeline_decode(*args, m, chunk=PIPE_CHUNK)  # noqa: E731
+        pipe_warm_ms[k] = {"kernel": [], "plain": []}
+        try:
+            for version in ("kernel", "plain", "plain", "kernel"):
+                pipe_mod.trellis_chunk, pipe_mod.pointer_walk = stages[version]
+                pipe_warm_ms[k][version].append(wall_ms(decode))
+        finally:
+            pipe_mod.trellis_chunk, pipe_mod.pointer_walk = stages["kernel"]
+        D.STATS.reset()
+        decode()
+        sync()
+        pipe_coll[k] = (D.STATS.calls, D.STATS.bytes, D.STATS.seconds * 1e3)
+    out["pipe"], out["pipe_ms"], out["pipe_warm_ms"] = pipe, pipe_ms, pipe_warm_ms
+    out["pipe_collectives"] = pipe_coll
     out["elapsed_s"] = time.perf_counter() - t_start
     return out
 
@@ -3215,9 +3484,32 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
         print(f"parallel pipeline, {n_stages} stages, chunk {PIPE_CHUNK} of T={x0.shape[0]}: "
               f"path {'equal' if same else 'DIFFERS'} to viterbi_scan, score {e_score:.3g}, "
               f"log-semiring loglik {e_ll:.3g} vs forward_scan (bars 1e-10); decode "
-              f"{r0['pipe_ms'][n_stages]:.2f} ms on {card} (host clock; {shared})")
+              f"{r0['pipe_ms'][n_stages]:.2f} ms first call on {card}; warm, in turns (kernel, "
+              f"plain, plain, kernel; the plain decoder stage and walk on the card: the port "
+              f"before kernel P), host clock, median of 3 each: "
+              + "; ".join(f"rank {r['rank']} kernel " + " / ".join(
+                  f"{x:.2f}" for x in r["pipe_warm_ms"][n_stages]["kernel"]) + " ms, plain "
+                  + " / ".join(f"{x:.2f}" for x in r["pipe_warm_ms"][n_stages]["plain"])
+                  + " ms, collectives of one warm decode {:.0f} calls, {:.0f} bytes, {:.2f} ms"
+                  .format(*r["pipe_collectives"][n_stages]) for r in ranks)
+              + f" ({shared})")
         require(same and e_score < 1e-10 and e_ll < 1e-10,
                 f"the {n_stages}-stage pipeline: path equal {same}, {e_score}, {e_ll}")
+    # kernel P on the decoder ranks (rank 1 of 2 stages, rank 3 of 4): 9
+    # chunks for the decode and 9 for the log-semiring scores; the walk on
+    # every rank once a decode
+    pipe_launch = [r["pipe_launches"] for r in ranks]
+    n_chunks = x0.shape[0] // PIPE_CHUNK
+    want = [none | {"trellis_chunk": 2 * n_chunks if r["rank"] in (1, 3) else 0,
+                    "pointer_walk": 2} for r in ranks]
+    launches["parallel pipeline"] = {n: sum(c[n] for c in pipe_launch) for n in none}
+    mine = ("trellis_chunk", "pointer_walk")
+    others = sum(v for c in pipe_launch for k, v in c.items() if k not in mine)
+    print("main path: the 2- and 4-stage pipelines' launches per rank (trellis_chunk, "
+          "pointer_walk): " + ", ".join(f"rank {r['rank']} ({c[mine[0]]}, {c[mine[1]]})"
+                                        for r, c in zip(ranks, pipe_launch))
+          + f"; every other kernel {others}")
+    require(pipe_launch == want, f"the pipelines' launches per rank {pipe_launch}, expected {want}")
 
     # -- a world of one under NCCL (the backend rule's other branch) ----------
     with tempfile.TemporaryDirectory() as tmp:
@@ -4140,7 +4432,7 @@ def main():
     wrappers = (mf.mel_frontend, vt.viterbi_small, vd.viterbi_dense, F.factored_forward,
                 F.factored_backtrace, F.factored_lattice, trellis.forward_backward,
                 tri.trigram_forward, tri.trigram_backtrace, tweb.gmm_flags, tltsd.ltsd_noise,
-                trellis.viterbi_scan)
+                trellis.viterbi_scan, trellis.trellis_chunk, trellis.pointer_walk)
     reset_counts(*wrappers)
     paths, scores = step(x)
     torch.cuda.synchronize()
@@ -4446,6 +4738,7 @@ def main():
     trig = trigram_phase(torch, entry, wrappers, card, launches)
     vads = vad_phase(torch, entry, wrappers, card, launches)
     trel = trellis_phase(torch, entry, wrappers, card, launches)
+    stg = stage_phase(torch, entry, card)
 
     # -- 12. training -------------------------------------------------------
     train = training_phase(torch, entry, wrappers, card, launches)
@@ -4552,6 +4845,23 @@ def main():
               "loop_ms": trel["plain_ms"], "chain_floor_ms": trel["floor_ms"],
               "decode_ms": trel["decode_ms"]}
     kernels.append(k_row)
+    # kernel P and the walk (the streaming pipeline's decoder stage): ``ms``
+    # by CUDA events over back-to-back launches queued behind a spinning
+    # kernel, on a mid-utterance chunk of the pipeline's geometry
+    p_row = kernel_row("trellis_chunk", "trellis_chunk", "parallel pipeline",
+                       "lnasr_tpu/parallel/pipeline.py:119-131 trellis_step (lax.scan over an "
+                       "arrived chunk :151 inside the tick scan :164, in the jitted shard_map "
+                       ":172)", stg["err"], stg["wrapper_ms"], stg["plain_ms"], stg["bound"])
+    p_row |= {"ms": stg["ms"], "log_ms": stg["log_ms"], "log_bound_ms": stg["log_bound"][0],
+              "chain_floor_ms": stg["floor_ms"], "chunk": PIPE_CHUNK,
+              "stage_ms": stg["stage_ms"], "stage_plain_ms": stg["stage_plain_ms"]}
+    kernels.append(p_row)
+    w_row = kernel_row("pointer_walk", "pointer_walk", "parallel pipeline",
+                       "lnasr_tpu/parallel/pipeline.py:231-238 (the walk's reverse lax.scan)",
+                       0.0, stg["walk_wrapper_ms"], stg["walk_plain_ms"], stg["walk_bound"])
+    w_row |= {"source": "lnasr_tpu_torch/csrc/trellis_chunk.cu", "ms": stg["walk_ms"],
+              "chain_floor_ms": stg["walk_floor_ms"]}
+    kernels.append(w_row)
     # the backoff kind of D, E and F (the exact backoff search's scans
     # replaced): ``ms`` the device time per call at the V = 5000 segment,
     # the scan each replaces (``scan_ms``, on the card) and the bench graphs'

@@ -29,6 +29,14 @@ Counterparts of the JAX package's ``ops/trellis.py``:
   (+, max) matrix-vector product, which the kernel is held to bitwise and
   which the Viterbi kernels B and C are held to as well
   (``ops/viterbi.py``, ``ops/viterbi_dense.py``).
+- :func:`trellis_chunk` and :func:`pointer_walk`: the streaming
+  pipeline's decoder stage (``parallel/pipeline.py``), the max-plus or
+  log-semiring step carried over one arrived chunk of emissions from the
+  previous chunk's ``alpha``, and the walk of the utterance's
+  backpointers. For CUDA tensors each launches its entry of
+  ``csrc/trellis_chunk.cu`` once (kernel P; a warp for N <= 32, a block
+  for N <= 1024: :func:`trellis_chunk_route`); for CPU tensors they run
+  :func:`trellis_chunk_plain` and :func:`pointer_walk_plain`.
 
 Conventions: natural-log inputs; time-major emissions ``log_b[..., t, j]``;
 an optional boolean ``mask[..., t]`` marks real frames, and masked steps
@@ -44,6 +52,7 @@ import ctypes
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from lnasr_tpu_torch import _build
@@ -568,3 +577,184 @@ def viterbi_scan(
 
 viterbi_scan.launches = 0  # kernel K launches; plain CPU calls do not count
 viterbi_scan.route_launches = dict.fromkeys(VITERBI_ROUTES, 0)  # the same, by route
+
+
+def trellis_chunk_plain(
+    alpha: torch.Tensor,
+    pos: int,
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    semiring: str = "max",
+    want_path: bool = False,
+    bt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel P's plain version: the streaming pipeline's decoder stage
+    over one arrived chunk ``log_b (chunk, N)`` whose row 0 is frame
+    ``pos`` of the utterance, from the carried ``alpha (N,)``. Returns
+    ``(alpha_out (N,), bt (chunk, N) int32)``.
+
+    Frame 0 gives ``log_pi + log_b[0]`` and the pointers ``arange(N)``;
+    every other frame ``amax`` (``semiring="max"``) or ``logsumexp``
+    (``"log"``) over ``i`` of ``alpha[i] + log_a[i, j]``, plus the
+    emission, with the first ``i`` reaching the maximum as the pointer.
+    The pointer rows are written into ``bt`` where it is given (the
+    caller's slice of the utterance's backpointers), else into a new
+    zeroed tensor; with ``want_path=False`` they are left as they are."""
+    if bt is None:
+        bt = torch.zeros(log_b.shape, dtype=torch.int32, device=log_b.device)
+    states = torch.arange(log_b.shape[-1], dtype=torch.int32, device=log_b.device)
+    for r, log_bt in enumerate(log_b):
+        if pos + r == 0:
+            alpha = log_pi + log_bt
+            if want_path:
+                bt[r] = states
+            continue
+        scores = alpha[:, None] + log_a
+        adv = logsumexp(scores, dim=0) if semiring == "log" else torch.amax(scores, dim=0)
+        alpha = adv + log_bt
+        if want_path:
+            bt[r] = torch.argmax(scores, dim=0).to(torch.int32)
+    return alpha, bt
+
+
+def pointer_walk_plain(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The walk's plain version: the ``(T,)`` int32 path from the first
+    argmax of ``alpha (N,)`` down the pointers ``bt (T, N)``,
+    ``path[t] = bt[t + 1][path[t + 1]]``, as a host loop after one copy;
+    the path is returned on ``bt``'s device."""
+    rows = bt.cpu().numpy()
+    path = np.empty(rows.shape[0], np.int32)
+    path[-1] = int(torch.argmax(alpha))
+    for s in range(rows.shape[0] - 2, -1, -1):
+        path[s] = rows[s + 1, path[s + 1]]
+    return torch.as_tensor(path, device=bt.device)
+
+
+# kernel P (csrc/trellis_chunk.cu): its semirings, in the order of their codes
+STAGE_SEMIRINGS = ("max", "log")
+STAGE_MAX_N = 1024  # the block route's threads: one a target state
+# alpha, pos0, log_pi, log_a, log_b, chunk, N, semiring, is_double,
+# alpha_out, bt, stream
+_CHUNK_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
+# alpha, N, bt, T, is_double, path, stream
+_WALK_ARGTYPES = [_P, _I, _P, _I, _I, _P, _P]
+
+
+def trellis_chunk_route(n: int) -> str:
+    """Kernel P's route for ``n`` states: ``"warp"`` for N <= 32 (lane =
+    target state, ``alpha`` exchanged by shuffles), ``"block"`` for
+    33 <= N <= 1024 (a thread a target state); past that it raises."""
+    if 1 <= n <= 32:
+        return "warp"
+    if 32 < n <= STAGE_MAX_N:
+        return "block"
+    raise ValueError(f"the decoder-stage kernel takes 1 <= N <= {STAGE_MAX_N} states (a thread "
+                     f"a target state), got N={n}")
+
+
+def _chunk_library():
+    lib = _build.load("trellis_chunk", _CHUNK_ARGTYPES)
+    lib.pointer_walk_launch.argtypes = _WALK_ARGTYPES
+    lib.pointer_walk_launch.restype = ctypes.c_int
+    return lib
+
+
+def _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt):
+    """Kernel P on the card (see :func:`trellis_chunk`). Every check reads
+    shapes, dtypes and devices only: nothing waits on the card."""
+    dev = log_b.device
+    if log_b.dim() != 2 or log_b.shape[0] < 1:
+        raise ValueError(f"the decoder-stage kernel takes log_b (chunk, N) with chunk >= 1, got "
+                         f"shape {tuple(log_b.shape)}")
+    chunk, n = tuple(log_b.shape)
+    trellis_chunk_route(n)
+    if alpha.shape != (n,) or log_pi.shape != (n,) or log_a.shape != (n, n):
+        raise ValueError(f"the decoder-stage kernel takes alpha (N,), log_pi (N,) and log_a "
+                         f"(N, N); got N={n}, alpha {tuple(alpha.shape)}, log_pi "
+                         f"{tuple(log_pi.shape)}, log_a {tuple(log_a.shape)}")
+    if semiring not in STAGE_SEMIRINGS:
+        raise ValueError(f"unknown semiring: {semiring!r}")
+    if not 0 <= pos < 2 ** 31:
+        raise ValueError(f"the chunk's first frame must be in [0, 2**31), got {pos}")
+    dtype = torch.promote_types(torch.promote_types(alpha.dtype, log_pi.dtype),
+                                torch.promote_types(log_a.dtype, log_b.dtype))
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the decoder-stage kernel takes float32 or float64, got {dtype}")
+    for name, x in (("alpha", alpha), ("log_pi", log_pi), ("log_a", log_a), ("bt", bt)):
+        if x is not None and x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, log_b on {dev}")
+    if bt is None:
+        bt = torch.zeros((chunk, n), dtype=torch.int32, device=dev)
+    elif bt.shape != (chunk, n) or bt.dtype != torch.int32 or not bt.is_contiguous():
+        raise ValueError(f"bt must be a contiguous int32 (chunk, N) = {(chunk, n)} tensor, got "
+                         f"{bt.dtype} {tuple(bt.shape)}")
+    out = torch.empty((n,), dtype=dtype, device=dev)
+    # the inputs in the working type, held until the launch is queued
+    v, pi, a, lb = (_dense(x, dtype) for x in (alpha, log_pi, log_a, log_b))
+    lib = _chunk_library()
+    with torch.cuda.device(dev):  # launch on the tensors' card
+        rc = lib.trellis_chunk_launch(
+            v.data_ptr(), pos, pi.data_ptr(), a.data_ptr(), lb.data_ptr(), chunk, n,
+            STAGE_SEMIRINGS.index(semiring), int(dtype == torch.float64), out.data_ptr(),
+            bt.data_ptr() if want_path else None, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "trellis_chunk", rc)
+    trellis_chunk.launches += 1
+    return out, bt
+
+
+def trellis_chunk(
+    alpha: torch.Tensor,
+    pos: int,
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    semiring: str = "max",
+    want_path: bool = False,
+    bt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streaming pipeline's decoder stage over one arrived chunk, with
+    the semantics of :func:`trellis_chunk_plain`: ``(alpha_out (N,), bt
+    (chunk, N) int32)``, the pointer rows written into ``bt`` where it is
+    given. CUDA tensors launch kernel P once (float32 or float64, N <=
+    1024, a contiguous int32 ``bt``; anything else raises), CPU tensors run
+    the plain loop."""
+    if not _on_cuda(log_b):
+        return trellis_chunk_plain(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt)
+    return _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt)
+
+
+trellis_chunk.launches = 0  # kernel P launches; plain CPU calls do not count
+
+
+def pointer_walk(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The ``(T,)`` int32 path of :func:`pointer_walk_plain`. CUDA tensors
+    launch the walk of ``csrc/trellis_chunk.cu`` once (float32 or float64
+    ``alpha (N,)``, int32 ``bt (T, N)``, T >= 1; anything else raises),
+    with no copy to the host and no wait; CPU tensors run the plain
+    loop."""
+    if not _on_cuda(bt):
+        return pointer_walk_plain(alpha, bt)
+    dev = bt.device
+    if bt.dim() != 2 or bt.shape[0] < 1 or bt.dtype != torch.int32:
+        raise ValueError(f"the walk takes int32 bt (T, N) with T >= 1, got {bt.dtype} "
+                         f"{tuple(bt.shape)}")
+    t, n = tuple(bt.shape)
+    if alpha.shape != (n,) or alpha.device != dev:
+        raise ValueError(f"the walk takes alpha (N,) = ({n},) on {dev}, got "
+                         f"{tuple(alpha.shape)} on {alpha.device}")
+    if alpha.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"the walk takes float32 or float64 alpha, got {alpha.dtype}")
+    path = torch.empty((t,), dtype=torch.int32, device=dev)
+    alpha, bt = alpha.contiguous(), bt.contiguous()  # held until the launch is queued
+    lib = _chunk_library()
+    with torch.cuda.device(dev):
+        rc = lib.pointer_walk_launch(alpha.data_ptr(), n, bt.data_ptr(), t,
+                                     int(alpha.dtype == torch.float64), path.data_ptr(),
+                                     torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, "trellis_chunk", rc)
+    pointer_walk.launches += 1
+    return path
+
+
+pointer_walk.launches = 0  # walk launches; plain CPU calls do not count

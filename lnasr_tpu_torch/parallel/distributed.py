@@ -116,6 +116,10 @@ def _rank_main(rank, world_size, init_method, device, backend, fn, args, results
     try:
         torch.set_num_threads(1)  # the ranks share the host's cores
         initialize(init_method, world_size, rank, device=device, backend=backend)
+        # no rank runs fn, and may tear the group down, before every rank has
+        # joined: a gloo rank still connecting would see its peer's sockets
+        # close ("Connection closed by peer") and fail its own initialize
+        dist.barrier()
         results.put((rank, True, fn(*args)))
     except BaseException:  # reported to the parent, which raises it
         results.put((rank, False, traceback.format_exc()))
@@ -135,7 +139,8 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), device="cuda",
     so must each result. A rank that raises or dies, or that gave its
     result and then exited with a nonzero code, makes this raise
     :class:`RankError` with its rank (and traceback), after the other ranks
-    are stopped."""
+    are stopped. A rank that exited with code 0 has put its result, which
+    is waited for until ``timeout`` however late it reaches this process."""
     resolve_device(device)
     ctx = torch.multiprocessing.get_context("spawn")
     results = ctx.Queue()
@@ -153,15 +158,18 @@ def run_ranks(fn: Callable, world_size: int, args: Sequence = (), device="cuda",
                 try:
                     rank, ok, payload = results.get(timeout=0.5)
                 except queue.Empty:
-                    gone = [r for r, p in enumerate(procs) if r not in done and p.exitcode is not None]
-                    if gone:
-                        # a rank puts its result and then exits: the result may
-                        # have reached the queue after the wait above gave up
+                    # a rank puts its result and then exits: one that exited
+                    # with code 0 has put it (the queue's feeder thread is
+                    # flushed at exit), so it is waited for until the deadline;
+                    # one that exited nonzero may have died before its put
+                    failed = [r for r, p in enumerate(procs)
+                              if r not in done and p.exitcode not in (None, 0)]
+                    if failed:
                         try:
                             rank, ok, payload = results.get(timeout=1.0)
                         except queue.Empty:
-                            raise RankError(gone[0], f"exited with code "
-                                            f"{procs[gone[0]].exitcode} and no result") from None
+                            raise RankError(failed[0], f"exited with code "
+                                            f"{procs[failed[0]].exitcode} and no result") from None
                     elif time.monotonic() > deadline:
                         raise RankError(min(set(range(world_size)) - set(done)),
                                         f"no result within {timeout} s")

@@ -10,7 +10,11 @@ The decode flow (audio -> MFCC -> AM scoring -> trellis) staged across a
                  k+1 is in stage 0;
   stage S-1 (decoder): the forward (or max-plus) recursion over the
                  completed emissions, optionally recording backpointers
-                 for a true Viterbi decode.
+                 for a true Viterbi decode: one launch of kernel P
+                 (:func:`~lnasr_tpu_torch.ops.trellis.trellis_chunk`) a
+                 chunk, and one of the walk
+                 (:func:`~lnasr_tpu_torch.ops.trellis.pointer_walk`) a
+                 decode.
 
 Buffers cross ranks once per tick per stage (:func:`~lnasr_tpu_torch.
 parallel.distributed.ppermute`, one (chunk, N) block each), for
@@ -26,13 +30,13 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag
 from lnasr_tpu_torch.ops.numerics import logsumexp
+from lnasr_tpu_torch.ops.trellis import pointer_walk, trellis_chunk
 from lnasr_tpu_torch.parallel.distributed import Axis, local_device, pmax, ppermute, psum
 
 N_STAGES = 2  # default mesh size (one frontend + one decoder stage)
@@ -99,23 +103,16 @@ def _pipeline(log_pi, log_a, log_w, mu, var, feats, mesh, chunk, semiring, want_
         sl = slice(min(idx, n_shards - 1) * m_per, (min(idx, n_shards - 1) + 1) * m_per)
         w_s, mu_s, var_s = log_w_p[:, sl], mu_p[:, sl], var_p[:, sl]
         ring = [(i, i + 1) for i in range(n_stages - 1)]
-        states = torch.arange(n, dtype=torch.int32, device=dev)
         empty = torch.full((chunk, n), -torch.inf, dtype=dtype, device=dev)
         buf, pos = empty, 0
         for k in range(n_ticks):
             active = 0 <= k - idx < n_chunks
             if is_last:
                 out = buf
-                if active:  # consume the arrived complete emissions
-                    for log_bt in buf:
-                        scores = alpha[:, None] + log_a
-                        adv = (logsumexp(scores, dim=0) if semiring == "log"
-                               else torch.amax(scores, dim=0))
-                        alpha = (log_pi if pos == 0 else adv) + log_bt
-                        if want_path:
-                            bts[k, pos % chunk] = (states if pos == 0 else
-                                                   torch.argmax(scores, dim=0).to(torch.int32))
-                        pos += 1
+                if active:  # the arrived complete emissions: one kernel P launch
+                    alpha, _ = trellis_chunk(alpha, pos, log_pi, log_a, buf, semiring,
+                                             want_path, bts[k])
+                    pos += chunk
             else:  # inject (stage 0) or accumulate a partial
                 part = (gmm_emissions_diag(feats3[k - idx], w_s, mu_s, var_s)[0].to(dtype)
                         if active else empty)
@@ -152,12 +149,7 @@ def streaming_pipeline_decode(log_pi: torch.Tensor, log_a: torch.Tensor, log_w: 
     """Pipelined Viterbi decode: ``(path (T,) int32, best score)``, equal
     to :func:`lnasr_tpu_torch.ops.trellis.viterbi_scan` on the same
     emissions. Backpointers are recorded on the decoder stage as chunks
-    stream through; the backtrace is the O(T) pointer chase, on the host
-    after one copy."""
+    stream through; the backtrace is the O(T) pointer chase, one launch
+    of the walk on every rank (no copy to the host)."""
     alpha, bt = _pipeline(log_pi, log_a, log_w, mu, var, feats, mesh, chunk, "max", True)
-    bt = bt.cpu().numpy()
-    path = np.empty(bt.shape[0], np.int32)
-    path[-1] = int(torch.argmax(alpha))
-    for s in range(bt.shape[0] - 2, -1, -1):  # path[t] = bt[t+1][path[t+1]]
-        path[s] = bt[s + 1, path[s + 1]]
-    return torch.as_tensor(path, device=feats.device), torch.amax(alpha)
+    return pointer_walk(alpha, bt), torch.amax(alpha)

@@ -226,6 +226,7 @@ def test_graph_build_matches_jax():
         for a, b in zip(t[2], j[2]):
             np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
         assert t[3] == j[3]
+        assert t[3] > 0  # the clamp path is exercised (8 clamps at this seed)
 
 
 def test_graph_decode_and_batch_match_jax():

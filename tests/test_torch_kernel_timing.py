@@ -142,3 +142,26 @@ def test_phase_stamps_fit_the_committed_kernels(kernel):
     if kernel == "K":
         assert phases == kernel_phases.K_PHASES and stride == kernel_phases.K_STRIDE
         assert stamped.count("STAMP(blockIdx.x * 10 + ") == 3
+
+
+def test_dry_run_of_the_pipeline_stage_group(monkeypatch, tmp_path):
+    """Group P: the decoder stage over the flagship utterance as the plain
+    frame loop and as kernel P's calls, both semirings, in turns (plain,
+    kernel, kernel, plain), and the walk against its plain loop, each
+    first held to the other."""
+    out = tmp_path / "rows.jsonl"
+    monkeypatch.setattr(sys, "argv", ["kernel_timing.py", "--device", "cpu", "--kernels", "P",
+                                      "--reps", "1", "--out", str(out)])
+    assert kernel_timing.main() == 0
+    rows = [json.loads(line) for line in out.read_text().splitlines() if '"kernel"' in line]
+    stage = [(r["what"].split()[3].rstrip(","), r["turn"], r["version"]) for r in rows
+             if "decoder stage" in r["what"]]
+    assert stage == [(s, turn, v) for s in ("max", "log")
+                     for turn, order in ((1, ("plain frame loop", "kernel P")),
+                                         (2, ("kernel P", "plain frame loop")))
+                     for v in order]
+    assert "T=999 in 9 chunks of 111, N=5, float64" in rows[0]["what"]
+    walks = [(r["turn"], r["version"]) for r in rows if r["what"] == "P walk T=999 N=5"]
+    assert walks == [(1, "plain host loop"), (1, "walk kernel"), (2, "walk kernel"),
+                     (2, "plain host loop")]
+    assert sum("back-to-back" in r["what"] for r in rows) == 1

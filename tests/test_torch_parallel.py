@@ -349,6 +349,62 @@ def test_result_put_just_before_exit_is_taken(monkeypatch):
     assert distributed.run_ranks(os.getpid, 1, device="cpu") == ["result"]
 
 
+def test_result_of_an_exited_rank_is_waited_for(monkeypatch):
+    """A rank that exited with code 0 has put its result. Where the result
+    reaches the parent only 3 s after the rank has exited (a loaded host),
+    the parent waits for it within the call's timeout and takes it."""
+    import queue
+    import time
+
+    class SlowQueue:  # the rank's result arrives 3 s after the queue is made
+        def __init__(self):
+            self.ready = time.monotonic() + 3.0
+
+        def get(self, timeout):
+            wait = self.ready - time.monotonic()
+            if wait > timeout:
+                time.sleep(timeout)
+                raise queue.Empty
+            time.sleep(max(wait, 0.0))
+            return 0, True, "result"
+
+    class ExitedRank:
+        exitcode = 0
+
+        def __init__(self, **kw):
+            pass
+
+        def start(self):
+            pass
+
+        def join(self, timeout=None):
+            pass
+
+        def is_alive(self):
+            return False
+
+    ctx = types.SimpleNamespace(Queue=SlowQueue, Process=ExitedRank)
+    monkeypatch.setattr(torch.multiprocessing, "get_context", lambda method: ctx)
+    t0 = time.monotonic()
+    assert distributed.run_ranks(os.getpid, 1, device="cpu", timeout=60) == ["result"]
+    assert time.monotonic() - t0 >= 3.0
+
+
+def test_rank_runs_fn_only_after_every_rank_joined(monkeypatch):
+    """A rank meets the others at a barrier after it joins the world and
+    before it runs ``fn``: a fast rank that ran ``fn`` and tore its group
+    down while a peer was still connecting made the peer's gloo
+    ``initialize`` fail ("Connection closed by peer")."""
+    events = []
+    monkeypatch.setattr(distributed, "initialize", lambda *a, **k: events.append("join"))
+    monkeypatch.setattr(torch.distributed, "barrier", lambda *a, **k: events.append("barrier"))
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: False)
+    results = types.SimpleNamespace(put=lambda item: events.append(item))
+    distributed._rank_main(0, 2, "file:///unused", "cpu", None,
+                           lambda: events.append("fn") or "result", (), results)
+    assert events == ["join", "barrier", "fn", (0, True, "result")]
+
+
 def test_rank_that_fails_after_its_result_raises(monkeypatch):
     """A rank that put its result and then exited with a nonzero code (a
     crash in its teardown) is reported, not taken as a success."""
