@@ -2352,10 +2352,10 @@ def trellis_phase(torch, entry, wrappers, card, launches):
 # -- kernel P: the streaming pipeline's decoder stage and its walk --------------
 
 PIPE_CHUNK = 111  # divides the flagship utterance's T = 999
-STAGE_NS = (1, 5, 32, 33, 257, 1024)  # both routes and their edges
+STAGE_NS = (1, 5, 8, 9, 32, 33, 257, 1024)  # the three routes and their edges
 STAGE_CHUNKS = (1, PIPE_CHUNK, 1000)
 STAGE_KINDS = ("random", "ties", "inf")
-WALK_NS = (1, 5, 32, 33, 257)  # the shuffle route and the chase through memory
+WALK_NS = (1, 5, 32, 33, 257)  # the map route, rows staged and read through L1
 WALK_TS = (1, 2, 999, 100_000)
 
 
@@ -2400,10 +2400,13 @@ def check_stage(torch, tr, dev):
     the plain version's RMS distance from float64), its pointers bitwise
     at chunk 1 (later rows follow an ``alpha`` that differs in its last
     bits); with no pointers asked for, ``bt`` untouched and ``alpha`` the
-    same bits. Then the walk bit for bit against ``pointer_walk_plain`` at
-    N in :data:`WALK_NS` and T in :data:`WALK_TS`, ties in ``alpha`` and an
-    all ``-inf`` ``alpha``. Returns the largest float64 log-semiring
-    error."""
+    same bits. The chunked route (the log semiring at N <= 8) is also held
+    within 1e-12 of its plain mirror ``trellis_chunk_chunked_plain`` at
+    float64. Then the walk bit for bit against ``pointer_walk_plain`` at N
+    in :data:`WALK_NS` and T in :data:`WALK_TS` (the map route, its rows in
+    shared memory or read through L1, and the chase route forced), ties in
+    ``alpha`` and an all ``-inf`` ``alpha``. Returns the largest float64
+    log-semiring error."""
     f32, f64 = torch.float32, torch.float64
     worst, lines = 0.0, []
     for k, n in enumerate(STAGE_NS):
@@ -2436,21 +2439,27 @@ def check_stage(torch, tr, dev):
                             oracle = ref
                             e = fb_rel(torch, got, ref)[0]
                             require(e <= 1e-12, f"{what}: {e} from the plain version")
+                            if tr.trellis_chunk_route(n, semiring) == "chunked":
+                                mirror = tr.trellis_chunk_chunked_plain(alpha, pos, pi, a, lb)[0]
+                                e_m = fb_rel(torch, got, mirror)[0]
+                                require(e_m <= 1e-12, f"{what}: {e_m} from the chunked mirror")
                             worst = max(worst, finite_err(torch, got, ref))
                             errs.append(e)
                         else:
                             d_g, d_p = fb_rel(torch, got, oracle)[1], fb_rel(torch, ref, oracle)[1]
                             require(d_g <= 2 * d_p, f"{what}: RMS {d_g} from float64, the plain "
                                     f"version {d_p}")
-            lines.append(f"N={n} chunk={chunk} {kind} ({tr.trellis_chunk_route(n)}): log f64 "
-                         f"{max(errs):.3g}")
+            lines.append(f"N={n} chunk={chunk} {kind} (max {tr.trellis_chunk_route(n)}, log "
+                         f"{tr.trellis_chunk_route(n, 'log')}): log f64 {max(errs):.3g}")
     print("kernel P vs trellis_chunk_plain on the card, row 0 at frame 0 and 37, float32 and "
           "float64: max-plus alpha and pointers bit for bit, log semiring float64 within 1e-12 "
           "(max rel) and float32 within 2x the plain version's RMS distance from float64, "
           "pointers off leave bt untouched: " + "; ".join(lines))
-    cases = 0
+    cases, routes = 0, set()
     for n in WALK_NS:
         for t in WALK_TS:
+            routes.add(f"N={n} T={t} {tr.walk_route(n)} {tr.walk_chunks(t, n)}"
+                       f"{' staged' if tr.walk_staged(t, n) else ''}")
             rng = np.random.default_rng(7 * n + t)
             bt = torch.as_tensor(rng.integers(0, n, size=(t, n), dtype=np.int32), device=dev)
             alpha = np.round(rng.normal(size=n))
@@ -2458,14 +2467,19 @@ def check_stage(torch, tr, dev):
             for a in (alpha, np.full(n, -np.inf)):
                 a = torch.as_tensor(a, device=dev)
                 got, again = tr.pointer_walk(a, bt), tr.pointer_walk(a, bt)
+                chase = tr._walk_launch(a, bt, route="chase")
                 ref = tr.pointer_walk_plain(a, bt)
                 torch.cuda.synchronize()
                 require(torch.equal(got, ref) and torch.equal(again, got),
                         f"the walk at N={n} T={t}: differs from the plain walk on "
                         f"{int((got != ref).sum())} frames")
+                require(torch.equal(chase, ref), f"the walk's chase route at N={n} T={t}: "
+                        f"differs from the plain walk on {int((chase != ref).sum())} frames")
                 cases += 1
     print(f"the walk vs pointer_walk_plain on the card, bit for bit, two launches equal: "
-          f"{cases} cases, N {WALK_NS} x T {WALK_TS}, ties in alpha and an all -inf alpha")
+          f"{cases} cases, N {WALK_NS} x T {WALK_TS}, ties in alpha and an all -inf alpha, "
+          f"the map route and the chase route forced; "
+          f"routes (chunks, rows a chunk): " + ", ".join(sorted(routes)))
     return worst
 
 
@@ -2498,13 +2512,16 @@ def stage_phase(torch, entry, card):
     geometry (one 10 s flagship utterance, T = 999, chunk
     :data:`PIPE_CHUNK`, the flagship model, N = 5, float64), the decoder
     stage as ``parallel/pipeline.py`` runs it (one launch a chunk) bit for
-    bit the plain frame loop's, P timed by CUDA events over back-to-back
-    launches (:func:`burst_ms`) on a mid-utterance chunk in both semirings,
-    the wrapper call, the plain version on the card, the chain floor (the
-    same launch at N = 1) and P's bound; the whole stage (9 launches)
+    bit the plain frame loop's (the log semiring within 1e-12, its nine
+    launches on the chunked route), P timed by CUDA events over
+    back-to-back launches (:func:`burst_ms`) on a mid-utterance chunk in
+    both semirings, the log semiring's chunked route in turns with the same
+    launch forced onto the warp route (the design before the chunked one),
+    the wrapper call, the plain version on the card, the chain floors (the
+    same launches at N = 1) and P's bounds; the whole stage (9 launches)
     against the plain frame loop by the host clock; the walk over the
-    utterance's pointers by events, its plain host loop and its chain
-    floor (the walk over a (T, 1) pointer table)."""
+    utterance's pointers by events, its plain host loop and its chain floor
+    (the walk over a (T, 1) pointer table)."""
     from lnasr_tpu_torch.ops import trellis as tr
 
     dev = torch.device(DEVICE)
@@ -2520,9 +2537,15 @@ def stage_phase(torch, entry, card):
 
     alpha, bt = stage(tr.trellis_chunk)
     ref_alpha, ref_bt = stage(tr.trellis_chunk_plain)
+    by_route = tr.trellis_chunk.route_launches
+    by_route.update(dict.fromkeys(by_route, 0))
     log_alpha, _ = stage(tr.trellis_chunk, "log", False)
+    log_routes = dict(by_route)
     log_ref, _ = stage(tr.trellis_chunk_plain, "log", False)
     torch.cuda.synchronize()
+    require(log_routes["chunked"] == n_chunks and sum(log_routes.values()) == n_chunks,
+            f"the log-semiring stage's launches by route {log_routes}: expected {n_chunks} "
+            f"on the chunked route")
     require(same_bits(torch, [alpha], [ref_alpha]) and torch.equal(bt, ref_bt),
             "kernel P's decoder stage differs from the plain frame loop at the pipeline's geometry")
     e_log = fb_rel(torch, log_alpha, log_ref)[0]
@@ -2536,12 +2559,27 @@ def stage_phase(torch, entry, card):
     bt_mid = torch.zeros((chunk, n), dtype=torch.int32, device=dev)
     ms = {s: burst_ms(lambda s=s: tr.trellis_chunk(*mid, s, s == "max", bt_mid))
           for s in ("max", "log")}
+    # the log semiring on its chunked route and forced onto the warp route,
+    # in turns (chunked, warp, warp, chunked)
+    log_mid = tr.trellis_chunk_plain(*mid, "log")[0]
+    for route in ("chunked", "warp"):
+        e_route = fb_rel(torch, tr._chunk_launch(*mid, "log", False, None, route=route)[0],
+                         log_mid)[0]
+        require(e_route <= 1e-12, f"kernel P's log semiring on the {route} route, mid chunk: "
+                f"{e_route} from the plain version")
+    log_turns = {"chunked": [], "warp": []}
+    for route in ("chunked", "warp", "warp", "chunked"):
+        log_turns[route].append(burst_ms(lambda r=route: tr._chunk_launch(
+            *mid, "log", False, None, route=r)))
     wrapper_ms = cuda_ms(lambda: tr.trellis_chunk(*mid, "max", True, bt_mid), reps=20)
     plain_ms = cuda_ms(lambda: tr.trellis_chunk_plain(*mid, "max", True, bt_mid), reps=5, warmup=1)
     one = (mid_alpha[:1].contiguous(), chunk, p.log_pi[:1].contiguous(),
            p.log_a[:1, :1].contiguous(), log_b[chunk:2 * chunk, :1].contiguous())
     bt_one = torch.zeros((chunk, 1), dtype=torch.int32, device=dev)
     floor_ms = burst_ms(lambda: tr.trellis_chunk(*one, "max", True, bt_one))
+    log_floor_ms = burst_ms(lambda: tr.trellis_chunk(*one, "log", False, bt_one))
+    pieces, piece = tr.stage_pieces(chunk)
+    w_chunks, w_piece = tr.walk_chunks(t, n)
     stage_ms = host_ms(lambda: (stage(tr.trellis_chunk), torch.cuda.synchronize()), reps=10)
     stage_plain_ms = host_ms(lambda: (stage(tr.trellis_chunk_plain), torch.cuda.synchronize()),
                              reps=3)
@@ -2568,17 +2606,31 @@ def stage_phase(torch, entry, card):
           f"wrapper call {wrapper_ms:.4f} ms, chain floor (N = 1) {floor_ms:.4f} ms; the plain "
           f"version on the card {plain_ms:.3f} ms (CUDA events); bound {p_bound[0]:.6f} ms by "
           f"{p_bound[1]} ({moved} bytes: {moved / HBM_BYTES_PER_S * 1e3:.7f} ms; {ops} "
-          f"operations: {ops / FP64_FLOPS * 1e3:.7f} ms) (log {p_log_bound[0]:.6f} ms by {p_log_bound[1]}); the stage over the "
+          f"operations: {ops / FP64_FLOPS * 1e3:.7f} ms); the stage over the "
           f"utterance ({n_chunks} launches) {stage_ms:.3f} ms vs the plain frame loop "
-          f"{stage_plain_ms:.3f} ms (host clock, synchronized); the walk {walk_ms:.4f} ms (events, "
-          f"queued), the wrapper call {walk_wrapper_ms:.4f} ms, chain floor (T={t}, N = 1) "
+          f"{stage_plain_ms:.3f} ms (host clock, synchronized)")
+    print(f"timing on {card}: kernel P's log semiring on the mid-utterance chunk, chunked route "
+          f"({pieces} pieces of {piece} rows: depth L + C = {piece + pieces} steps, not {chunk}) "
+          + " / ".join(f"{x:.4f}" for x in log_turns["chunked"]) + " ms, forced onto the warp "
+          f"route (a {chunk}-step chain) " + " / ".join(f"{x:.4f}" for x in log_turns["warp"])
+          + f" ms (CUDA events, in turns: chunked, warp, warp, chunked); its floor (the same "
+          f"launch at N = 1) {log_floor_ms:.4f} ms; bound {p_log_bound[0]:.7f} ms by "
+          f"{p_log_bound[1]}; the stage's {n_chunks} log launches by route {log_routes}")
+    print(f"timing on {card}: the walk (map route, {w_chunks} chunks of {w_piece} rows: depth "
+          f"2 L + C = {2 * w_piece + w_chunks}, not {t - 1}; rows "
+          f"{'staged in shared memory' if tr.walk_staged(t, n) else 'read through L1'}) "
+          f"{walk_ms:.4f} ms (events, queued; the shuffle walk before it: 0.0384 ms in PERF.md), "
+          f"the wrapper call {walk_wrapper_ms:.4f} ms, chain floor (T={t}, N = 1) "
           f"{walk_floor_ms:.4f} ms, the plain host loop after one copy {walk_plain_ms:.3f} ms "
-          f"(host clock); walk bound {w_bound[0]:.6f} ms by {w_bound[1]}")
+          f"(host clock); walk bound {w_bound[0]:.7f} ms by {w_bound[1]}")
     return {"err": err, "ms": ms["max"], "log_ms": ms["log"], "wrapper_ms": wrapper_ms,
             "plain_ms": plain_ms, "floor_ms": floor_ms, "bound": p_bound,
             "log_bound": p_log_bound, "stage_ms": stage_ms, "stage_plain_ms": stage_plain_ms,
             "walk_ms": walk_ms, "walk_wrapper_ms": walk_wrapper_ms,
-            "walk_plain_ms": walk_plain_ms, "walk_floor_ms": walk_floor_ms, "walk_bound": w_bound}
+            "walk_plain_ms": walk_plain_ms, "walk_floor_ms": walk_floor_ms, "walk_bound": w_bound,
+            "log_chunked_ms": log_turns["chunked"], "log_warp_ms": log_turns["warp"],
+            "log_floor_ms": log_floor_ms, "log_depth": piece + pieces,
+            "walk_depth": 2 * w_piece + w_chunks}
 
 
 # the segmenter's corpus: space-separated words (tests/test_seg.py's)
@@ -3213,6 +3265,9 @@ def parallel_rank(ckdir):
     pipe, pipe_ms, meshes = {}, {}, {}
     sync()
     reset_counts(*counted)
+    by_route = (trellis.trellis_chunk.route_launches, trellis.pointer_walk.route_launches)
+    for routes in by_route:
+        routes.update(dict.fromkeys(routes, 0))
     for n_stages in (2, 4):
         mesh = meshes[n_stages] = P.make_stage_mesh(n_stages=n_stages)
         t0 = time.perf_counter()
@@ -3223,6 +3278,7 @@ def parallel_rank(ckdir):
         pipe[n_stages] = dict(path=host(path), score=float(score), loglik=float(ll))
     sync()
     out["pipe_launches"] = counts()
+    out["pipe_routes"] = [dict(routes) for routes in by_route]
     # the same decodes again, warm (the first call of a rank also loads the
     # kernels' library), in turns with the decoder stage and walk the port
     # ran before kernel P (their plain versions, on the card), then one warm
@@ -3510,6 +3566,19 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
                                         for r, c in zip(ranks, pipe_launch))
           + f"; every other kernel {others}")
     require(pipe_launch == want, f"the pipelines' launches per rank {pipe_launch}, expected {want}")
+    # by route: the decode's max-plus chunks on the warp route, the scores'
+    # log-semiring chunks on the chunked one, every walk on the map route
+    pipe_routes = [r["pipe_routes"] for r in ranks]
+    want_routes = [[{"warp": n_chunks, "block": 0, "chunked": n_chunks} if r["rank"] in (1, 3)
+                    else {"warp": 0, "block": 0, "chunked": 0}, {"maps": 2, "chase": 0}]
+                   for r in ranks]
+    pipe_by_route = {
+        name: {k: sum(r[i][k] for r in pipe_routes) for k in pipe_routes[0][i]}
+        for i, name in enumerate(mine)}
+    print("main path: the pipelines' launches per rank by route (trellis_chunk; pointer_walk): "
+          + ", ".join(f"rank {r['rank']} ({c[0]}; {c[1]})" for r, c in zip(ranks, pipe_routes)))
+    require(pipe_routes == want_routes,
+            f"the pipelines' launches by route {pipe_routes}, expected {want_routes}")
 
     # -- a world of one under NCCL (the backend rule's other branch) ----------
     with tempfile.TemporaryDirectory() as tmp:
@@ -3533,7 +3602,8 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
           f"all_reduce on the card {probe.tolist()}")
     require(backend == expect and e1 < 1e-9 and probe.tolist() == [0.0, 1.0, 2.0, 3.0],
             f"the world of one: backend {backend}, sweep {e1}, all_reduce {probe.tolist()}")
-    return {"world_s": world_s, "dp32_ms": [r["dp32_ms"] for r in ranks]}
+    return {"world_s": world_s, "dp32_ms": [r["dp32_ms"] for r in ranks],
+            "pipe_by_route": pipe_by_route}
 
 
 # -- the command line, harnesses and examples -------------------------------------
@@ -4744,7 +4814,7 @@ def main():
     train = training_phase(torch, entry, wrappers, card, launches)
 
     # -- 13. parallel/: 4 ranks on the card -----------------------------------
-    parallel_phase(torch, entry, wrappers, card, launches, train["sweep_ms"])
+    par = parallel_phase(torch, entry, wrappers, card, launches, train["sweep_ms"])
 
     # -- 14. the command line, the bench harnesses and the examples --------------
     cli_phase(torch, entry, wrappers, card, launches)
@@ -4852,7 +4922,11 @@ def main():
                        "lnasr_tpu/parallel/pipeline.py:119-131 trellis_step (lax.scan over an "
                        "arrived chunk :151 inside the tick scan :164, in the jitted shard_map "
                        ":172)", stg["err"], stg["wrapper_ms"], stg["plain_ms"], stg["bound"])
+    pipe_routes = par["pipe_by_route"]  # the pipelines' launches by route, all ranks
     p_row |= {"ms": stg["ms"], "log_ms": stg["log_ms"], "log_bound_ms": stg["log_bound"][0],
+              "log_route": "chunked", "log_chunked_ms": stg["log_chunked_ms"],
+              "log_warp_ms": stg["log_warp_ms"], "log_chain_floor_ms": stg["log_floor_ms"],
+              "log_depth": stg["log_depth"], "route_launches": pipe_routes.get("trellis_chunk"),
               "chain_floor_ms": stg["floor_ms"], "chunk": PIPE_CHUNK,
               "stage_ms": stg["stage_ms"], "stage_plain_ms": stg["stage_plain_ms"]}
     kernels.append(p_row)
@@ -4860,7 +4934,8 @@ def main():
                        "lnasr_tpu/parallel/pipeline.py:231-238 (the walk's reverse lax.scan)",
                        0.0, stg["walk_wrapper_ms"], stg["walk_plain_ms"], stg["walk_bound"])
     w_row |= {"source": "lnasr_tpu_torch/csrc/trellis_chunk.cu", "ms": stg["walk_ms"],
-              "chain_floor_ms": stg["walk_floor_ms"]}
+              "chain_floor_ms": stg["walk_floor_ms"], "depth": stg["walk_depth"],
+              "route_launches": pipe_routes.get("pointer_walk")}
     kernels.append(w_row)
     # the backoff kind of D, E and F (the exact backoff search's scans
     # replaced): ``ms`` the device time per call at the V = 5000 segment,

@@ -34,9 +34,12 @@ Counterparts of the JAX package's ``ops/trellis.py``:
   log-semiring step carried over one arrived chunk of emissions from the
   previous chunk's ``alpha``, and the walk of the utterance's
   backpointers. For CUDA tensors each launches its entry of
-  ``csrc/trellis_chunk.cu`` once (kernel P; a warp for N <= 32, a block
-  for N <= 1024: :func:`trellis_chunk_route`); for CPU tensors they run
-  :func:`trellis_chunk_plain` and :func:`pointer_walk_plain`.
+  ``csrc/trellis_chunk.cu`` once (kernel P; the log semiring at N <= 8 as
+  a product scan over pieces of the chunk, else a warp for N <= 32 and a
+  block for N <= 1024: :func:`trellis_chunk_route`; the walk as a
+  chunk-map backtrace for N <= 1024: :func:`walk_route`); for CPU tensors
+  they run :func:`trellis_chunk_plain` and :func:`pointer_walk_plain`;
+  :func:`trellis_chunk_chunked_plain` mirrors the chunked route.
 
 Conventions: natural-log inputs; time-major emissions ``log_b[..., t, j]``;
 an optional boolean ``mask[..., t]`` marks real frames, and masked steps
@@ -631,26 +634,138 @@ def pointer_walk_plain(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(path, device=bt.device)
 
 
+def stage_pieces(steps: int) -> Tuple[int, int]:
+    """``(C, L)``: kernel P's chunked route cuts a chunk's ``steps`` stepped
+    rows into ``C`` pieces of ``L`` (the last may be shorter), one warp
+    each. Its chain is ``L + C`` steps deep (the pieces' products, then
+    ``alpha`` through them), least near ``C = sqrt(steps)``; at most
+    :data:`STAGE_MAX_PIECES` pieces, so ``L`` grows past that. No step:
+    ``(1, 1)``, a piece with no row."""
+    if steps < 1:
+        return 1, 1
+    c = min(STAGE_MAX_PIECES, max(1, round(math.sqrt(steps))))
+    piece = -(-steps // c)
+    return -(-steps // piece), piece
+
+
+def trellis_chunk_chunked_plain(
+    alpha: torch.Tensor,
+    pos: int,
+    log_pi: torch.Tensor,
+    log_a: torch.Tensor,
+    log_b: torch.Tensor,
+    want_path: bool = False,
+    bt: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel P's chunked route (the log semiring) in plain PyTorch (tests
+    and ``chip_smoke.py`` hold the kernel and the frame loop to it; no
+    caller on the main path): the chunk's stepped rows (rows 1... where
+    row 0 is frame 0, whose ``alpha`` is ``log_pi + log_b[0]`` in the
+    working type) cut into the pieces of :func:`stage_pieces`, each
+    piece's (N, N) operator product ``M_r[i, j] = log_a[i, j] +
+    log_b[r, j]`` in the (logsumexp, +) semiring from the identity, then
+    ``alpha`` carried through the products piece by piece; every value in
+    float64, ``alpha_out`` rounded to the working type once. With
+    ``want_path`` each piece is replayed from the ``alpha`` entering it and
+    the pointer is the first argmax of the candidates formed in the
+    working type from that ``alpha`` rounded to it. The function of
+    :func:`trellis_chunk_plain` with ``semiring="log"``, rounded in other
+    places; returns ``(alpha_out (N,), bt (chunk, N) int32)`` as it does."""
+    dtype = torch.promote_types(torch.promote_types(alpha.dtype, log_pi.dtype),
+                                torch.promote_types(log_a.dtype, log_b.dtype))
+    dev, f64 = log_b.device, torch.float64
+    chunk, n = log_b.shape
+    if bt is None:
+        bt = torch.zeros((chunk, n), dtype=torch.int32, device=dev)
+    first = 1 if pos == 0 else 0
+    v = (log_pi.to(dtype) + log_b[0].to(dtype)) if first else alpha.to(dtype)
+    v, a, a_w = v.to(f64), log_a.to(f64), log_a.to(dtype)
+    c, piece = stage_pieces(chunk - first)
+    pad = c * piece - (chunk - first)
+    b = torch.cat([log_b[first:].to(f64), log_b.new_zeros((pad, n), dtype=f64)])
+    real = torch.arange(c * piece, device=dev) < chunk - first
+    b, real = b.reshape(c, piece, n), real.reshape(c, piece)
+    # phase 1: each piece's product from the identity (a padding row skipped)
+    eye = torch.eye(n, dtype=torch.bool, device=dev)
+    prod = torch.where(eye, 0.0, -torch.inf).to(f64).expand(c, n, n)
+    for q in range(piece):
+        new = logsumexp(prod[..., :, :, None] + a, dim=-2) + b[:, q, None, :]
+        prod = torch.where(real[:, q, None, None], new, prod)
+    # phase 2: alpha through the products
+    bounds = []
+    for ci in range(c):
+        bounds.append(v)
+        v = logsumexp(v[:, None] + prod[ci], dim=0)
+    if want_path:  # phase 3: each piece replayed from its boundary
+        if first:
+            bt[0] = torch.arange(n, dtype=torch.int32, device=dev)
+        state, rows = torch.stack(bounds), []
+        for q in range(piece):
+            rows.append(torch.argmax(state.to(dtype)[:, :, None] + a_w, dim=-2).to(torch.int32))
+            state = logsumexp(state[:, :, None] + a, dim=-2) + b[:, q, :]
+        bt[first:] = torch.stack(rows, dim=1).reshape(c * piece, n)[:chunk - first]
+    return v.to(dtype), bt
+
+
 # kernel P (csrc/trellis_chunk.cu): its semirings, in the order of their codes
 STAGE_SEMIRINGS = ("max", "log")
+STAGE_ROUTES = ("warp", "block", "chunked")  # kernel P's routes, in the order of their codes
 STAGE_MAX_N = 1024  # the block route's threads: one a target state
-# alpha, pos0, log_pi, log_a, log_b, chunk, N, semiring, is_double,
-# alpha_out, bt, stream
-_CHUNK_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P]
-# alpha, N, bt, T, is_double, path, stream
-_WALK_ARGTYPES = [_P, _I, _P, _I, _I, _P, _P]
+STAGE_MAX_PIECES = 32  # the chunked route's pieces (warps of its block), at most
+WALK_ROUTES = ("maps", "chase")  # the walk's routes, in the order of their codes
+WALK_MAX_N = 1024  # the map route's states (int16 maps)
+WALK_MAP_BYTES = 48 * 1024  # the map route's int16 chunk maps and ends, at most
+WALK_ROWS_BYTES = 160 * 1024  # the map route's int16 copy of the pointer rows, at most
+# alpha, pos0, log_pi, log_a, log_b, chunk, N, semiring, route, piece,
+# is_double, alpha_out, bt, stream
+_CHUNK_ARGTYPES = [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+# alpha, N, bt, T, route, n_chunks, piece, staged, is_double, path, stream
+_WALK_ARGTYPES = [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P]
 
 
-def trellis_chunk_route(n: int) -> str:
-    """Kernel P's route for ``n`` states: ``"warp"`` for N <= 32 (lane =
-    target state, ``alpha`` exchanged by shuffles), ``"block"`` for
-    33 <= N <= 1024 (a thread a target state); past that it raises."""
-    if 1 <= n <= 32:
-        return "warp"
-    if 32 < n <= STAGE_MAX_N:
-        return "block"
-    raise ValueError(f"the decoder-stage kernel takes 1 <= N <= {STAGE_MAX_N} states (a thread "
-                     f"a target state), got N={n}")
+def trellis_chunk_route(n: int, semiring: str = "max") -> str:
+    """Kernel P's route for ``n`` states in ``semiring``: ``"chunked"`` for
+    the log semiring at N <= :data:`CHUNK_MAX_N` (the chunk's rows cut into
+    pieces whose operator products are chained, :func:`stage_pieces`),
+    else ``"warp"`` for N <= 32 (lane = target state, ``alpha`` exchanged
+    by shuffles) and ``"block"`` for 33 <= N <= 1024 (a thread a target
+    state); past that it raises."""
+    if not 1 <= n <= STAGE_MAX_N:
+        raise ValueError(f"the decoder-stage kernel takes 1 <= N <= {STAGE_MAX_N} states (a "
+                         f"thread a target state), got N={n}")
+    if semiring == "log" and n <= CHUNK_MAX_N:
+        return "chunked"
+    return "warp" if n <= 32 else "block"
+
+
+def walk_route(n: int) -> str:
+    """The walk's route for ``n`` states: ``"maps"`` for N <=
+    :data:`WALK_MAX_N` (the chunk-map backtrace, :func:`walk_chunks`),
+    else ``"chase"`` (one thread through memory). Every N has a route."""
+    return "maps" if n <= WALK_MAX_N else "chase"
+
+
+def walk_chunks(t: int, n: int) -> Tuple[int, int]:
+    """``(C, L)``: the walk's map route cuts the ``t - 1`` pointer rows into
+    ``C`` chunks of ``L`` (the last may be shorter). Its chain is ``2 L +
+    C`` deep (the chunk walks, the maps' composition, the walks again),
+    least near ``C = sqrt(2 (t - 1))``, while the int16 maps ``(C, N)`` and
+    ends ``(C,)`` fit in :data:`WALK_MAP_BYTES`; past that ``L`` grows.
+    No row: ``(0, 1)``."""
+    steps = t - 1
+    if steps < 1:
+        return 0, 1
+    cap = max(1, WALK_MAP_BYTES // (2 * (n + 1)))
+    c = min(cap, max(1, round(math.sqrt(2 * steps))))
+    piece = -(-steps // c)
+    return -(-steps // piece), piece
+
+
+def walk_staged(t: int, n: int) -> bool:
+    """Whether the map route copies the ``(t, n)`` pointer rows into shared
+    memory as int16 (where they fit in :data:`WALK_ROWS_BYTES`) rather than
+    reading the int32 input through L1."""
+    return 2 * t * n <= WALK_ROWS_BYTES
 
 
 def _chunk_library():
@@ -660,21 +775,28 @@ def _chunk_library():
     return lib
 
 
-def _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt):
-    """Kernel P on the card (see :func:`trellis_chunk`). Every check reads
-    shapes, dtypes and devices only: nothing waits on the card."""
+def _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt, route=None):
+    """Kernel P on the card (see :func:`trellis_chunk`). ``route``
+    overrides :func:`trellis_chunk_route` (the block route runs any N up to
+    1024, the warp route N <= 32, the chunked route the log semiring at
+    N <= 8). Every check reads shapes, dtypes and devices only: nothing
+    waits on the card."""
     dev = log_b.device
     if log_b.dim() != 2 or log_b.shape[0] < 1:
         raise ValueError(f"the decoder-stage kernel takes log_b (chunk, N) with chunk >= 1, got "
                          f"shape {tuple(log_b.shape)}")
     chunk, n = tuple(log_b.shape)
-    trellis_chunk_route(n)
+    if semiring not in STAGE_SEMIRINGS:
+        raise ValueError(f"unknown semiring: {semiring!r}")
+    route = trellis_chunk_route(n, semiring) if route is None else route
+    if (route not in STAGE_ROUTES or not 1 <= n <= STAGE_MAX_N or (route == "warp" and n > 32)
+            or (route == "chunked" and (semiring != "log" or n > CHUNK_MAX_N))):
+        raise ValueError(f"no route {route!r} of the decoder-stage kernel at N={n} in the "
+                         f"{semiring} semiring")
     if alpha.shape != (n,) or log_pi.shape != (n,) or log_a.shape != (n, n):
         raise ValueError(f"the decoder-stage kernel takes alpha (N,), log_pi (N,) and log_a "
                          f"(N, N); got N={n}, alpha {tuple(alpha.shape)}, log_pi "
                          f"{tuple(log_pi.shape)}, log_a {tuple(log_a.shape)}")
-    if semiring not in STAGE_SEMIRINGS:
-        raise ValueError(f"unknown semiring: {semiring!r}")
     if not 0 <= pos < 2 ** 31:
         raise ValueError(f"the chunk's first frame must be in [0, 2**31), got {pos}")
     dtype = torch.promote_types(torch.promote_types(alpha.dtype, log_pi.dtype),
@@ -690,16 +812,19 @@ def _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt):
         raise ValueError(f"bt must be a contiguous int32 (chunk, N) = {(chunk, n)} tensor, got "
                          f"{bt.dtype} {tuple(bt.shape)}")
     out = torch.empty((n,), dtype=dtype, device=dev)
+    piece = stage_pieces(chunk - (pos == 0))[1] if route == "chunked" else 0
     # the inputs in the working type, held until the launch is queued
     v, pi, a, lb = (_dense(x, dtype) for x in (alpha, log_pi, log_a, log_b))
     lib = _chunk_library()
     with torch.cuda.device(dev):  # launch on the tensors' card
         rc = lib.trellis_chunk_launch(
             v.data_ptr(), pos, pi.data_ptr(), a.data_ptr(), lb.data_ptr(), chunk, n,
-            STAGE_SEMIRINGS.index(semiring), int(dtype == torch.float64), out.data_ptr(),
-            bt.data_ptr() if want_path else None, torch.cuda.current_stream(dev).cuda_stream)
+            STAGE_SEMIRINGS.index(semiring), STAGE_ROUTES.index(route), piece,
+            int(dtype == torch.float64), out.data_ptr(), bt.data_ptr() if want_path else None,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "trellis_chunk", rc)
     trellis_chunk.launches += 1
+    trellis_chunk.route_launches[route] += 1
     return out, bt
 
 
@@ -717,24 +842,21 @@ def trellis_chunk(
     the semantics of :func:`trellis_chunk_plain`: ``(alpha_out (N,), bt
     (chunk, N) int32)``, the pointer rows written into ``bt`` where it is
     given. CUDA tensors launch kernel P once (float32 or float64, N <=
-    1024, a contiguous int32 ``bt``; anything else raises), CPU tensors run
-    the plain loop."""
+    1024, a contiguous int32 ``bt``; anything else raises) on the route of
+    :func:`trellis_chunk_route`, CPU tensors run the plain loop."""
     if not _on_cuda(log_b):
         return trellis_chunk_plain(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt)
     return _chunk_launch(alpha, pos, log_pi, log_a, log_b, semiring, want_path, bt)
 
 
 trellis_chunk.launches = 0  # kernel P launches; plain CPU calls do not count
+trellis_chunk.route_launches = dict.fromkeys(STAGE_ROUTES, 0)  # the same, by route
 
 
-def pointer_walk(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
-    """The ``(T,)`` int32 path of :func:`pointer_walk_plain`. CUDA tensors
-    launch the walk of ``csrc/trellis_chunk.cu`` once (float32 or float64
-    ``alpha (N,)``, int32 ``bt (T, N)``, T >= 1; anything else raises),
-    with no copy to the host and no wait; CPU tensors run the plain
-    loop."""
-    if not _on_cuda(bt):
-        return pointer_walk_plain(alpha, bt)
+def _walk_launch(alpha, bt, route=None):
+    """The walk on the card (see :func:`pointer_walk`). ``route`` overrides
+    :func:`walk_route` (the chase runs any N, the map route N <= 1024).
+    Every check reads shapes, dtypes and devices only."""
     dev = bt.device
     if bt.dim() != 2 or bt.shape[0] < 1 or bt.dtype != torch.int32:
         raise ValueError(f"the walk takes int32 bt (T, N) with T >= 1, got {bt.dtype} "
@@ -745,16 +867,35 @@ def pointer_walk(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
                          f"{tuple(alpha.shape)} on {alpha.device}")
     if alpha.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"the walk takes float32 or float64 alpha, got {alpha.dtype}")
+    route = walk_route(n) if route is None else route
+    if route not in WALK_ROUTES or (route == "maps" and n > WALK_MAX_N):
+        raise ValueError(f"no route {route!r} of the walk at N={n}")
+    n_chunks, piece = walk_chunks(t, n) if route == "maps" else (0, 1)
+    staged = route == "maps" and walk_staged(t, n)
     path = torch.empty((t,), dtype=torch.int32, device=dev)
     alpha, bt = alpha.contiguous(), bt.contiguous()  # held until the launch is queued
     lib = _chunk_library()
     with torch.cuda.device(dev):
         rc = lib.pointer_walk_launch(alpha.data_ptr(), n, bt.data_ptr(), t,
+                                     WALK_ROUTES.index(route), n_chunks, piece, int(staged),
                                      int(alpha.dtype == torch.float64), path.data_ptr(),
                                      torch.cuda.current_stream(dev).cuda_stream)
     _build.check(lib, "trellis_chunk", rc)
     pointer_walk.launches += 1
+    pointer_walk.route_launches[route] += 1
     return path
 
 
+def pointer_walk(alpha: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The ``(T,)`` int32 path of :func:`pointer_walk_plain`. CUDA tensors
+    launch the walk of ``csrc/trellis_chunk.cu`` once on the route of
+    :func:`walk_route` (float32 or float64 ``alpha (N,)``, int32 ``bt (T,
+    N)``, T >= 1; anything else raises), with no copy to the host and no
+    wait; CPU tensors run the plain loop."""
+    if not _on_cuda(bt):
+        return pointer_walk_plain(alpha, bt)
+    return _walk_launch(alpha, bt)
+
+
 pointer_walk.launches = 0  # walk launches; plain CPU calls do not count
+pointer_walk.route_launches = dict.fromkeys(WALK_ROUTES, 0)  # the same, by route
