@@ -40,6 +40,17 @@ kernels' launch counters reset just before and read just after:
   forward and backtrace once each) and ``decode_segment_nbest`` (mel
   frontend and lattice once each) with a spy on the scans (never
   called), against the CPU recognizer and a planted word sequence;
+- the factored graph's batched decodes, ``batch_phase``: kernels D, E
+  and F once a batch (a launch decodes B utterances), at V = 1000 (dense
+  hop) and V = 5000 (backoff hop) on ``entry.parallel_serving``'s 8 ragged
+  segments, bitwise against 8 single launches and the batched plain
+  versions, also with masks that differ by utterance at every kind of
+  frame; ``decode_batch_arrays`` (D and E once) against looping
+  ``decode_arrays`` and the CPU's batched plain decode,
+  ``decode_lattice_batch`` at V = 1000 (F once) against looping
+  ``decode_lattice``, a 64-row V = 5000 batch cut into launches by
+  ``ops.factored.cut_batch``; the batched launches timed against their
+  single launches and ``decode_batch`` against looping ``decode``;
 - live serving at V = 1000, ``entry.streaming_serving(1000)``: a ~60 s
   stream in 100 ms chunks through ``StreamingRecognizer`` (the native
   VAD, built with ``g++``, closes segments; each segment launches the mel
@@ -90,8 +101,8 @@ kernels' launch counters reset just before and read just after:
   rank) against the single-process sweep, kill and resume
   bitwise; the time-sharded forward, backward, Viterbi and EM on the
   stream's features against the scans; ``parallel.decode_batch_sharded``
-  at V = 1000 (8 segments, two planted; the mel frontend once, the
-  forward and backtrace kernels twice on every rank) bitwise equal to
+  at V = 1000 (8 segments, two planted; the mel frontend, the forward
+  and backtrace kernels once on every rank, for its two rows) bitwise equal to
   ``decode_batch``; the 2- and 4-stage pipelines (kernel P once a chunk
   on the decoder rank, the walk once a decode on every rank); then one sweep on a
   world of one under NCCL. Several ranks on one card show correctness
@@ -963,7 +974,7 @@ def check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec, graph_
     hypothesis is the planted sequence with the 1-best decode's score; a
     trigram LM counted from the bigram's own corpus rescores it as the CPU
     graph's lattice does; a masked 2-utterance ``decode_lattice_batch``
-    (kernel F once per utterance) equals looping ``decode_lattice``."""
+    (kernel F once for the batch) equals looping ``decode_lattice``."""
     g = rec.graph
     top = g.decode_lattice(obs).nbest(5)
     print(f"V=1000 lattice of the planted frames: top hypotheses "
@@ -990,8 +1001,8 @@ def check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec, graph_
     masks = np.stack([np.ones(len(obs), bool), np.arange(len(obs)) < len(obs) - cut])
     before = F.factored_lattice.launches
     batch = g.decode_lattice_batch(feats, masks)
-    require(F.factored_lattice.launches - before == 2,
-            "decode_lattice_batch of 2 utterances did not launch kernel F twice")
+    require(F.factored_lattice.launches - before == 1,
+            "decode_lattice_batch of 2 utterances did not launch kernel F once")
     for b in range(2):
         solo = g.decode_lattice(feats[b], masks[b])
         require(batch[b].tokens == solo.tokens and
@@ -999,7 +1010,7 @@ def check_planted_lattice(torch, F, entry, NGramCounter, NGramModel, rec, graph_
                 == [(h.words, h.score) for h in solo.nbest(5)],
                 f"decode_lattice_batch utterance {b} differs from decode_lattice")
     print(f"decode_lattice_batch (B=2, masks of {len(obs)} and {len(obs) - cut} frames): kernel F "
-          "twice, tokens and N-best equal to looping decode_lattice")
+          "once, tokens and N-best equal to looping decode_lattice")
 
 def percentile(xs, q):
     return float(np.percentile(np.asarray(xs), q)) if xs else float("nan")
@@ -1447,13 +1458,16 @@ def backoff_phase(torch, entry, wrappers, card, launches):
         entries = replay_counts(torch, F, F.factored_backtrace(grids, ia, ei, h, fin_i, m)[0],
                                 m, s_i)[0]
         graph_bytes = 4 * (v_i * s_i + v_i * s_i * s_i + 5 * v_i + 1) + 12 * nnz
+        # emission rows of frame 0 and of the valid steps (a masked frame
+        # reads none); every frame's grid written
+        emis_bytes = 4 * (1 + steps) * v_i * s_i
         grid_bytes = 4 * t_i * v_i * s_i
         fwd_ops = steps * (2 * v_i * s_i * s_i + 5 * v_i + 2 * nnz + v_i * s_i)
-        row["d_bound"] = bound(graph_bytes + 2 * grid_bytes + t_i, fwd_ops)
+        row["d_bound"] = bound(graph_bytes + emis_bytes + grid_bytes + t_i, fwd_ops)
         row["e_bound"] = bound(4 * (2 * v_i * s_i + 2 * s_i * steps + 2 * v_i * entries + v_i)
                                + 8 * nnz + 5 * t_i + 4,
                                2 * v_i * s_i + steps * 2 * s_i + entries * 4 * v_i + 2 * nnz)
-        row["f_bound"] = bound(graph_bytes + grid_bytes + 12 * t_i * v_i + t_i, fwd_ops)
+        row["f_bound"] = bound(graph_bytes + emis_bytes + 12 * t_i * v_i + t_i, fwd_ops)
         if name == "V=5000 segment":
             row |= {"d_plain_ms": cuda_ms(lambda: F.factored_forward_plain(pi_i, ia, ei, h, lb, m),
                                           reps=3, warmup=1),
@@ -1491,6 +1505,282 @@ def backoff_phase(torch, entry, wrappers, card, launches):
                      f"{card}, segment decode V={BACKOFF_VOCAB} backoff")
     print(f"backoff phase: {time.perf_counter() - t_phase:.1f} s")
     return out | {"segment_ms": seg_ms, "nbest_ms": nb_ms}
+
+
+BATCH_ROWS = 8  # entry.parallel_serving's segments: one launch each of D, E and F
+CUT_ROWS = 64  # a V = 5000 batch whose grids (~5.2 GB) pass GRID_BUDGET: cut by ops.factored.cut_batch
+
+
+def planted_rows(torch, graph, lm, feats, masks):
+    """The serving batch with rows 2 and 5 replaced by frames planted along
+    six words of the LM each, so that part of the batch decodes to words
+    (the random segments decode to silence). Returns ``(feats, masks,
+    planted)``."""
+    in_lm = [w for w in graph.words if w in set(lm.vocabulary())]
+    planted = {2: in_lm[3:9], 5: in_lm[20:26]}
+    feats, masks = feats.clone(), masks.clone()
+    for row, words in planted.items():
+        obs = torch.as_tensor(planted_features(torch, graph, np.random.default_rng(300 + row),
+                                               words), device=feats.device)
+        feats[row] = 0.0
+        feats[row, :len(obs)] = obs
+        masks[row] = torch.arange(feats.shape[1], device=feats.device) < len(obs)
+    return feats, masks, planted
+
+
+def edge_masks(torch, masks):
+    """``masks`` with row 1 masked after its first frame, row 3 with
+    interior gaps (single frames and a run of 9) and row 0 valid to its
+    last frame: masks that differ by utterance at every kind of frame."""
+    out = masks.clone()
+    out[0] = True
+    out[1] = False
+    out[1, 0] = True
+    t_len = out.shape[1]
+    out[3, 5:min(40, t_len):3] = False
+    out[3, t_len // 2:t_len // 2 + 9] = False
+    return out
+
+
+def check_batch(torch, F, graph, log_b, pi_grid, final_grid, masks, what):
+    """Kernels D, E and F on a batch ``log_b (B, T, V, S)``, ``masks (B,
+    T)``: one launch each, bitwise (``-inf`` included) equal to looping the
+    single-utterance launches on the card and to the batched plain versions
+    on the card. Returns the batch's grids."""
+    hop, hop_t, ia, ei = graph._kernel_hop, graph.hop_t, graph.inner_a, graph.exit_idx
+    b = log_b.shape[0]
+    kernels = (F.factored_forward, F.factored_backtrace, F.factored_lattice)
+    before = [k.launches for k in kernels]
+    grids = F.factored_forward(pi_grid, ia, ei, hop, log_b, masks, hop_t=hop_t)
+    path, score = F.factored_backtrace(grids, ia, ei, hop, final_grid, masks, hop_t=hop_t)
+    recs = F.factored_lattice(pi_grid, ia, ei, hop, log_b, masks, hop_t=hop_t)
+    made = [k.launches - n for k, n in zip(kernels, before)]
+    require(made == [1, 1, 1], f"the batch of {b} ({what}) launched D, E and F {made} times")
+    loop_g = [F.factored_forward(pi_grid, ia, ei, hop, log_b[r], masks[r], hop_t=hop_t)
+              for r in range(b)]
+    loop_e = [F.factored_backtrace(loop_g[r], ia, ei, hop, final_grid, masks[r], hop_t=hop_t)
+              for r in range(b)]
+    loop_f = [F.factored_lattice(pi_grid, ia, ei, hop, log_b[r], masks[r], hop_t=hop_t)
+              for r in range(b)]
+    plain_g = F.factored_forward_plain(pi_grid, ia, ei, hop, log_b, masks)
+    plain_e = F.factored_backtrace_plain(plain_g, ia, ei, hop, final_grid, masks)
+    plain_f = F.factored_lattice_plain(pi_grid, ia, ei, hop, log_b, masks)
+    torch.cuda.synchronize()
+    stack = lambda xs: [torch.stack(x) for x in zip(*xs)]  # noqa: E731
+    for ref, where in ((torch.stack(loop_g), "looped single launches"),
+                       (plain_g, "the batched plain forward")):
+        bad = [r for r in range(b) if not same_bits(torch, [grids[r]], [ref[r]])]
+        require(not bad, f"kernel D's batch ({what}) differs from {where} in rows {bad}")
+    for (ref_p, ref_s), where in ((stack(loop_e), "looped single launches"),
+                                  (plain_e, "the batched plain replay")):
+        bad = [r for r in range(b) if not (torch.equal(path[r], ref_p[r])
+                                           and same_bits(torch, [score[r]], [ref_s[r]]))]
+        require(not bad, f"kernel E's batch ({what}) differs from {where} in rows {bad}")
+    for ref, where in ((stack(loop_f), "looped single launches"),
+                       (plain_f, "the batched plain version")):
+        bad = [r for r in range(b)
+               if not (same_bits(torch, [recs[0][r]], [ref[0][r]])
+                       and torch.equal(recs[1][r], ref[1][r]) and torch.equal(recs[2][r], ref[2][r]))]
+        require(not bad, f"kernel F's batch ({what}) differs from {where} in rows {bad}")
+    valid = masks.sum(1).tolist()
+    print(f"kernels D, E, F on a batch ({what}: B={b}, T={log_b.shape[1]}, V={log_b.shape[2]}, "
+          f"S={log_b.shape[3]}, {F.hop_kind(hop)} hop, valid frames {valid}): one launch each, "
+          f"grids, paths, scores and records bitwise equal to {b} single launches each and to "
+          f"the batched plain versions on the card")
+    return grids
+
+
+def batch_bounds(torch, F, graph, log_b, masks, paths):
+    """The least times of the batched D, E and F on these inputs, as
+    ``main`` (dense hop) and ``backoff_phase`` (backoff hop) count one
+    utterance's: the graph read once a launch, every utterance's emission
+    rows of its first and valid frames, its grids, mask and records, and
+    the work of its valid steps and of its replay's steps at a word's
+    first state."""
+    b, t_len, v, s = log_b.shape
+    hop = graph._kernel_hop
+    dense = F.hop_kind(hop) == "dense"
+    nnz = 0 if dense else len(hop.arc_src)
+    steps = int(masks[:, 1:].sum())
+    entries = sum(replay_counts(torch, F, paths[r], masks[r], s)[0] for r in range(b))
+    graph_bytes = (4 * (v * s + v * s * s + v + v * v) if dense
+                   else 4 * (v * s + v * s * s + 5 * v + 1) + 12 * nnz)
+    # emission rows of each utterance's frame 0 and of its valid steps (a
+    # masked frame reads none); every frame's grid written
+    emis_bytes = 4 * (b + steps) * v * s
+    grid_bytes = 4 * b * t_len * v * s
+    hop_ops = 2 * v * v + 2 * v if dense else 5 * v + 2 * nnz
+    fwd_ops = steps * (2 * v * s * s + v * s + hop_ops)
+    return {"d": bound(graph_bytes + emis_bytes + grid_bytes + b * t_len, fwd_ops),
+            "e": bound(4 * ((b + 1) * v * s + 2 * s * steps + 2 * v * entries + v) + 8 * nnz
+                       + 5 * b * t_len + 4 * b,
+                       2 * b * v * s + steps * 2 * s + entries * (2 if dense else 4) * v + 2 * nnz),
+            "f": bound(graph_bytes + emis_bytes + 12 * b * t_len * v + b * t_len, fwd_ops)}
+
+
+def batch_phase(torch, entry, wrappers, card, launches):
+    """The factored graph's batched decodes, one launch a batch (the JAX
+    package's vmapped scans): at V = 1000 (dense hop) and V = 5000 (backoff
+    hop) on ``entry.parallel_serving``'s 8 ragged segments (two rows planted
+    with words), :func:`check_batch` on the batch's own masks and on masks
+    that differ at every kind of frame; ``decode_batch_arrays`` with the
+    counters reset launches D and E once, bitwise equal to looping
+    ``decode_arrays`` on the card and to the batched plain decode on the
+    CPU (the same weights and emissions), the planted rows decoding to
+    their words; at V = 1000 ``decode_lattice_batch`` launches F once,
+    equal to looping ``decode_lattice``; a 64-row V = 5000 batch is cut by
+    ``ops.factored.cut_batch`` and launches D and E once a piece, equal to
+    the loop. Times the batched D, E and F (CUDA events over queued
+    launches) against the B single launches, and ``decode_batch`` against
+    looping ``decode`` (host clock, one copy back)."""
+    from lnasr_tpu_torch.models import decoder as tdec
+    from lnasr_tpu_torch.ops import factored as F
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n_sm = F.sm_count(dev)
+    none = {w.__name__: 0 for w in wrappers}
+    out = {}
+    for vocab in (1000, BACKOFF_VOCAB):
+        serve = entry.parallel_serving(vocab, BATCH_ROWS, device=dev)
+        rec = serve.recognizer
+        g = rec.graph
+        kind = F.hop_kind(g._kernel_hop)
+        require(kind == ("dense" if vocab == 1000 else "backoff"),
+                f"V={vocab}: the serving graph's hop is {kind}")
+        feats, masks, planted = planted_rows(torch, g, rec.lm.ngram, serve.features, serve.masks)
+        log_b, pi_g, fin_g = g._grid_inputs(feats)
+        b, t_len, v, s = log_b.shape
+        hop, hop_t, ia, ei = g._kernel_hop, g.hop_t, g.inner_a, g.exit_idx
+        require(F.cut_batch(b, t_len, v, s, hop, n_sm) == [(0, b)]
+                and F.cut_batch(b, t_len, v, s, hop, n_sm, lattice=True) == [(0, b)],
+                f"V={vocab}: a batch of {b} does not fit one launch")
+        grids = check_batch(torch, F, g, log_b, pi_g, fin_g, masks, f"V={vocab} serving batch")
+        check_batch(torch, F, g, log_b, pi_g, fin_g, edge_masks(torch, masks),
+                    f"V={vocab} serving batch, masks at every kind of frame")
+        for hop_mode, loop in ((("rank1", True), ("dense", False)) if vocab == 1000 else ()):
+            gk = tdec.FactoredDecodingGraph.build(
+                rec.lexicon, rec.am.units, rec.lm.ngram,
+                tdec.DecoderConfig(lm_scale=0.5, word_insertion_penalty=-4.0, loop=loop),
+                silence_model=rec.am.units[tdec.SILENCE], hop_mode=hop_mode, device=dev)
+            lb_k, pi_k, fin_k = gk._grid_inputs(feats)
+            check_batch(torch, F, gk, lb_k, pi_k, fin_k, edge_masks(torch, masks),
+                        f"V=1000 serving batch, {F.hop_kind(gk._kernel_hop)} hop, masks at every "
+                        "kind of frame")
+
+        # the main path: decode_batch_arrays, the counters reset just before
+        torch.cuda.synchronize()
+        reset_counts(*wrappers)
+        paths, scores = g.decode_batch_arrays(feats, masks)
+        torch.cuda.synchronize()
+        counts = {w.__name__: w.launches for w in wrappers}
+        launches[f"V={vocab} batch"] = counts
+        require(counts == none | {"factored_forward": 1, "factored_backtrace": 1},
+                f"V={vocab} decode_batch_arrays of {b} launched {counts}")
+        loop = [g.decode_arrays(feats[r], masks[r]) for r in range(b)]
+        # the batched plain decode on the CPU, on the same weights and emissions
+        c = lambda x: None if x is None else x.cpu()  # noqa: E731
+        hop_c = cpu_hop(torch, hop)
+        cpu_p, cpu_s = F.factored_backtrace_plain(
+            F.factored_forward_plain(c(pi_g), c(ia), c(ei), hop_c, c(log_b), c(masks)), c(ia),
+            c(ei), hop_c, c(fin_g), c(masks))
+        require(torch.equal(paths, torch.stack([p for p, _ in loop]))
+                and same_bits(torch, [scores], [torch.stack([x for _, x in loop])]),
+                f"V={vocab} decode_batch_arrays differs from looping decode_arrays")
+        require(torch.equal(paths.cpu(), cpu_p) and same_bits(torch, [scores.cpu()], [cpu_s]),
+                f"V={vocab} decode_batch_arrays differs from the CPU's batched plain decode")
+        got = g.decode_batch(feats, masks)
+        for row, words in planted.items():
+            require(got[row][0] == words, f"V={vocab} planted row {row}: {words} decoded as "
+                                          f"{got[row][0]}")
+        require(all(np.isfinite(x[2]) for x in got), f"V={vocab} decode_batch: a score not finite")
+        print(f"main path: FactoredDecodingGraph.decode_batch_arrays at V={vocab} ({kind} hop, "
+              f"B={b}, T={t_len}, rows {sorted(planted)} planted): launches {counts}; paths and "
+              f"scores bitwise equal to looping decode_arrays and to the batched plain decode on "
+              f"the CPU (the same weights and emissions); decode_batch's words "
+              f"{[x[0] for x in got]}, the planted rows their words")
+        if vocab == 1000:
+            torch.cuda.synchronize()
+            reset_counts(*wrappers)
+            lats = g.decode_lattice_batch(feats, masks)
+            counts = {w.__name__: w.launches for w in wrappers}
+            launches["V=1000 lattice batch"] = counts
+            require(counts == none | {"factored_lattice": 1},
+                    f"decode_lattice_batch of {b} launched {counts}")
+            for r in range(b):
+                solo = g.decode_lattice(feats[r], masks[r])
+                require(lats[r].tokens == solo.tokens and
+                        [(h.words, h.score) for h in lats[r].nbest(5)]
+                        == [(h.words, h.score) for h in solo.nbest(5)],
+                        f"decode_lattice_batch row {r} differs from decode_lattice")
+            print(f"main path: decode_lattice_batch at V=1000 (B={b}): launches {counts}; tokens "
+                  f"and N-best of every row equal to looping decode_lattice "
+                  f"({[len(x.tokens) for x in lats]} tokens)")
+
+        # times: the batched launch against its B single launches, queued
+        e_args = (grids, ia, ei, hop, fin_g, masks)
+        runs = {
+            "d": (lambda: F.factored_forward(pi_g, ia, ei, hop, log_b, masks, hop_t=hop_t),
+                  lambda: [F.factored_forward(pi_g, ia, ei, hop, log_b[r], masks[r], hop_t=hop_t)
+                           for r in range(b)]),
+            "e": (lambda: F.factored_backtrace(*e_args, hop_t=hop_t),
+                  lambda: [F.factored_backtrace(grids[r], ia, ei, hop, fin_g, masks[r],
+                                                hop_t=hop_t) for r in range(b)]),
+            "f": (lambda: F.factored_lattice(pi_g, ia, ei, hop, log_b, masks, hop_t=hop_t),
+                  lambda: [F.factored_lattice(pi_g, ia, ei, hop, log_b[r], masks[r], hop_t=hop_t)
+                           for r in range(b)])}
+        times = {}
+        for key, (batched, looped) in runs.items():
+            times[key] = (burst_ms(batched, launches=6), burst_ms(looped, launches=3),
+                          burst_ms(batched, launches=6), burst_ms(looped, launches=3))
+        batch_ms = host_ms(lambda: g.decode_batch(feats, masks), reps=5)
+        loop_ms = host_ms(lambda: [g.decode(feats[r], masks[r]) for r in range(b)], reps=5)
+        bounds = batch_bounds(torch, F, g, log_b, masks, paths)
+        out[vocab] = {"b": b, "t": t_len, "times": times, "decode_batch_ms": batch_ms,
+                      "decode_loop_ms": loop_ms, "valid": int(masks[:, 1:].sum()),
+                      "bounds": bounds}
+        for key, name in (("d", "D"), ("e", "E"), ("f", "F")):
+            tb = (times[key][0] + times[key][2]) / 2
+            tl = (times[key][1] + times[key][3]) / 2
+            print(f"timing on {card}: kernel {name} at V={vocab} ({kind} hop), B={b}, T={t_len}: "
+                  f"one batched launch {times[key][0]:.4f} / {times[key][2]:.4f} ms, the {b} single "
+                  f"launches {times[key][1]:.4f} / {times[key][3]:.4f} ms (CUDA events over queued "
+                  f"launches, in turns); {tl / tb:.2f}x; the batch's bound "
+                  f"{bounds[key][0]:.5f} ms by {bounds[key][1]}")
+        print(f"timing on {card}: decode_batch at V={vocab}, B={b}: {batch_ms:.4f} ms, looping "
+              f"decode over the rows {loop_ms:.4f} ms (host clock, each ending in its copies "
+              f"back; median of 5); {loop_ms / batch_ms:.2f}x")
+
+    # a batch past one launch's capacity: cut by the stated rule
+    serve = entry.parallel_serving(BACKOFF_VOCAB, CUT_ROWS, device=dev)
+    g = serve.recognizer.graph
+    feats, masks = serve.features, serve.masks
+    t_len = feats.shape[1]
+    v, s = g.grid_shape
+    pieces = F.cut_batch(CUT_ROWS, t_len, v, s, g._kernel_hop, n_sm)
+    require(len(pieces) > 1 and all(F.factored_kernel_ok(t_len, v, s, g._kernel_hop, n_sm, j - i)
+                                    for i, j in pieces),
+            f"the {CUT_ROWS}-row V={v} batch was cut into {pieces}")
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    paths, scores = g.decode_batch_arrays(feats, masks)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches[f"V={BACKOFF_VOCAB} cut batch"] = counts
+    n = len(pieces)
+    require(counts == none | {"factored_forward": n, "factored_backtrace": n},
+            f"the cut batch launched {counts}, the cut has {n} pieces")
+    loop = [g.decode_arrays(feats[r], masks[r]) for r in range(CUT_ROWS)]
+    require(torch.equal(paths, torch.stack([p for p, _ in loop]))
+            and same_bits(torch, [scores], [torch.stack([x for _, x in loop])]),
+            "the cut batch differs from looping decode_arrays")
+    print(f"main path: decode_batch_arrays of {CUT_ROWS} rows at V={BACKOFF_VOCAB} (grids "
+          f"{4 * CUT_ROWS * t_len * v * s / 1e9:.2f} GB at one launch, budget "
+          f"{F.GRID_BUDGET / 1e9:.2f} GB): cut_batch gives {pieces}; launches {counts}; paths and "
+          f"scores bitwise equal to looping decode_arrays")
+    out["cut"] = pieces
+    print(f"batch phase: {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def stream_phase(torch, entry, wrappers, card, launches):
@@ -3239,15 +3529,8 @@ def parallel_rank(ckdir):
     reset_counts(*counted)
     serve = entry.parallel_serving(1000, 8, device=dev)
     graph = serve.recognizer.graph
-    feats, masks = serve.features.clone(), serve.masks.clone()
-    in_lm = [w for w in graph.words if w in set(serve.recognizer.lm.ngram.vocabulary())]
-    planted = {2: in_lm[3:9], 5: in_lm[20:26]}
-    for row, words in planted.items():
-        obs = torch.as_tensor(planted_features(torch, graph, np.random.default_rng(300 + row),
-                                               words), device=dev)
-        feats[row] = 0.0
-        feats[row, :len(obs)] = obs
-        masks[row] = torch.arange(feats.shape[1], device=dev) < len(obs)
+    feats, masks, planted = planted_rows(torch, graph, serve.recognizer.lm.ngram, serve.features,
+                                         serve.masks)
     res = P.decode_batch_sharded(graph, feats, masks, dp_mesh)
     sync()
     out["decode_launches"] = counts()
@@ -3380,8 +3663,8 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
     flagship batch, 16 utterances a rank, kernel A on each rank's own
     signals), model-parallel EM on (data 2, model 2) with kill and resume,
     sequence parallelism on the 62.9 s stream (forward, backward, Viterbi,
-    one EM sweep), the sharded V = 1000 decode (kernels A once, D and E
-    twice on every rank) and the pipeline (2 and 4 stages), each held
+    one EM sweep), the sharded V = 1000 decode (kernels A, D and E once on
+    every rank: D and E once for the rank's two rows) and the pipeline (2 and 4 stages), each held
     against the single-process path on the card, and kernel A against its
     plain version at every shape the ranks ran it
     (:func:`check_parallel_a`); then one data-parallel
@@ -3520,8 +3803,8 @@ def parallel_phase(torch, entry, wrappers, card, launches, sweep_ms):
     require(equal, "the sharded decode differs from decode_batch")
     for row, words in r0["planted"].items():
         require(got[row][0] == words, f"planted row {row}: {words} decoded as {got[row][0]}")
-    expect = {w.__name__: 0 for w in wrappers} | {"mel_frontend": 1, "factored_forward": 2,
-                                                  "factored_backtrace": 2}
+    expect = {w.__name__: 0 for w in wrappers} | {"mel_frontend": 1, "factored_forward": 1,
+                                                  "factored_backtrace": 1}
     require(all(c == expect for c in per_rank), f"the sharded decode's launches per rank: {per_rank}")
     print(f"timing on {card}: sharded decode of 8 segments: "
           + ", ".join(f"rank {r['rank']} {r['decode_ms']:.3f} ms" for r in ranks)
@@ -4461,12 +4744,12 @@ def main():
         f_err = max(f_err, check_lattice(torch, F, g, lb, pi_g, mask,
                                          f"mixed word lengths 2-6, {F.hop_kind(g._kernel_hop)} "
                                          "hop, bucket mask"))
-    # decode_batch: one forward and one backtrace launch per utterance
+    # decode_batch: one forward and one backtrace launch for the batch
     masks = torch.stack([mask, torch.arange(200, device=dev) < 140])
     before = F.factored_forward.launches, F.factored_backtrace.launches
     batch = g.decode_batch(torch.stack([obs, obs]), masks)
     require((F.factored_forward.launches - before[0], F.factored_backtrace.launches - before[1])
-            == (2, 2), "decode_batch of 2 utterances did not launch D and E twice each")
+            == (1, 1), "decode_batch of 2 utterances did not launch D and E once each")
     lb2, pi_g, fin_g = g._grid_inputs(torch.stack([obs, obs]))
     for b, (_, path_b, score_b) in enumerate(batch):
         path_p, score_p = F.factored_backtrace_plain(
@@ -4475,7 +4758,7 @@ def main():
         require(np.array_equal(path_b, path_p.cpu().numpy()) and score_b == float(score_p),
                 f"decode_batch utterance {b} differs from the plain forward and replay")
     print("decode_batch (B=2, mixed word lengths, loop-free, masks of 170 and 140 frames): D and "
-          "E twice each, paths and scores bitwise those of the plain versions")
+          "E once each, paths and scores bitwise those of the plain versions")
     # exact ties: uniform emissions, identical hops, stay == advance (the
     # graph of tests/test_factored_pallas.py's tie test: 7 words x 3 states)
     v_t, s_t, t_t = 7, 3, 23
@@ -4711,8 +4994,11 @@ def main():
     e_plain_ms = cuda_ms(lambda: F.factored_backtrace_plain(*e_args), reps=3, warmup=1)
     steps = int(mask1000[1:].sum())
     graph_bytes = 4 * (vw * sw + vw * sw * sw + vw + vw * vw)
+    # emission rows of frame 0 and of the valid steps (a masked frame reads
+    # none); every frame's grid written
+    emis_bytes = 4 * (1 + steps) * vw * sw
     grid_bytes = 4 * seg_frames * vw * sw
-    d_bound, d_by = bound(graph_bytes + 2 * grid_bytes + seg_frames,
+    d_bound, d_by = bound(graph_bytes + emis_bytes + grid_bytes + seg_frames,
                           steps * (2 * vw * vw + 2 * vw * sw * sw + 2 * vw + vw * sw))
     path_e, _ = F.factored_backtrace(*e_args, hop_t=hop_t)
     entries, e_hops, e_windows = replay_counts(torch, F, path_e, mask1000, sw)
@@ -4760,7 +5046,7 @@ def main():
     f_args = (pi1000, ia, ei, hop, log_b1000, mask1000)
     f_ms = cuda_ms(lambda: F.factored_lattice(*f_args, hop_t=hop_t), reps=30)
     f_plain_ms = cuda_ms(lambda: F.factored_lattice_plain(*f_args), reps=3, warmup=1)
-    f_bound, f_by = bound(graph_bytes + grid_bytes + 12 * seg_frames * vw + seg_frames,
+    f_bound, f_by = bound(graph_bytes + emis_bytes + 12 * seg_frames * vw + seg_frames,
                           steps * (2 * vw * vw + 2 * vw * sw * sw + 2 * vw + vw * sw))
     rec1000 = recs[1000][0]
     nbest = lambda: rec1000.decode_segment_nbest(seg, n=5, with_confidence=True)  # noqa: E731
@@ -4802,6 +5088,9 @@ def main():
 
     # -- 8b. the exact backoff search at V = 5000: D, E, F with the CSR hop ---
     bo = backoff_phase(torch, entry, wrappers, card, launches)
+
+    # -- 8c. the batched decodes: D, E and F once a batch ----------------------
+    bat = batch_phase(torch, entry, wrappers, card, launches)
 
     # -- 9, 10, 11. live serving: the stream, the trigram graph, device VADs --
     stream_phase(torch, entry, wrappers, card, launches)
@@ -4966,6 +5255,18 @@ def main():
             "bench_ms": {n: {"ms": bo[n][f"{key}_ms"], "bound_ms": bo[n][f"{key}_bound"][0],
                              "scan_ms": bo[n][scan_key], "map": bo[n]["map"]}
                          for n in bo if n.startswith("bench")}})
+    # the batched launches (batch_phase): one launch of a batch against its
+    # single launches, by CUDA events over queued launches (two turns each)
+    for row in kernels:
+        key = {"factored_forward": "d", "factored_backtrace": "e",
+               "factored_lattice": "f"}.get(row["name"])
+        if key:
+            row["batch"] = {f"V={v}": {"b": r["b"], "ms": (r["times"][key][0] + r["times"][key][2]) / 2,
+                                       "loop_ms": (r["times"][key][1] + r["times"][key][3]) / 2,
+                                       "bound_ms": r["bounds"][key][0],
+                                       "bound_by": r["bounds"][key][1]}
+                            for v, r in bat.items() if v != "cut"}
+            row["batch"]["cut"] = bat["cut"]
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -216,6 +216,26 @@ D_PATCHES = [
      "    { const unsigned n_ = (unsigned)clock64(); ph_acc[5] += n_ - ph_t; }\n"
      + _final(D_STRIDE, 6, "kFactors", 4)),
 ]
+# the same phases of the batched kernel (a launch steps every utterance's
+# items in each phase; the within-word step also issues the emissions' copies)
+D_BATCH_PATCHES = [
+    ("    unsigned long long live_next = T > 1 ? frame_bits(p.mask, B, T, 1) : 0;\n",
+     "    unsigned ph_acc[6] = {0, 0, 0, 0, 0, 0}, ph_t = (unsigned)clock64();\n"),
+    ("        // this frame's emissions (in flight) and the block's own\n", _acc32(5, 8)),
+    ("            // the sparse keys' reset: every read of the last frame's is done\n",
+     _acc32(0, 12)),
+    ("                       p.xch + (size_t)(n_pub & 1) * B * V, bsrc, n_src, B, V, "
+     "(unsigned)last_pub, pl.got);\n"
+     "            __syncthreads();  // also: every read of g is done\n", _acc32(1, 12)),
+    ("            combine_polled(pl.got, p.n_blocks, B, pl.rk);\n", _acc32(2, 12)),
+    ("            __syncthreads();  // the warps' combines (and the arcs' atomics) are done\n",
+     _acc32(3, 12)),
+    ("        ++n_pub;\n        last_pub = t;\n", _acc32(4, 8)),
+    ("        if (kFactors) publish_partials(pl.xk, p.wpb, nw, part, B, p.n_blocks, n_pub & 1, t);\n"
+     "    }\n",
+     "    { const unsigned n_ = (unsigned)clock64(); ph_acc[5] += n_ - ph_t; }\n"
+     + _final(D_STRIDE, 6, "kFactors", 4)),
+]
 I_PHASES = ["decision", "adaptation", "select", "ring wait", "tracker frames"]
 H_PHASES = ["load", "within-word pass", "exchange wait", "hop pass", "publish", "final argmax"]
 # kernel H's sums are 32-bit (a phase's cycles over a launch fit), which
@@ -345,6 +365,7 @@ PATCH_SETS = {
     # kernel D: the factored kinds' frame (rank-1 partials, the backoff
     # kind's own sources and arcs)
     "factored_forward": [
+        ("batched items", D_STRIDE, D_PHASES, D_BATCH_PATCHES),
         ("per-block rank-1 partials", D_STRIDE, D_PHASES, D_PATCHES),
     ],
     "trigram_forward": [

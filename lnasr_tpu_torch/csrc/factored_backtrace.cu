@@ -59,6 +59,13 @@
 // word changes. A backoff hop adds to each warp's speculative hop work a
 // pass over w's arcs (a lane an arc, read through the read-only path: all
 // of a window's warps read the same row) and one more warp argmax.
+//
+// A batch (the JAX package's jax.vmap of the scan, decoder.py:1125): grids
+// (B, T, V, S) from one launch of kernel D, masks (B, T); the pre-pass
+// gathers the exits of all B T frames, and the walk runs on grid (B,), a
+// block an utterance, so B walks run side by side on B SMs where one
+// walk leaves all but one idle. Each utterance's termination, mask and
+// window rules are one utterance's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -75,7 +82,7 @@ constexpr int SMEM_LIMIT = 232448;    // a block's shared memory on sm_90
 constexpr int GATHER_THREADS = 256;
 
 struct Args {
-    const float* grids;     // (T, V, S)
+    const float* grids;     // (B, T, V, S)
     const float* inner_a;   // (V, S, S)
     const int* exit_idx;    // (V,)
     const float* hop_t;     // (V, V) transposed: hop_t[w, v] = hop[v, w]
@@ -86,11 +93,11 @@ struct Args {
     const int* arc_src;     // (nnz,) ascending within a row
     const float* arc_val;   // (nnz,)
     const float* final_grid;  // (V, S)
-    const uint8_t* mask;    // (T,) or null
-    const float* exits;     // (T, Vp) from the pre-pass, or null (no hop)
-    int* path;              // (T,)
-    float* score;           // ()
-    int hop_kind, sil_idx, T, V, S;
+    const uint8_t* mask;    // (B, T) or null
+    const float* exits;     // (B, T, Vp) from the pre-pass, or null (no hop)
+    int* path;              // (B, T)
+    float* score;           // (B,)
+    int hop_kind, sil_idx, B, T, V, S;
 };
 
 // (value, index) argmax: the larger value, the smaller index on a tie.
@@ -135,6 +142,12 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
     const int BIG = 0x7fffffff;
 
     const int Vp = (V + 3) & ~3;                  // exits' and the column's padded width
+    // this block's utterance
+    const int b = blockIdx.x;
+    const float* grids = p.grids + (size_t)b * T * frame;
+    const uint8_t* mask = p.mask ? p.mask + (size_t)b * T : nullptr;
+    const float* exits = p.exits ? p.exits + (size_t)b * T * Vp : nullptr;
+    int* path = p.path + (size_t)b * T;
     float* col = reinterpret_cast<float*>(smem);  // [Vp] w's hop column (hop kinds only)
     float* ia = col + (hk != HOP_NONE ? Vp : 0);  // [S * S] w's inner block
     float* row = ia + S * S;                      // [K * S] staged S-rows
@@ -144,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
     {
         float bv = -INFINITY;
         int bi = BIG;
-        const float* last = p.grids + (size_t)(T - 1) * frame;
+        const float* last = grids + (size_t)(T - 1) * frame;
         for (int k = tid; k < (int)frame; k += THREADS)
             arg_take(bv, bi, last[k] + p.final_grid[k], k);
         warp_argmax(bv, bi);
@@ -156,8 +169,8 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
         if (tid == 0) {
             for (int w = 1; w < K; ++w) arg_take(bv, bi, redv[w], redi[w]);
             const int state = bi < (int)frame ? bi : 0;
-            p.score[0] = bv;
-            p.path[T - 1] = state;
+            p.score[b] = bv;
+            path[T - 1] = state;
             state_sh = state;
             tau_sh = T - 1;
         }
@@ -183,9 +196,9 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
         // the table: the predecessor of each local state j
         const int tau = tau0 - warp;
         if (tau >= 1) {
-            const float* src = p.grids + (size_t)(tau - 1) * frame + lo;
+            const float* src = grids + (size_t)(tau - 1) * frame + lo;
             const float rv = lane < S ? src[lane] : 0.0f;  // in flight during the hop
-            const bool valid = p.mask == nullptr || p.mask[tau];
+            const bool valid = mask == nullptr || mask[tau];
             float hv = -INFINITY;
             int hpred = -1;
             if (hk != HOP_NONE && valid) {
@@ -193,7 +206,7 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
                 // loads the float4s l, l + 32, ...; pair k takes their
                 // component k, sources 4 (l + 32 m) + k in increasing order
                 const float4* ex4 =
-                    reinterpret_cast<const float4*>(p.exits + (size_t)(tau - 1) * Vp);
+                    reinterpret_cast<const float4*>(exits + (size_t)(tau - 1) * Vp);
                 const float4* c4 = reinterpret_cast<const float4*>(col);
                 float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
                 int a0 = 4 * lane, a1 = 4 * lane + 1, a2 = 4 * lane + 2, a3 = 4 * lane + 3;
@@ -217,7 +230,7 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
                     hv = r1;
                     if (hk == HOP_BACKOFF) {
                         // the first argmax over w's arcs of exits[src] + val
-                        const float* exr = p.exits + (size_t)(tau - 1) * Vp;
+                        const float* exr = exits + (size_t)(tau - 1) * Vp;
                         float sm = -INFINITY;
                         int sa = BIG;
                         const int k1 = __ldg(p.arc_ptr + w + 1);
@@ -260,7 +273,7 @@ __global__ void __launch_bounds__(THREADS) factored_backtrace_kernel(Args p) {
             const int steps = min(K, tau0);
             for (int i = 0; i < steps; ++i) {
                 cur = tab[i * S + cur - lo];
-                p.path[--t] = cur;
+                path[--t] = cur;
                 if ((unsigned)(cur - lo) >= (unsigned)S) break;  // a hop into another word
             }
             state_sh = cur;
@@ -283,11 +296,11 @@ extern "C" int factored_backtrace_launch(const float* grids, const float* inner_
                                          const float* uni, const float* sil_from, int sil_idx,
                                          const int* arc_ptr, const int* arc_dst,
                                          const int* arc_src, const float* arc_val,
-                                         const float* final_grid, const uint8_t* mask, int T, int V,
-                                         int S, float* exits, int* path, float* score,
+                                         const float* final_grid, const uint8_t* mask, int B, int T,
+                                         int V, int S, float* exits, int* path, float* score,
                                          void* stream) {
     (void)arc_dst;  // the forwards' flat arc walk needs it, the replay's row walk does not
-    if (T < 1 || V < 1 || S < 1) return (int)cudaErrorInvalidValue;
+    if (B < 1 || T < 1 || V < 1 || S < 1) return (int)cudaErrorInvalidValue;
     if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return (int)cudaErrorInvalidValue;
     if (hop_kind == HOP_BACKOFF && arc_ptr == nullptr) return (int)cudaErrorInvalidValue;
     if (hop_kind != HOP_NONE && exits == nullptr) return (int)cudaErrorInvalidValue;
@@ -298,16 +311,17 @@ extern "C" int factored_backtrace_launch(const float* grids, const float* inner_
     if (err != cudaSuccess) return (int)err;
     if (hop_kind != HOP_NONE) {
         const int vp = (V + 3) & ~3;
-        const size_t want = ((size_t)T * vp + GATHER_THREADS - 1) / GATHER_THREADS;
+        // every utterance's frames: (B, T) rows of grids and exits
+        const size_t want = ((size_t)B * T * vp + GATHER_THREADS - 1) / GATHER_THREADS;
         const int blocks = (int)(want < 4096 ? want : 4096);
         gather_exits_kernel<<<blocks, GATHER_THREADS, 0, (cudaStream_t)stream>>>(
-            grids, exit_idx, T, V, vp, S, exits);
+            grids, exit_idx, B * T, V, vp, S, exits);
         err = cudaGetLastError();
         if (err != cudaSuccess) return (int)err;
     }
     Args a{grids, inner_a, exit_idx, hop_t, from_w, uni, sil_from, arc_ptr, arc_src, arc_val,
-           final_grid, mask, exits, path, score, hop_kind, sil_idx, T, V, S};
-    factored_backtrace_kernel<<<1, THREADS, smem, (cudaStream_t)stream>>>(a);
+           final_grid, mask, exits, path, score, hop_kind, sil_idx, B, T, V, S};
+    factored_backtrace_kernel<<<B, THREADS, smem, (cudaStream_t)stream>>>(a);
     return (int)cudaGetLastError();
 }
 

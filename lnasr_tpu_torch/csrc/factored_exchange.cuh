@@ -35,10 +35,10 @@
 // exit[v] + sil_from[v], with (for F) their lowest achieving source. Each
 // block folds its own exit cells into two partials, the same adds, each
 // into a 64-bit (value, source) key (key_of: the larger value, then the
-// smaller source, -0 and +0 tied with the lowest source's sign kept). Each
-// warp takes the largest key of its cells by two redux.sync (fold_partials),
-// and after the frame's closing barrier warp 0 takes the largest of the
-// warps' keys and publishes both, each key as two tagged words,
+// smaller source, -0 and +0 tied with the lowest source's sign kept): each
+// exit cell's thread writes its word's two keys to a slot of its own, and
+// after the frame's closing barrier a warp takes their maximum by two
+// redux.sync and publishes both, each key as two tagged words,
 // (tag << 32) | its high half and (tag << 32) | its low half, in a
 // (2, n_blocks, PART) region (publish_partials). A tag, a value and a
 // source do not fit one single-copy-atomic word; a reader takes a pair once
@@ -52,7 +52,7 @@
 // takes the largest of those few (polled_max). Max is exact and order-free
 // and the blocks own contiguous words, so the combined key is the plain
 // torch.max's first argmax and its value's bits. The rank-1 kind publishes
-// nothing else.
+// nothing else. (One utterance's regions are shown; a batch's follow.)
 //
 // The backoff kind also publishes every word's exit in a (2, V) region in
 // front of the partials, but a block polls only the distinct sources of its
@@ -67,6 +67,25 @@
 // Each frame a block's threads walk its arcs flat (an arc a thread a
 // round) and fold exit[src] + val into their destination's (value,
 // source) key with a shared-memory atomicMax (fold_arcs).
+//
+// Batch. A launch decodes B utterances of one graph (B <= MAX_BATCH): block
+// k owns the same words for all of them, loads their hop columns, inner
+// blocks and exit indices once, and keeps a grid row per utterance. Every
+// slot above is per utterance ((2, B, V) exits, (2, B, n_blocks, PART)
+// partials), so one exchange round a frame carries all B utterances'
+// exits or partials, and no key of one utterance is compared with
+// another's. The frames run in lockstep: frame t is live when any
+// utterance is valid at it (bit b of frame_bits). A live frame publishes
+// every utterance with tag t, an utterance masked at t its unchanged exits
+// and partials (its grid carries over), so every reader asks for one tag,
+// the last live frame's, for all utterances; a frame no utterance takes
+// publishes nothing. Each publication is as for one utterance, so the
+// order argument below holds utterance by utterance. A thread keeps one
+// cell of the block for the launch and steps it for utterances u, u + L,
+// ... (cell_lanes: L = threads / cells), so no frame divides by a run-time
+// value; a warp an utterance publishes the block's partials
+// (publish_partials), and a warp an (utterance, 32 blocks) combines the
+// polled ones (combine_polled).
 //
 // Publication order. A block publishes k + 1 (overwriting k - 1) only after
 // its poll of k has seen everything it reads of k, and it reads k only
@@ -96,6 +115,7 @@ constexpr int BIG = 0x7fffffff;     // no source
 constexpr int SMEM_LIMIT = 232448;  // a block's shared memory on sm_90
 constexpr int MAX_THREADS = 1024;   // one thread per (word, state) cell of a block
 constexpr int MAX_BLOCKS = 1024;    // the factored kinds' blocks: 32 warps' combines of 32 blocks
+constexpr int MAX_BATCH = 64;       // a launch's utterances: a frame's valid flags are one 64-bit word
 constexpr int POLL = 4;             // exchange slots a thread loads at once
 constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
 
@@ -111,6 +131,29 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p, unsigned long 
 
 __device__ __forceinline__ unsigned long long tagged(int t, float x) {
     return ((unsigned long long)(unsigned)t << 32) | __float_as_uint(x);
+}
+
+// A 4-byte copy from device memory into shared memory that does not stall
+// the thread (cp.async, sm_80 on): a frame's emissions are in flight while
+// the block waits for the exchange; cp_async_wait waits for the thread's
+// own copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// The valid flags of frame t, bit b for utterance b: mask (B, T), or null
+// (every frame valid).
+__device__ __forceinline__ unsigned long long frame_bits(const uint8_t* mask, int B, int T, int t) {
+    if (mask == nullptr) return B >= 64 ? ~0ull : (1ull << B) - 1;
+    unsigned long long bits = 0;
+    for (int b = 0; b < B; ++b)
+        if (mask[(size_t)b * T + t]) bits |= 1ull << b;
+    return bits;
 }
 
 // A (value, source) pair as one 64-bit key, larger for a larger value
@@ -150,19 +193,19 @@ __device__ __forceinline__ unsigned long long warp_max_key(unsigned long long k)
     return ((unsigned long long)hi << 32) | lo;
 }
 
-// ex[v] = the exit of word v tagged `tag`, from one buffer of the exchange.
-// A thread's slots are polled together: every round reloads all its slots
-// not yet tagged, so a round costs one L2 round trip however many of them
-// were early.
-__device__ void read_exits(const unsigned long long* src, unsigned tag, int V, float* ex) {
+// ex[i] = slot i of `src` tagged `tag`, for i < n (the B V exits of one
+// buffer of the exchange). A thread's slots are polled together: every
+// round reloads all its slots not yet tagged, so a round costs one L2
+// round trip however many of them were early.
+__device__ __forceinline__ void read_exits(const unsigned long long* src, unsigned tag, int n, float* ex) {
     const int tid = threadIdx.x, nth = blockDim.x;
-    for (int base = tid; base < V; base += nth * POLL) {
+    for (int base = tid; base < n; base += nth * POLL) {
         unsigned long long x[POLL];
         unsigned pending = 0;
 #pragma unroll
         for (int q = 0; q < POLL; ++q) {
             const int v = base + q * nth;
-            if (v < V) {
+            if (v < n) {
                 x[q] = ld_relaxed(src + v);
                 pending |= 1u << q;
             }
@@ -184,12 +227,13 @@ __device__ void read_exits(const unsigned long long* src, unsigned tag, int V, f
 }
 
 // got[i] = the low 32 bits of slot i tagged `tag`: slots [0, n_part) are the
-// partials `part[i]`, slots n_part + j the exit of the block's j-th source,
-// `exits[srcs[j]]` (read_exits' polling over a gathered list).
-__device__ void read_slots(const unsigned long long* part, int n_part,
-                           const unsigned long long* exits, const int* srcs, int n_src,
+// partials `part[i]` (every utterance's, (B, n_blocks, PART)), slot
+// n_part + b n_src + j utterance b's exit of the block's j-th source,
+// `exits[b V + srcs[j]]` (read_exits' polling over a gathered list).
+__device__ __forceinline__ void read_slots(const unsigned long long* part, int n_part,
+                           const unsigned long long* exits, const int* srcs, int n_src, int B, int V,
                            unsigned tag, unsigned* got) {
-    const int tid = threadIdx.x, nth = blockDim.x, n = n_part + n_src;
+    const int tid = threadIdx.x, nth = blockDim.x, n = n_part + B * n_src;
     for (int base = tid; base < n; base += nth * POLL) {
         const unsigned long long* at[POLL];
         unsigned long long x[POLL];
@@ -198,7 +242,12 @@ __device__ void read_slots(const unsigned long long* part, int n_part,
         for (int q = 0; q < POLL; ++q) {
             const int i = base + q * nth;
             if (i < n) {
-                at[q] = i < n_part ? part + i : exits + srcs[i - n_part];
+                if (i < n_part) {
+                    at[q] = part + i;
+                } else {
+                    const int k = i - n_part, b = B == 1 ? 0 : k / n_src;
+                    at[q] = exits + (size_t)b * V + srcs[k - b * n_src];
+                }
                 x[q] = ld_relaxed(at[q]);
                 pending |= 1u << q;
             }
@@ -241,116 +290,181 @@ __device__ __forceinline__ BlockRange block_range(const Args& p) {
 }
 
 // The factored kinds' shared memory in front of the kernel's rows: the
-// polled slots `got` (n_part partial words, a block's four 16-byte
-// aligned, then n_src source exits, padded to an even count), then the
-// sparse family's 64-bit keys `spk` (backoff: wpb of them).
+// polled slots `got` (n_part partial words, every utterance's, a block's
+// four 16-byte aligned, then the utterances' source exits, n_src_all of
+// them, padded to an even count), then the 64-bit keys: the sparse
+// family's `spk` (backoff: an (utterance, word) each), the words' exit
+// keys `xk` (m1's and m2's an (utterance, word): B wpb pairs) and the
+// polled keys combined 32 blocks a group, `rk` (m1's and m2's an
+// (utterance, group)).
 struct Polled {
     unsigned* got;
     unsigned long long* spk;
+    unsigned long long* xk;
+    unsigned long long* rk;
+    unsigned long long* end;
 };
 
-__device__ __forceinline__ Polled polled_layout(unsigned char* smem, int n_part, int n_src) {
-    unsigned* got = reinterpret_cast<unsigned*>(smem);
-    return {got, reinterpret_cast<unsigned long long*>(got + n_part + (n_src + 1) / 2 * 2)};
+__device__ __forceinline__ Polled polled_layout(unsigned char* smem, int n_part, int n_src_all, int n_spk,
+                                                int B, int wpb, int groups) {
+    Polled q;
+    q.got = reinterpret_cast<unsigned*>(smem);
+    q.spk = reinterpret_cast<unsigned long long*>(q.got + n_part + (n_src_all + 1) / 2 * 2);
+    q.xk = q.spk + n_spk;
+    q.rk = q.xk + 2 * B * wpb;
+    q.end = q.rk + 2 * B * groups;
+    return q;
 }
 
-// Each warp's partial keys of its exit cells' rank-1 sums a1 = x + from_w
-// and a2 = x + sil_from of word `word` (every thread of the block takes
-// part; exit cells bring theirs, the rest nothing).
-__device__ __forceinline__ void fold_partials(unsigned long long (*wk)[2], bool mine, float a1, float a2,
-                                              int word) {
-    const unsigned long long a = warp_max_key(mine ? key_of(a1, word) : 0ull);
-    const unsigned long long c = warp_max_key(mine ? key_of(a2, word) : 0ull);
-    if ((threadIdx.x & 31) == 0) {
-        wk[threadIdx.x >> 5][0] = a;
-        wk[threadIdx.x >> 5][1] = c;
+// A thread's cell and utterances for the launch: cell k of utterances b0,
+// b0 + step, ... (threads past `step` utterance slots of `cells` cells get
+// none: b0 = B). Computed once, so the frame loop divides nothing.
+struct CellLanes {
+    int k, b0, step;
+};
+
+__device__ __forceinline__ CellLanes cell_lanes(int cells, int B) {
+    CellLanes c;
+    c.step = blockDim.x / cells;  // >= 1: the launch has at least a thread a cell
+    const int u = threadIdx.x / cells;
+    c.k = threadIdx.x - u * cells;
+    c.b0 = u < c.step ? u : B;
+    return c;
+}
+
+// The block's partials of frame t, a warp an utterance b: the largest of
+// its words' exit keys xk[2 (b wpb + w) + 0 / 1], w < nw (each written by
+// its word's exit thread), by two redux.sync a key, published by lane 0
+// into buffer `buf` of the partials' region `part` ((2, B, n_blocks,
+// PART)), after a barrier that follows every exit thread's keys; the
+// next frame's keys are written only after that frame's poll barrier,
+// which each warp reaches after this.
+__device__ __forceinline__ void publish_partials(const unsigned long long* xk, int wpb, int nw,
+                                                 unsigned long long* part, int B, int n_blocks, int buf,
+                                                 int t) {
+    const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    const unsigned long long tag = (unsigned long long)(unsigned)t << 32;
+    for (int b = threadIdx.x >> 5; b < B; b += nwarps) {
+        unsigned long long a = 0, c = 0;
+#pragma unroll 1  // one pass a 32 words: this warp's wait is every block's
+        for (int w = lane; w < nw; w += 32) {
+            a = umax64(a, xk[2 * (b * wpb + w)]);
+            c = umax64(c, xk[2 * (b * wpb + w) + 1]);
+        }
+        a = warp_max_key(a);
+        c = warp_max_key(c);
+        if (lane == 0) {
+            unsigned long long* dst = part + (((size_t)buf * B + b) * n_blocks + blockIdx.x) * PART;
+            st_relaxed(dst, tag | (unsigned)(a >> 32));
+            st_relaxed(dst + 1, tag | (unsigned)a);
+            st_relaxed(dst + 2, tag | (unsigned)(c >> 32));
+            st_relaxed(dst + 3, tag | (unsigned)c);
+        }
     }
 }
 
-// Warp 0's publication of the block's partials of frame t into buffer `buf`
-// of the partials' region `part`, after a barrier that follows every warp's
-// keys; the next frame's keys are written only after that frame's poll
-// barrier, which warp 0 reaches after this.
-__device__ __forceinline__ void publish_partials(const unsigned long long (*wk)[2], unsigned long long* part,
-                                                 int n_blocks, int buf, int t) {
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x, nwarps = blockDim.x >> 5;
-    const unsigned long long a = warp_max_key(lane < nwarps ? wk[lane][0] : 0ull);
-    const unsigned long long c = warp_max_key(lane < nwarps ? wk[lane][1] : 0ull);
-    if (lane == 0) {
-        unsigned long long* dst = part + ((size_t)buf * n_blocks + blockIdx.x) * PART;
-        const unsigned long long tag = (unsigned long long)(unsigned)t << 32;
-        st_relaxed(dst, tag | (unsigned)(a >> 32));
-        st_relaxed(dst + 1, tag | (unsigned)a);
-        st_relaxed(dst + 2, tag | (unsigned)(c >> 32));
-        st_relaxed(dst + 3, tag | (unsigned)c);
-    }
-}
-
-// The rank-1 maxima, first step: a warp combines 32 blocks' polled keys, a
-// lane a block (max is exact and order-free), into rk[its group].
-__device__ __forceinline__ void combine_polled(const unsigned* got, int n_blocks, unsigned long long (*rk)[2]) {
-    const int tid = threadIdx.x, nth = blockDim.x;
-    for (int c = tid >> 5; c * 32 < n_blocks; c += nth >> 5) {
-        const int b = c * 32 + (tid & 31);
+// The rank-1 maxima, first step: a warp combines 32 blocks' polled keys of
+// one utterance, a lane a block (max is exact and order-free), into
+// rk[2 (b groups + c) + 0 / 1] for group c of utterance b.
+__device__ __forceinline__ void combine_polled(const unsigned* got, int n_blocks, int B, unsigned long long* rk) {
+    const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+    const int groups = (n_blocks + 31) >> 5;
+    for (int q = threadIdx.x >> 5; q < B * groups; q += nwarps) {
+        const int b = B == 1 ? 0 : q / groups, blk = (q - b * groups) * 32 + lane;
         unsigned long long a = 0, d = 0;
-        if (b < n_blocks) {
-            const uint4 w = reinterpret_cast<const uint4*>(got)[b];  // PART == 4
+        if (blk < n_blocks) {
+            const uint4 w = reinterpret_cast<const uint4*>(got)[(size_t)b * n_blocks + blk];  // PART == 4
             a = (unsigned long long)w.x << 32 | w.y;
             d = (unsigned long long)w.z << 32 | w.w;
         }
         a = warp_max_key(a);
         d = warp_max_key(d);
-        if ((tid & 31) == 0) {
-            rk[c][0] = a;
-            rk[c][1] = d;
+        if (lane == 0) {
+            rk[2 * q] = a;
+            rk[2 * q + 1] = d;
         }
     }
 }
 
-// Second step, after a barrier: the few groups' keys, m1's and m2's.
-__device__ __forceinline__ void polled_max(const unsigned long long (*rk)[2], int n_blocks,
-                                           unsigned long long& k1, unsigned long long& k2) {
+// Second step, after a barrier: the few groups' keys of one utterance
+// (rk of that utterance), m1's and m2's.
+__device__ __forceinline__ void polled_max(const unsigned long long* rk, int groups, unsigned long long& k1,
+                                           unsigned long long& k2) {
     k1 = k2 = 0;
-    for (int c = 0; c * 32 < n_blocks; ++c) {
-        k1 = umax64(k1, rk[c][0]);
-        k2 = umax64(k2, rk[c][1]);
+#pragma unroll 1  // a few groups; unrolled, it crowds the frame loop's registers
+    for (int c = 0; c < groups; ++c) {
+        k1 = umax64(k1, rk[2 * c]);
+        k2 = umax64(k2, rk[2 * c + 1]);
     }
 }
 
-// Each of the block's arcs [arc0, arc1): (exit[src] + val, src) into its
-// destination's key, exit[src] read from the polled sources `exs`.
-__device__ __forceinline__ void fold_arcs(unsigned long long* spk, int w0, int arc0, int arc1,
+// A thread's arcs of the block's n_arcs: arc a of utterances b0, b0 +
+// step, ... and, where the block has more arcs than threads, every `astep`
+// arcs past a; threads with none get b0 = B. One utterance's (kBatch
+// false) are the threads' strided walk over the arcs, with no division.
+struct ArcLanes {
+    int a, astep, b0, step;
+};
+
+template <bool kBatch>
+__device__ __forceinline__ ArcLanes arc_lanes(int n_arcs, int B) {
+    ArcLanes l;
+    const int nth = blockDim.x;
+    if (!kBatch || n_arcs > nth || n_arcs < 1) {
+        l = {(int)threadIdx.x, nth, n_arcs > 0 ? 0 : B, 1};
+    } else {
+        const int u = threadIdx.x / n_arcs;
+        l = {(int)threadIdx.x - u * n_arcs, n_arcs, u < nth / n_arcs ? u : B, nth / n_arcs};
+    }
+    return l;
+}
+
+// The block's arcs [arc0, arc0 + n_arcs) for each utterance b live at the
+// frame, by the thread's lanes: (exit[src] + val, src) into its
+// destination's key spk[b nw + w - w0], exit[src] from utterance b's
+// polled sources exs[b n_src ...].
+__device__ __forceinline__ void fold_arcs(unsigned long long* spk, int nw, int w0, int arc0, int n_arcs,
+                                          const ArcLanes& l, int B, unsigned long long live,
                                           const int* arc_dst, const int* arc_lsrc, const float* arc_val,
-                                          const int* arc_src, const float* exs) {
-    for (int k = arc0 + threadIdx.x; k < arc1; k += blockDim.x)
-        atomicMax(spk + (__ldg(arc_dst + k) - w0),
-                  key_of(exs[__ldg(arc_lsrc + k)] + __ldg(arc_val + k), __ldg(arc_src + k)));
+                                          const int* arc_src, const float* exs, int n_src) {
+    for (int b = l.b0; b < B; b += l.step) {
+        if (!(live >> b & 1)) continue;
+        for (int a = arc0 + l.a; a < arc0 + n_arcs; a += l.astep)
+            atomicMax(spk + (size_t)b * nw + (__ldg(arc_dst + a) - w0),
+                      key_of(exs[(size_t)b * n_src + __ldg(arc_lsrc + a)] + __ldg(arc_val + a),
+                             __ldg(arc_src + a)));
+    }
 }
 
 // -- host side --------------------------------------------------------------
 
-// The factored kinds' shared memory of one block: the kernel's `row_words`
-// 4-byte words, the polled slots and the source list, and 8 bytes a word
-// of sparse keys (backoff). Mirrored by ops/factored.py:_factors_smem_bytes.
-inline size_t factors_smem_bytes(size_t row_words, int wpb, int hop_kind, int n_blocks, int n_src) {
-    const size_t words = row_words + (size_t)PART * n_blocks + (size_t)(n_src + 1) / 2 * 2 + n_src;
-    return words * 4 + (hop_kind == HOP_BACKOFF ? (size_t)wpb * 8 : 0);
+// The factored kinds' shared memory of one block for B utterances: the
+// kernel's `row_words` 4-byte words, the polled slots and the source list,
+// and the 64-bit keys (polled_layout). Mirrored by
+// ops/factored.py:_factors_smem_bytes.
+inline size_t factors_smem_bytes(size_t row_words, int wpb, int hop_kind, int n_blocks, int n_src, int B) {
+    const size_t groups = ((size_t)n_blocks + 31) / 32;
+    const size_t words = row_words + (size_t)B * PART * n_blocks + ((size_t)B * n_src + 1) / 2 * 2 + n_src;
+    const size_t keys = (hop_kind == HOP_BACKOFF ? (size_t)B * wpb : 0) + 2 * (size_t)B * wpb +
+                        2 * (size_t)B * groups;
+    return words * 4 + keys * 8;
 }
 
-// A launch's words a block (wpb, the largest block's), blocks and threads
-// (the largest block's cells rounded up to a warp, at least 256). The
-// backoff kind takes its map (ops/factored.py:block_layout: blk_ptr,
-// src_ptr, src, arc_lsrc, n_blocks, max_words, max_src); the others get
-// ceil(V / n_sm) words a block, and their map operands are cleared.
+// A launch's words a block (wpb, the largest block's), blocks and threads:
+// one utterance's the largest block's cells rounded up to a warp, at least
+// 256; a batch the most (its polls, reductions and steps are B times one
+// utterance's, over the same blocks). The backoff kind takes its map
+// (ops/factored.py:block_layout: blk_ptr, src_ptr, src, arc_lsrc,
+// n_blocks, max_words, max_src); the others get ceil(V / n_sm) words a
+// block, and their map operands are cleared.
 struct Geometry {
     int wpb, blocks, threads;
 };
 
-inline cudaError_t launch_geometry(int hop_kind, int V, int S, int n_sm, const int* arc_ptr,
+inline cudaError_t launch_geometry(int hop_kind, int B, int V, int S, int n_sm, const int* arc_ptr,
                                    const int*& blk_ptr, const int* src_ptr, const int* arc_lsrc,
                                    int n_blocks, int max_words, int& max_src, Geometry& g) {
-    if (V < 1 || S < 1 || n_sm < 1) return cudaErrorInvalidValue;
+    if (B < 1 || B > MAX_BATCH || V < 1 || S < 1 || n_sm < 1) return cudaErrorInvalidValue;
     if (hop_kind < HOP_NONE || hop_kind > HOP_BACKOFF) return cudaErrorInvalidValue;
     if (hop_kind == HOP_BACKOFF) {
         if (arc_ptr == nullptr || blk_ptr == nullptr || src_ptr == nullptr || arc_lsrc == nullptr ||
@@ -368,15 +482,16 @@ inline cudaError_t launch_geometry(int hop_kind, int V, int S, int n_sm, const i
     if (g.wpb * S > MAX_THREADS) return cudaErrorInvalidValue;
     g.threads = ((g.wpb * S + 31) / 32) * 32;
     if (g.threads < 256) g.threads = 256;
+    if (B > 1) g.threads = MAX_THREADS;
     return cudaSuccess;
 }
 
-// The exchange's 64-bit slots: (2, V) exits (dense, backoff; also, unused,
-// for no hop), then (2, blocks, PART) partials (rank-1, backoff). Mirrored
-// by ops/factored.py:exchange_slots.
-inline size_t exchange_slots(int hop_kind, int V, int blocks) {
+// The exchange's 64-bit slots for B utterances: (2, B, V) exits (dense,
+// backoff; also, unused, for no hop), then (2, B, blocks, PART) partials
+// (rank-1, backoff). Mirrored by ops/factored.py:exchange_slots.
+inline size_t exchange_slots(int hop_kind, int B, int V, int blocks) {
     const bool factors = hop_kind == HOP_RANK1 || hop_kind == HOP_BACKOFF;
-    return (hop_kind == HOP_RANK1 ? 0 : (size_t)2 * V) + (factors ? (size_t)2 * blocks * PART : 0);
+    return (size_t)B * ((hop_kind == HOP_RANK1 ? 0 : (size_t)2 * V) + (factors ? (size_t)2 * blocks * PART : 0));
 }
 
 // The launch: shared memory opted in, the exchange filled with tag

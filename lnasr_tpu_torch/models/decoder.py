@@ -53,11 +53,13 @@ from lnasr_tpu_torch.models.ngram import BOS, EOS, NGramModel
 from lnasr_tpu_torch.ops.factored import (
     Rank1Hop,
     backoff_hop,
+    cut_batch,
     factored_backtrace,
     factored_forward,
     factored_lattice,
     factored_lattice_scan,  # noqa: F401 - the JAX package's name in this module
     hop_entry as _hop_entry,
+    sm_count,
 )
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
 from lnasr_tpu_torch.ops.trigram import trigram_viterbi
@@ -764,9 +766,11 @@ class FactoredDecodingGraph:
                                      self.cov, self.cov_type)
 
     def _decode_grid(self, log_b, pi_grid, final_grid, mask):
-        """The 1-best decode: the forward and backtrace wrappers for every
-        hop kind, kernels D and E on CUDA (which raise past their capacity
-        or off float32) and their plain versions on the CPU."""
+        """The 1-best decode of one utterance's ``(T, V, S)`` emissions or a
+        batch's ``(B, T, V, S)``: the forward and backtrace wrappers for
+        every hop kind, kernels D and E on CUDA, one launch each (they
+        raise past their capacity or off float32), and their plain versions
+        on the CPU."""
         hop = self._kernel_hop
         grids = factored_forward(pi_grid, self.inner_a, self.exit_idx, hop, log_b, mask,
                                  hop_t=self.hop_t)
@@ -790,16 +794,31 @@ class FactoredDecodingGraph:
         path, score = to_host(*self.decode_arrays(obs, mask))
         return self._path_to_words(path), path, float(score)
 
+    def _batch_pieces(self, log_b, lattice=False) -> List[Tuple[int, int]]:
+        """The launches a batch of ``(B, T, V, S)`` emissions takes: on
+        CUDA the row ranges of :func:`~lnasr_tpu_torch.ops.factored.
+        cut_batch` (one unless the batch is past one launch's capacity), on
+        the CPU the whole batch at once."""
+        b, t_len, v, s = log_b.shape
+        if log_b.device.type != "cuda":
+            return [(0, b)] if b else []
+        return cut_batch(b, t_len, v, s, self._kernel_hop, sm_count(log_b.device), lattice)
+
     def decode_batch_arrays(self, features, masks) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device decode of padded ``(B, T, D)`` features with ``(B, T)``
-        masks: one emission product for the batch, one decode per utterance
-        (on CUDA the forward and backtrace kernels, one launch each per
-        utterance) -> ``(paths (B, T) int32, scores (B,))`` on the device."""
+        masks: one emission product for the batch and one batched decode
+        (:meth:`_decode_grid`; on CUDA the forward and backtrace kernels
+        once each for the batch, or for each piece of :meth:`_batch_pieces`)
+        -> ``(paths (B, T) int32, scores (B,))`` on the device."""
         obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         log_b, pi_grid, final_grid = self._grid_inputs(obs)
-        return _stack_decodes([self._decode_grid(log_b[b], pi_grid, final_grid, masks[b])
-                               for b in range(obs.shape[0])], obs, self.dtype)
+        outs = [self._decode_grid(log_b[i:j], pi_grid, final_grid, masks[i:j])
+                for i, j in self._batch_pieces(log_b)]
+        if not outs:
+            return _stack_decodes([], obs, self.dtype)
+        paths, scores = zip(*outs)
+        return torch.cat(paths), torch.cat(scores)
 
     def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
         """:meth:`decode_batch_arrays` with one device->host copy for all
@@ -809,7 +828,8 @@ class FactoredDecodingGraph:
     # -- lattices --------------------------------------------------------------
 
     def _lattice_grid(self, log_b, pi_grid, mask):
-        """Records for every hop kind:
+        """Records of one utterance's emissions or a batch's, for every hop
+        kind:
         :func:`~lnasr_tpu_torch.ops.factored.factored_lattice`, kernel F on
         CUDA (which raises past its capacity or off float32) and its plain
         version on the CPU."""
@@ -864,19 +884,21 @@ class FactoredDecodingGraph:
     def decode_lattice_batch(self, features, masks, beam: float = 40.0,
                              max_tokens_per_frame: Optional[int] = None):
         """Lattices of a padded ``(B, T, D)`` batch with ``(B, T)`` frame
-        masks: one emission product for the batch, one record pass per
-        utterance (on CUDA one launch of kernel F each), one device->host
-        copy for all. Identical to looping :meth:`decode_lattice`."""
+        masks: one emission product for the batch, one batched record pass
+        (on CUDA one launch of kernel F for the batch, or for each piece of
+        :meth:`_batch_pieces`), one device->host copy for all. Identical to
+        looping :meth:`decode_lattice`."""
         self._require_loop()
         obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool)
         n_valid = masks.sum(dim=1).tolist()
         masks = masks.to(self.device)
         log_b, pi_grid, _ = self._grid_inputs(obs)
-        recs = [self._lattice_grid(log_b[b], pi_grid, masks[b]) for b in range(obs.shape[0])]
+        recs = [self._lattice_grid(log_b[i:j], pi_grid, masks[i:j])
+                for i, j in self._batch_pieces(log_b, lattice=True)]
         if not recs:
             return []
-        score, start, pred = records_to_host(*(torch.stack(r) for r in zip(*recs)))
+        score, start, pred = records_to_host(*(torch.cat(r) for r in zip(*recs)))
         return [self.lattice_from_records(score[b, :n], start[b, :n], pred[b, :n], beam,
                                           max_tokens_per_frame)
                 for b, n in enumerate(n_valid)]

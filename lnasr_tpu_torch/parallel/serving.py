@@ -5,8 +5,10 @@ Serving scale-out for the composed word-graph search: a batch of
 each rank decodes its rows with the graph's own batched decode
 (:meth:`~lnasr_tpu_torch.models.decoder.FactoredDecodingGraph.
 decode_batch_arrays`: on CUDA the forward and replay-backtrace kernels
-once per utterance, for every hop kind), and the paths and scores are gathered exactly (int32 paths and
-float scores as bit patterns), so every rank holds the whole batch's
+once each for the rank's rows, for every hop kind, as the JAX package's
+vmapped scan is one program a chip), and the paths and scores are
+gathered exactly (int32 paths and float scores as bit patterns), so every
+rank holds the whole batch's
 results. The graph is replicated: every rank builds the same one from
 the same seed. Equal, bitwise, to the single-process ``decode_batch``.
 """

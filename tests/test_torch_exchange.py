@@ -30,6 +30,14 @@ package's ``factored_lattice_scan``. Two broken variants show the model
 catches what the protocol guards against: a buffer picked by frame parity
 instead of publication count, and an exchange not refilled with a tag no
 frame uses between two launches.
+
+The batched exchange (a launch of B utterances) is modelled the same way:
+every utterance's slots apart, the utterances stepped in lockstep, a frame
+live when any utterance takes it and then published for every utterance
+(a masked one's values unchanged), every reader asking every utterance for
+the last live frame's tag; with masks that differ by utterance its rows
+and records are the batched plain versions', row by row, and a variant
+whose masked utterances publish nothing is caught.
 """
 
 import random
@@ -407,3 +415,228 @@ def test_second_launch_needs_the_stale_tag_refill():
         _, taken, _ = _run(second, mask, 3, seed + 100)  # refilled: tag STALE everywhere
         assert all(torch.equal(x.view(torch.int32), ref[a]) for _, _, a, x in taken)
     assert stale_taken > 0
+
+
+# -- the batched exchange (a launch of B utterances) ---------------------------
+
+
+def _batch_block(b, words, ex_slots, world, masks, taken, out, lay, rule="republish"):
+    """One block of kernel D or F at a batch, as a generator (the batch
+    rules of ``csrc/factored_exchange.cuh``): the utterances step in
+    lockstep, slot ``s`` of utterance ``u`` is ``u * per + s`` (``per``:
+    one utterance's exits and partial words); a frame is live when any
+    utterance is valid at it, and a live frame publishes every utterance's
+    exits and partials with its tag, an utterance masked there its
+    unchanged ones, so every reader asks every utterance for one tag. With
+    ``rule="skip masked"`` a masked utterance publishes nothing (the
+    readers still ask for the common tag)."""
+    pi_grid, inner_a, exit_idx, hop, log_b = world
+    n_utt, t_len, v_words, _ = log_b.shape
+    kind = F.hop_kind(hop)
+    factored = kind in ("rank1", "backoff")
+    n_blocks = len(ex_slots.read)
+    per = v_words + 4 * n_blocks
+    rng = random.Random(b)
+    g = [pi_grid[words] + log_b[u, 0][words] for u in range(n_utt)]
+    st = [torch.zeros_like(g[0], dtype=torch.int32) for _ in range(n_utt)]
+    pr = [torch.full_like(st[0], -1) for _ in range(n_utt)]
+    el = exit_idx.long()[words][:, None]
+    srcs = [] if lay is None else [int(x) for x in lay.src[lay.src_ptr[b]:lay.src_ptr[b + 1]]]
+    base = ([v_words + q for q in range(4 * n_blocks)] + srcs) if factored else \
+        list(range(v_words))
+    wanted = [u * per + s for u in range(n_utt) for s in base]
+
+    def record(u, t):
+        out["grids"][u, t][words] = g[u]
+        for arr, x in (("score", g[u]), ("start", st[u]), ("pred", pr[u])):
+            out[arr][u, t][words] = torch.gather(x, 1, el)[:, 0]
+
+    def publish(buf, t, pub, valid):
+        """Every utterance's exits and partial words (those of ``valid``
+        alone under the broken rule), one store a step in a random order."""
+        items = []
+        for u in range(n_utt):
+            if not valid[u]:
+                continue
+            if kind != "rank1":
+                items += [(u * per + w, out["score"][u, t][w].item()) for w in words]
+            if factored:
+                k1, k2 = _partials(out["score"][u, t], hop, words)
+                halves = [k1 >> 32, k1 & 0xFFFFFFFF, k2 >> 32, k2 & 0xFFFFFFFF]
+                items += [(u * per + v_words + 4 * b + q, h) for q, h in enumerate(halves)]
+        for slot, value in rng.sample(items, len(items)):
+            ex_slots.store(buf, slot, t, value, pub)
+            yield
+
+    for u in range(n_utt):
+        record(u, 0)
+    yield from publish(0, 0, 0, [True] * n_utt)
+    n_pub, last_pub = 0, 0
+    for t in range(1, t_len):
+        if not masks[:, t].any():  # no utterance takes the frame: nothing is published
+            for u in range(n_utt):
+                record(u, t)
+            continue
+        seen = ex_slots.read[b].setdefault(n_pub, set())
+        got, pending = {}, list(wanted)
+        while pending:  # poll: every utterance's slots, all asked for one tag
+            for slot in rng.sample(pending, len(pending)):
+                tag, value, _ = ex_slots.slots[n_pub & 1][slot]
+                yield
+                if tag == last_pub:
+                    got[slot] = value
+                    seen.add(slot)
+                    pending.remove(slot)
+        for u in range(n_utt):
+            if masks[u, t]:
+                ex = torch.full((v_words,), float("nan"))
+                for v in range(v_words):
+                    if u * per + v in got:
+                        ex[v] = got[u * per + v]
+                taken.append((b, u, t, last_pub, ex))
+                within, wsrc = torch.max(g[u][:, :, None] + inner_a[words], dim=1)
+                nst, npr = torch.gather(st[u], 1, wsrc), torch.gather(pr[u], 1, wsrc)
+                if factored:
+                    parts = [u * per + v_words + 4 * c for c in range(n_blocks)]
+                    k1 = max(got[q] << 32 | got[q + 1] for q in parts)
+                    k2 = max(got[q + 2] << 32 | got[q + 3] for q in parts)
+                    out["parts"].append((b, u, t, last_pub, k1, k2))
+                    entry, esrc = _factored_entry(
+                        k1, k2, [np.float32(got[u * per + v]) for v in srcs], hop, words, lay, b,
+                        rng)
+                else:
+                    entry, esrc = F.hop_entry(ex, hop)
+                    entry, esrc = entry[words], esrc[words]
+                wins = entry > within[:, 0]
+                within[:, 0] = torch.maximum(within[:, 0], entry)
+                nst[:, 0] = torch.where(wins, torch.full_like(nst[:, 0], t), nst[:, 0])
+                npr[:, 0] = torch.where(wins, esrc, npr[:, 0])
+                g[u], st[u], pr[u] = within + log_b[u, t][words], nst, npr
+            record(u, t)
+        valid = [True] * n_utt if rule == "republish" else list(masks[:, t])
+        yield from publish((n_pub + 1) & 1, t, n_pub + 1, valid)
+        n_pub, last_pub = n_pub + 1, t
+
+
+def _run_batch(world, masks, wpb, seed, rule="republish", max_steps=1_500_000):
+    """:func:`_run` for a batch ``log_b (B, T, V, S)``, ``masks (B, T)``."""
+    n_utt, t_len, v_words, s_max = world[4].shape
+    hop = world[3]
+    lay = None
+    if F.hop_kind(hop) == "backoff":
+        lay = F.block_layout(hop, s_max, -(-v_words // wpb))
+        blk = [int(x) for x in lay.blk_ptr]
+        blocks = [list(range(w0, w1)) for w0, w1 in zip(blk[:-1], blk[1:])]
+    else:
+        blocks = [list(range(w0, min(w0 + wpb, v_words))) for w0 in range(0, v_words, wpb)]
+    n_blocks = len(blocks)
+    per = v_words + 4 * n_blocks
+    readers = None
+    if F.hop_kind(hop) in ("rank1", "backoff"):  # as in _run, for every utterance's slots
+        one = {v_words + q: range(n_blocks) for q in range(4 * n_blocks)}
+        for v in range(v_words):
+            one[v] = [] if lay is None else [
+                b for b in range(n_blocks) if v in set(lay.src[lay.src_ptr[b]:lay.src_ptr[b + 1]])]
+        readers = {u * per + s: r for u in range(n_utt) for s, r in one.items()}
+    exchange = _Exchange(n_utt * per - 4 * n_blocks, n_blocks, readers)  # n_utt * per slots
+    out = {"grids": torch.empty((n_utt, t_len, v_words, s_max)),
+           "score": torch.empty((n_utt, t_len, v_words)),
+           "start": torch.empty((n_utt, t_len, v_words), dtype=torch.int32),
+           "pred": torch.empty((n_utt, t_len, v_words), dtype=torch.int32),
+           "parts": []}
+    taken = []
+    live = [_batch_block(b, ws, exchange, world, masks, taken, out, lay, rule)
+            for b, ws in enumerate(blocks)]
+    rng = random.Random(seed)
+    for _ in range(max_steps):
+        if not live:
+            return out, taken, exchange
+        gen = rng.choice(live)
+        try:
+            next(gen)
+        except StopIteration:
+            live.remove(gen)
+    raise ProtocolError("no progress: a reader waits for a tag that never comes")
+
+
+def _batch_inputs(hop_mode, seed, n_utt=3):
+    """One graph and ``n_utt`` utterances' grid inputs over it (the JAX
+    package's emissions): ``(jax graph, world with log_b (B, T, V, S))``."""
+    jg, tg, log_b, pi_grid = _world(9, hop_mode, seed)
+    rng = np.random.default_rng(seed + 50)
+    rows = [log_b]
+    for _ in range(n_utt - 1):
+        obs = rng.normal(scale=8.0, size=(log_b.shape[0], DIM)).astype(np.float32)
+        rows.append(np.array(jdec._factored_grid_inputs(
+            jnp.asarray(obs), jg.log_pi_w, jg.log_final_w, jg.exit_idx, jg.state_map,
+            jg.pad_mask, jg.log_w, jg.mu, jg.cov, jg.cov_type)[0]))
+    return jg, (torch.as_tensor(pi_grid), tg.inner_a, tg.exit_idx, tg._kernel_hop,
+                torch.as_tensor(np.stack(rows)))
+
+
+def _batch_masks(t_len):
+    """Masks that differ by utterance: a bucket tail with gaps, one valid
+    at frame 0 alone, one all valid; frames 9 and 10 masked in every row (a
+    frame no utterance takes)."""
+    masks = np.ones((3, t_len), bool)
+    masks[0, t_len - 6:] = False
+    masks[0, [3, 4, 14]] = False
+    masks[1, 1:] = False
+    masks[:, [9, 10]] = False
+    return masks
+
+
+@pytest.mark.parametrize("hop_mode", ["dense", "rank1", "backoff"])
+@pytest.mark.parametrize("wpb", [2, 5])
+def test_batched_exchange_model_bitwise(hop_mode, wpb):
+    """The batched exchange over seeded interleavings, with masks that
+    differ by utterance: every exit and partial key a block takes for an
+    utterance is the plain forward's at the last live frame, no slot needed
+    is overwritten, and the blocks' rows and records are bitwise those of
+    the batched ``factored_forward_plain`` and ``factored_lattice_plain``
+    and of the JAX package's ``factored_lattice_scan``, row by row."""
+    jg, world = _batch_inputs(hop_mode, seed=7 + wpb)
+    pi_grid, inner_a, exit_idx, hop, log_b = world
+    n_utt, t_len = log_b.shape[:2]
+    masks = _batch_masks(t_len)
+    m = torch.as_tensor(masks)
+    grids_ref = F.factored_forward_plain(pi_grid, inner_a, exit_idx, hop, log_b, m)
+    recs_ref = F.factored_lattice_plain(pi_grid, inner_a, exit_idx, hop, log_b, m)
+    live = masks.any(0)
+    last_live = lambda t: max(u for u in range(t) if u == 0 or live[u])  # noqa: E731
+    factored = hop_mode != "dense"
+    for seed in range(2):
+        out, taken, exchange = _run_batch(world, masks, wpb, seed)
+        for _, u, t, asked, ex in taken:
+            assert asked == last_live(t) and masks[u, t]
+            polled = ~torch.isnan(ex)
+            assert bool(polled.all()) != factored
+            assert torch.equal(ex[polled].view(torch.int32),
+                               recs_ref[0][u, asked][polled].view(torch.int32))
+        for _, u, t, asked, k1, k2 in out["parts"]:
+            assert asked == last_live(t)
+            assert [k1, k2] == _partials(recs_ref[0][u, asked], hop, range(log_b.shape[2]))
+        assert len(taken) == len(exchange.read) * int(masks[:, 1:].sum())
+        assert torch.equal(out["grids"].view(torch.int32), grids_ref.view(torch.int32))
+        for k, name in enumerate(("score", "start", "pred")):
+            got = out[name].view(torch.int32) if name == "score" else out[name]
+            ref = recs_ref[k].view(torch.int32) if name == "score" else recs_ref[k]
+            assert torch.equal(got, ref), name
+    for u in range(n_utt):  # the batched plain rows: the JAX package's scans
+        j_recs = jdec.factored_lattice_scan(jnp.asarray(log_b[u].numpy()), jg.inner_a, jg.hop,
+                                            jnp.asarray(pi_grid.numpy()), jg.exit_idx,
+                                            jnp.asarray(masks[u]))
+        assert np.array_equal(recs_ref[0][u].numpy().view(np.int32),
+                              np.asarray(j_recs[0]).view(np.int32))
+
+
+def test_batched_exchange_needs_masked_utterances_republished():
+    """If an utterance masked at a live frame published nothing, the
+    readers, which ask every utterance for the live frame's tag, would wait
+    for a tag that never comes (or take a stale one): the model is caught
+    without the republication, and runs with it."""
+    _, world = _batch_inputs("dense", seed=3)
+    masks = _batch_masks(world[4].shape[1])
+    with pytest.raises(ProtocolError):
+        _run_batch(world, masks, 3, 0, rule="skip masked", max_steps=300_000)
+    _run_batch(world, masks, 3, 0)

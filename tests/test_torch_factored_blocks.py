@@ -346,11 +346,15 @@ def test_layout_operands_and_capacity():
     assert lay.max_arcs == int(np.diff(hop.arc_ptr.numpy()[lay.blk_ptr]).max())
     wpb, nb, ns = lay.max_words, lay.n_blocks, lay.max_src
     ns2 = ns + ns % 2  # the polled slots padded to an even count (8-byte keys follow)
+    # rows, within-word maxima and emissions (3 wpb S), inner blocks, exit
+    # indices, slots; 64-bit keys: a word's sparse one and its two exit
+    # keys, and the two polled ones of a group of 32 blocks
     assert F.forward_smem_bytes(200, 3, wpb, "backoff", nb, ns) == (
-        4 * (wpb * 3 + wpb * 9 + wpb + 4 * nb + ns2 + ns) + 8 * wpb)
+        4 * (3 * wpb * 3 + wpb * 9 + wpb + 4 * nb + ns2 + ns) + 8 * (3 * wpb + 2))
     assert F.lattice_smem_bytes(200, 3, wpb, "backoff", nb, ns) == (
-        4 * (wpb * 3 + wpb * 9 + wpb + 2 * wpb * 3 + 4 * nb + ns2 + ns) + 8 * wpb)
-    assert F.forward_smem_bytes(200, 3, 25, "rank1") == 4 * (25 * 3 + 25 * 9 + 25 + 4 * 8)
+        4 * (3 * wpb * 3 + wpb * 9 + wpb + 4 * wpb * 3 + 4 * nb + ns2 + ns) + 8 * (3 * wpb + 2))
+    assert F.forward_smem_bytes(200, 3, 25, "rank1") == (
+        4 * (3 * 25 * 3 + 25 * 9 + 25 + 4 * 8) + 8 * (2 * 25 + 2))
     assert F.exchange_slots(200, "backoff", nb) == 2 * 200 + 2 * nb * F.PART_WORDS
     assert F.exchange_slots(200, "rank1", 8) == 2 * 8 * F.PART_WORDS
     assert F.exchange_slots(200, "dense", 8) == F.exchange_slots(200, "none", 8) == 400

@@ -366,7 +366,7 @@ def test_lattice_kernel_dispatch_and_capacity(monkeypatch):
     assert not F.factored_kernel_ok(200_000, 16000, 8, None, 132)
     wpb = -(-1001 // 132)
     assert (F.lattice_smem_bytes(1001, 8, wpb, "dense")
-            == F.forward_smem_bytes(1001, 8, wpb, "dense") + 4 * (wpb + 2 * wpb * 8))
+            == F.forward_smem_bytes(1001, 8, wpb, "dense") + 4 * (wpb + 4 * wpb * 8))
     _, tb, _, _ = _world(6, "backoff", seed=1)
     assert F.hop_kind(tb.hop) == "backoff" and not F.lattice_kernel_ok(7, 4, tb.hop, 132)
     assert F.lattice_kernel_ok(7, 4, tb._kernel_hop, 132)
