@@ -63,10 +63,25 @@ kernels' launch counters reset just before and read just after:
   route that takes each), then its segment decode launches the mel
   frontend, the trigram forward (on its resident route, by the route's own
   counter) and the trigram backtrace once each;
+- the trigram graph's batch, ``trigram_batch_phase``, at
+  ``entry.parallel_serving(200, 8, graph="trigram", lm_order=3)``'s 8
+  ragged bucketed segments (two rows planted with 6 words each): the
+  batched trigram forward and backtrace, one launch each on every route
+  that takes the batch (float32 resident, ``smem`` and global; float64
+  ``smem`` in the pieces of ``ops.trigram.trigram_cut`` and global),
+  bitwise equal to the 8 single launches and to the batched plain
+  versions on the card, on the batch's masks and on masks that differ at
+  every kind of frame; the batch's features (the mel frontend once) and
+  ``decode_batch_arrays`` launch the mel frontend, the forward (resident
+  route) and the backtrace once each, bitwise equal to looping
+  ``decode_arrays`` and to the batched plain decode, the planted rows
+  decoding to their words; a 24-row batch, cut into 2 launches of 12 by
+  the 8 GiB backpointer budget, equal to the loop;
 - the device VADs on the stream's audio (LTSD fixed and adaptive, whose
   noise recursion is one launch of its kernel a call; the WebRTC-style
   torch VAD in modes 0-3, whose GMM recursion is one launch of its kernel
-  a call) against their CPU runs, the plain loops on the card and the
+  a call; modes 1-3 on the stream's first 10 s) against their CPU runs,
+  the plain loops on the card and the
   native detector, the LTSD kernel bit for bit at float32 and float64 on
   the stream, a batch, a silent start and no valid frame, the GMM kernel
   also at the edges of its ring of stages and on runs of frames without
@@ -161,6 +176,7 @@ import types
 import numpy as np
 
 B, SECONDS, SR = 64, 10, 16000
+VAD_MODE_SECONDS = 10  # WebRTC VAD modes 1-3 run on the stream's first 10 s (mode 0 on all of it)
 S = SECONDS * SR
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
@@ -2109,6 +2125,213 @@ def trigram_phase(torch, entry, wrappers, card, launches):
                           "plain_ms": plain_bt_ms, "bound": b_bound}}
 
 
+TRIGRAM_CUT_ROWS = 24  # a V = 200 trigram batch whose backpointers (15.9 GB) pass BTS_BUDGET
+
+
+def check_trigram_batch(torch, tri, log_b, masks, tabs, what):
+    """Kernel H on a batch ``log_b (B, T, V, S)``, ``masks (B, T)``, on
+    every route that takes its utterances (:func:`trigram_routes`; the
+    route the wrapper picks in the pieces of ``ops.trigram.trigram_cut``,
+    a forced one in one launch): one launch of the forward and one of the
+    backtrace a piece, backpointers, scores, final states and paths bitwise
+    equal to the B single launches on that route and to the batched plain
+    versions on the card. Returns ``[(route, pieces)]``."""
+    b, t, v, s = log_b.shape
+    h, isz = v + 1, log_b.dtype.itemsize
+    n_sm = tri.sm_count(log_b.device)
+    rb, rs, rl = tri.trigram_forward_plain(log_b, masks, *tabs)
+    rp = tri.trigram_backtrace_plain(rb, rl)
+    checked = []
+    for route in trigram_routes(tri, (log_b[0], None, *tabs)):
+        pieces = [(0, b)]
+        if route == tri.trigram_route(h, v, s, isz, n_sm):
+            pieces = tri.trigram_cut(b, t, h, v, s, isz, n_sm)
+        require(all(tri.batch_fits(j - i, t, h, v, s, isz, n_sm, route) for i, j in pieces),
+                f"{what}: a batch of {b} does not fit kernel H's {route} route in {pieces}")
+        before = (tri.trigram_forward.launches, tri.trigram_backtrace.launches)
+        outs = []
+        for i, j in pieces:
+            bts, score, last = tri._forward(log_b[i:j], masks[i:j], *tabs, route=route)
+            outs.append((bts, score, last, tri.trigram_backtrace(bts, last)))
+        made = (tri.trigram_forward.launches - before[0],
+                tri.trigram_backtrace.launches - before[1])
+        require(made == (len(pieces), len(pieces)), f"{what}, {route} route: {len(pieces)} "
+                f"pieces launched H's forward and backtrace {made} times")
+        bts, score, last, path = (torch.cat(x) if len(x) > 1 else x[0] for x in zip(*outs))
+        del outs
+        bad = []
+        for r in range(b):
+            sb, ss, sl = tri._forward(log_b[r], masks[r], *tabs, route=route)
+            sp = tri.trigram_backtrace(sb, sl)
+            if not (torch.equal(sb, bts[r]) and same_bits(torch, [ss[None]], [score[r:r + 1]])
+                    and torch.equal(sl, last[r]) and torch.equal(sp, path[r])):
+                bad.append(r)
+        torch.cuda.synchronize()
+        require(not bad, f"kernel H's batch ({what}, {route} route) differs from its single "
+                         f"launches in rows {bad}")
+        require(torch.equal(bts, rb) and same_bits(torch, [score], [rs]) and torch.equal(last, rl)
+                and torch.equal(path, rp), f"kernel H's batch ({what}, {route} route) differs "
+                f"from the batched plain versions: {int((bts != rb).sum())} backpointers, "
+                f"scores {score.tolist()} vs {rs.tolist()}")
+        checked.append((route, len(pieces)))
+        del bts, path
+    print(f"kernel H on a batch ({what}: B={b}, T={t}, V={v}, S={s}, {log_b.dtype}, valid frames "
+          f"{masks.sum(1).tolist()}): routes and launches {checked}; backpointers, scores, final "
+          f"states and paths bitwise equal to {b} single launches on each route and to the "
+          f"batched plain versions on the card")
+    return checked
+
+
+def trigram_batch_phase(torch, entry, wrappers, card, launches):
+    """The trigram graph's batch, one launch of each of H's kernels a batch
+    (the JAX package's vmapped decode), at
+    ``entry.parallel_serving(200, 8, graph="trigram", lm_order=3)``'s 8
+    ragged bucketed segments, rows 2 and 5 planted with 6 words each:
+    :func:`check_trigram_batch` on the batch's masks, on masks that differ
+    at every kind of frame and at float64; the batch's features and
+    ``decode_batch_arrays``, the counters reset just before, launch the mel
+    frontend, H's forward (on its resident route) and H's backtrace once
+    each, bitwise equal to looping ``decode_arrays`` and to the batched
+    plain decode on the card, the planted rows decoding to their words; a
+    24-row batch is cut by ``ops.trigram.trigram_cut`` into 2 launches of
+    each, equal to the loop. Times the batched forward and backtrace
+    against their 8 single launches (CUDA events over queued launches, in
+    turns: batch, loop, loop, batch) and ``decode_batch`` against looping
+    ``decode`` (host clock)."""
+    from lnasr_tpu_torch.models.decoder import TrigramDecodingGraph
+    from lnasr_tpu_torch.ops import trigram as tri
+
+    t_phase = time.perf_counter()
+    dev = torch.device(DEVICE)
+    n_sm = tri.sm_count(dev)
+    none = {w.__name__: 0 for w in wrappers}
+    serve = entry.parallel_serving(200, BATCH_ROWS, device=dev, graph="trigram", lm_order=3)
+    rec = serve.recognizer
+    g = rec.graph
+    require(isinstance(g, TrigramDecodingGraph) and rec.lm.ngram.order == 3,
+            "parallel_serving(200, graph='trigram', lm_order=3) did not compose the trigram graph")
+    feats, masks, planted = planted_rows(torch, g, rec.lm.ngram, serve.features, serve.masks)
+    log_b = g._grid_log_b(feats)
+    b, t_len, v, s = log_b.shape
+    h = v + 1
+    tabs = (g.inner_a, g.hop3, g.log_pi_w, g.final3, g._exit_idx32)
+    require(tri.trigram_cut(b, t_len, h, v, s, 4, n_sm) == [(0, b)],
+            f"the trigram batch of {b} does not fit one launch")
+    routes = {"float32": check_trigram_batch(torch, tri, log_b, masks, tabs,
+                                             "V=200 trigram batch")}
+    routes["edges"] = check_trigram_batch(torch, tri, log_b, edge_masks(torch, masks), tabs,
+                                          "V=200 trigram batch, masks at every kind of frame")
+    tabs64 = tuple(x.double() if x.is_floating_point() else x for x in tabs)
+    routes["float64"] = check_trigram_batch(torch, tri, log_b.double(), masks, tabs64,
+                                            "V=200 trigram batch at float64")
+    require(routes["float64"][0] == ("smem", 2),
+            f"the float64 batch did not take its smem route in two pieces: {routes['float64']}")
+
+    # the main path: the batch's features and decode_batch_arrays, the
+    # counters reset just before
+    signals, lengths = entry.parallel_serving_signals(BATCH_ROWS, 0)
+    signals = torch.as_tensor(signals, device=dev)
+    lengths = torch.as_tensor(lengths, device=dev)
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    by_route = tri.trigram_forward.route_launches
+    by_route.update(dict.fromkeys(by_route, 0))
+    feats_m, masks_m = rec.am.mfcc.features_fast(signals, lengths=lengths)
+    feats_m, masks_m, _ = planted_rows(torch, g, rec.lm.ngram, feats_m, masks_m)
+    paths, scores = g.decode_batch_arrays(feats_m, masks_m)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    route_counts = dict(by_route)
+    launches["V=200 trigram batch"] = counts
+    on_path = {"mel_frontend": 1, "trigram_forward": 1, "trigram_backtrace": 1}
+    require(counts == none | on_path, f"the trigram batch's features and decode_batch_arrays "
+            f"launched {counts}, not the mel frontend, H's forward and H's backtrace once each")
+    require(route_counts == {r: int(r == "resident") for r in tri.ROUTES},
+            f"the trigram batch did not take H's resident route once: {route_counts}")
+    require(torch.equal(feats_m, feats) and torch.equal(masks_m, masks),
+            "the batch's features differ from entry.parallel_serving's")
+    loop = [g.decode_arrays(feats[r], masks[r]) for r in range(b)]
+    plain_p, plain_s = tri.trigram_viterbi_plain(log_b, masks, *tabs)
+    require(torch.equal(paths, torch.stack([p for p, _ in loop]))
+            and same_bits(torch, [scores], [torch.stack([x for _, x in loop])]),
+            "the trigram decode_batch_arrays differs from looping decode_arrays")
+    require(torch.equal(paths, plain_p) and same_bits(torch, [scores], [plain_s]),
+            "the trigram decode_batch_arrays differs from the batched plain decode")
+    got = g.decode_batch(feats, masks)
+    for row, words in planted.items():
+        require(got[row][0] == words, f"trigram batch planted row {row}: {words} decoded as "
+                                      f"{got[row][0]}")
+    require(all(np.isfinite(x[2]) for x in got), "trigram decode_batch: a score not finite")
+    print(f"main path: features_fast + TrigramDecodingGraph.decode_batch_arrays at V=200 (B={b}, "
+          f"T={t_len}, valid frames {masks.sum(1).tolist()}, rows {sorted(planted)} planted): "
+          f"launches {counts}, H's forward by route {route_counts}; paths and scores bitwise "
+          f"equal to looping decode_arrays and to the batched plain decode on the card; "
+          f"decode_batch's words {[x[0] for x in got]}, the planted rows their words")
+
+    # a batch past one launch: cut by the stated rule
+    signals, lengths = entry.parallel_serving_signals(TRIGRAM_CUT_ROWS, 0)
+    f24, m24 = rec.am.mfcc.features_fast(torch.as_tensor(signals, device=dev),
+                                         lengths=torch.as_tensor(lengths, device=dev))
+    pieces = tri.trigram_cut(TRIGRAM_CUT_ROWS, f24.shape[1], h, v, s, 4, n_sm)
+    require(len(pieces) == 2, f"the {TRIGRAM_CUT_ROWS}-row trigram batch was cut into {pieces}")
+    torch.cuda.synchronize()
+    reset_counts(*wrappers)
+    p24, s24 = g.decode_batch_arrays(f24, m24)
+    torch.cuda.synchronize()
+    counts = {w.__name__: w.launches for w in wrappers}
+    launches["V=200 trigram cut batch"] = counts
+    require(counts == none | {"trigram_forward": 2, "trigram_backtrace": 2},
+            f"the cut trigram batch launched {counts}, the cut has {len(pieces)} pieces")
+    loop = [g.decode_arrays(f24[r], m24[r]) for r in range(TRIGRAM_CUT_ROWS)]
+    require(torch.equal(p24, torch.stack([p for p, _ in loop]))
+            and same_bits(torch, [s24], [torch.stack([x for _, x in loop])]),
+            "the cut trigram batch differs from looping decode_arrays")
+    bts_gb = 4 * TRIGRAM_CUT_ROWS * (f24.shape[1] - 1) * h * v * s / 1e9
+    print(f"main path: decode_batch_arrays of {TRIGRAM_CUT_ROWS} rows at V=200 (backpointers "
+          f"{bts_gb:.2f} GB at one launch, budget {tri.BTS_BUDGET / 1e9:.2f} GB): trigram_cut "
+          f"gives {pieces}; launches {counts}; paths and scores bitwise equal to looping "
+          f"decode_arrays")
+    del f24, m24, p24, loop
+
+    # times: one batched launch against its B single launches, in turns
+    bts, _, last = tri.trigram_forward(log_b, masks, *tabs)
+    singles = [tri.trigram_forward(log_b[r], masks[r], *tabs) for r in range(b)]
+    runs = {"forward": (lambda: tri.trigram_forward(log_b, masks, *tabs),
+                        lambda: [tri.trigram_forward(log_b[r], masks[r], *tabs)
+                                 for r in range(b)], 4),
+            "backtrace": (lambda: tri.trigram_backtrace(bts, last),
+                          lambda: [tri.trigram_backtrace(x[0], x[2]) for x in singles], 12)}
+    times = {}
+    for key, (batched, looped, n) in runs.items():
+        times[key] = (burst_ms(batched, launches=n), burst_ms(looped, launches=n // 4),
+                      burst_ms(looped, launches=n // 4), burst_ms(batched, launches=n))
+    del bts, singles
+    batch_ms = host_ms(lambda: g.decode_batch(feats, masks), reps=5)
+    loop_ms = host_ms(lambda: [g.decode(feats[r], masks[r]) for r in range(b)], reps=5)
+    # bounds: hop3 and the small tables read once, each utterance's emission
+    # rows of frame 0 and its valid steps, every backpointer frame written;
+    # each valid step's within-word and hop adds and maxes. The walk: a
+    # pointer a step of each utterance read, its path written
+    steps = int(masks[:, 1:].sum())
+    f_bytes = (4 * (h * v * v + v * s * s + v + h * v) + 4 * v + 4 * (b + steps) * v * s
+               + b * t_len + 4 * b * (t_len - 1) * h * v * s + 8 * b)
+    bounds = {"forward": bound(f_bytes, steps * 2 * (h * v * s * s + h * v * v)),
+              "backtrace": bound(4 * b * (2 * t_len + 1), 0)}
+    for key in ("forward", "backtrace"):
+        tb, tl = (times[key][0] + times[key][3]) / 2, (times[key][1] + times[key][2]) / 2
+        print(f"timing on {card}: kernel H {key} at V=200, B={b}, T={t_len}, {steps} valid steps: "
+              f"one batched launch {times[key][0]:.4f} / {times[key][3]:.4f} ms, the {b} single "
+              f"launches {times[key][1]:.4f} / {times[key][2]:.4f} ms (CUDA events over queued "
+              f"launches, in turns: batch, loop, loop, batch); {tl / tb:.2f}x; the batch's bound "
+              f"{bounds[key][0]:.5f} ms by {bounds[key][1]}")
+    print(f"timing on {card}: trigram decode_batch at V=200, B={b}: {batch_ms:.4f} ms, looping "
+          f"decode over the rows {loop_ms:.4f} ms (host clock, each ending in its copies back; "
+          f"median of 5); {loop_ms / batch_ms:.2f}x")
+    print(f"trigram batch phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"b": b, "t": t_len, "steps": steps, "times": times, "decode_batch_ms": batch_ms,
+            "decode_loop_ms": loop_ms, "bounds": bounds, "cut": pieces, "routes": routes}
+
+
 # The GMM recursion's operations a frame, each once, as one frame of the
 # sequential algorithm does them (adds, subtractions, products, divisions,
 # min/max, compares, expf/log2f; moves and selects not counted; the
@@ -2189,7 +2412,15 @@ def vad_phase(torch, entry, wrappers, card, launches):
         return worst
 
     total_launches = {w.__name__: 0 for w in wrappers}
+    whole = (audio, feats, total)
     for mode in range(4):
+        # mode 0 on the whole stream, modes 1-3 on its first VAD_MODE_SECONDS
+        audio, feats, total = whole
+        if mode:
+            audio = audio[:VAD_MODE_SECONDS * 16000]
+            feats, total, _ = tweb.extract_features(
+                sig[: len(audio) // tweb.FRAME_LEN_16K * tweb.FRAME_LEN_16K].to(torch.float32),
+                tweb.initial_filter_state(torch.float32, DEVICE))
         det = WebRtcVadTorch(mode=mode, device=DEVICE)
         det.process(audio)  # the first call out of the count and the timing
         torch.cuda.synchronize()
@@ -2223,15 +2454,18 @@ def vad_phase(torch, entry, wrappers, card, launches):
                 f"on {int((flags != native).sum())} frames")
         state_err = same_state(k_state, p_state, f"mode {mode}")
         k_ms = cuda_ms(lambda: tweb.gmm_flags(feats, total, thr), reps=5, warmup=1)
-        out[f"webrtc mode {mode}"] = ms / audio_s
-        out[f"gmm mode {mode}"] = {"ms": k_ms, "plain_ms": plain_ms, "state_err": state_err}
-        print(f"WebRtcVadTorch mode {mode} on the stream ({len(flags)} frames, "
+        piece_s = len(audio) / 16000
+        out[f"webrtc mode {mode}"] = ms / piece_s
+        out[f"gmm mode {mode}"] = {"ms": k_ms, "plain_ms": plain_ms, "state_err": state_err,
+                                   "seconds": piece_s}
+        print(f"WebRtcVadTorch mode {mode} on {piece_s} s of the stream ({len(flags)} frames, "
               f"{int((flags > 0).sum())} flagged): kernel I once a call; flags equal to the plain "
               f"loop on the card, the CPU run and the native detector frame for frame; final "
               f"state bitwise the plain loop's; process {ms:.3f} ms = "
-              f"{ms / audio_s:.4f} ms per second of audio on {card} (host clock); kernel I "
-              f"{k_ms:.4f} ms ({1e3 * k_ms / n_frames:.3f} us a frame, CUDA events), plain loop "
-              f"on the card {plain_ms:.1f} ms")
+              f"{ms / piece_s:.4f} ms per second of audio on {card} (host clock); kernel I "
+              f"{k_ms:.4f} ms ({1e3 * k_ms / len(flags):.3f} us a frame, CUDA events), plain "
+              f"loop on the card {plain_ms:.1f} ms")
+    audio, feats, total = whole
     launches["webrtc vad"] = total_launches
     thr = tweb.MODE_TABLE[0]
     # the float64 instantiation (webrtc_vad_flags(dtype=torch.float64)) on the
@@ -5095,6 +5329,7 @@ def main():
     # -- 9, 10, 11. live serving: the stream, the trigram graph, device VADs --
     stream_phase(torch, entry, wrappers, card, launches)
     trig = trigram_phase(torch, entry, wrappers, card, launches)
+    tbat = trigram_batch_phase(torch, entry, wrappers, card, launches)
     vads = vad_phase(torch, entry, wrappers, card, launches)
     trel = trellis_phase(torch, entry, wrappers, card, launches)
     stg = stage_phase(torch, entry, card)
@@ -5169,7 +5404,16 @@ def main():
                          "under jax.jit :1579)", trig["err"], r["wrapper_ms"], r["plain_ms"],
                          r["bound"])
         row |= {"ms": r["ms"], "profiler_ms": r["profiler_ms"],
-                "profiler_launches": r["profiler_launches"]}
+                "profiler_launches": r["profiler_launches"],
+                # the batch (trigram_batch_phase): one launch of the batch
+                # against its single launches, two turns each
+                "batch": {"V=200": {"b": tbat["b"],
+                                    "ms": (tbat["times"][part][0] + tbat["times"][part][3]) / 2,
+                                    "loop_ms": (tbat["times"][part][1]
+                                                + tbat["times"][part][2]) / 2,
+                                    "bound_ms": tbat["bounds"][part][0],
+                                    "bound_by": tbat["bounds"][part][1]},
+                          "cut": tbat["cut"]}}
         if part == "forward":
             row |= {"route_taken": trig["route"], "hop3_reread_ms": r["hop3_reread_ms"]}
         kernels.append(row)

@@ -279,6 +279,51 @@ H_RESIDENT_PATCHES = [  # no barrier follows its hop pass: thread 0's own hop co
     ("        *static_cast<float*>(p.score) = v;\n        *p.last = i;\n    }\n", _h_final(7)),
 ]
 
+# the same phases in the kernels that step a batch's utterances in turn
+# (one utterance: its own instantiation, the phases as above)
+H_BATCH_ROW_PATCHES = [
+    ("    for (int k = tid; k < V; k += nth) eidx[k] = p.exit_idx[k];\n",
+     "    unsigned ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"
+     "    const unsigned ph_t0 = (unsigned)clock64();\n"),
+    ("        publish(rows0 + b * per_utt, p.xch + (size_t)b * 2 * V * H * W, 0, 0u, h0, nr, H, V, "
+     "S,\n                eidx);\n", "    const unsigned ph_load = (unsigned)clock64() - ph_t0;\n"),
+    ("            const T* lb = log_b + ((size_t)b * p.n_t + t) * VS;\n",
+     "            ph_t = (unsigned)clock64();\n"),
+    ("                    __stcs(bt + k, base_id + k - s + src);\n                }\n            }\n",
+     _acc32(0, 12)),
+    ("                       max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));\n"
+     "            __syncthreads();\n", _acc32(1, 12)),
+    ("                gn[cell] = m + lb[w * S];\n                __stcs(bt + cell, from);\n"
+     "            }\n            __syncthreads();\n", _acc32(2, 12)),
+    ("            publish(gn, xch, (n_pub + 1) & 1, (unsigned)t, h0, nr, H, V, S, eidx);\n",
+     _acc32(3, 12)),
+    ("    // state, -inf elsewhere, the first flattened state of the maximum\n",
+     "    const unsigned fin_t = (unsigned)clock64();\n"),
+    ("            static_cast<T*>(p.score)[b] = v;\n            p.last[b] = i;\n        }\n    }\n",
+     _h_final(7)),
+]
+H_BATCH_RESIDENT_PATCHES = [
+    ("    for (int k = tid; k < V; k += R_THREADS) eidx[k] = p.exit_idx[k];\n",
+     "    unsigned ph_acc[4] = {0, 0, 0, 0}, ph_t = 0;\n"
+     "    const unsigned ph_t0 = (unsigned)clock64();\n"),
+    ("                       (unsigned long long)__float_as_uint(g[e_st * gj]));\n        }\n    }\n",
+     "    const unsigned ph_load = (unsigned)clock64() - ph_t0;\n"),
+    ("            const float* lw = log_b + ((size_t)b * p.n_t + t) * VS + w * S;  // this copy's "
+     "emissions\n", "            ph_t = (unsigned)clock64();\n"),
+    ("                store_pointers(bt, bp, S);\n            }\n", _acc32(0, 12)),
+    ("            read_columns(src, last_pub, 2 * R_THREADS, n_words, H, ht, ex_b);\n"
+     "            __syncthreads();\n", _acc32(1, 12)),
+    ("                st_relaxed(out + xo, tag | __float_as_uint(g[e_st * gj]));\n",
+     _acc32(3, 12)),  # exits published before the hop
+    ("                g[0] = m + emit0;\n", _acc32(2, 16)),
+    ("                if (e_st == 0) st_relaxed(out + xo, tag | __float_as_uint(g[0]));\n",
+     _acc32(3, 16)),  # and after it
+    ("    // state, -inf elsewhere; the first flattened state of the maximum\n",
+     "    const unsigned fin_t = (unsigned)clock64();\n"),
+    ("            static_cast<float*>(p.score)[b] = v;\n            p.last[b] = i;\n        }\n"
+     "    }\n", _h_final(7)),
+]
+
 # (anchor, text inserted after it) per kernel and version; the first set
 # whose anchors all occur once in the source is applied (the warp route's
 # first: the file that has it keeps the block-wide route as well)
@@ -369,6 +414,8 @@ PATCH_SETS = {
         ("per-block rank-1 partials", D_STRIDE, D_PHASES, D_PATCHES),
     ],
     "trigram_forward": [
+        ("utterances in turn, row routes and resident route", 7, H_PHASES,
+         H_BATCH_ROW_PATCHES + H_BATCH_RESIDENT_PATCHES),
         ("row routes and resident route", 7, H_PHASES, H_ROW_PATCHES + H_RESIDENT_PATCHES),
         ("rows owned by history", 7, H_PHASES, H_ROW_PATCHES),
     ],

@@ -65,6 +65,22 @@
 // spin that lasts seconds traps. The final argmax: each block's first
 // maximum, then the last block to finish (an atomic count) takes the
 // first of them in block order.
+//
+// A batch. One launch takes B utterances (log_b (B, T, V, S), mask (B, T),
+// bts (B, T-1, H, V, S), score and last (B,)) over the graph's one set of
+// tables, as the JAX package vmaps the decode into one program
+// (decoder.py:1581-1585). Every block steps the B utterances in turn within
+// each frame, each with an exchange slab of its own ((B, 2, V, H, W)) and a
+// publication count of its own, so that the two-buffer rule above holds
+// utterance by utterance under masks that differ by utterance: an
+// utterance masked at a frame publishes nothing there and reads nothing,
+// whatever the others do. Stepping them in turn puts the other B - 1
+// utterances' work between an utterance's publication and its next read,
+// which hides the exchange's latency; it does not share the hop pass, which
+// each utterance needs whole every frame. One utterance (B = 1) is an
+// instantiation of its own (template argument BATCH false) whose code is
+// the single decode's. How a batch is cut into launches is
+// ops/trigram.py:trigram_cut.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -79,24 +95,28 @@ constexpr int SMEM_STATIC = 1024;   // the static arrays' share (mirrored in ops
 constexpr int POLL = 4;             // exchange words a thread loads at once
 constexpr long long SPIN_LIMIT = 1ll << 24;  // polling rounds before the kernel traps
 constexpr int ROUTE_SMEM = 0, ROUTE_GLOBAL = 1, ROUTE_RESIDENT = 2;
+// utterances a launch takes (mirrored in ops/trigram.py): each thread keeps
+// every utterance's publication count and last tag in a local array
+constexpr int MAX_BATCH = 32;
 
 struct Args {
-    const void* log_b;        // (T, V, S)
-    const uint8_t* mask;      // (T,) or null
+    const void* log_b;        // (B, T, V, S)
+    const uint8_t* mask;      // (B, T) or null
     const void* inner_a;      // (V, S, S)
     const void* hop3;         // (H, V, V)
     const void* log_pi_w;     // (V,)
     const void* final3;       // (H, V)
     const int* exit_idx;      // (V,)
-    int* bts;                 // (T-1, H, V, S)
-    void* score;              // ()
-    int* last;                // ()
-    unsigned long long* xch;  // (2, V, H, W) tagged exit words
-    void* rows;               // (2, H, V, S) on the global route, else null
-    void* part_v;             // (blocks,) each block's final maximum
-    int* part_i;              // (blocks,) its first flat state
+    int* bts;                 // (B, T-1, H, V, S)
+    void* score;              // (B,)
+    int* last;                // (B,)
+    unsigned long long* xch;  // (B, 2, V, H, W) tagged exit words
+    void* rows;               // the global route's (B, 2, H, V, S) rows; the resident route's
+                              // (B, R_SMAX, H*V) copy states when B > 1; else null
+    void* part_v;             // (B, blocks) each block's final maximum
+    int* part_i;              // (B, blocks) its first flat state
     unsigned* done;           // blocks finished, zeroed before the launch
-    int n_t, H, V, S, rpb;  // n_t: frames
+    int n_t, H, V, S, rpb, B;  // n_t: frames; B: utterances
 };
 
 template <typename T>
@@ -209,7 +229,7 @@ __device__ __forceinline__ void take_first_max(T& v, int& i, T ov, int oi) {
     }
 }
 
-template <typename T, int ROUTE>
+template <typename T, int ROUTE, bool BATCH>
 __global__ void __launch_bounds__(THREADS) trigram_forward_kernel(Args p) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ T red_v[THREADS / 32];
@@ -219,6 +239,7 @@ __global__ void __launch_bounds__(THREADS) trigram_forward_kernel(Args p) {
     constexpr int AHEAD = sizeof(T) == 4 ? 16 : 8;  // hop sources a register buffer holds
 
     const int H = p.H, V = p.V, S = p.S, rpb = p.rpb;
+    const int nb = BATCH ? p.B : 1;            // utterances, stepped in turn
     const int VS = V * S;
     const int h0 = blockIdx.x * rpb;
     const int nr = min(rpb, H - h0);          // >= 1: the launcher sizes the grid
@@ -236,129 +257,164 @@ __global__ void __launch_bounds__(THREADS) trigram_forward_kernel(Args p) {
     T* ex = reinterpret_cast<T*>(smem);                           // [rpb * H] exit columns
     int* src0 = reinterpret_cast<int*>(ex + (size_t)rpb * H);     // [rpb * V] state 0's source
     int* eidx = src0 + rpb * V;                                   // [V]
-    T* gc;  // the block's rows at the last valid frame
-    T* gn;  // the next frame's
+    // the block's rows of two frames, `half` apart: utterance b's at
+    // rows0 + b * per_utt
+    T* rows0;
+    size_t half;
     if (ROUTE == ROUTE_SMEM) {
         const size_t head = ((size_t)rpb * H * sizeof(T) + (size_t)(rpb + 1) * V * sizeof(int)
                              + 15) & ~(size_t)15;
-        gc = reinterpret_cast<T*>(smem + head);
-        gn = gc + (size_t)rpb * VS;
+        rows0 = reinterpret_cast<T*>(smem + head);
+        half = (size_t)rpb * VS;
     } else {
-        gc = static_cast<T*>(p.rows) + base_id;
-        gn = gc + frame;
+        rows0 = static_cast<T*>(p.rows) + base_id;
+        half = frame;
     }
+    const size_t per_utt = 2 * half;
+    T* gc = rows0;         // the block's rows at the last valid frame
+    T* gn = rows0 + half;  // the next frame's
     for (int k = tid; k < V; k += nth) eidx[k] = p.exit_idx[k];
     const T ninf = Num<T>::ninf();
-    for (int k = tid; k < cells; k += nth) {
-        const int r = k / VS, rem = k - r * VS, w = rem / S, s = rem - w * S;
-        const T init = (h0 + r == H - 1 && s == 0) ? log_pi_w[w] : ninf;
-        gc[k] = init + log_b[rem];
-    }
-    __syncthreads();
-    publish(gc, p.xch, 0, 0u, h0, nr, H, V, S, eidx);
-    int n_pub = 0;
-    unsigned last_pub = 0;  // publications so far - 1, the frame of the last
-
-    for (int t = 1; t < p.n_t; ++t) {
-        int* bt = p.bts + (size_t)(t - 1) * frame + base_id;
-        if (p.mask != nullptr && !p.mask[t]) {  // identity step: self pointers, nothing published
-            for (int k = tid; k < cells; k += nth) __stcs(bt + k, base_id + k);
-            continue;
-        }
-        const T* lb = log_b + (size_t)t * VS;
-        // the within-word step of the block's rows, while the exits travel.
-        // The backpointers go out with streaming stores (__stcs: evicted
-        // first), so that they displace as little of hop3 from L2 as they can
+    for (int b = 0; b < nb; ++b) {
+        T* g0 = rows0 + b * per_utt;
+        const T* lb0 = log_b + (size_t)b * p.n_t * VS;
         for (int k = tid; k < cells; k += nth) {
             const int r = k / VS, rem = k - r * VS, w = rem / S, s = rem - w * S;
-            const T emit = lb[rem];  // issued ahead of the sources' loop
-            const T* gr = gc + (size_t)r * VS + w * S;
-            const T* a = inner_a + (size_t)w * S * S + s;
-            T m = gr[0] + a[0];
-            int src = 0;
-#pragma unroll 4
-            for (int q = 1; q < S; ++q) {
-                const T c = gr[q] + a[(size_t)q * S];
-                if (c > m) {
-                    m = c;
-                    src = q;
-                }
-            }
-            if (s == 0 && r < nhop) {  // the hop may still win: finished below
-                gn[k] = m;
-                src0[r * V + w] = src;
-            } else {
-                gn[k] = m + emit;
-                __stcs(bt + k, base_id + k - s + src);
-            }
+            const T init = (h0 + r == H - 1 && s == 0) ? log_pi_w[w] : ninf;
+            g0[k] = init + lb0[rem];
         }
-        // a block that no hop enters (the <s> row alone) reads word 0's
-        // column all the same: every block must have read all of a
-        // publication before it makes the next (two buffers)
-        read_exits(p.xch + ((size_t)(n_pub & 1) * V + (nhop > 0 ? h0 : 0)) * H * W, last_pub,
-                   max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));
-        __syncthreads();
-        // the hop into state 0 of copy (u, w), u = h0 + r: lanes over w,
-        // the H sources in order (the first on ties). The column streams
-        // from L2 in two register buffers of AHEAD sources each, one loading
-        // while the other is compared, so up to 2 * AHEAD loads a thread are
-        // in flight: the pass waits on L2's latency, not on its own compares
-        for (int k = tid; k < nhop * V; k += nth) {
-            const int r = k / V, w = k - r * V, u = h0 + r;
-            const T* e = ex + (size_t)r * H;
-            const T* col = hop3 + (size_t)u * V + w;
-            T best = ninf, buf0[AHEAD], buf1[AHEAD];
-            int arg = 0;
-            load_sources(buf0, col, 0, H, V);
-            for (int h = 0; h < H; h += 2 * AHEAD) {
-                load_sources(buf1, col, h + AHEAD, H, V);
-                take_sources(best, arg, buf0, e, h, H);
-                load_sources(buf0, col, h + 2 * AHEAD, H, V);
-                take_sources(best, arg, buf1, e, h + AHEAD, H);
-            }
-            const int cell = r * VS + w * S;
-            T m = gn[cell];
-            int b = base_id + cell + src0[r * V + w];
-            if (best > m) {
-                m = best;
-                b = (arg * V + u) * S + eidx[u];
-            }
-            gn[cell] = m + lb[w * S];
-            __stcs(bt + cell, b);
-        }
-        __syncthreads();
-        publish(gn, p.xch, (n_pub + 1) & 1, (unsigned)t, h0, nr, H, V, S, eidx);
-        ++n_pub;
-        last_pub = (unsigned)t;
-        T* tmp = gc;
-        gc = gn;
-        gn = tmp;
-    }
-
-    // the final argmax: grid + final3 at each word's exit state, -inf
-    // elsewhere, the first flattened state of the maximum
-    T bv = ninf;
-    int bi = INT_MAX;
-    for (int k = tid; k < cells; k += nth) {
-        const int r = k / VS, rem = k - r * VS, w = rem / S, s = rem - w * S;
-        const T f = s == eidx[w] ? final3[(size_t)(h0 + r) * V + w] : ninf;
-        take_first_max(bv, bi, gc[k] + f, base_id + k);
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const T ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        take_first_max(bv, bi, ov, oi);
-    }
-    if ((tid & 31) == 0) {
-        red_v[tid >> 5] = bv;
-        red_i[tid >> 5] = bi;
     }
     __syncthreads();
+    for (int b = 0; b < nb; ++b)
+        publish(rows0 + b * per_utt, p.xch + (size_t)b * 2 * V * H * W, 0, 0u, h0, nr, H, V, S,
+                eidx);
+    int n_pub = 0;
+    unsigned last_pub = 0;  // publications so far - 1, the frame of the last
+    // a batch: utterance b's (last_pub << 1) | (n_pub & 1), read and written in its turn
+    unsigned pubs[BATCH ? MAX_BATCH : 1];
+    if (BATCH)
+        for (int b = 0; b < nb; ++b) pubs[b] = 0;
+
+    for (int t = 1; t < p.n_t; ++t) {
+        for (int b = 0; b < nb; ++b) {
+            int* bt = p.bts + ((size_t)b * (p.n_t - 1) + (t - 1)) * frame + base_id;
+            if (p.mask != nullptr && !p.mask[(size_t)b * p.n_t + t]) {
+                // identity step: self pointers, nothing published
+                for (int k = tid; k < cells; k += nth) __stcs(bt + k, base_id + k);
+                continue;
+            }
+            if (BATCH) {
+                n_pub = pubs[b] & 1;
+                last_pub = pubs[b] >> 1;
+                gc = rows0 + b * per_utt + n_pub * half;
+                gn = rows0 + b * per_utt + (n_pub ^ 1) * half;
+            }
+            unsigned long long* xch = p.xch + (size_t)b * 2 * V * H * W;  // this utterance's
+            const T* lb = log_b + ((size_t)b * p.n_t + t) * VS;
+            // the within-word step of the block's rows, while the exits travel.
+            // The backpointers go out with streaming stores (__stcs: evicted
+            // first), so that they displace as little of hop3 from L2 as they can
+            for (int k = tid; k < cells; k += nth) {
+                const int r = k / VS, rem = k - r * VS, w = rem / S, s = rem - w * S;
+                const T emit = lb[rem];  // issued ahead of the sources' loop
+                const T* gr = gc + (size_t)r * VS + w * S;
+                const T* a = inner_a + (size_t)w * S * S + s;
+                T m = gr[0] + a[0];
+                int src = 0;
+#pragma unroll 4
+                for (int q = 1; q < S; ++q) {
+                    const T c = gr[q] + a[(size_t)q * S];
+                    if (c > m) {
+                        m = c;
+                        src = q;
+                    }
+                }
+                if (s == 0 && r < nhop) {  // the hop may still win: finished below
+                    gn[k] = m;
+                    src0[r * V + w] = src;
+                } else {
+                    gn[k] = m + emit;
+                    __stcs(bt + k, base_id + k - s + src);
+                }
+            }
+            // a block that no hop enters (the <s> row alone) reads word 0's
+            // column all the same: every block must have read all of a
+            // publication before it makes the next (two buffers)
+            read_exits(xch + ((size_t)(n_pub & 1) * V + (nhop > 0 ? h0 : 0)) * H * W, last_pub,
+                       max(nhop, 1) * H * W, reinterpret_cast<unsigned*>(ex));
+            __syncthreads();
+            // the hop into state 0 of copy (u, w), u = h0 + r: lanes over w,
+            // the H sources in order (the first on ties). The column streams
+            // from L2 in two register buffers of AHEAD sources each, one loading
+            // while the other is compared, so up to 2 * AHEAD loads a thread are
+            // in flight: the pass waits on L2's latency, not on its own compares
+            for (int k = tid; k < nhop * V; k += nth) {
+                const int r = k / V, w = k - r * V, u = h0 + r;
+                const T* e = ex + (size_t)r * H;
+                const T* col = hop3 + (size_t)u * V + w;
+                T best = ninf, buf0[AHEAD], buf1[AHEAD];
+                int arg = 0;
+                load_sources(buf0, col, 0, H, V);
+                for (int h = 0; h < H; h += 2 * AHEAD) {
+                    load_sources(buf1, col, h + AHEAD, H, V);
+                    take_sources(best, arg, buf0, e, h, H);
+                    load_sources(buf0, col, h + 2 * AHEAD, H, V);
+                    take_sources(best, arg, buf1, e, h + AHEAD, H);
+                }
+                const int cell = r * VS + w * S;
+                T m = gn[cell];
+                int from = base_id + cell + src0[r * V + w];
+                if (best > m) {
+                    m = best;
+                    from = (arg * V + u) * S + eidx[u];
+                }
+                gn[cell] = m + lb[w * S];
+                __stcs(bt + cell, from);
+            }
+            __syncthreads();
+            publish(gn, xch, (n_pub + 1) & 1, (unsigned)t, h0, nr, H, V, S, eidx);
+            if (BATCH) {
+                pubs[b] = (unsigned)t << 1 | ((n_pub + 1) & 1);
+            } else {
+                ++n_pub;
+                last_pub = (unsigned)t;
+                T* tmp = gc;
+                gc = gn;
+                gn = tmp;
+            }
+        }
+    }
+
+    // the final argmax of each utterance: grid + final3 at each word's exit
+    // state, -inf elsewhere, the first flattened state of the maximum
+    for (int b = 0; b < nb; ++b) {
+        if (BATCH) gc = rows0 + b * per_utt + (pubs[b] & 1) * half;
+        T bv = ninf;
+        int bi = INT_MAX;
+        for (int k = tid; k < cells; k += nth) {
+            const int r = k / VS, rem = k - r * VS, w = rem / S, s = rem - w * S;
+            const T f = s == eidx[w] ? final3[(size_t)(h0 + r) * V + w] : ninf;
+            take_first_max(bv, bi, gc[k] + f, base_id + k);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+            const T ov = __shfl_xor_sync(0xffffffffu, bv, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+            take_first_max(bv, bi, ov, oi);
+        }
+        if ((tid & 31) == 0) {
+            red_v[tid >> 5] = bv;
+            red_i[tid >> 5] = bi;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            for (int k = 1; k < nth / 32; ++k) take_first_max(bv, bi, red_v[k], red_i[k]);
+            static_cast<T*>(p.part_v)[b * gridDim.x + blockIdx.x] = bv;
+            p.part_i[b * gridDim.x + blockIdx.x] = bi;
+        }
+        if (BATCH) __syncthreads();  // red_v and red_i serve the next utterance
+    }
     if (tid == 0) {
-        for (int k = 1; k < nth / 32; ++k) take_first_max(bv, bi, red_v[k], red_i[k]);
-        static_cast<T*>(p.part_v)[blockIdx.x] = bv;
-        p.part_i[blockIdx.x] = bi;
         __threadfence();
         is_last = atomicAdd(p.done, 1u) == gridDim.x - 1;
     }
@@ -367,19 +423,24 @@ __global__ void __launch_bounds__(THREADS) trigram_forward_kernel(Args p) {
         __threadfence();
         const volatile T* pv = static_cast<volatile T*>(p.part_v);
         const volatile int* pi = p.part_i;
-        T v = pv[0];
-        int i = pi[0];
-        for (int k = 1; k < (int)gridDim.x; ++k) take_first_max(v, i, (T)pv[k], (int)pi[k]);
-        *static_cast<T*>(p.score) = v;
-        *p.last = i;
+        for (int b = 0; b < nb; ++b) {
+            const int o = b * gridDim.x;
+            T v = pv[o];
+            int i = pi[o];
+            for (int k = 1; k < (int)gridDim.x; ++k)
+                take_first_max(v, i, (T)pv[o + k], (int)pi[o + k]);
+            static_cast<T*>(p.score)[b] = v;
+            p.last[b] = i;
+        }
     }
 }
 
-// Mirrored by lnasr_tpu_torch/ops/trigram.py:forward_smem_bytes.
-size_t smem_bytes(int H, int V, int S, int rpb, int itemsize, int route) {
+// Mirrored by lnasr_tpu_torch/ops/trigram.py:forward_smem_bytes: on the
+// "smem" route each of the B utterances keeps its rows of two frames.
+size_t smem_bytes(int H, int V, int S, int rpb, int itemsize, int route, int B) {
     size_t head = (size_t)rpb * H * itemsize + (size_t)(rpb + 1) * V * sizeof(int);
     if (route == ROUTE_GLOBAL) return head;
-    return ((head + 15) & ~(size_t)15) + 2 * (size_t)rpb * V * S * itemsize;
+    return ((head + 15) & ~(size_t)15) + 2 * (size_t)B * rpb * V * S * itemsize;
 }
 
 // -- the resident route --------------------------------------------------------
@@ -557,12 +618,14 @@ __device__ __forceinline__ void store_pointers(int* dst, const int (&bp)[R_SMAX]
     }
 }
 
+template <bool BATCH>
 __global__ void __launch_bounds__(R_THREADS, 1) trigram_resident_kernel(Args p, Layout l) {
     extern __shared__ __align__(16) unsigned char smem[];
     __shared__ float rv[R_THREADS / 32];
     __shared__ int ri[R_THREADS / 32];
     __shared__ bool last_block;
     const int H = p.H, V = p.V, S = p.S, VS = V * S;
+    const int nb = BATCH ? p.B : 1;  // utterances, stepped in turn
     const int tid = threadIdx.x, blk = blockIdx.x;
     const int c0 = copy_lo(blk, l.blocks, H, V);
     const int n_c = copy_lo(blk + 1, l.blocks, H, V) - c0;  // copies: c0 .. c0 + n_c - 1
@@ -610,137 +673,178 @@ __global__ void __launch_bounds__(R_THREADS, 1) trigram_resident_kernel(Args p, 
     const int h_ex = (hh - u0) * ht;                   // its exit column's row in ex
     const int xo = w * H + hh;                         // its exit's word in a buffer
     const int self = c * S;
+    // its states, state j at g[j * gj]: in shared memory for one utterance;
+    // for a batch, utterance b's in a device-memory slab (B, R_SMAX, H*V)
+    // that only this thread reads and writes (no other thread needs a
+    // fence), a warp's copies side by side so that its loads coalesce
     float* g = grid + tid * R_GSTRIDE;
+    const int gj = BATCH ? H * V : 1;
+    float* const slab = BATCH ? static_cast<float*>(p.rows) + c : nullptr;
+    const size_t slab_utt = (size_t)H * V * R_SMAX;
     const float* a = a_s + w * R_ASTRIDE;
 
     // frame 0, published with tag 0 (own values: no barrier before it)
     if (own) {
         const float pi = c >= V * V ? static_cast<const float*>(p.log_pi_w)[w] : ninf;
+        for (int b = 0; b < nb; ++b) {
+            if (BATCH) g = slab + b * slab_utt;
+            const float* lw0 = log_b + (size_t)b * p.n_t * VS + w * S;
 #pragma unroll
-        for (int j = 0; j < R_SMAX; ++j)
-            if (j < S) g[j] = (j == 0 ? pi : ninf) + log_b[w * S + j];
-        st_relaxed(p.xch + xo, (unsigned long long)__float_as_uint(g[e_st]));
+            for (int j = 0; j < R_SMAX; ++j)
+                if (j < S) g[j * gj] = (j == 0 ? pi : ninf) + lw0[j];
+            st_relaxed(p.xch + (size_t)b * 2 * V * H + xo,
+                       (unsigned long long)__float_as_uint(g[e_st * gj]));
+        }
     }
     int n_pub = 0;
     unsigned last_pub = 0;  // publications so far - 1, the frame of the last
+    // a batch: utterance b's (last_pub << 1) | (n_pub & 1), read and written
+    // in its turn; the steps taken, whose parity picks the buffer of ex
+    unsigned pubs[BATCH ? MAX_BATCH : 1];
+    if (BATCH)
+        for (int b = 0; b < nb; ++b) pubs[b] = 0;
+    int steps = 0;
 
     for (int t = 1; t < p.n_t; ++t) {
-        int* bt = p.bts + (size_t)(t - 1) * frame + (size_t)self;  // this copy's pointers
-        if (p.mask != nullptr && !p.mask[t]) {  // identity step: self pointers, nothing published
+        for (int b = 0; b < nb; ++b) {
+            // this copy's pointers
+            int* bt = p.bts + ((size_t)b * (p.n_t - 1) + (t - 1)) * frame + (size_t)self;
+            if (p.mask != nullptr && !p.mask[(size_t)b * p.n_t + t]) {
+                // identity step: self pointers, nothing published
+                if (own) {
+                    int bp[R_SMAX];
+#pragma unroll
+                    for (int j = 0; j < R_SMAX; ++j) bp[j] = self + j;
+                    store_pointers(bt, bp, S);
+                }
+                continue;
+            }
+            if (BATCH) {
+                n_pub = pubs[b] & 1;
+                last_pub = pubs[b] >> 1;
+                g = slab + b * slab_utt;
+            }
+            unsigned long long* xch = p.xch + (size_t)b * 2 * V * H;  // this utterance's
+            const float* lw = log_b + ((size_t)b * p.n_t + t) * VS + w * S;  // this copy's emissions
+            // the first two exit words this thread reads of the last publication:
+            // loaded now, so that they fly during the within-word pass
+            const unsigned long long* src = xch + ((size_t)(n_pub & 1) * V + u0) * H;
+            float* ex_b = ex + (size_t)((BATCH ? steps : n_pub) & 1) * l.ncol * ht;
+            unsigned long long x0 = 0, x1 = 0;
+            if (tid < n_words) x0 = ld_relaxed(src + tid);
+            if (tid + R_THREADS < n_words) x1 = ld_relaxed(src + tid + R_THREADS);
+            // -- the within-word pass: state 0 of a hop copy keeps its within
+            // value (no emission yet)
             if (own) {
+                float gv[R_SMAX];
                 int bp[R_SMAX];
 #pragma unroll
-                for (int j = 0; j < R_SMAX; ++j) bp[j] = self + j;
-                store_pointers(bt, bp, S);
-            }
-            continue;
-        }
-        const float* lw = log_b + (size_t)t * VS + w * S;  // this copy's emissions
-        // the first two exit words this thread reads of the last publication:
-        // loaded now, so that they fly during the within-word pass
-        const unsigned long long* src = p.xch + ((size_t)(n_pub & 1) * V + u0) * H;
-        float* ex_b = ex + (size_t)(n_pub & 1) * l.ncol * ht;
-        unsigned long long x0 = 0, x1 = 0;
-        if (tid < n_words) x0 = ld_relaxed(src + tid);
-        if (tid + R_THREADS < n_words) x1 = ld_relaxed(src + tid + R_THREADS);
-        // -- the within-word pass: state 0 of a hop copy keeps its within
-        // value (no emission yet)
-        if (own) {
-            float gv[R_SMAX];
-            int bp[R_SMAX];
+                for (int q = 0; q < R_SMAX; ++q)
+                    if (q < S) gv[q] = g[q * gj];
 #pragma unroll
-            for (int q = 0; q < R_SMAX; ++q)
-                if (q < S) gv[q] = g[q];
+                for (int j = 0; j < R_SMAX; ++j) {
+                    if (j < S) {
+                        float m = gv[0] + a[j];
+                        int src_q = 0;
 #pragma unroll
-            for (int j = 0; j < R_SMAX; ++j) {
-                if (j < S) {
-                    float m = gv[0] + a[j];
-                    int src_q = 0;
-#pragma unroll
-                    for (int q = 1; q < R_SMAX; ++q) {
-                        if (q < S) {
-                            const float cand = gv[q] + a[q * R_SMAX + j];
-                            if (cand > m) {
-                                m = cand;
-                                src_q = q;
+                        for (int q = 1; q < R_SMAX; ++q) {
+                            if (q < S) {
+                                const float cand = gv[q] + a[q * R_SMAX + j];
+                                if (cand > m) {
+                                    m = cand;
+                                    src_q = q;
+                                }
                             }
                         }
+                        bp[j] = self + src_q;
+                        g[j * gj] = j == 0 && hopper ? m : m + __ldg(lw + j);
                     }
-                    bp[j] = self + src_q;
-                    g[j] = j == 0 && hopper ? m : m + __ldg(lw + j);
                 }
+                store_pointers(bt, bp, S);
             }
-            store_pointers(bt, bp, S);
-        }
-        // -- the exit columns of the last publication (buffers of ex
-        // alternate, so that no barrier is needed after the hop pass)
-        if (tid < n_words) finish_word(src, x0, last_pub, tid, H, ht, ex_b);
-        if (tid + R_THREADS < n_words) finish_word(src, x1, last_pub, tid + R_THREADS, H, ht, ex_b);
-        read_columns(src, last_pub, 2 * R_THREADS, n_words, H, ht, ex_b);
-        __syncthreads();
-        // -- publish the exits the hop cannot change (not at state 0 of a hop
-        // copy), so that they travel while the hop pass runs: the block has
-        // read all of the last publication, so two buffers still suffice
-        unsigned long long* out = p.xch + (size_t)((n_pub + 1) & 1) * V * H;
-        const unsigned long long tag = (unsigned long long)t << 32;
-        if (own && (!hopper || e_st != 0)) st_relaxed(out + xo, tag | __float_as_uint(g[e_st]));
-        // -- the hop pass: the H sources of this thread's copy, on chip
-        if (hopper) {
-            const float emit0 = __ldg(lw);
-            const float* e = ex_b + h_ex;
-            float bv = ninf;  // the first maximum over the sources so far
-            int ba = 0;
+            // -- the exit columns of the last publication (buffers of ex
+            // alternate, so that no barrier is needed after the hop pass)
+            if (tid < n_words) finish_word(src, x0, last_pub, tid, H, ht, ex_b);
+            if (tid + R_THREADS < n_words)
+                finish_word(src, x1, last_pub, tid + R_THREADS, H, ht, ex_b);
+            read_columns(src, last_pub, 2 * R_THREADS, n_words, H, ht, ex_b);
+            __syncthreads();
+            // -- publish the exits the hop cannot change (not at state 0 of a hop
+            // copy), so that they travel while the hop pass runs: the block has
+            // read all of the last publication, so two buffers still suffice
+            unsigned long long* out = xch + (size_t)((n_pub + 1) & 1) * V * H;
+            const unsigned long long tag = (unsigned long long)t << 32;
+            if (own && (!hopper || e_st != 0))
+                st_relaxed(out + xo, tag | __float_as_uint(g[e_st * gj]));
+            // -- the hop pass: the H sources of this thread's copy, on chip
+            if (hopper) {
+                const float emit0 = __ldg(lw);
+                const float* e = ex_b + h_ex;
+                float bv = ninf;  // the first maximum over the sources so far
+                int ba = 0;
 #pragma unroll
-            for (int h = 0; h < R_KR; h += 4) {
-                const float4 ev = *reinterpret_cast<const float4*>(e + h);
-                take4(bv, ba, ev.x + hr[h], ev.y + hr[h + 1], ev.z + hr[h + 2], ev.w + hr[h + 3],
-                      h);
-            }
-            const float* col = hs + (size_t)tid * l.hsp;
+                for (int h = 0; h < R_KR; h += 4) {
+                    const float4 ev = *reinterpret_cast<const float4*>(e + h);
+                    take4(bv, ba, ev.x + hr[h], ev.y + hr[h + 1], ev.z + hr[h + 2],
+                          ev.w + hr[h + 3], h);
+                }
+                const float* col = hs + (size_t)tid * l.hsp;
 #pragma unroll 2
-            for (int q = 0; q < l.hsp; q += 4) {
-                const float4 xv = *reinterpret_cast<const float4*>(col + q);
-                const float4 ev = *reinterpret_cast<const float4*>(e + R_KR + q);
-                take4(bv, ba, ev.x + xv.x, ev.y + xv.y, ev.z + xv.z, ev.w + xv.w, R_KR + q);
+                for (int q = 0; q < l.hsp; q += 4) {
+                    const float4 xv = *reinterpret_cast<const float4*>(col + q);
+                    const float4 ev = *reinterpret_cast<const float4*>(e + R_KR + q);
+                    take4(bv, ba, ev.x + xv.x, ev.y + xv.y, ev.z + xv.z, ev.w + xv.w, R_KR + q);
+                }
+                float m = g[0];
+                if (bv > m) {  // the hop, only when strictly better than within
+                    m = bv;
+                    __stcs(bt, ba * VS + h_src);
+                }
+                g[0] = m + emit0;
+                // -- and publish the exit at state 0 of a hop copy
+                if (e_st == 0) st_relaxed(out + xo, tag | __float_as_uint(g[0]));
             }
-            float m = g[0];
-            if (bv > m) {  // the hop, only when strictly better than within
-                m = bv;
-                __stcs(bt, ba * VS + h_src);
+            if (BATCH) {
+                pubs[b] = (unsigned)t << 1 | ((n_pub + 1) & 1);
+                ++steps;
+            } else {
+                ++n_pub;
+                last_pub = (unsigned)t;
             }
-            g[0] = m + emit0;
-            // -- and publish the exit at state 0 of a hop copy
-            if (e_st == 0) st_relaxed(out + xo, tag | __float_as_uint(g[0]));
         }
-        ++n_pub;
-        last_pub = (unsigned)t;
     }
 
-    // the final argmax: grid + final3 at each word's exit state, -inf
-    // elsewhere; the first flattened state of the maximum
-    float bv = ninf;
-    int bi = INT_MAX;
-    if (own) {
-        const float f = static_cast<const float*>(p.final3)[c];
+    // the final argmax of each utterance: grid + final3 at each word's exit
+    // state, -inf elsewhere; the first flattened state of the maximum
+    for (int b = 0; b < nb; ++b) {
+        if (BATCH) g = slab + b * slab_utt;
+        float bv = ninf;
+        int bi = INT_MAX;
+        if (own) {
+            const float f = static_cast<const float*>(p.final3)[c];
 #pragma unroll
-        for (int j = 0; j < R_SMAX; ++j)
-            if (j < S) take_first_max(bv, bi, g[j] + (j == e_st ? f : ninf), self + j);
-    }
+            for (int j = 0; j < R_SMAX; ++j)
+                if (j < S) take_first_max(bv, bi, g[j * gj] + (j == e_st ? f : ninf), self + j);
+        }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-        const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        take_first_max(bv, bi, ov, oi);
+        for (int off = 16; off > 0; off >>= 1) {
+            const float ov = __shfl_xor_sync(0xffffffffu, bv, off);
+            const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+            take_first_max(bv, bi, ov, oi);
+        }
+        if ((tid & 31) == 0) {
+            rv[tid >> 5] = bv;
+            ri[tid >> 5] = bi;
+        }
+        __syncthreads();
+        if (tid == 0) {
+            for (int k = 1; k < R_THREADS / 32; ++k) take_first_max(bv, bi, rv[k], ri[k]);
+            static_cast<float*>(p.part_v)[b * gridDim.x + blk] = bv;
+            p.part_i[b * gridDim.x + blk] = bi;
+        }
+        if (BATCH) __syncthreads();  // rv and ri serve the next utterance
     }
-    if ((tid & 31) == 0) {
-        rv[tid >> 5] = bv;
-        ri[tid >> 5] = bi;
-    }
-    __syncthreads();
     if (tid == 0) {
-        for (int k = 1; k < R_THREADS / 32; ++k) take_first_max(bv, bi, rv[k], ri[k]);
-        static_cast<float*>(p.part_v)[blk] = bv;
-        p.part_i[blk] = bi;
         __threadfence();
         last_block = atomicAdd(p.done, 1u) == gridDim.x - 1;
     }
@@ -749,44 +853,61 @@ __global__ void __launch_bounds__(R_THREADS, 1) trigram_resident_kernel(Args p, 
         __threadfence();
         const volatile float* pv = static_cast<volatile float*>(p.part_v);
         const volatile int* pi = p.part_i;
-        float v = pv[0];
-        int i = pi[0];
-        for (int k = 1; k < (int)gridDim.x; ++k) take_first_max(v, i, (float)pv[k], (int)pi[k]);
-        *static_cast<float*>(p.score) = v;
-        *p.last = i;
+        for (int b = 0; b < nb; ++b) {
+            const int o = b * gridDim.x;
+            float v = pv[o];
+            int i = pi[o];
+            for (int k = 1; k < (int)gridDim.x; ++k)
+                take_first_max(v, i, (float)pv[o + k], (int)pi[o + k]);
+            static_cast<float*>(p.score)[b] = v;
+            p.last[b] = i;
+        }
     }
 }
 
+template <bool BATCH>
 cudaError_t launch_resident(const Args& a, const Layout& l, size_t smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(trigram_resident_kernel,
+    cudaError_t err = cudaFuncSetAttribute(trigram_resident_kernel<BATCH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     void* params[] = {const_cast<Args*>(&a), const_cast<Layout*>(&l)};
-    return cudaLaunchCooperativeKernel((const void*)trigram_resident_kernel, dim3(l.blocks),
+    return cudaLaunchCooperativeKernel((const void*)trigram_resident_kernel<BATCH>, dim3(l.blocks),
                                        dim3(R_THREADS), params, smem, stream);
 }
 
-template <typename T, int ROUTE>
+template <typename T, int ROUTE, bool BATCH>
 cudaError_t launch(const Args& a, int blocks, size_t smem, cudaStream_t stream) {
-    cudaError_t err = cudaFuncSetAttribute(trigram_forward_kernel<T, ROUTE>,
+    cudaError_t err = cudaFuncSetAttribute(trigram_forward_kernel<T, ROUTE, BATCH>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     void* params[] = {const_cast<Args*>(&a)};
-    return cudaLaunchCooperativeKernel((const void*)trigram_forward_kernel<T, ROUTE>, dim3(blocks),
-                                       dim3(THREADS), params, smem, stream);
+    return cudaLaunchCooperativeKernel((const void*)trigram_forward_kernel<T, ROUTE, BATCH>,
+                                       dim3(blocks), dim3(THREADS), params, smem, stream);
+}
+
+// The row routes' instantiation for one utterance, or for a batch.
+template <typename T, int ROUTE>
+cudaError_t launch_rows(const Args& a, int blocks, size_t smem, cudaStream_t stream) {
+    return a.B > 1 ? launch<T, ROUTE, true>(a, blocks, smem, stream)
+                   : launch<T, ROUTE, false>(a, blocks, smem, stream);
 }
 
 }  // namespace
 
+// One launch over B utterances (1 <= B <= MAX_BATCH), every array as Args
+// lists it, contiguous. `rows` is the global route's scratch, and the
+// resident route's copy states when B > 1.
 extern "C" int trigram_forward_launch(const void* log_b, const uint8_t* mask, const void* inner_a,
                                       const void* hop3, const void* log_pi_w, const void* final3,
-                                      const int* exit_idx, int T, int H, int V, int S,
+                                      const int* exit_idx, int B, int T, int H, int V, int S,
                                       int is_double, int route, int n_sm, int* bts, void* score,
                                       int* last, unsigned long long* xch, void* rows, void* part_v,
                                       int* part_i, unsigned* done, void* stream) {
-    if (T < 1 || V < 1 || S < 1 || H != V + 1 || n_sm < 1) return (int)cudaErrorInvalidValue;
+    if (B < 1 || B > MAX_BATCH || T < 1 || V < 1 || S < 1 || H != V + 1 || n_sm < 1)
+        return (int)cudaErrorInvalidValue;
     if (route != ROUTE_SMEM && route != ROUTE_RESIDENT && (route != ROUTE_GLOBAL || rows == nullptr))
         return (int)cudaErrorInvalidValue;
+    if (route == ROUTE_RESIDENT && B > 1 && rows == nullptr) return (int)cudaErrorInvalidValue;
     const int rpb = (H + n_sm - 1) / n_sm;
     const int itemsize = is_double ? 8 : 4;
     Layout l{};
@@ -800,25 +921,25 @@ extern "C" int trigram_forward_launch(const void* log_b, const uint8_t* mask, co
         smem = resident_smem_bytes(V, l);
     } else {
         blocks = (H + rpb - 1) / rpb;
-        smem = smem_bytes(H, V, S, rpb, itemsize, route);
+        smem = smem_bytes(H, V, S, rpb, itemsize, route, B);
     }
     if (smem + SMEM_STATIC > (size_t)SMEM_LIMIT) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     // tag 0xffffffff in every word: no frame's (see the note on the exchange)
-    cudaError_t err = cudaMemsetAsync(xch, 0xff, (size_t)2 * V * H * (is_double ? 2 : 1)
+    cudaError_t err = cudaMemsetAsync(xch, 0xff, (size_t)B * 2 * V * H * (is_double ? 2 : 1)
                                       * sizeof(unsigned long long), st);
     if (err == cudaSuccess) err = cudaMemsetAsync(done, 0, sizeof(unsigned), st);
     if (err != cudaSuccess) return (int)err;
     Args a{log_b, mask, inner_a, hop3, log_pi_w, final3, exit_idx, bts, score, last, xch, rows,
-           part_v, part_i, done, T, H, V, S, rpb};
+           part_v, part_i, done, T, H, V, S, rpb, B};
     if (route == ROUTE_RESIDENT)
-        err = launch_resident(a, l, smem, st);
+        err = B > 1 ? launch_resident<true>(a, l, smem, st) : launch_resident<false>(a, l, smem, st);
     else if (is_double)
-        err = route == ROUTE_SMEM ? launch<double, ROUTE_SMEM>(a, blocks, smem, st)
-                                  : launch<double, ROUTE_GLOBAL>(a, blocks, smem, st);
+        err = route == ROUTE_SMEM ? launch_rows<double, ROUTE_SMEM>(a, blocks, smem, st)
+                                  : launch_rows<double, ROUTE_GLOBAL>(a, blocks, smem, st);
     else
-        err = route == ROUTE_SMEM ? launch<float, ROUTE_SMEM>(a, blocks, smem, st)
-                                  : launch<float, ROUTE_GLOBAL>(a, blocks, smem, st);
+        err = route == ROUTE_SMEM ? launch_rows<float, ROUTE_SMEM>(a, blocks, smem, st)
+                                  : launch_rows<float, ROUTE_GLOBAL>(a, blocks, smem, st);
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
 }

@@ -463,14 +463,16 @@ def parallel_serving_signals(segments: int = 8, seed: int = 0) -> Tuple[np.ndarr
 
 
 def parallel_serving(vocab: int = 1000, segments: int = 8, device="cuda",
-                     seed: int = 0) -> ParallelServing:
+                     seed: int = 0, graph: str = "auto", lm_order: int = 2) -> ParallelServing:
     """The batch a sharded decode serves (``parallel.decode_batch_sharded``):
-    :func:`recognizer_serving`'s recognizer and the padded pieces of
+    :func:`recognizer_serving`'s recognizer (``graph`` and ``lm_order`` as
+    there: ``parallel_serving(200, 8, graph="trigram", lm_order=3)`` is the
+    trigram graph's batch) and the padded pieces of
     :func:`parallel_serving_signals`, with their features from one batched
     ``features_fast`` call with lengths (the mel frontend kernel once on
     CUDA)."""
     dev = resolve_device(device)
-    rec, _ = recognizer_serving(vocab, device=dev, seed=seed)
+    rec, _ = recognizer_serving(vocab, device=dev, seed=seed, graph=graph, lm_order=lm_order)
     batch, lengths = parallel_serving_signals(segments, seed)
     feats, masks = rec.am.mfcc.features_fast(torch.as_tensor(batch, device=dev),
                                              lengths=torch.as_tensor(lengths, device=dev))

@@ -62,7 +62,7 @@ from lnasr_tpu_torch.ops.factored import (
     sm_count,
 )
 from lnasr_tpu_torch.ops.gaussian import gmm_emissions_diag, gmm_emissions_full
-from lnasr_tpu_torch.ops.trigram import trigram_viterbi
+from lnasr_tpu_torch.ops.trigram import trigram_cut, trigram_viterbi
 from lnasr_tpu_torch.ops.viterbi_dense import viterbi_dense
 
 
@@ -947,7 +947,10 @@ class TrigramDecodingGraph:
     package's jitted ``lax.scan`` (it has no Pallas kernel): on CUDA one
     launch for the forward, which stores ``(T-1, H*V*S)`` int32
     backpointers, and one for the walk back, so ``(path, score)`` come to
-    the host in one copy; on CPU the plain frame loop.
+    the host in one copy; on CPU the plain frame loop. A batch
+    (:meth:`decode_batch`, the JAX package's vmapped decode) takes one
+    launch of each for all its utterances, or one for each piece of
+    :func:`~lnasr_tpu_torch.ops.trigram.trigram_cut`.
     """
 
     SILENCE = SILENCE
@@ -1050,10 +1053,11 @@ class TrigramDecodingGraph:
 
     def _decode_log_b(self, log_b: torch.Tensor, mask: Optional[torch.Tensor]):
         """The decode core on grid emissions ``(T, V, S)``: ``(path (T,)
-        int32 in (h*V + w)*S + s ids, score ())`` on the graph's device, by
-        :func:`ops.trigram.trigram_viterbi` (kernel H's forward and
-        backtrace on CUDA, one launch each; the plain frame loop on CPU),
-        with the JAX package's tie rules."""
+        int32 in (h*V + w)*S + s ids, score ())`` on the graph's device, or
+        on a batch's ``(B, T, V, S)`` with ``(B, T)`` masks: ``(paths (B,
+        T), scores (B,))``, by :func:`ops.trigram.trigram_viterbi` (kernel
+        H's forward and backtrace on CUDA, one launch each; the plain frame
+        loop on CPU), with the JAX package's tie rules."""
         return trigram_viterbi(log_b, mask, self.inner_a, self.hop3, self.log_pi_w,
                                self.final3, self._exit_idx32)
 
@@ -1078,15 +1082,29 @@ class TrigramDecodingGraph:
         path, score = to_host(*self.decode_arrays(obs, mask))
         return self._path_to_words(path), path, float(score)
 
+    def _batch_pieces(self, log_b: torch.Tensor) -> List[Tuple[int, int]]:
+        """The launches a batch of ``(B, T, V, S)`` emissions takes: on CUDA
+        the row ranges of :func:`~lnasr_tpu_torch.ops.trigram.trigram_cut`
+        (one unless the batch is past one launch's capacity), on the CPU,
+        or for an empty batch, the whole batch at once."""
+        b, t_len, v, s = log_b.shape
+        if log_b.device.type != "cuda" or b == 0:
+            return [(0, b)]
+        return trigram_cut(b, t_len, v + 1, v, s, log_b.dtype.itemsize, sm_count(log_b.device))
+
     def decode_batch_arrays(self, features, masks) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device decode of padded ``(B, T, D)`` features with ``(B, T)``
-        masks: one emission product for the batch, one decode per utterance
-        -> ``(paths (B, T) int32, scores (B,))`` on the device."""
+        masks: one emission product for the batch and one batched decode
+        (:meth:`_decode_log_b`: on CUDA kernel H's forward and backtrace
+        once each for the batch, or for each piece of :meth:`_batch_pieces`;
+        the batched frame loop on the CPU) -> ``(paths (B, T) int32, scores
+        (B,))`` on the device, each row bitwise its single decode."""
         obs = torch.as_tensor(features, dtype=self.dtype, device=self.device)
         masks = torch.as_tensor(masks, dtype=torch.bool, device=self.device)
         log_b = self._grid_log_b(obs)
-        return _stack_decodes([self._decode_log_b(log_b[b], masks[b])
-                               for b in range(obs.shape[0])], obs, self.dtype)
+        paths, scores = zip(*(self._decode_log_b(log_b[i:j], masks[i:j])
+                              for i, j in self._batch_pieces(log_b)))
+        return torch.cat(paths), torch.cat(scores)
 
     def decode_batch(self, features, masks) -> List[Tuple[List[str], np.ndarray, float]]:
         """:meth:`decode_batch_arrays` with one device->host copy for all

@@ -708,7 +708,15 @@ def cut_batch(batch: int, t_len: int, v: int, s: int, hop, n_sm: int,
         what = "lattice kernel's" if lattice else "factored kernels'"
         raise ValueError(f"T={t_len}, V={v}, S={s} with a {hop_kind(hop)} hop is past the "
                          f"{what} capacity")
-    lo, hi = 1, min(batch, MAX_BATCH)  # the rule is monotone in the batch: bisect its largest
+    return even_pieces(batch, MAX_BATCH, fits)
+
+
+def even_pieces(batch: int, most: int, fits) -> List[Tuple[int, int]]:
+    """``batch`` rows as ``(start, stop)`` ranges in order: as few pieces
+    as the largest piece that ``fits`` (a rule monotone in the piece's
+    size, true at 1, bisected up to ``most``) allows, the rows spread over
+    them as evenly as they go, the first pieces the larger."""
+    lo, hi = 1, min(batch, most)
     while lo < hi:
         mid = (lo + hi + 1) // 2
         lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)

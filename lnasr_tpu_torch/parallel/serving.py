@@ -3,10 +3,11 @@
 Serving scale-out for the composed word-graph search: a batch of
 (bucket-padded) feature segments shards across the mesh's ``data`` axis,
 each rank decodes its rows with the graph's own batched decode
-(:meth:`~lnasr_tpu_torch.models.decoder.FactoredDecodingGraph.
-decode_batch_arrays`: on CUDA the forward and replay-backtrace kernels
-once each for the rank's rows, for every hop kind, as the JAX package's
-vmapped scan is one program a chip), and the paths and scores are
+(``decode_batch_arrays``: on CUDA, for the factored graph, the forward and
+replay-backtrace kernels once each for the rank's rows, for every hop
+kind; for the trigram graph kernel H's forward and backtrace once each for
+the rank's rows; as the JAX package's vmapped scan is one program a chip),
+and the paths and scores are
 gathered exactly (int32 paths and float scores as bit patterns), so every
 rank holds the whole batch's
 results. The graph is replicated: every rank builds the same one from

@@ -187,7 +187,7 @@ def test_plain_tie_rules_match_jax(identity_emissions, order, silence, dtype):
 @pytest.mark.parametrize("order,silence,dtype", CASES)
 def test_graph_decode_batch_matches_jax(identity_emissions, order, silence, dtype):
     """``TrigramDecodingGraph.decode_batch`` (the wrapper on CPU tensors,
-    a decode per utterance) against the JAX ``decode_batch`` (one vmapped
+    one batched decode) against the JAX ``decode_batch`` (one vmapped
     program): words, paths and scores bitwise, and equal to looping
     ``decode``."""
     jg, tg = _graphs(order, silence, dtype)
